@@ -1,0 +1,458 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (dynamo_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; any failure exits non-zero:
+
+1. device — the card's name, and name + power limit from nvidia-smi.
+2. build — compiles the port's CUDA sources (csrc/*.cu, one nvcc per
+   source, started together) and prints nvcc's -Xptxas -v lines.
+3. parity — each kernel against its plain PyTorch version on the card, at
+   Qwen2.5-0.5B attention shapes (KH 2, G 7, D 64, BS 16, bf16 pools).
+4. timing — each kernel, its plain version and one PyTorch library call
+   (SDPA over pre-gathered K/V, a yardstick the port never calls), CUDA
+   events over many launches after warm-up, beside the least time the card
+   could take (bytes over 3.35 TB/s or flops over 989 TFLOP/s).
+5. engine — TorchEngine serving Qwen2.5-0.5B at full width (24 layers,
+   random bf16 weights from a seed) through generate(): concurrent
+   requests, a prompt long enough for chunked prefill, a prefix hit, and a
+   repeated greedy request. Kernel launch counts are zeroed just before and
+   read just after; both kernels must have launched. One stream is checked
+   against a teacher-forced dense forward of the same model.
+6. profile — one decode burst of the same engine under torch.profiler:
+   host wall vs device busy time, and where the device time goes.
+
+The line before the last is nvidia-smi's name and power limit, the last is
+{"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
+no result.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import os
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+DEV = "cuda"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, same source
+# |kernel - plain| <= ATOL + RTOL*|plain|: both read the same bf16 inputs and
+# sum in f32 in different orders; the outputs round to bf16 (2^-8 relative),
+# so they may differ by one rounding step. The outputs are softmax averages
+# of N(0, 1) values over hundreds of keys, |out| ~ 0.03-0.06, where a bf16
+# step is ~2.4e-4: ATOL is a few steps there, so an output off by a couple
+# of percent fails.
+ATOL, RTOL = 2e-3, 1e-2
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[0]
+
+
+# -- kernels --------------------------------------------------------------
+
+
+def make_case(torch, B, C, starts, clens, seed, H=14, KH=2, D=64, BS=16):
+    g = torch.Generator(device=DEV).manual_seed(seed)
+    P = (max(s + C for s in starts) + BS - 1) // BS
+    NB = B * P + 8
+    q = torch.randn(B, C, H, D, generator=g, device=DEV).to(torch.bfloat16)
+    k = torch.randn(NB, BS, KH, D, generator=g, device=DEV).to(torch.bfloat16)
+    v = torch.randn(NB, BS, KH, D, generator=g, device=DEV).to(torch.bfloat16)
+    tables = torch.randperm(NB, generator=g, device=DEV)[: B * P].reshape(B, P).to(torch.int32)
+    return dict(
+        q=q, k=k, v=v, tables=tables,
+        start=torch.tensor(starts, dtype=torch.int32, device=DEV),
+        clens=torch.tensor(clens, dtype=torch.int32, device=DEV),
+    )
+
+
+def run_kernel(kernels, kind, case, window=0, cap=0.0):
+    if kind == "decode":
+        return kernels.paged_attention_decode(
+            case["q"], case["k"], case["v"], case["tables"], case["start"],
+            window=window, logit_cap=cap,
+        )
+    return kernels.paged_attention_chunk(
+        case["q"], case["k"], case["v"], case["tables"], case["start"], case["clens"],
+        window=window, logit_cap=cap,
+    )
+
+
+def run_plain(attention, case, window=0, cap=0.0):
+    return attention.paged_attention_ref(
+        case["q"], case["k"], case["v"], case["tables"], case["start"], case["clens"],
+        window=window, logit_cap=cap,
+    )
+
+
+def compare(torch, out, ref, clens):
+    worst = 0.0
+    for b, n in enumerate(clens):  # rows past chunk_lens are padding
+        a = out[b, :n].float()
+        r = ref[b, :n].float()
+        if not torch.isfinite(a).all():
+            return float("inf"), False
+        err = (a - r).abs()
+        worst = max(worst, float(err.max()))
+        if bool((err > ATOL + RTOL * r.abs()).any()):
+            return worst, False
+    return worst, True
+
+
+def time_ms(torch, fn, iters):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def bound(case, H=14, KH=2, D=64, BS=16, window=0):
+    """Least time for one call: bytes of the live rows of q and out (rows
+    past chunk_lens are padding the kernel need not read or write), the
+    live K/V rows, the table entries and per-row scalars, each moved once;
+    flops 4·D per visible (row, key). All counted from this case's data."""
+    starts = case["start"].tolist()
+    clens = case["clens"].tolist()
+    B = case["q"].shape[0]
+    live_tokens = 0
+    pages = 0
+    flops = 0
+    for s, n in zip(starts, clens):
+        last = s + max(n, 1) - 1
+        first = max(s - window + 1, 0) if window > 0 else 0
+        live_tokens += last - first + 1
+        pages += last // BS - first // BS + 1
+        for c in range(n):
+            lo = max(s + c - window + 1, 0) if window > 0 else 0
+            flops += 4 * D * H * (s + c - lo + 1)
+    nbytes = (
+        2 * sum(clens) * H * D * 2  # live q rows in, out
+        + 2 * live_tokens * KH * D * 2  # K and V rows
+        + pages * 4 + 2 * B * 4  # table entries, start, chunk_lens
+    )
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def library_call(torch, case, H=14, KH=2, BS=16):
+    """SDPA over pre-gathered dense K/V with GQA: gathered once outside
+    the timed call."""
+    import torch.nn.functional as F
+
+    q, tables = case["q"], case["tables"].long()
+    B, C, _, D = q.shape
+    T = tables.shape[1] * BS
+    k = case["k"][tables].reshape(B, T, KH, D).transpose(1, 2).contiguous()
+    v = case["v"][tables].reshape(B, T, KH, D).transpose(1, 2).contiguous()
+    qh = q.transpose(1, 2).contiguous()
+    t = torch.arange(T, device=DEV)[None, None, :]
+    limit = case["start"].long()[:, None, None] + torch.arange(C, device=DEV)[None, :, None]
+    mask = (t <= limit)[:, None]  # [B, 1, C, T]
+
+    def call():
+        return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask, enable_gqa=True)
+
+    return call
+
+
+def kernel_phases(torch):
+    from dynamo_tpu_torch.ops import attention
+    from dynamo_tpu_torch.ops.cuda import paged_attention as kernels
+
+    g = torch.Generator().manual_seed(7)
+    ragged = lambda n, hi: torch.randint(0, hi + 1, (n,), generator=g).tolist()  # noqa: E731
+    dec1 = make_case(torch, 16, 1, ragged(16, 1500), [1] * 16, seed=1)
+    dec5 = make_case(torch, 16, 5, ragged(16, 1500), [5] * 16, seed=2)
+    chunk = make_case(torch, 4, 512, [512] * 4, [512, 300, 37, 1], seed=3)
+    cases = [
+        ("paged_attention_decode", "decode", "B16 C1 ragged starts", dec1, 0, 0.0),
+        ("paged_attention_decode", "decode", "B16 C5 ragged starts", dec5, 0, 0.0),
+        ("paged_attention_decode", "decode", "B4 C3 window 100 softcap 30",
+         make_case(torch, 4, 3, [0, 90, 400, 1000], [3] * 4, seed=4), 100, 30.0),
+        ("paged_attention_decode", "decode", "B8 C1 window 300 softcap 30",
+         make_case(torch, 8, 1, ragged(8, 1500), [1] * 8, seed=6), 300, 30.0),
+        ("paged_attention_chunk", "chunk", "B4 C512 start 512 ragged lens", chunk, 0, 0.0),
+        ("paged_attention_chunk", "chunk", "B2 C40 window 64 softcap 20",
+         make_case(torch, 2, 40, [200, 37], [40, 17], seed=5), 64, 20.0),
+    ]
+    worst = {"paged_attention_decode": 0.0, "paged_attention_chunk": 0.0}
+    for name, kind, label, case, win, cap in cases:
+        out = run_kernel(kernels, kind, case, win, cap)
+        ref = run_plain(attention, case, win, cap)
+        torch.cuda.synchronize()
+        err, ok = compare(torch, out, ref, case["clens"].tolist())
+        emit({"phase": "parity", "kernel": name, "case": label, "max_abs_err": err,
+              "tol": f"{ATOL} + {RTOL}*|plain|", "ok": ok})
+        if not ok:
+            fail(f"{name} ({label}) disagrees with its plain version: max abs err {err}")
+        worst[name] = max(worst[name], err)
+    kernels.reset_launch_counts()  # parity launches do not count
+
+    timed = {}
+    for name, kind, case in (("paged_attention_decode", "decode", dec1),
+                             ("paged_attention_chunk", "chunk", chunk)):
+        ms = time_ms(torch, lambda: run_kernel(kernels, kind, case), 50)
+        plain_ms = time_ms(torch, lambda: run_plain(attention, case), 10)
+        library_ms = time_ms(torch, library_call(torch, case), 50)
+        bound_ms, bound_by = bound(case)
+        timed[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=bound_by)
+        emit({"phase": "timing", "kernel": name, "shape": list(case["q"].shape),
+              **timed[name], "card": smi_line()})
+    kernels.reset_launch_counts()
+    return worst, timed
+
+
+# -- engine ---------------------------------------------------------------
+
+
+async def drive_engine(torch, engine, prompts, shared, max_tokens):
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.context import Context
+
+    def req(p):
+        return PreprocessedRequest(
+            token_ids=p, sampling=SamplingOptions(temperature=0.0),
+            stop=StopConditions(max_tokens=max_tokens),
+        )
+
+    async def one(p, first_event=None):
+        t0 = time.monotonic()
+        stamps, toks, reason = [], [], None
+        async for out in engine.generate(req(p), Context()):
+            if out.error:
+                raise RuntimeError(out.error)
+            if out.token_ids:
+                stamps.append((time.monotonic(), len(out.token_ids)))
+                toks += out.token_ids
+                if first_event is not None:
+                    first_event.set()
+            reason = out.finish_reason
+        return dict(t0=t0, stamps=stamps, tokens=toks, reason=reason, prompt=p)
+
+    async def after(event, p):
+        await event.wait()  # the sharer's blocks are committed once it streams
+        return await one(p)
+
+    t_start = time.monotonic()
+    tasks = [one(p) for p in prompts]
+    if shared:  # the second sharer starts once the first one streams
+        ev = asyncio.Event()
+        tasks = [one(shared[0], ev), after(ev, shared[1])] + tasks
+    results = await asyncio.gather(*tasks)
+    wall = time.monotonic() - t_start
+    return results, wall
+
+
+def engine_phase(torch, smi):
+    from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import qwen2_500m_config
+    from dynamo_tpu_torch.ops.cuda import paged_attention as kernels
+
+    cfg = qwen2_500m_config()
+    args = TorchEngineArgs(
+        config=cfg, block_size=16, num_kv_blocks=2048, max_num_seqs=16,
+        max_model_len=2048, prefill_chunk=512, seed=0, device=DEV,
+    )
+    t0 = time.monotonic()
+    engine = TorchEngine(args)
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    g = torch.Generator().manual_seed(11)
+    rand = lambda n: torch.randint(10, cfg.vocab_size, (n,), generator=g).tolist()  # noqa: E731
+    prefix = rand(256)
+    shared = [prefix + rand(40), prefix + rand(70)]
+    prompts = [rand(n) for n in (100, 140, 180, 230, 300)] + [rand(1200)]
+    max_tokens = 64
+
+    async def run():
+        try:
+            # Warm-up (first cuBLAS/kernel loads), not measured or counted.
+            await drive_engine(torch, engine, [rand(120), rand(700)], [], 16)
+            torch.cuda.reset_peak_memory_stats()
+            kernels.reset_launch_counts()
+            results, wall = await drive_engine(torch, engine, prompts, shared, max_tokens)
+            counts = dict(kernels.launch_counts)
+            # A repeated greedy request must give the same tokens.
+            again, _ = await drive_engine(torch, engine, [], [prompts[-2], prompts[-2]], max_tokens)
+            return results, wall, counts, again
+        finally:
+            await engine.stop()
+
+    results, wall, counts, again = asyncio.run(run())
+    stats = engine.stats()
+    for r in results:
+        if len(r["tokens"]) != max_tokens or r["reason"] is None or r["reason"].value != "length":
+            fail(f"a stream ended with {len(r['tokens'])} tokens ({r['reason']}), expected {max_tokens}")
+    if stats["nonfinite_logit_rows"]:
+        fail(f"{stats['nonfinite_logit_rows']} decode rows had non-finite logits")
+    ref_tokens = next(r["tokens"] for r in results if r["prompt"] == prompts[-2])
+    if any(a["tokens"] != ref_tokens for a in again):
+        fail("a repeated greedy request gave different tokens")
+    for name, n in counts.items():
+        if n <= 0:
+            fail(f"{name} never launched on the main path")
+
+    # Teacher-forced dense check: every emitted token of one stream must be
+    # the (near-)argmax of a dense forward of the same model over
+    # prompt + emitted tokens (no paged kernels on that path).
+    r = results[2]
+    seq = r["prompt"] + r["tokens"]
+    with torch.inference_mode():
+        kc, vc = llama.init_kv_cache(cfg, (len(seq) + 15) // 16, 16, DEV)
+        logits, _, _ = llama.forward_paged(
+            engine.runner.params, cfg, torch.tensor([seq], device=DEV),
+            torch.zeros(1, dtype=torch.int32, device=DEV),
+            torch.tensor([len(seq)], dtype=torch.int32, device=DEV),
+            torch.arange(len(kc[0]), dtype=torch.int32, device=DEV)[None],
+            kc, vc, all_logits=True, first_chunk=True,
+        )
+    n_p = len(r["prompt"])
+    ref = logits[0, n_p - 1 : n_p - 1 + len(r["tokens"])]
+    chosen = ref[torch.arange(len(r["tokens"]), device=DEV), torch.tensor(r["tokens"], device=DEV)]
+    gap = (ref.max(dim=-1).values - chosen).float()
+    exact = int((gap == 0).sum())
+    emit({"phase": "engine_reference", "tokens": len(r["tokens"]), "exact_argmax": exact,
+          "max_logit_gap": float(gap.max()), "logit_std": float(ref.float().std())})
+    if float(gap.max()) > 1.0:
+        fail(f"engine token is {float(gap.max())} below the dense reference's max logit")
+
+    ttft = [r["stamps"][0][0] - r["t0"] for r in results]
+    itl = []
+    for r in results:
+        (t_first, _), (t_last, _) = r["stamps"][0], r["stamps"][-1]
+        itl.append((t_last - t_first) / max(len(r["tokens"]) - 1, 1))
+    gen = sum(len(r["tokens"]) for r in results)
+    emit({
+        "phase": "engine", "model": cfg.name, "layers": cfg.n_layers, "requests": len(results),
+        "max_tokens": max_tokens, "init_s": init_s, "wall_s": wall,
+        "ttft_ms_mean": 1e3 * sum(ttft) / len(ttft), "ttft_ms_max": 1e3 * max(ttft),
+        "itl_ms_mean": 1e3 * sum(itl) / len(itl), "output_tok_per_s": gen / wall,
+        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches": counts, "stats": stats, "card": smi,
+    })
+    return counts, engine
+
+
+def profile_phase(torch, runner, smi):
+    """One 8-step decode burst of all 16 slots (contexts 100..1300) through
+    the engine's runner: host wall time, device busy time (sum of kernel
+    durations under torch.profiler; one stream, so kernels do not overlap),
+    the idle share, and the kernels that take the most device time."""
+    import numpy as np
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    S, BS = runner.args.max_num_seqs, runner.args.block_size
+    pos = np.array([100 + 80 * i for i in range(S)], np.int32)
+    width = int(pos.max() + 2 * runner.args.decode_steps) // BS + 1
+    burst = (
+        np.ones(S, np.int32), pos, np.ones(S, np.int32),
+        np.arange(S * width, dtype=np.int32).reshape(S, width),
+        np.zeros(S, np.float32), np.zeros(S, np.int32), np.ones(S, np.float32),
+        np.arange(S, dtype=np.int32),
+    )
+    runner.run_decode(*burst)  # run_decode reads its tokens back: synchronised
+    walls = []
+    for _ in range(5):  # host time varies run to run: keep the median
+        t0 = time.monotonic()
+        runner.run_decode(*burst)
+        walls.append(1e3 * (time.monotonic() - t0))
+    wall_ms = sorted(walls)[len(walls) // 2]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        runner.run_decode(*burst)
+    by_name = {}
+    n_kernels = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            n_kernels += 1
+    busy_ms = sum(by_name.values())
+    if busy_ms <= 0:
+        fail("the profiler saw no device time in a decode burst")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    attn = sum(v for k, v in by_name.items() if "paged_attention" in k)
+    emit({"phase": "profile", "what": "one decode burst", "steps": runner.args.decode_steps,
+          "rows": S, "wall_ms": wall_ms, "wall_ms_min": min(walls), "device_busy_ms": busy_ms,
+          "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+          "attention_ms": attn, "device_ops_per_step": n_kernels / runner.args.decode_steps,
+          "top_ms": [[k[:60], v] for k, v in top], "card": smi})
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; nothing to run",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from dynamo_tpu_torch.ops.cuda import build
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    smi = smi_line()
+    emit({"phase": "device", "name": name, "smi": smi, "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.monotonic()
+    sources = sorted(p[:-3] for p in os.listdir(build.CSRC) if p.endswith(".cu"))
+    # One nvcc per source, all started together.
+    with ThreadPoolExecutor(len(sources)) as pool:
+        builts = list(pool.map(build.build, sources))
+    for src, b in zip(sources, builts):
+        for line in b.ptxas:
+            print(f"[ptxas {src}] {line.strip()}", flush=True)
+    emit({"phase": "build", "sources": sources, "seconds": time.monotonic() - t0})
+
+    worst, timed = kernel_phases(torch)
+    counts, engine = engine_phase(torch, smi)
+    profile_phase(torch, engine.runner, smi)
+    replaces = {
+        "paged_attention_decode": "dynamo_tpu/ops/pallas/paged_attention.py:288",
+        "paged_attention_chunk": "dynamo_tpu/ops/pallas/paged_attention.py:416",
+    }
+    emit({"kernels": [
+        {"name": n, "route": "cuda", "source": "dynamo_tpu_torch/csrc/paged_attention.cu",
+         "replaces": replaces[n], "launches": counts[n], "max_abs_err": worst[n], **timed[n]}
+        for n in ("paged_attention_decode", "paged_attention_chunk")
+    ]})
+    print(smi, flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,493 @@
+// Paged attention over a bf16 block pool, for Hopper (sm_90a).
+//
+// Replaces the two TPU kernels of dynamo_tpu/ops/pallas/paged_attention.py:
+//   * paged_attention_decode_bf16 <- _paged_attention_decode_kernel_impl
+//     (body _decode_kernel): C <= 8 query tokens per sequence, C*G <= 64.
+//     One thread block per (sequence b, KV head h).
+//   * paged_attention_chunk_bf16  <- _paged_attention_kernel_impl
+//     (body _kernel): any C, ragged chunk_lens. A grid of
+//     (B, KH, ceil(C*G / 64)) blocks, each holding up to 64 query rows of
+//     one (b, h); rows are (c, g) pairs, c-major, as the Pallas kernels
+//     order them.
+// Both share one device function. Semantics are the JAX oracle's
+// (ops/attention.py::_paged_attention_xla_impl): key t is visible to row
+// (c, g) iff t <= start + c and, with a window W > 0, t > start + c - W;
+// optional softcap cap*tanh(s/cap) after sm_scale; the finite -1e30
+// sentinel (never -inf, so an all-masked padding row stays finite); f32
+// online max / normaliser / accumulator; output in q's dtype (bf16).
+//
+// What bounds it on the card: at decode it reads every live K/V byte once
+// (2 * tokens * KH * D * 2 bytes per sequence) and does ~4 flops per
+// byte per query row — far below the ~295 flop/byte of the H100's bf16
+// ridge — so the floor is memory bandwidth (3.35 TB/s). The chunk kernel
+// at C = 512 does 4*C*G*D flops per key for the same key bytes and sits
+// on the compute side, where only tensor cores reach the card's peak.
+//
+// This simple design: a block walks its pages in tiles of TILE keys. Each
+// thread holds its share of the next tile in registers (16-byte loads: one
+// token's [D] row lies at stride KH*D in the pool) while the current tile
+// is scored, so one tile's global loads overlap the previous tile's math.
+// Scores, the softmax update and P.V run on CUDA cores in f32 from shared
+// memory, with each thread computing a small block of outputs so that one
+// shared-memory read feeds several FMAs:
+//   * decode layout (C*G <= 8 rows, e.g. 7 for Qwen2.5-0.5B): 8-row blocks
+//     over tiles of 16384/D keys (32 KB each of K and V). A thread scores
+//     one key against every row; in P.V it accumulates two columns of every
+//     row over its own group of keys, and the groups' partial sums are added
+//     once at the end.
+//   * 64-row layout (chunks, and decode with 8 < C*G <= 64): 64-key tiles;
+//     a thread scores 4 rows x 4 keys and accumulates 4 rows x D/16 columns.
+// Left for later PRs: split-K over pages (flash-decoding) so a small batch
+// fills all 132 SMs (one block per (b, h) walks its tiles in series), mma /
+// wgmma for the products, TMA/cp.async page streaming, and the int8 pool
+// variant.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxRows = 64;  // query rows per block, at most
+constexpr int kVec = 8;       // bf16 per 16-byte load
+constexpr float kNegInf = -1e30f;
+
+template <int D, int ROWS, int TILE>
+struct Layout {
+  static constexpr bool kSmall = ROWS <= 8;
+  static_assert(kThreads % TILE == 0, "a tile has at most kThreads keys");
+  static_assert(kSmall || (ROWS == 64 && TILE == 64), "64-row layout: 64 rows x 64 keys");
+  static constexpr int kKvStride = D + 8;    // padded: conflict-free 16-byte reads
+  static constexpr int kPStride = TILE + 4;  // padded, rows stay 16-byte aligned
+  static constexpr size_t kQBytes = size_t(ROWS) * D * sizeof(float);
+  static constexpr size_t kKvBytes = size_t(TILE) * kKvStride * sizeof(__nv_bfloat16);
+  static constexpr size_t kPBytes = size_t(ROWS) * kPStride * sizeof(float);
+  static constexpr size_t kStatBytes = 3 * ROWS * sizeof(float);
+  static constexpr size_t kTotal = kQBytes + 2 * kKvBytes + kPBytes + kStatBytes;
+  static constexpr int kVecPerRow = D / kVec;
+  static constexpr int kLoads = TILE * kVecPerRow / kThreads;  // 16-byte loads per thread
+  static constexpr int kKeysPerLane = TILE / 32;                // softmax phase
+  // Decode layout. Scores: thread (srg, st) scores key st against rows
+  // srg, srg + kRowGroups, ... P.V: thread (kg, cp) owns columns 2cp, 2cp+1
+  // of every row over kKeysPerGroup keys of each tile.
+  static constexpr int kRowGroups = kThreads / TILE;
+  static constexpr int kScoreRows = ROWS / kRowGroups;
+  static constexpr int kColPairs = D / 2;
+  static constexpr int kKeyGroups = kThreads / kColPairs;
+  static constexpr int kKeysPerGroup = TILE / kKeyGroups;
+  static_assert(!kSmall || (kKeysPerGroup % 4 == 0 &&
+                            size_t(kKeyGroups) * ROWS * D * sizeof(float) <= kKvBytes),
+                "decode layout: key groups of 4-key steps; partial sums fit the K tile");
+  // 64-row layout: thread (tid / 16, tid % 16) scores rows 4*(tid/16) + i
+  // against keys tid%16 + 16*j, and accumulates those rows over columns
+  // kCols*(tid%16) + c.
+  static constexpr int kCols = D / 16;
+};
+
+// One tile's K and V rows for this thread, into registers. Pages outside
+// [first_page, last_page] (and table entries out of range) read as zeros;
+// their keys are masked.
+template <int D, int ROWS, int TILE>
+__device__ __forceinline__ void load_tile(
+    uint4 (&kreg)[Layout<D, ROWS, TILE>::kLoads], uint4 (&vreg)[Layout<D, ROWS, TILE>::kLoads],
+    const __nv_bfloat16* __restrict__ k_cache, const __nv_bfloat16* __restrict__ v_cache,
+    const int32_t* __restrict__ table_row, int tile, int tid, int first_page, int last_page,
+    int NB, int BS, int KH, int h) {
+  using L = Layout<D, ROWS, TILE>;
+#pragma unroll
+  for (int i = 0; i < L::kLoads; ++i) {
+    const int vec = tid + i * kThreads;
+    const int t = vec / L::kVecPerRow;
+    const int kp = tile * TILE + t;
+    const int page = kp / BS;
+    uint4 kz = make_uint4(0, 0, 0, 0);
+    uint4 vz = kz;
+    if (page >= first_page && page <= last_page) {
+      const int blk = table_row[page];
+      if (blk >= 0 && blk < NB) {
+        const size_t off =
+            ((size_t(blk) * BS + kp % BS) * KH + h) * D + (vec % L::kVecPerRow) * kVec;
+        kz = __ldg(reinterpret_cast<const uint4*>(k_cache + off));
+        vz = __ldg(reinterpret_cast<const uint4*>(v_cache + off));
+      }
+    }
+    kreg[i] = kz;
+    vreg[i] = vz;
+  }
+}
+
+__device__ __forceinline__ void bf16x8_to_float(const uint4& raw, float (&f)[kVec]) {
+  const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
+#pragma unroll
+  for (int u = 0; u < kVec / 2; ++u) {
+    const float2 x = __bfloat1622float2(p[u]);
+    f[2 * u] = x.x;
+    f[2 * u + 1] = x.y;
+  }
+}
+
+template <int D, int ROWS, int TILE>
+__global__ void __launch_bounds__(kThreads) paged_attention_kernel(
+    const __nv_bfloat16* __restrict__ q,        // [B, C, H, D]
+    const __nv_bfloat16* __restrict__ k_cache,  // [NB, BS, KH, D]
+    const __nv_bfloat16* __restrict__ v_cache,  // [NB, BS, KH, D]
+    const int32_t* __restrict__ block_tables,   // [B, P]
+    const int32_t* __restrict__ start_pos,      // [B]
+    const int32_t* __restrict__ chunk_lens,     // [B], or null: every row valid
+    __nv_bfloat16* __restrict__ out,            // [B, C, H, D]
+    int C, int H, int KH, int NB, int BS, int P, int window, float sm_scale,
+    float logit_cap) {
+  using L = Layout<D, ROWS, TILE>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* qs = reinterpret_cast<float*>(smem);
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + L::kQBytes);
+  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + L::kQBytes + L::kKvBytes);
+  float* ps = reinterpret_cast<float*>(smem + L::kQBytes + 2 * L::kKvBytes);
+  float* m_s = ps + ROWS * L::kPStride;
+  float* l_s = m_s + ROWS;
+  float* a_s = l_s + ROWS;
+
+  const int b = blockIdx.x;
+  const int h = blockIdx.y;
+  const int G = H / KH;
+  const int r0 = blockIdx.z * ROWS;
+  const int nrows = min(ROWS, C * G - r0);
+  const int tid = threadIdx.x;
+  const int start = start_pos[b];
+  const int clen = chunk_lens != nullptr ? chunk_lens[b] : C;
+  const int32_t* table_row = block_tables + size_t(b) * P;
+  // Element offset of query/output row rr of this block, a (c, g) pair.
+  auto row_offset = [&](int rr) {
+    const int r = r0 + rr;
+    const int c = r / G;
+    return (size_t(b * C + c) * H + h * G + (r - c * G)) * D;
+  };
+
+  if (r0 / G >= clen) {  // every row of this block is chunk padding
+    for (int e = tid; e < nrows * D; e += kThreads)
+      out[row_offset(e / D) + e % D] = __float2bfloat16(0.f);
+    return;
+  }
+
+  for (int e = tid; e < ROWS * D; e += kThreads) {
+    const int rr = e / D;
+    qs[e] = rr < nrows ? __bfloat162float(q[row_offset(rr) + e % D]) : 0.f;
+  }
+  for (int rr = tid; rr < ROWS; rr += kThreads) {
+    m_s[rr] = kNegInf;
+    l_s[rr] = 0.f;
+  }
+
+  // Pages this block needs: up to its last valid row's causal limit, and
+  // with a window, none wholly before start - W + 1 (paged_attention.py
+  // :216-227, with the chunk bound taken per row block, not per sequence).
+  const int c_hi = min((r0 + nrows - 1) / G, clen - 1);
+  const int last_key = max(start + c_hi, 0);
+  const int last_page = min(last_key / BS, P - 1);
+  const int first_page = window > 0 ? max(start - window + 1, 0) / BS : 0;
+  const int key_end = min((last_key / BS + 1) * BS, P * BS);  // keys >= this: not loaded
+  const int tile_first = first_page * BS / TILE;
+  const int n_tiles = first_page <= last_page ? last_page * BS / TILE - tile_first + 1 : 0;
+
+  auto score = [&](float s, int rr, int kp) {  // scale, softcap, masks
+    s *= sm_scale;
+    if (logit_cap > 0.f) s = logit_cap * tanhf(s / logit_cap);
+    const int limit = start + (r0 + rr) / G;
+    const bool visible = kp <= limit && kp < key_end && (window <= 0 || kp > limit - window);
+    return visible ? s : kNegInf;
+  };
+
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  // Decode layout: P.V key group and column pair; partial sums of every row.
+  const int kg = tid / L::kColPairs;
+  const int cp = tid % L::kColPairs;
+  float2 pacc[L::kSmall ? ROWS : 1];
+  // 64-row layout: row quad and key/column group; 4 rows x kCols sums.
+  const int rq = tid / 16;
+  const int cg = tid % 16;
+  float acc[L::kSmall ? 1 : 4][L::kSmall ? 1 : L::kCols];
+  if constexpr (L::kSmall) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) pacc[r] = make_float2(0.f, 0.f);
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < L::kCols; ++c) acc[i][c] = 0.f;
+  }
+
+  uint4 kreg[L::kLoads];
+  uint4 vreg[L::kLoads];
+  if (n_tiles > 0)
+    load_tile<D, ROWS, TILE>(kreg, vreg, k_cache, v_cache, table_row, tile_first, tid,
+                             first_page, last_page, NB, BS, KH, h);
+  __syncthreads();
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int tile = tile_first + it;
+    __syncthreads();  // the previous tile's P.V is done with ks/vs/ps
+#pragma unroll
+    for (int i = 0; i < L::kLoads; ++i) {
+      const int vec = tid + i * kThreads;
+      const int off = (vec / L::kVecPerRow) * L::kKvStride + (vec % L::kVecPerRow) * kVec;
+      *reinterpret_cast<uint4*>(ks + off) = kreg[i];
+      *reinterpret_cast<uint4*>(vs + off) = vreg[i];
+    }
+    __syncthreads();
+    if (it + 1 < n_tiles)  // in flight during this tile's math
+      load_tile<D, ROWS, TILE>(kreg, vreg, k_cache, v_cache, table_row, tile + 1, tid,
+                               first_page, last_page, NB, BS, KH, h);
+
+    // Scores into ps.
+    if constexpr (L::kSmall) {
+      const int st = tid % TILE;
+      const int srg = tid / TILE;
+      float s_acc[L::kScoreRows];
+#pragma unroll
+      for (int j = 0; j < L::kScoreRows; ++j) s_acc[j] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < D; d += kVec) {
+        float kf[kVec];
+        bf16x8_to_float(*reinterpret_cast<const uint4*>(ks + st * L::kKvStride + d), kf);
+#pragma unroll
+        for (int j = 0; j < L::kScoreRows; ++j) {
+          const float4 qa = *reinterpret_cast<const float4*>(qs + (srg + j * L::kRowGroups) * D + d);
+          const float4 qb =
+              *reinterpret_cast<const float4*>(qs + (srg + j * L::kRowGroups) * D + d + 4);
+          s_acc[j] += qa.x * kf[0] + qa.y * kf[1] + qa.z * kf[2] + qa.w * kf[3] +
+                      qb.x * kf[4] + qb.y * kf[5] + qb.z * kf[6] + qb.w * kf[7];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < L::kScoreRows; ++j) {
+        const int rr = srg + j * L::kRowGroups;
+        if (rr < nrows) ps[rr * L::kPStride + st] = score(s_acc[j], rr, tile * TILE + st);
+      }
+    } else {
+      float s4[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) s4[i][j] = 0.f;
+#pragma unroll 2
+      for (int d = 0; d < D; d += kVec) {
+        float kf[4][kVec];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          bf16x8_to_float(
+              *reinterpret_cast<const uint4*>(ks + (cg + 16 * j) * L::kKvStride + d), kf[j]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 qa = *reinterpret_cast<const float4*>(qs + (4 * rq + i) * D + d);
+          const float4 qb = *reinterpret_cast<const float4*>(qs + (4 * rq + i) * D + d + 4);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            s4[i][j] += qa.x * kf[j][0] + qa.y * kf[j][1] + qa.z * kf[j][2] + qa.w * kf[j][3] +
+                        qb.x * kf[j][4] + qb.y * kf[j][5] + qb.z * kf[j][6] + qb.w * kf[j][7];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int rr = 4 * rq + i;
+        if (rr < nrows) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            ps[rr * L::kPStride + cg + 16 * j] = score(s4[i][j], rr, tile * TILE + cg + 16 * j);
+        }
+      }
+    }
+    __syncthreads();
+
+    // Online softmax: one warp per row, TILE/32 keys per lane.
+    for (int rr = warp; rr < nrows; rr += kThreads / 32) {
+      float* prow = ps + rr * L::kPStride;
+      float sv[L::kKeysPerLane];
+      float mx = kNegInf;
+#pragma unroll
+      for (int i = 0; i < L::kKeysPerLane; ++i) {
+        sv[i] = prow[lane + 32 * i];
+        mx = fmaxf(mx, sv[i]);
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_old = m_s[rr];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+#pragma unroll
+      for (int i = 0; i < L::kKeysPerLane; ++i) {
+        const float p = expf(sv[i] - m_new);
+        prow[lane + 32 * i] = p;
+        sum += p;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        a_s[rr] = alpha;
+        l_s[rr] = l_s[rr] * alpha + sum;
+        m_s[rr] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + P . V, reading P four keys at a time.
+    if constexpr (L::kSmall) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        const float alpha = r < nrows ? a_s[r] : 0.f;
+        pacc[r].x *= alpha;
+        pacc[r].y *= alpha;
+      }
+      const int t0 = kg * L::kKeysPerGroup;
+#pragma unroll 2
+      for (int t = t0; t < t0 + L::kKeysPerGroup; t += 4) {
+        float2 v[4];
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          v[u] = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(vs + (t + u) * L::kKvStride + 2 * cp));
+#pragma unroll
+        for (int r = 0; r < ROWS; ++r) {
+          const float4 p4 = *reinterpret_cast<const float4*>(ps + r * L::kPStride + t);
+          pacc[r].x += p4.x * v[0].x + p4.y * v[1].x + p4.z * v[2].x + p4.w * v[3].x;
+          pacc[r].y += p4.x * v[0].y + p4.y * v[1].y + p4.z * v[2].y + p4.w * v[3].y;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float alpha = 4 * rq + i < nrows ? a_s[4 * rq + i] : 0.f;
+#pragma unroll
+        for (int c = 0; c < L::kCols; ++c) acc[i][c] *= alpha;
+      }
+#pragma unroll 2
+      for (int t = 0; t < TILE; t += 4) {
+        float p[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float4 p4 = *reinterpret_cast<const float4*>(ps + (4 * rq + i) * L::kPStride + t);
+          p[i][0] = p4.x;
+          p[i][1] = p4.y;
+          p[i][2] = p4.z;
+          p[i][3] = p4.w;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const __nv_bfloat162* v2 =
+              reinterpret_cast<const __nv_bfloat162*>(vs + (t + u) * L::kKvStride + L::kCols * cg);
+#pragma unroll
+          for (int c2 = 0; c2 < L::kCols / 2; ++c2) {
+            const float2 v = __bfloat1622float2(v2[c2]);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              acc[i][2 * c2] += p[i][u] * v.x;
+              acc[i][2 * c2 + 1] += p[i][u] * v.y;
+            }
+          }
+        }
+      }
+    }
+  }
+
+  if constexpr (L::kSmall) {
+    // Add the key groups' partial sums (in the K tile's shared memory).
+    float* red = reinterpret_cast<float*>(ks);
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      red[(kg * ROWS + r) * D + 2 * cp] = pacc[r].x;
+      red[(kg * ROWS + r) * D + 2 * cp + 1] = pacc[r].y;
+    }
+    __syncthreads();
+    for (int e = tid; e < nrows * D; e += kThreads) {
+      const int rr = e / D;
+      float sum = 0.f;
+#pragma unroll
+      for (int g = 0; g < L::kKeyGroups; ++g) sum += red[(g * ROWS + rr) * D + e % D];
+      out[row_offset(rr) + e % D] = __float2bfloat16(sum / fmaxf(l_s[rr], 1e-30f));
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int rr = 4 * rq + i;
+      if (rr < nrows) {
+        const float inv = 1.f / fmaxf(l_s[rr], 1e-30f);
+        __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(out + row_offset(rr) + L::kCols * cg);
+#pragma unroll
+        for (int c2 = 0; c2 < L::kCols / 2; ++c2)
+          o2[c2] = __floats2bfloat162_rn(acc[i][2 * c2] * inv, acc[i][2 * c2 + 1] * inv);
+      }
+    }
+  }
+}
+
+template <int D, int ROWS, int TILE>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* tables,
+                   const void* start, const void* clens, void* out, int B, int C, int H,
+                   int KH, int NB, int BS, int P, int window, float sm_scale,
+                   float logit_cap, cudaStream_t stream) {
+  const size_t smem = Layout<D, ROWS, TILE>::kTotal;
+  cudaError_t err = cudaFuncSetAttribute(paged_attention_kernel<D, ROWS, TILE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const int row_blocks = (C * (H / KH) + ROWS - 1) / ROWS;
+  const dim3 grid(B, KH, row_blocks);
+  paged_attention_kernel<D, ROWS, TILE><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(tables),
+      static_cast<const int32_t*>(start), static_cast<const int32_t*>(clens),
+      static_cast<__nv_bfloat16*>(out), C, H, KH, NB, BS, P, window, sm_scale, logit_cap);
+  return cudaGetLastError();
+}
+
+// small: the decode layout (<= 8 rows); otherwise the 64-row layout.
+template <int D>
+cudaError_t launch_d(bool small, const void* q, const void* k, const void* v,
+                     const void* tables, const void* start, const void* clens, void* out,
+                     int B, int C, int H, int KH, int NB, int BS, int P, int window,
+                     float sm_scale, float logit_cap, cudaStream_t s) {
+  if (small)
+    return launch<D, 8, 16384 / D>(q, k, v, tables, start, clens, out, B, C, H, KH, NB, BS, P,
+                                   window, sm_scale, logit_cap, s);
+  return launch<D, kMaxRows, 64>(q, k, v, tables, start, clens, out, B, C, H, KH, NB, BS, P,
+                                 window, sm_scale, logit_cap, s);
+}
+
+cudaError_t dispatch(bool small, const void* q, const void* k, const void* v,
+                     const void* tables, const void* start, const void* clens, void* out,
+                     int B, int C, int H, int KH, int D, int NB, int BS, int P, int window,
+                     float sm_scale, float logit_cap, void* stream) {
+  if (B <= 0 || C <= 0 || KH <= 0 || H % KH != 0 || BS <= 0 || 64 % BS != 0 || P <= 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // Built for head_dim 64 (Qwen2.5-0.5B) only; other widths are refused.
+  if (D != 64) return cudaErrorInvalidValue;
+  return launch_d<64>(small, q, k, v, tables, start, clens, out, B, C, H, KH, NB, BS, P, window,
+                      sm_scale, logit_cap, s);
+}
+
+}  // namespace
+
+// Each launcher returns cudaGetLastError() after the launch (0 = launched).
+extern "C" int paged_attention_decode_bf16(const void* q, const void* k, const void* v,
+                                           const void* tables, const void* start, void* out,
+                                           int B, int C, int H, int KH, int D, int NB, int BS,
+                                           int P, int window, float sm_scale, float logit_cap,
+                                           void* stream) {
+  if (KH <= 0 || C * (H / KH) > kMaxRows) return cudaErrorInvalidValue;
+  return dispatch(C * (H / KH) <= 8, q, k, v, tables, start, nullptr, out, B, C, H, KH, D, NB,
+                  BS, P, window, sm_scale, logit_cap, stream);
+}
+
+extern "C" int paged_attention_chunk_bf16(const void* q, const void* k, const void* v,
+                                          const void* tables, const void* start,
+                                          const void* chunk_lens, void* out, int B, int C,
+                                          int H, int KH, int D, int NB, int BS, int P,
+                                          int window, float sm_scale, float logit_cap,
+                                          void* stream) {
+  if (KH <= 0 || chunk_lens == nullptr) return cudaErrorInvalidValue;
+  return dispatch(false, q, k, v, tables, start, chunk_lens, out, B, C, H, KH, D, NB, BS, P,
+                  window, sm_scale, logit_cap, stream);
+}

@@ -1,0 +1,552 @@
+"""TorchEngine: continuous batching over the port's paged-KV model —
+counterpart of dynamo_tpu/engines/tpu/engine.py (JaxEngine) and
+engines/tpu/admission.py (its Admitter), reduced to the scheduling core:
+
+  - continuous batching over ``max_num_seqs`` slots, with batched prefill
+    admission (up to PREFILL_BATCH rows per chunk round) and chunked
+    prefill at ``prefill_chunk`` tokens;
+  - prefix reuse through the block pool (chained block hashes);
+  - fused decode bursts of ``decode_steps`` tokens, stop conditions
+    (EOS, stop ids, ``max_tokens``, ``max_model_len``) reconciled on the host
+    after each burst, cancellation through ``Context``;
+  - preemption-by-recompute when the pool runs dry.
+
+Pipeline depth 1: each burst is dispatched, read back and emitted before
+the next. The JAX engine's streams are bit-identical across depths
+(engine.py:141-151), and it reserves blocks two bursts ahead at every depth;
+this engine keeps that reservation so its preemption points are the same.
+It needs no shape buckets: eager PyTorch has no compile per shape.
+
+Not ported yet (ROADMAP): pipeline depth 2, speculative decoding, logprobs
+and top-N, logits processors, LoRA, MoE, the tick budget, sleep/wake, KV
+export/import/checkpoint, multimodal, metrics and the flight recorder.
+
+All device work runs on one executor thread so the asyncio loop never
+blocks on the card.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import collections
+import logging
+import math
+from concurrent.futures import ThreadPoolExecutor
+from dataclasses import dataclass, field
+from typing import Any, AsyncIterator, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from dynamo_tpu_torch.engines.gpu.block_pool import BlockPool
+from dynamo_tpu_torch.engines.gpu.runner import DeviceRunner
+from dynamo_tpu_torch.llm.protocols.common import (
+    BackendOutput,
+    FinishReason,
+    PreprocessedRequest,
+)
+from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.runtime.context import Context
+from dynamo_tpu_torch.tokens.blocks import compute_block_hashes
+
+logger = logging.getLogger(__name__)
+
+# Block-table lookahead reserved by every decode burst, in bursts of
+# decode_steps tokens (the JAX engine's PIPELINE_LOOKAHEAD_BURSTS).
+LOOKAHEAD_BURSTS = 2
+# Admission policy, at the JAX engine's defaults (JaxEngineArgs): rows per
+# batched prefill, prefill batches per scheduler tick, pool headroom kept
+# for running decodes, and the pool occupancy past which admission waits.
+PREFILL_BATCH = 8
+ADMIT_BATCHES_PER_TICK = 8
+WATERMARK = 0.01
+ADMIT_KV_HIGH_WATERMARK = 0.95
+
+
+@dataclass
+class TorchEngineArgs:
+    """Engine knobs: the JaxEngineArgs fields this slice varies, plus the
+    device (None = cuda; "cpu" runs the plain versions). Prefix caching is
+    always on."""
+
+    config: ModelConfig = field(default_factory=ModelConfig)
+    block_size: int = 16
+    num_kv_blocks: int = 512
+    max_num_seqs: int = 8
+    max_model_len: int = 1024
+    prefill_chunk: int = 512
+    seed: int = 0
+    decode_steps: int = 8
+    device: Optional[str] = None
+
+    @property
+    def max_blocks_per_seq(self) -> int:
+        return math.ceil(self.max_model_len / self.block_size)
+
+
+@dataclass
+class _Sequence:
+    request: PreprocessedRequest
+    context: Context
+    queue: "asyncio.Queue[Optional[BackendOutput]]"
+    prompt: List[int]
+    all_tokens: List[int]  # prompt + generated
+    generated: List[int] = field(default_factory=list)
+    block_ids: List[int] = field(default_factory=list)
+    block_hashes: List[int] = field(default_factory=list)  # committed prefix
+    slot: int = -1
+    salt: int = 0  # sampling salt (arrival order)
+
+
+@dataclass
+class _Prep:
+    ids: List[int]
+    hashes: List[int]
+    matched: int
+    matched_tokens: int
+    sp: Tuple[float, int, float]
+
+
+class TorchEngine:
+    """AsyncEngine over the port's model: ``generate(request, context)``."""
+
+    def __init__(self, args: TorchEngineArgs, params: Optional[Any] = None) -> None:
+        self.args = args
+        self.config = args.config
+        self.pool = BlockPool(args.num_kv_blocks, args.block_size)
+        self.runner = DeviceRunner(args, params)
+        S = args.max_num_seqs
+        self._slots: List[Optional[_Sequence]] = [None] * S
+        self._pos = np.zeros(S, dtype=np.int32)  # tokens resident in cache
+        self._block_tables = np.zeros((S, args.max_blocks_per_seq), dtype=np.int32)
+        self._temp = np.ones(S, dtype=np.float32)
+        self._topk = np.zeros(S, dtype=np.int32)
+        self._topp = np.ones(S, dtype=np.float32)
+        self._tok_mirror = np.zeros(S, dtype=np.int32)  # decode input token
+        self._salts = np.zeros(S, dtype=np.int32)
+        self._next_salt = 0
+        self._waiting: "collections.deque[_Sequence]" = collections.deque()
+        self._loop_task: Optional[asyncio.Task] = None
+        self._stopped = asyncio.Event()
+        self._wake = asyncio.Event()
+        self._failure: Optional[str] = None
+        self._executor = ThreadPoolExecutor(1, thread_name_prefix="torch-engine")
+        self.steps = 0  # decode bursts
+        self.prefill_tokens = 0
+        self.generated_tokens = 0
+        self.preemptions = 0
+
+    # -- lifecycle ---------------------------------------------------------
+
+    async def _device(self, fn, *a, **kw):
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(self._executor, lambda: fn(*a, **kw))
+
+    async def start(self) -> None:
+        if self._loop_task is None:
+            self._loop_task = asyncio.get_running_loop().create_task(
+                self._scheduler_loop(), name="torch-engine-scheduler"
+            )
+
+    async def stop(self) -> None:
+        self._stopped.set()
+        self._wake.set()
+        if self._loop_task is not None:
+            await self._loop_task
+            self._loop_task = None
+        self._executor.shutdown(wait=True)
+
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "active_seqs": sum(1 for s in self._slots if s is not None),
+            "waiting": len(self._waiting),
+            "kv_usage": self.pool.usage,
+            "free_blocks": self.pool.free_blocks,
+            "cached_blocks": self.pool.cached_blocks,
+            "decode_steps": self.steps,
+            "prefill_tokens": self.prefill_tokens,
+            "generated_tokens": self.generated_tokens,
+            "preemptions": self.preemptions,
+            "nonfinite_logit_rows": self.runner.nonfinite_rows,
+        }
+
+    # -- request entry -----------------------------------------------------
+
+    async def generate(self, request: Any, context: Context) -> AsyncIterator[BackendOutput]:
+        await self.start()
+        if isinstance(request, dict):
+            request = PreprocessedRequest.from_dict(request)
+        prompt = list(request.token_ids)
+        error = None
+        if not prompt:
+            error = "empty prompt"
+        elif len(prompt) >= self.args.max_model_len:
+            error = (
+                f"prompt length {len(prompt)} exceeds max_model_len "
+                f"{self.args.max_model_len}"
+            )
+        elif math.ceil(len(prompt) / self.args.block_size) + 1 > self.args.num_kv_blocks:
+            error = (
+                f"prompt needs {math.ceil(len(prompt) / self.args.block_size)} KV "
+                f"blocks + 1 for decode, but the pool only has {self.args.num_kv_blocks}"
+            )
+        elif self._failure is not None:
+            error = f"engine failed: {self._failure}"
+        elif request.lora_name:
+            error = f"unknown LoRA adapter {request.lora_name!r} (LoRA is not ported yet)"
+        if error is not None:
+            yield BackendOutput(error=error, finish_reason=FinishReason.ERROR)
+            return
+        seq = _Sequence(
+            request=request, context=context, queue=asyncio.Queue(),
+            prompt=prompt, all_tokens=list(prompt), salt=self._next_salt,
+        )
+        self._next_salt = (self._next_salt + 1) & 0x7FFFFFFF
+        self._waiting.append(seq)
+        self._wake.set()
+        while True:
+            out = await seq.queue.get()
+            if out is None:
+                return
+            yield out
+            if out.finish_reason is not None:
+                return
+
+    # -- scheduler ---------------------------------------------------------
+
+    async def _scheduler_loop(self) -> None:
+        while not self._stopped.is_set():
+            try:
+                admitted = False
+                for _ in range(ADMIT_BATCHES_PER_TICK):
+                    if await self._admit_batch() == 0:
+                        break
+                    admitted = True
+                if any(s is not None for s in self._slots):
+                    await self._decode_tick()
+                elif not admitted:
+                    self._wake.clear()
+                    try:
+                        await asyncio.wait_for(self._wake.wait(), timeout=0.05)
+                    except asyncio.TimeoutError:
+                        pass
+            except asyncio.CancelledError:
+                raise
+            except Exception as exc:  # the loop is the boundary: report, stop serving
+                logger.exception("torch engine scheduler tick failed")
+                self._failure = f"{type(exc).__name__}: {exc}"
+                break
+        reason = FinishReason.ERROR if self._failure else FinishReason.CANCELLED
+        err = f"engine failed: {self._failure}" if self._failure else None
+        for seq in self._slots:
+            if seq is not None:
+                self._finish(seq, reason, emit=False)
+                seq.queue.put_nowait(BackendOutput(error=err, finish_reason=reason))
+        while self._waiting:
+            self._waiting.popleft().queue.put_nowait(
+                BackendOutput(error=err, finish_reason=reason)
+            )
+
+    # -- admission (engines/tpu/admission.py) ------------------------------
+
+    async def _admit_batch(self) -> int:
+        """Admit and prefill up to PREFILL_BATCH waiting sequences in one
+        [rows, C] device step per chunk round. Returns rows installed."""
+        free = [i for i, s in enumerate(self._slots) if s is None]
+        if not free or not self._waiting:
+            return 0
+        batch: List[Tuple[_Sequence, _Prep]] = []
+        limit = min(len(free), PREFILL_BATCH)
+        while self._waiting and len(batch) < limit:
+            seq = self._waiting[0]
+            if seq.context.stopped:  # cancelled while queued: no prefill spent
+                self._waiting.popleft()
+                seq.queue.put_nowait(BackendOutput(finish_reason=FinishReason.CANCELLED))
+                continue
+            if (
+                self.pool.usage >= ADMIT_KV_HIGH_WATERMARK
+                and any(s is not None for s in self._slots)
+            ):
+                break
+            self._waiting.popleft()
+            prep = self._prepare_admission(seq)
+            if prep is None:  # pool dry; seq was requeued to the front
+                break
+            batch.append((seq, prep))
+        if not batch:
+            return 0
+        try:
+            firsts = await self._prefill(batch)
+        except BaseException:  # back to the queue, whose streams shutdown ends
+            for seq, prep in reversed(batch):
+                self.pool.release(prep.ids, prep.hashes[: prep.matched])
+                self._requeue(seq)
+            raise
+        free_iter = (i for i, s in enumerate(self._slots) if s is None)
+        for (seq, prep), tok in zip(batch, firsts):
+            self._install(seq, prep, next(free_iter), tok)
+        return len(batch)
+
+    def _prepare_admission(self, seq: _Sequence) -> Optional[_Prep]:
+        """Prefix match + block allocation for one sequence; None (after
+        requeueing it) when the pool is dry."""
+        args = self.args
+        prompt = seq.all_tokens  # includes regenerated tokens after preemption
+        n_blocks = math.ceil(len(prompt) / args.block_size)
+        hashes = compute_block_hashes(prompt, args.block_size)
+        matched, ids = self.pool.pin_prefix(hashes)
+        matched_tokens = min(matched * args.block_size, len(prompt) - 1)
+        # Watermark headroom so running decodes can still grow.
+        headroom = (
+            int(args.num_kv_blocks * WATERMARK)
+            if any(s is not None for s in self._slots) else 0
+        )
+        if n_blocks - len(ids) + 1 + headroom > self.pool.free_blocks:
+            self.pool.release(ids, hashes[:matched])
+            self._requeue(seq)
+            return None
+        while len(ids) < n_blocks:
+            b = self.pool.alloc()
+            if b is None:
+                self.pool.release(ids, hashes[:matched])
+                self._requeue(seq)
+                return None
+            ids.append(b)
+        seq.block_ids = ids
+        seq.block_hashes = hashes[:matched]
+        s = seq.request.sampling
+        sp = (
+            float(s.temperature if s.temperature is not None else 1.0),
+            int(s.top_k if s.top_k is not None and s.top_k > 0 else 0),
+            float(s.top_p if s.top_p is not None else 1.0),
+        )
+        return _Prep(ids=ids, hashes=hashes, matched=matched,
+                     matched_tokens=matched_tokens, sp=sp)
+
+    async def _prefill(self, batch: List[Tuple[_Sequence, _Prep]]) -> List[int]:
+        """Joint chunked prefill to completion: one device step per chunk
+        round, with per-row start and length. Returns each row's first
+        sampled token."""
+        args = self.args
+        rows = len(batch)
+        prompts = [seq.all_tokens for seq, _ in batch]
+        pos = [prep.matched_tokens for _, prep in batch]
+        first: List[Optional[int]] = [None] * rows
+        tables = np.zeros((rows, max(len(p.ids) for _, p in batch)), dtype=np.int32)
+        temp = np.ones(rows, dtype=np.float32)
+        topk = np.zeros(rows, dtype=np.int32)
+        topp = np.ones(rows, dtype=np.float32)
+        salts = np.zeros(rows, dtype=np.int32)
+        for r, (seq, prep) in enumerate(batch):
+            tables[r, : len(prep.ids)] = prep.ids
+            temp[r], topk[r], topp[r] = prep.sp
+            salts[r] = seq.salt
+        while any(pos[r] < len(prompts[r]) for r in range(rows)):
+            chunks = [prompts[r][pos[r] : pos[r] + args.prefill_chunk] for r in range(rows)]
+            C = max(len(ch) for ch in chunks)
+            tok = np.zeros((rows, C), dtype=np.int32)
+            start = np.asarray(pos, dtype=np.int32)
+            lens = np.zeros(rows, dtype=np.int32)
+            for r, ch in enumerate(chunks):
+                tok[r, : len(ch)] = ch
+                lens[r] = len(ch)
+            # Fresh prefills (first round, no prefix hit) attend densely
+            # over the chunk itself: no paged reads.
+            first_chunk = bool(np.all(start == 0))
+            toks = await self._device(
+                self.runner.run_step, tok, start, lens, tables, temp, topk, topp, salts,
+                first_chunk=first_chunk,
+            )
+            for r in range(rows):
+                n = int(lens[r])
+                if n == 0:
+                    continue
+                self.prefill_tokens += n
+                pos[r] += n
+                if pos[r] >= len(prompts[r]):
+                    first[r] = int(toks[r])
+        return [int(f) for f in first]
+
+    def _install(self, seq: _Sequence, prep: _Prep, slot: int, first_token: int) -> None:
+        """Commit fresh prompt blocks and join the decode batch."""
+        args = self.args
+        prompt = seq.all_tokens
+        for i in range(prep.matched, len(prompt) // args.block_size):
+            parent = prep.hashes[i - 1] if i else None
+            self.pool.commit(prep.ids[i], prep.hashes[i], parent)
+            seq.block_hashes.append(prep.hashes[i])
+        seq.slot = slot
+        self._slots[slot] = seq
+        self._pos[slot] = len(prompt)
+        self._block_tables[slot, :] = 0
+        self._block_tables[slot, : len(prep.ids)] = prep.ids
+        self._temp[slot], self._topk[slot], self._topp[slot] = prep.sp
+        self._salts[slot] = seq.salt
+        self._tok_mirror[slot] = first_token
+        self._emit_token(seq, first_token)
+
+    def _requeue(self, seq: _Sequence) -> None:
+        seq.block_ids = []
+        seq.block_hashes = []
+        self._waiting.appendleft(seq)
+
+    # -- decode ------------------------------------------------------------
+
+    def _prepare_decode(self, lookahead: int) -> List[_Sequence]:
+        """Finish cancelled/overlong sequences and make every survivor's
+        blocks cover the next ``lookahead`` positions, preempting (youngest
+        slot first) when the pool is dry."""
+        args = self.args
+        for slot in range(args.max_num_seqs - 1, -1, -1):
+            seq = self._slots[slot]
+            if seq is None:
+                continue
+            if seq.context.stopped:
+                self._finish(seq, FinishReason.CANCELLED)
+                continue
+            pos = int(self._pos[slot])
+            if pos >= args.max_model_len:
+                self._finish(seq, FinishReason.LENGTH)
+                continue
+            last_pos = min(pos + lookahead - 1, args.max_blocks_per_seq * args.block_size - 1)
+            need_blocks = last_pos // args.block_size + 1
+            while len(seq.block_ids) < need_blocks:
+                b = self.pool.alloc()
+                if b is None:
+                    self._preempt(seq)
+                    break
+                self._block_tables[slot, len(seq.block_ids)] = b
+                seq.block_ids.append(b)
+        return [s for s in self._slots if s is not None]
+
+    async def _decode_tick(self) -> None:
+        args = self.args
+        K = args.decode_steps
+        active = self._prepare_decode(K * LOOKAHEAD_BURSTS)
+        if not active:
+            return
+        # Table width for this burst: enough pages for every position it
+        # writes (no pow2 bucket: eager PyTorch does not recompile).
+        width = max((int(self._pos[s.slot]) + K - 1) // args.block_size + 1 for s in active)
+        width = min(width, args.max_blocks_per_seq)
+        act = np.asarray([1 if s is not None else 0 for s in self._slots], dtype=np.int32)
+        toks = await self._device(
+            self.runner.run_decode, self._tok_mirror.copy(), self._pos.copy(), act,
+            self._block_tables[:, :width].copy(), self._temp.copy(), self._topk.copy(),
+            self._topp.copy(), self._salts.copy(),
+        )
+        self.steps += 1
+        for seq in active:
+            if seq.slot >= 0 and self._slots[seq.slot] is seq:
+                self._emit_burst(seq, toks[seq.slot])
+
+    def _emit_burst(self, seq: _Sequence, toks: np.ndarray) -> None:
+        """Apply stop conditions to one burst of a sequence's tokens and
+        stream them as ONE BackendOutput (engine.py::_emit_burst)."""
+        slot = seq.slot
+        req = seq.request
+        stop = req.stop
+        K = len(toks)
+        base = len(seq.generated)
+        arr = np.asarray(toks)
+
+        def first_hit(token_ids) -> int:
+            if not token_ids:
+                return K
+            m = np.isin(arr, token_ids)
+            if stop.min_tokens is not None:
+                m &= (base + np.arange(K) + 1) >= stop.min_tokens
+            idx = np.flatnonzero(m)
+            return int(idx[0]) if idx.size else K
+
+        eos_k = K if stop.ignore_eos else first_hit(req.eos_token_ids or [])
+        stop_k = first_hit(stop.stop_token_ids or [])
+        len_k = K
+        if stop.max_tokens is not None:
+            len_k = min(max(stop.max_tokens - base - 1, 0), K)
+        model_k = min(max(self.args.max_model_len - len(seq.all_tokens) - 1, 0), K)
+        cut = min(eos_k, stop_k, len_k, model_k)
+        reason: Optional[FinishReason] = None
+        if cut < K:  # precedence at one position: EOS > STOP > LENGTH
+            if cut == eos_k:
+                reason = FinishReason.EOS
+            elif cut == stop_k:
+                reason = FinishReason.STOP
+            else:
+                reason = FinishReason.LENGTH
+        n_take = cut + 1 if cut < K else K
+        emitted = arr[:n_take].tolist()
+        seq.generated.extend(emitted)
+        seq.all_tokens.extend(emitted)
+        self._tok_mirror[slot] = emitted[-1]
+        self.generated_tokens += n_take
+        self._pos[slot] += n_take  # these tokens' KV is now resident
+        self._commit_complete_blocks(seq, slot)
+        seq.queue.put_nowait(
+            BackendOutput(token_ids=emitted, finish_reason=reason,
+                          cumulative_tokens=len(seq.generated))
+        )
+        if reason is not None:
+            self._finish(seq, reason, emit=False)
+
+    def _emit_token(self, seq: _Sequence, token: int) -> None:
+        """The prefill's first token: append, check stops, stream."""
+        seq.generated.append(token)
+        seq.all_tokens.append(token)
+        self.generated_tokens += 1
+        req = seq.request
+        stop = req.stop
+        n = len(seq.generated)
+        min_ok = stop.min_tokens is None or n >= stop.min_tokens
+        reason: Optional[FinishReason] = None
+        if not stop.ignore_eos and min_ok and token in (req.eos_token_ids or []):
+            reason = FinishReason.EOS
+        elif min_ok and token in (stop.stop_token_ids or []):
+            reason = FinishReason.STOP
+        elif stop.max_tokens is not None and n >= stop.max_tokens:
+            reason = FinishReason.LENGTH
+        elif len(seq.all_tokens) >= self.args.max_model_len:
+            reason = FinishReason.LENGTH
+        seq.queue.put_nowait(
+            BackendOutput(token_ids=[token], finish_reason=reason, cumulative_tokens=n)
+        )
+        if reason is not None:
+            self._finish(seq, reason, emit=False)
+
+    def _commit_complete_blocks(self, seq: _Sequence, slot: int) -> None:
+        args = self.args
+        pos = int(self._pos[slot])
+        while True:
+            bi = len(seq.block_hashes)
+            if (bi + 1) * args.block_size > pos or bi >= len(seq.block_ids):
+                return
+            parent = seq.block_hashes[-1] if seq.block_hashes else None
+            h = compute_block_hashes(
+                seq.all_tokens[bi * args.block_size : (bi + 1) * args.block_size],
+                args.block_size, parent_hash=parent,
+            )[0]
+            self.pool.commit(seq.block_ids[bi], h, parent)
+            seq.block_hashes.append(h)
+
+    def _preempt(self, seq: _Sequence) -> None:
+        """Release blocks and requeue for recompute; position-keyed sampling
+        noise makes the recompute regenerate the same stream."""
+        logger.warning("preempting request %s (KV pool exhausted)", seq.request.request_id)
+        self.pool.release(seq.block_ids, seq.block_hashes)
+        self._clear_slot(seq)
+        self.preemptions += 1
+        self._requeue(seq)
+
+    def _clear_slot(self, seq: _Sequence) -> None:
+        if seq.slot >= 0:
+            self._slots[seq.slot] = None
+            self._pos[seq.slot] = 0
+            self._tok_mirror[seq.slot] = 0
+            seq.slot = -1
+
+    def _finish(self, seq: _Sequence, reason: FinishReason, emit: bool = True) -> None:
+        self.pool.release(seq.block_ids, seq.block_hashes)
+        seq.block_ids = []
+        seq.block_hashes = []
+        self._clear_slot(seq)
+        if emit:
+            seq.queue.put_nowait(BackendOutput(finish_reason=reason))

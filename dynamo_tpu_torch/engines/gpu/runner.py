@@ -1,0 +1,84 @@
+"""DeviceRunner — owner of the device state (weights, KV pools, sampling
+seed) and the two device programs the scheduler calls; counterpart of
+dynamo_tpu/engines/tpu/runner.py.
+
+The JAX runner keeps device-resident slot state, a donated carry and a
+cache of compiled programs per shape bucket. PyTorch runs eagerly, so this
+runner takes the scheduler's host arrays on every call: ``run_step`` for
+one prefill chunk round, ``run_decode`` for one burst of ``decode_steps``.
+Both run on the engine's single device thread.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from dynamo_tpu_torch.device import resolve_device
+from dynamo_tpu_torch.models import llama
+from dynamo_tpu_torch.ops.sampling import fold_row_keys, sample_tokens
+
+
+class DeviceRunner:
+    def __init__(self, args: Any, params: Optional[llama.Params] = None) -> None:
+        self.args = args
+        self.config = args.config
+        self.device = resolve_device(args.device)
+        self.params = (
+            params if params is not None
+            else llama.init_params(self.config, args.seed, self.device)
+        )
+        self.k_cache, self.v_cache = llama.init_kv_cache(
+            self.config, args.num_kv_blocks, args.block_size, self.device
+        )
+        # One fixed sampling seed; per-row noise is keyed (seed, sequence
+        # salt, token index), never by dispatch order (ops/sampling.py).
+        self.seed = args.seed ^ 0x5EED
+        # Decode rows whose logits held a NaN/inf (active rows only); the
+        # smoke run on the card asserts it stays 0.
+        self.nonfinite_rows = 0
+
+    def _dev(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, dtype)
+
+    @torch.inference_mode()
+    def run_step(
+        self, tokens, start_pos, chunk_lens, block_tables, temp, topk, topp, salts,
+        *, first_chunk: bool = False,
+    ) -> np.ndarray:
+        """One prefill chunk round over [B, C] rows + the sample of each
+        row's next token, keyed at index start + len. Returns [B] ids."""
+        d = self._dev
+        start = d(start_pos, torch.int32)
+        lens = d(chunk_lens, torch.int32)
+        logits, self.k_cache, self.v_cache = llama.forward_paged(
+            self.params, self.config, d(tokens, torch.int64), start, lens,
+            d(block_tables, torch.int32), self.k_cache, self.v_cache,
+            first_chunk=first_chunk,
+        )
+        keys = fold_row_keys(self.seed, d(salts, torch.int64), start + lens)
+        toks = sample_tokens(
+            logits, d(temp, torch.float32), d(topk, torch.int32), d(topp, torch.float32),
+            row_keys=keys,
+        )
+        return toks.cpu().numpy()
+
+    @torch.inference_mode()
+    def run_decode(
+        self, tokens, start_pos, active, block_tables, temp, topk, topp, salts,
+    ) -> np.ndarray:
+        """One burst of ``decode_steps`` fused decode steps. Returns [B, K]
+        sampled ids (rows with active = 0 repeat their input token)."""
+        d = self._dev
+        out = llama.decode_multi(
+            self.params, self.config, d(tokens, torch.int64), d(start_pos, torch.int32),
+            d(active, torch.int32), d(block_tables, torch.int32),
+            self.k_cache, self.v_cache, self.seed,
+            d(temp, torch.float32), d(topk, torch.int32), d(topp, torch.float32),
+            num_steps=self.args.decode_steps, salts=d(salts, torch.int64),
+        )
+        finite = out.finite.cpu().numpy()
+        self.nonfinite_rows += int(np.count_nonzero(~finite & (np.asarray(active) > 0)))
+        return out.tokens.cpu().numpy()

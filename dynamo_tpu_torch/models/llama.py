@@ -1,0 +1,318 @@
+"""Llama-family decoder over a paged KV cache — counterpart of
+dynamo_tpu/models/llama.py.
+
+Parameters are a plain dictionary in the JAX package's serving layout:
+``{"embed" [V, d], "final_norm" [d], "lm_head" [d, V] (untied only),
+"layers": [per-layer dict, ...]}`` with each layer's weights laid out as
+the JAX ones (``wq`` [d, H·hd], ...), so the parity tests feed both packages
+the same arrays. KV pools are per-layer [NB, BS, KH, D] tensors (the JAX
+"layered" cache) and are updated in place.
+
+Covered: the dense (non-MoE, non-LoRA) decoder with the family knobs of
+``decoder_layer`` (qkv-bias, qk-norm, post-norms, unit-offset norms, GeGLU,
+softcaps, sliding windows, Gemma-3 dual rope), ``forward_paged`` on the
+layered cache with ``first_chunk``, and ``decode_multi`` with per-sequence
+salts. Not yet: the megakernel branch (int8 weights), MoE, LoRA, logits
+processors, logprobs and top-N, multimodal splices.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from dynamo_tpu_torch.device import DeviceLike, resolve_device
+from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.ops.attention import (
+    cache_write_index,
+    dense_chunk_attention,
+    paged_attention,
+    write_chunk_to_cache,
+)
+from dynamo_tpu_torch.ops.quant import embed_lookup, lm_head as q_lm_head, qeinsum
+from dynamo_tpu_torch.ops.rope import apply_rope, rope_table
+from dynamo_tpu_torch.ops.sampling import fold_row_keys, sample_tokens
+
+Params = Dict[str, Any]
+
+
+def _check_supported(c: ModelConfig) -> None:
+    if c.is_moe:
+        raise NotImplementedError("MoE layers are not ported yet")
+
+
+@torch.no_grad()
+def init_params(config: ModelConfig, seed: int, device: DeviceLike = None) -> Params:
+    """Random-init params (scaled normal, as the JAX ``init_params``), drawn
+    on the device from a ``torch.Generator`` seeded with ``seed``. The draws
+    differ from JAX's for the same seed; parity tests convert the JAX
+    package's parameters with models/weights.params_from_jax instead."""
+    c = config
+    _check_supported(c)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    hd, d, ff, H, KH = c.head_dim_, c.d_model, c.d_ff, c.n_heads, c.n_kv_heads
+
+    def normal(shape, scale):
+        w = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
+        return (w * scale).to(c.dtype)
+
+    def fill(shape, value):
+        return torch.full(shape, value, device=dev, dtype=c.dtype)
+
+    norm_fill = 0.0 if c.rmsnorm_unit_offset else 1.0
+    layers: List[Params] = []
+    for _ in range(c.n_layers):
+        lp: Params = {
+            "attn_norm": fill((d,), norm_fill),
+            "wq": normal((d, H * hd), d**-0.5),
+            "wk": normal((d, KH * hd), d**-0.5),
+            "wv": normal((d, KH * hd), d**-0.5),
+            "wo": normal((H * hd, d), (H * hd) ** -0.5),
+            "mlp_norm": fill((d,), norm_fill),
+            "w_gate": normal((d, ff), d**-0.5),
+            "w_up": normal((d, ff), d**-0.5),
+            "w_down": normal((ff, d), ff**-0.5),
+        }
+        if c.post_norms:
+            lp["attn_post_norm"] = fill((d,), norm_fill)
+            lp["mlp_post_norm"] = fill((d,), norm_fill)
+        if c.qkv_bias:
+            lp["bq"] = fill((H * hd,), 0.0)
+            lp["bk"] = fill((KH * hd,), 0.0)
+            lp["bv"] = fill((KH * hd,), 0.0)
+        if c.qk_norm:
+            lp["q_norm"] = fill((hd,), 1.0)
+            lp["k_norm"] = fill((hd,), 1.0)
+        layers.append(lp)
+    params: Params = {
+        "embed": normal((c.vocab_size, d), 1.0),
+        "layers": layers,
+        "final_norm": fill((d,), norm_fill),
+    }
+    if not c.tie_word_embeddings:
+        params["lm_head"] = normal((d, c.vocab_size), d**-0.5)
+    return params
+
+
+def init_kv_cache(
+    config: ModelConfig, num_blocks: int, block_size: int, device: DeviceLike = None
+) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    """Zeroed per-layer K and V pools, each [NB, BS, KH, D] in the model
+    dtype (the JAX ``init_kv_cache(layered=True)``)."""
+    dev = resolve_device(device)
+    shape = (num_blocks, block_size, config.n_kv_heads, config.head_dim_)
+    k = [torch.zeros(shape, dtype=config.dtype, device=dev) for _ in range(config.n_layers)]
+    v = [torch.zeros(shape, dtype=config.dtype, device=dev) for _ in range(config.n_layers)]
+    return k, v
+
+
+def _rms_norm(
+    x: torch.Tensor, w: torch.Tensor, eps: float, unit_offset: bool = False
+) -> torch.Tensor:
+    """RMSNorm with the JAX rounding points (llama.py:272-276): normalise in
+    float32, cast to x's dtype, THEN multiply by the weight."""
+    xf = x.to(torch.float32)
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    normed = (xf * torch.rsqrt(var + eps)).to(x.dtype)
+    return normed * (1.0 + w) if unit_offset else normed * w
+
+
+def _act(x: torch.Tensor, act_fn: str) -> torch.Tensor:
+    if act_fn == "gelu_tanh":
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
+
+
+def decoder_layer(
+    c: ModelConfig,
+    lp: Params,
+    win: int,  # sliding window of this layer (0 = full)
+    x: torch.Tensor,  # [B, C, d]
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    k_c: torch.Tensor,  # this layer's pools, updated in place
+    v_c: torch.Tensor,
+    block_tables: torch.Tensor,
+    start_pos: torch.Tensor,
+    chunk_lens: torch.Tensor,
+    *,
+    first_chunk: bool = False,
+    cos_loc: Optional[torch.Tensor] = None,
+    sin_loc: Optional[torch.Tensor] = None,
+    write_index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """One decoder layer (attention + FFN). Writes the chunk's K/V into the
+    pools, then attends: densely over the chunk itself when
+    ``first_chunk`` (fresh prefill), else through ``paged_attention``."""
+    B, C = x.shape[:2]
+    hd = c.head_dim_
+    uo = c.rmsnorm_unit_offset
+    sm_scale = c.query_scale**-0.5 if c.query_scale is not None else hd**-0.5
+    cap = float(c.attn_logit_softcap or 0.0)
+
+    h = _rms_norm(x, lp["attn_norm"], c.rms_norm_eps, uo)
+    q = qeinsum("bcd,dh->bch", h, lp["wq"])
+    k = qeinsum("bcd,dh->bch", h, lp["wk"])
+    v = qeinsum("bcd,dh->bch", h, lp["wv"])
+    if c.qkv_bias:
+        q = q + lp["bq"]
+        k = k + lp["bk"]
+        v = v + lp["bv"]
+    q = q.reshape(B, C, c.n_heads, hd)
+    k = k.reshape(B, C, c.n_kv_heads, hd)
+    v = v.reshape(B, C, c.n_kv_heads, hd)
+    if c.qk_norm:  # per-head RMSNorm over head_dim, before RoPE
+        q = _rms_norm(q, lp["q_norm"], c.rms_norm_eps, uo)
+        k = _rms_norm(k, lp["k_norm"], c.rms_norm_eps, uo)
+    if cos_loc is not None and win > 0:  # Gemma-3: local layers, local table
+        cos, sin = cos_loc, sin_loc
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+
+    write_chunk_to_cache(k_c, k, block_tables, start_pos, chunk_lens, write_index)
+    write_chunk_to_cache(v_c, v, block_tables, start_pos, chunk_lens, write_index)
+
+    if first_chunk:
+        attn = dense_chunk_attention(
+            q, k, v, chunk_lens, sm_scale=sm_scale, window=win, logit_cap=cap
+        )
+    else:
+        attn = paged_attention(
+            q, k_c, v_c, block_tables, start_pos, chunk_lens,
+            sm_scale=sm_scale, window=win, logit_cap=cap,
+        )
+    attn_out = qeinsum("bch,hd->bcd", attn.reshape(B, C, -1), lp["wo"])
+    if c.post_norms:
+        attn_out = _rms_norm(attn_out, lp["attn_post_norm"], c.rms_norm_eps, uo)
+    x = x + attn_out
+
+    h = _rms_norm(x, lp["mlp_norm"], c.rms_norm_eps, uo)
+    gate = _act(qeinsum("bcd,df->bcf", h, lp["w_gate"]), c.act_fn)
+    up = qeinsum("bcd,df->bcf", h, lp["w_up"])
+    mlp_out = qeinsum("bcf,fd->bcd", gate * up, lp["w_down"])
+    if c.post_norms:
+        mlp_out = _rms_norm(mlp_out, lp["mlp_post_norm"], c.rms_norm_eps, uo)
+    return x + mlp_out
+
+
+def embed_tokens(params: Params, config: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    """Token embeddings with family scaling."""
+    c = config
+    x = embed_lookup(params["embed"], tokens, c.dtype)
+    if c.embed_scale:  # Gemma: embeddings scaled by sqrt(d_model)
+        x = x * torch.tensor(c.d_model**0.5, dtype=c.dtype, device=x.device)
+    return x
+
+
+def lm_head_logits(params: Params, config: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Final norm → vocab projection → final softcap. x: [..., d]."""
+    c = config
+    x = _rms_norm(x, params["final_norm"], c.rms_norm_eps, c.rmsnorm_unit_offset)
+    head = params["embed"] if c.tie_word_embeddings else params["lm_head"]
+    logits = q_lm_head(x, head, tied=c.tie_word_embeddings)
+    if c.final_logit_softcap:
+        fcap = float(c.final_logit_softcap)
+        logits = fcap * torch.tanh(logits / fcap)
+    return logits
+
+
+def forward_paged(
+    params: Params,
+    config: ModelConfig,
+    tokens: torch.Tensor,  # [B, C] int
+    start_pos: torch.Tensor,  # [B] int32
+    chunk_lens: torch.Tensor,  # [B] int32
+    block_tables: torch.Tensor,  # [B, P] int32
+    k_cache: List[torch.Tensor],  # per-layer [NB, BS, KH, D], updated in place
+    v_cache: List[torch.Tensor],
+    *,
+    all_logits: bool = False,
+    first_chunk: bool = False,
+) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
+    """One forward step over a chunk: returns (logits [B, V] of each row's
+    last valid position — or [B, C, V] with ``all_logits`` — k_cache,
+    v_cache). The chunk's K/V are written into the pools before attending,
+    so one function serves prefill (large C), chunked prefill
+    (start_pos > 0) and decode (C = 1)."""
+    c = config
+    _check_supported(c)
+    B, C = tokens.shape
+    hd = c.head_dim_
+    x = embed_tokens(params, c, tokens)
+    pos = start_pos.long()[:, None] + torch.arange(C, device=tokens.device)[None, :]
+    cos, sin = rope_table(pos, hd, c.rope_theta, scale=c.rope_scaling_factor or 1.0)
+    cos_loc = sin_loc = None
+    if c.rope_local_theta is not None:
+        cos_loc, sin_loc = rope_table(pos, hd, c.rope_local_theta)
+    write_index = cache_write_index(block_tables, start_pos, chunk_lens, C, k_cache[0].shape[1])
+    for l, win in enumerate(c.layer_windows()):
+        x = decoder_layer(
+            c, params["layers"][l], int(win), x, cos, sin, k_cache[l], v_cache[l],
+            block_tables, start_pos, chunk_lens, first_chunk=first_chunk,
+            cos_loc=cos_loc, sin_loc=sin_loc, write_index=write_index,
+        )
+    if all_logits:
+        return lm_head_logits(params, c, x), k_cache, v_cache
+    last = torch.clamp(chunk_lens.long() - 1, 0, C - 1)
+    x_last = x[torch.arange(B, device=x.device), last]  # [B, d]
+    return lm_head_logits(params, c, x_last), k_cache, v_cache
+
+
+class DecodeOut(NamedTuple):
+    tokens: torch.Tensor  # [B, num_steps] sampled ids
+    finite: torch.Tensor  # [B] bool: every step's logits were finite
+    logits: Optional[torch.Tensor]  # [B, num_steps, V] with want_logits
+
+
+def decode_multi(
+    params: Params,
+    config: ModelConfig,
+    tokens: torch.Tensor,  # [B] current input token per slot
+    start_pos: torch.Tensor,  # [B] int32
+    active: torch.Tensor,  # [B] int32 0/1
+    block_tables: torch.Tensor,  # [B, P] int32
+    k_cache: List[torch.Tensor],
+    v_cache: List[torch.Tensor],
+    seed: int,
+    temperature: torch.Tensor,  # [B]
+    top_k: torch.Tensor,  # [B]
+    top_p: torch.Tensor,  # [B]
+    *,
+    num_steps: int,
+    salts: torch.Tensor,  # [B] per-sequence sampling salt
+    want_logits: bool = False,
+) -> DecodeOut:
+    """``num_steps`` single-token forward + sample steps (the JAX
+    ``lax.scan`` as a Python loop). Inactive rows keep their token and
+    position, and their cache writes are dropped (chunk_lens = active).
+    Row b's noise for the token it samples at index pos + 1 is keyed
+    (seed, salts[b], pos + 1) — the index the prefill step uses for the
+    first generated token, so a recompute redraws the same noise. Host
+    stop conditions are applied afterwards; overshoot writes past the table
+    capacity are dropped by write_chunk_to_cache."""
+    toks = tokens.long()
+    pos = start_pos.to(torch.int32)
+    act = active.to(torch.int32)
+    finite = torch.ones(tokens.shape[0], dtype=torch.bool, device=tokens.device)
+    out_toks, out_logits = [], []
+    for _ in range(num_steps):
+        logits, k_cache, v_cache = forward_paged(
+            params, config, toks[:, None], pos, act, block_tables, k_cache, v_cache
+        )
+        finite &= torch.isfinite(logits).all(dim=-1)
+        keys = fold_row_keys(seed, salts, pos + 1)
+        nxt = sample_tokens(logits, temperature, top_k, top_p, row_keys=keys)
+        toks = torch.where(act > 0, nxt, toks)
+        pos = pos + act
+        out_toks.append(toks)
+        if want_logits:
+            out_logits.append(logits)
+    return DecodeOut(
+        tokens=torch.stack(out_toks, dim=1),
+        finite=finite,
+        logits=torch.stack(out_logits, dim=1) if want_logits else None,
+    )

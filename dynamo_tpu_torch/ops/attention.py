@@ -1,0 +1,183 @@
+"""Attention over a paged KV cache — counterpart of dynamo_tpu/ops/attention.py.
+
+One entry point, ``paged_attention``, serves chunked prefill and decode: a
+chunk of C query tokens per sequence starting at ``start_pos``, with keys and
+values in a block pool indexed by per-sequence block tables. It routes as
+the JAX function does (attention.py:95-121): C ≤ 8 with C·G ≤ 64 goes to the
+decode kernel, everything else to the chunk kernel. Both are hand-written
+CUDA (ops/cuda/paged_attention.py); on CPU tensors their wrappers run the
+plain version here, ``paged_attention_ref``. Unlike the JAX package, a
+kernel that fails to build or launch raises — nothing falls back quietly.
+
+``dense_chunk_attention`` (a fresh prompt's first chunk attends over its own
+K/V) and ``write_chunk_to_cache`` are plain PyTorch.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+NEG_INF = -1e30
+
+
+def paged_attention(
+    q: torch.Tensor,  # [B, C, H, D]
+    k_cache: torch.Tensor,  # [NB, BS, KH, D]
+    v_cache: torch.Tensor,  # [NB, BS, KH, D]
+    block_tables: torch.Tensor,  # [B, P] int32
+    start_pos: torch.Tensor,  # [B] int32 — tokens in cache before the chunk
+    chunk_lens: torch.Tensor,  # [B] int32 — valid query tokens in the chunk
+    *,
+    sm_scale: Optional[float] = None,
+    window: int = 0,
+    logit_cap: float = 0.0,
+) -> torch.Tensor:
+    """Returns [B, C, H, D]. The chunk's own K/V must already be in the
+    cache; key t is visible to query offset c iff t <= start + c and, with
+    ``window`` > 0, t > start + c - window. Rows past ``chunk_lens`` are
+    padding: finite, never read."""
+    from dynamo_tpu_torch.ops.cuda import paged_attention as kernels
+
+    C, H = q.shape[1], q.shape[2]
+    G = H // k_cache.shape[2]
+    if C <= 8 and C * G <= 64:
+        return kernels.paged_attention_decode(
+            q, k_cache, v_cache, block_tables, start_pos,
+            sm_scale=sm_scale, window=window, logit_cap=logit_cap,
+        )
+    return kernels.paged_attention_chunk(
+        q, k_cache, v_cache, block_tables, start_pos, chunk_lens,
+        sm_scale=sm_scale, window=window, logit_cap=logit_cap,
+    )
+
+
+def paged_attention_ref(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,
+    start_pos: torch.Tensor,
+    chunk_lens: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    window: int = 0,
+    logit_cap: float = 0.0,
+) -> torch.Tensor:
+    """Plain version: gather every table page into a dense [B, T, KH, D]
+    history, then masked float32 attention — the counterpart of
+    ``_paged_attention_xla_impl`` (attention.py:124-168) and the kernels'
+    oracle. ``chunk_lens`` does not change valid rows (it is accepted for
+    the shared signature)."""
+    B, C, H, D = q.shape
+    _, BS, KH, _ = k_cache.shape
+    P = block_tables.shape[1]
+    T = P * BS
+    G = H // KH
+    scale = sm_scale if sm_scale is not None else D**-0.5
+    tables = block_tables.long()
+    k = k_cache[tables].reshape(B, T, KH, D).to(torch.float32)
+    v = v_cache[tables].reshape(B, T, KH, D).to(torch.float32)
+    qg = q.reshape(B, C, KH, G, D).to(torch.float32)
+    scores = torch.einsum("bcghd,btgd->bcght", qg, k) * scale  # [B,C,KH,G,T]
+    if logit_cap > 0.0:
+        scores = logit_cap * torch.tanh(scores / logit_cap)
+    t_pos = torch.arange(T, device=q.device)[None, None, :]
+    limit = start_pos.long()[:, None, None] + torch.arange(C, device=q.device)[None, :, None]
+    mask = t_pos <= limit  # [B, C, T]
+    if window > 0:
+        mask = mask & (t_pos > limit - window)
+    scores = torch.where(mask[:, :, None, None, :], scores, torch.full_like(scores, NEG_INF))
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bcght,btgd->bcghd", probs, v)
+    return out.reshape(B, C, H, D).to(q.dtype)
+
+
+def dense_chunk_attention(
+    q: torch.Tensor,  # [B, C, H, D]
+    k: torch.Tensor,  # [B, C, KH, D] — the chunk's own K
+    v: torch.Tensor,  # [B, C, KH, D]
+    chunk_lens: torch.Tensor,  # [B]
+    *,
+    sm_scale: Optional[float] = None,
+    window: int = 0,
+    logit_cap: float = 0.0,
+) -> torch.Tensor:
+    """First-chunk attention (start_pos == 0): the whole history is the
+    chunk itself, so attend over it directly instead of reading the pages
+    just written. Padding keys (>= chunk_lens) are masked with the finite
+    -1e30 sentinel, so a padding row with no visible key averages instead
+    of turning into NaN (attention.py:219-224). Returns [B, C, H, D]."""
+    B, C, H, D = q.shape
+    KH = k.shape[2]
+    scale = sm_scale if sm_scale is not None else D**-0.5
+    if KH != H:  # GQA: repeat kv heads into query-head groups
+        rep = H // KH
+        k = torch.repeat_interleave(k, rep, dim=2)
+        v = torch.repeat_interleave(v, rep, dim=2)
+    qf = q.to(torch.float32).transpose(1, 2)  # [B, H, C, D]
+    kf = k.to(torch.float32).transpose(1, 2)
+    vf = v.to(torch.float32).transpose(1, 2)
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) * scale
+    if logit_cap:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    rows = torch.arange(C, device=q.device)[:, None]
+    cols = torch.arange(C, device=q.device)[None, :]
+    mask = cols <= rows
+    if window > 0:
+        mask = mask & (cols > rows - window)
+    valid = cols[None] < chunk_lens.long()[:, None, None]  # [B, 1, C]
+    s = torch.where((mask[None] & valid)[:, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", p, vf)
+    return out.transpose(1, 2).to(q.dtype)
+
+
+def cache_write_index(
+    block_tables: torch.Tensor,  # [B, P]
+    start_pos: torch.Tensor,  # [B]
+    chunk_lens: torch.Tensor,  # [B]
+    chunk_len: int,  # C
+    block_size: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where a [B, C] chunk lands in the pool: (rows, dest) — the flat
+    indices b·C + c of the positions that are written, and their flat pool
+    slots block·BS + offset. Padding positions (c >= chunk_lens) and
+    positions past the table's capacity (decode overshoot past a stop) are
+    LEFT OUT, never clamped: the JAX package drops them with an
+    out-of-range index and ``mode="drop"`` (attention.py:250-257), and torch
+    indexing has no drop mode. One layer's index serves every layer of a
+    forward step, so the host sync of the selection is paid once a step."""
+    B, P = block_tables.shape
+    c_off = torch.arange(chunk_len, device=block_tables.device)[None, :]
+    pos = start_pos.long()[:, None] + c_off  # [B, C]
+    valid = (c_off < chunk_lens.long()[:, None]) & (pos < P * block_size)
+    page = torch.clamp(pos // block_size, 0, P - 1)
+    blk = torch.gather(block_tables.long(), 1, page)
+    dest = blk * block_size + pos % block_size
+    rows = torch.nonzero(valid.reshape(-1), as_tuple=True)[0]
+    return rows, dest.reshape(-1)[rows]
+
+
+def write_chunk_to_cache(
+    cache: torch.Tensor,  # [NB, BS, KH, D] — updated IN PLACE
+    chunk: torch.Tensor,  # [B, C, KH, D]
+    block_tables: torch.Tensor,
+    start_pos: torch.Tensor,
+    chunk_lens: torch.Tensor,
+    index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Scatter a chunk of K or V into its pages, in place (the JAX function
+    returns a new pool; the port updates the one it was given and returns
+    it). Padding positions and positions past the table capacity are
+    dropped (see ``cache_write_index``; pass a precomputed ``index`` to
+    share it across layers)."""
+    B, C = chunk.shape[:2]
+    NB, BS = cache.shape[:2]
+    if index is None:
+        index = cache_write_index(block_tables, start_pos, chunk_lens, C, BS)
+    rows, dest = index
+    flat = cache.view(NB * BS, *cache.shape[2:])
+    flat[dest] = chunk.reshape(B * C, *chunk.shape[2:])[rows].to(cache.dtype)
+    return cache

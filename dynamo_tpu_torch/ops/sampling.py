@@ -1,0 +1,85 @@
+"""Batched token sampling — counterpart of dynamo_tpu/ops/sampling.py.
+
+Greedy / temperature / top-k / top-p / min-p with per-row parameters,
+filtered inside the exact top-``SAMPLE_WIDTH`` logits (``torch.topk``): the
+JAX function's CPU branch (sampling.py:75). Its TPU-only ``approx_max_k``
+branch is not ported.
+
+Noise: each row's Gumbel noise is a pure function of (engine seed, sequence
+salt, token index) — the contract of the JAX ``fold_row_keys``
+(sampling.py:24-41) that makes a sequence's stream independent of slot,
+batch and dispatch order, and lets preemption-by-recompute redraw the same
+noise. The bits come from a counter-based integer hash, not JAX's threefry,
+so sampled (temperature > 0) streams differ from the JAX package's; greedy
+streams are the same.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+SAMPLE_WIDTH = 64  # candidates considered by top-k/top-p filtering
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """32-bit avalanche hash of int64 tensors holding uint32 values (the
+    products stay below 2^59, so int64 arithmetic is exact)."""
+    x = x & _M32
+    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
+    x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
+    return (x >> 16) ^ x
+
+
+def fold_row_keys(seed: int, salts: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Per-row keys [B] (int64 holding uint32): a function of (seed, salt,
+    position) only."""
+    base = _mix32(torch.tensor(seed & _M32, dtype=torch.int64, device=salts.device))
+    k = _mix32(base ^ (salts.to(torch.int64) & _M32))
+    return _mix32(k ^ (((positions.to(torch.int64) & _M32) * 0x7FEB352D) & _M32))
+
+
+def row_gumbel(row_keys: torch.Tensor, width: int) -> torch.Tensor:
+    """[B, width] float32 Gumbel noise drawn from each row's key."""
+    cols = torch.arange(width, dtype=torch.int64, device=row_keys.device)
+    h = _mix32(row_keys[:, None] ^ _mix32(cols * 0x85EBCA6B + 0x27D4EB2F)[None, :])
+    u = ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))  # (0, 1)
+    return -torch.log(-torch.log(u))
+
+
+def sample_tokens(
+    logits: torch.Tensor,  # [B, V]
+    temperature: torch.Tensor,  # [B]; <= 0 means greedy
+    top_k: torch.Tensor,  # [B]; <= 0 means off
+    top_p: torch.Tensor,  # [B]; >= 1 means off
+    min_p: Optional[torch.Tensor] = None,  # [B]; <= 0 means off
+    *,
+    row_keys: torch.Tensor,  # [B] (fold_row_keys)
+) -> torch.Tensor:
+    """Returns sampled token ids [B] (int64). Each row's noise comes from its
+    key, so a row's sample depends only on its own (key, logits, params)."""
+    W = min(SAMPLE_WIDTH, logits.shape[1])
+    raw_top, top_idx = torch.topk(logits, W, dim=-1)  # [B, W] descending
+    temp = torch.clamp(temperature.to(torch.float32), min=1e-6)[:, None]
+    top_logits = raw_top.to(torch.float32) / temp
+
+    ranks = torch.arange(W, device=logits.device)[None, :]
+    k = torch.where(top_k > 0, torch.clamp(top_k, max=W), torch.full_like(top_k, W))
+    keep = ranks < k[:, None]
+    probs = torch.softmax(top_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    # Keep tokens while the mass before them is < top_p (the first always).
+    keep = keep & ((cum - probs) < torch.clamp(top_p.to(torch.float32), 0.0, 1.0)[:, None])
+    if min_p is not None:
+        floor = torch.clamp(min_p.to(torch.float32), 0.0, 1.0)[:, None] * probs[:, :1]
+        keep = keep & (probs >= floor)
+    masked = torch.where(keep, top_logits, torch.full_like(top_logits, NEG_INF))
+    choice = torch.argmax(masked + row_gumbel(row_keys, W), dim=-1)
+    sampled = torch.gather(top_idx, 1, choice[:, None])[:, 0]
+    # Greedy: the FIRST maximal logit, as lax.top_k's stable order picks.
+    greedy = torch.argmax(logits, dim=-1)
+    return torch.where(temperature <= 0.0, greedy, sampled)

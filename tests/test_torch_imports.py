@@ -1,0 +1,115 @@
+"""Import hygiene of the port: dynamo_tpu_torch and chip_smoke.py import
+neither jax nor anything of dynamo_tpu, every module imports with both
+blocked, and an entry point left on its default device (cuda) raises when
+there is no card instead of carrying on on the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "dynamo_tpu_torch"
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "dynamo_tpu")
+
+
+def _port_files():
+    return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def test_no_file_of_the_port_imports_jax_or_dynamo_tpu():
+    bad = []
+    for path in _port_files():
+        tree = ast.parse(path.read_text(), filename=str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                names = [node.module]
+            else:
+                continue
+            bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}" for n in names if _forbidden(n)]
+    assert bad == []
+    assert len(_port_files()) > 15
+
+
+_BLOCKED_IMPORT = r"""
+import importlib, importlib.abc, importlib.util, pkgutil, sys
+sys.path.insert(0, {root!r})
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "dynamo_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+for mod in list(sys.modules):
+    if mod.split(".")[0] in ("jax", "jaxlib", "dynamo_tpu"):
+        del sys.modules[mod]
+sys.meta_path.insert(0, Block())
+import dynamo_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(dynamo_tpu_torch.__path__, "dynamo_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "dynamo_tpu")]
+print(len(names))
+"""
+
+
+def test_every_module_imports_with_jax_and_dynamo_tpu_blocked():
+    code = _BLOCKED_IMPORT.format(root=str(ROOT), smoke=str(ROOT / "chip_smoke.py"))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                          timeout=120, env=env, cwd=str(ROOT))
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 15
+
+
+def test_default_device_entry_points_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from dynamo_tpu_torch.device import resolve_device
+    from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import tiny_config
+
+    cfg = tiny_config()
+    with pytest.raises(RuntimeError, match="cuda"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="cuda"):
+        llama.init_params(cfg, 0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        llama.init_kv_cache(cfg, 8, 4)
+    with pytest.raises(RuntimeError, match="cuda"):
+        TorchEngine(TorchEngineArgs(config=cfg))
+    assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_kernel_wrappers_use_plain_versions_only_on_cpu_tensors():
+    from dynamo_tpu_torch.ops.attention import paged_attention_ref
+    from dynamo_tpu_torch.ops.cuda import paged_attention as kernels
+
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(2, 3, 4, 64, generator=g)
+    k = torch.randn(6, 4, 2, 64, generator=g)
+    v = torch.randn(6, 4, 2, 64, generator=g)
+    tables = torch.tensor([[0, 1, 2], [3, 4, 5]], dtype=torch.int32)
+    start = torch.tensor([2, 5], dtype=torch.int32)
+    lens = torch.tensor([3, 3], dtype=torch.int32)
+    kernels.reset_launch_counts()
+    want = paged_attention_ref(q, k, v, tables, start, lens)
+    assert torch.equal(kernels.paged_attention_decode(q, k, v, tables, start), want)
+    assert torch.equal(kernels.paged_attention_chunk(q, k, v, tables, start, lens), want)
+    assert kernels.launch_counts == {"paged_attention_decode": 0, "paged_attention_chunk": 0}
+    with pytest.raises(ValueError, match="device"):
+        kernels.paged_attention_decode(q.to("meta"), k, v, tables, start)
