@@ -462,10 +462,15 @@ cudaError_t dispatch(bool small, const void* q, const void* k, const void* v,
   if (B <= 0 || C <= 0 || KH <= 0 || H % KH != 0 || BS <= 0 || 64 % BS != 0 || P <= 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // Built for head_dim 64 (Qwen2.5-0.5B) only; other widths are refused.
-  if (D != 64) return cudaErrorInvalidValue;
-  return launch_d<64>(small, q, k, v, tables, start, clens, out, B, C, H, KH, NB, BS, P, window,
-                      sm_scale, logit_cap, s);
+  // Built for head_dim 64 (Qwen2.5-0.5B) and 128 (Llama-3-8B); other widths
+  // are refused. At D = 128 the decode layout takes tiles of 128 keys.
+  if (D == 64)
+    return launch_d<64>(small, q, k, v, tables, start, clens, out, B, C, H, KH, NB, BS, P, window,
+                        sm_scale, logit_cap, s);
+  if (D == 128)
+    return launch_d<128>(small, q, k, v, tables, start, clens, out, B, C, H, KH, NB, BS, P,
+                         window, sm_scale, logit_cap, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace

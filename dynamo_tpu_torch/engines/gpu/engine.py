@@ -77,6 +77,12 @@ class TorchEngineArgs:
     seed: int = 0
     decode_steps: int = 8
     device: Optional[str] = None
+    # "int8": per-channel weight-only int8 (ops/quant.py); random weights
+    # are then made directly in int8 (models/quantize.py).
+    quantization: Optional[str] = None
+    # Fused-layer decode (ops/fused_layer.py): None = on when the config is
+    # eligible and the device is cuda; True on an ineligible config raises.
+    use_megakernel: Optional[bool] = None
 
     @property
     def max_blocks_per_seq(self) -> int:
@@ -167,6 +173,7 @@ class TorchEngine:
             "generated_tokens": self.generated_tokens,
             "preemptions": self.preemptions,
             "nonfinite_logit_rows": self.runner.nonfinite_rows,
+            "mk_fused_bursts": self.runner.mk_fused_bursts,
         }
 
     # -- request entry -----------------------------------------------------

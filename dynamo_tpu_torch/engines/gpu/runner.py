@@ -18,6 +18,8 @@ import torch
 
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models import llama
+from dynamo_tpu_torch.models.quantize import init_quantized_params, quantize_params
+from dynamo_tpu_torch.ops.fused_layer import supports_reason
 from dynamo_tpu_torch.ops.sampling import fold_row_keys, sample_tokens
 
 
@@ -26,10 +28,19 @@ class DeviceRunner:
         self.args = args
         self.config = args.config
         self.device = resolve_device(args.device)
-        self.params = (
-            params if params is not None
-            else llama.init_params(self.config, args.seed, self.device)
-        )
+        if args.quantization not in (None, "int8"):
+            raise ValueError(f"unsupported quantization {args.quantization!r} (int8 only)")
+        if params is None:
+            params = (
+                init_quantized_params(self.config, args.seed, self.device)
+                if args.quantization
+                else llama.init_params(self.config, args.seed, self.device)
+            )
+        if args.quantization:  # idempotent for int8 trees
+            params = quantize_params(params)
+        self.params = params
+        self.use_megakernel = self._megakernel_gate()
+        self.mk_fused_bursts = 0  # decode bursts run through the fused layer
         self.k_cache, self.v_cache = llama.init_kv_cache(
             self.config, args.num_kv_blocks, args.block_size, self.device
         )
@@ -39,6 +50,26 @@ class DeviceRunner:
         # Decode rows whose logits held a NaN/inf (active rows only); the
         # smoke run on the card asserts it stays 0.
         self.nonfinite_rows = 0
+
+    def _megakernel_gate(self) -> bool:
+        """The JAX runner's gate (runner.py:284-306): int8 weights, bf16
+        layered pools, no LoRA, and an architecture the fused layer takes.
+        The mesh condition has no counterpart here, and ``max_num_seqs % 4``
+        is dropped: the CUDA kernel takes any batch. ``None`` turns it on
+        when eligible and on the card; ``True`` on an ineligible config
+        raises instead of running another path."""
+        c, want = self.config, self.args.use_megakernel
+        if self.args.quantization != "int8":
+            reason = "weights not int8-quantized (quantization is not 'int8')"
+        elif c.dtype != torch.bfloat16:
+            reason = f"KV pools are {c.dtype}, the fused layer reads bf16 pools"
+        else:
+            reason = supports_reason(c, lora=False, quantized_weights=True)
+        if want is None:
+            return reason is None and self.device.type == "cuda"
+        if want and reason is not None:
+            raise ValueError(f"use_megakernel=True, but the fused layer cannot serve {c.name}: {reason}")
+        return bool(want)
 
     def _dev(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, dtype)
@@ -78,7 +109,9 @@ class DeviceRunner:
             self.k_cache, self.v_cache, self.seed,
             d(temp, torch.float32), d(topk, torch.int32), d(topp, torch.float32),
             num_steps=self.args.decode_steps, salts=d(salts, torch.int64),
+            use_megakernel=self.use_megakernel,
         )
+        self.mk_fused_bursts += int(self.use_megakernel)
         finite = out.finite.cpu().numpy()
         self.nonfinite_rows += int(np.count_nonzero(~finite & (np.asarray(active) > 0)))
         return out.tokens.cpu().numpy()

@@ -12,7 +12,9 @@ Covered: the dense (non-MoE, non-LoRA) decoder with the family knobs of
 ``decoder_layer`` (qkv-bias, qk-norm, post-norms, unit-offset norms, GeGLU,
 softcaps, sliding windows, Gemma-3 dual rope), ``forward_paged`` on the
 layered cache with ``first_chunk``, and ``decode_multi`` with per-sequence
-salts. Not yet: the megakernel branch (int8 weights), MoE, LoRA, logits
+salts, int8 ``{"q8", "s"}`` weights (ops/quant.py), and the fused-layer
+decode branch of ``forward_paged`` (``use_megakernel``: one
+ops/fused_layer call a layer for C = 1). Not yet: MoE, LoRA, logits
 processors, logprobs and top-N, multimodal splices.
 """
 
@@ -31,6 +33,7 @@ from dynamo_tpu_torch.ops.attention import (
     paged_attention,
     write_chunk_to_cache,
 )
+from dynamo_tpu_torch.ops.fused_layer import fused_decoder_layer, history_pcounts
 from dynamo_tpu_torch.ops.quant import embed_lookup, lm_head as q_lm_head, qeinsum
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_table
 from dynamo_tpu_torch.ops.sampling import fold_row_keys, sample_tokens
@@ -220,6 +223,43 @@ def lm_head_logits(params: Params, config: ModelConfig, x: torch.Tensor) -> torc
     return logits
 
 
+def _fused_layers(
+    params: Params,
+    c: ModelConfig,
+    x: torch.Tensor,  # [B, d]
+    cos: torch.Tensor,  # [B, D]
+    sin: torch.Tensor,
+    cos_loc: Optional[torch.Tensor],
+    sin_loc: Optional[torch.Tensor],
+    k_cache: List[torch.Tensor],
+    v_cache: List[torch.Tensor],
+    block_tables: torch.Tensor,
+    start_pos: torch.Tensor,
+    chunk_lens: torch.Tensor,
+    write_index: Tuple[torch.Tensor, torch.Tensor],
+) -> torch.Tensor:
+    """The decode layers as fused_decoder_layer calls (JAX llama.py:481-560):
+    the page counts are derived once a step, Gemma-3's local rope table
+    is chosen on windowed layers, and each layer's k_new/v_new are
+    scattered with the step's shared write index after the call."""
+    sm = c.query_scale**-0.5 if c.query_scale is not None else c.head_dim_**-0.5
+    pcounts = history_pcounts(start_pos, k_cache[0].shape[1], block_tables.shape[1])
+    for l, win in enumerate(c.layer_windows()):
+        local = cos_loc is not None and int(win) > 0
+        x, k_n, v_n = fused_decoder_layer(
+            x, cos_loc if local else cos, sin_loc if local else sin, params["layers"][l],
+            k_cache[l], v_cache[l], block_tables, start_pos,
+            eps=c.rms_norm_eps, sm_scale=sm, pcounts=pcounts, window=int(win),
+            act_fn=c.act_fn, unit_offset=c.rmsnorm_unit_offset,
+            softcap=float(c.attn_logit_softcap or 0.0),
+        )
+        write_chunk_to_cache(k_cache[l], k_n[:, None], block_tables, start_pos, chunk_lens,
+                             write_index)
+        write_chunk_to_cache(v_cache[l], v_n[:, None], block_tables, start_pos, chunk_lens,
+                             write_index)
+    return x
+
+
 def forward_paged(
     params: Params,
     config: ModelConfig,
@@ -232,12 +272,15 @@ def forward_paged(
     *,
     all_logits: bool = False,
     first_chunk: bool = False,
+    use_megakernel: bool = False,
 ) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
     """One forward step over a chunk: returns (logits [B, V] of each row's
     last valid position — or [B, C, V] with ``all_logits`` — k_cache,
     v_cache). The chunk's K/V are written into the pools before attending,
     so one function serves prefill (large C), chunked prefill
-    (start_pos > 0) and decode (C = 1)."""
+    (start_pos > 0) and decode (C = 1). ``use_megakernel`` with C = 1 runs
+    each layer as one fused_decoder_layer call (int8 weights), and scatters
+    the token's K/V into the pools after each layer."""
     c = config
     _check_supported(c)
     B, C = tokens.shape
@@ -249,12 +292,20 @@ def forward_paged(
     if c.rope_local_theta is not None:
         cos_loc, sin_loc = rope_table(pos, hd, c.rope_local_theta)
     write_index = cache_write_index(block_tables, start_pos, chunk_lens, C, k_cache[0].shape[1])
-    for l, win in enumerate(c.layer_windows()):
-        x = decoder_layer(
-            c, params["layers"][l], int(win), x, cos, sin, k_cache[l], v_cache[l],
-            block_tables, start_pos, chunk_lens, first_chunk=first_chunk,
-            cos_loc=cos_loc, sin_loc=sin_loc, write_index=write_index,
-        )
+    if use_megakernel and C == 1:
+        x = _fused_layers(
+            params, c, x[:, 0], cos[:, 0], sin[:, 0],
+            cos_loc[:, 0] if cos_loc is not None else None,
+            sin_loc[:, 0] if sin_loc is not None else None,
+            k_cache, v_cache, block_tables, start_pos, chunk_lens, write_index,
+        )[:, None]
+    else:
+        for l, win in enumerate(c.layer_windows()):
+            x = decoder_layer(
+                c, params["layers"][l], int(win), x, cos, sin, k_cache[l], v_cache[l],
+                block_tables, start_pos, chunk_lens, first_chunk=first_chunk,
+                cos_loc=cos_loc, sin_loc=sin_loc, write_index=write_index,
+            )
     if all_logits:
         return lm_head_logits(params, c, x), k_cache, v_cache
     last = torch.clamp(chunk_lens.long() - 1, 0, C - 1)
@@ -285,6 +336,7 @@ def decode_multi(
     num_steps: int,
     salts: torch.Tensor,  # [B] per-sequence sampling salt
     want_logits: bool = False,
+    use_megakernel: bool = False,
 ) -> DecodeOut:
     """``num_steps`` single-token forward + sample steps (the JAX
     ``lax.scan`` as a Python loop). Inactive rows keep their token and
@@ -301,7 +353,8 @@ def decode_multi(
     out_toks, out_logits = [], []
     for _ in range(num_steps):
         logits, k_cache, v_cache = forward_paged(
-            params, config, toks[:, None], pos, act, block_tables, k_cache, v_cache
+            params, config, toks[:, None], pos, act, block_tables, k_cache, v_cache,
+            use_megakernel=use_megakernel,
         )
         finite &= torch.isfinite(logits).all(dim=-1)
         keys = fold_row_keys(seed, salts, pos + 1)

@@ -1,6 +1,7 @@
 """Build the port's CUDA sources at first use and load them with ctypes.
 
-Each ``csrc/<name>.cu`` is compiled by ``nvcc`` into a shared library with a
+Each ``csrc/<name>.cu`` (with the ``csrc/*.cuh`` headers it includes) is
+compiled by ``nvcc`` into a shared library with a
 plain C interface (no PyTorch headers: a build takes seconds, not minutes)
 inside ``dynamo_tpu_torch/_build/``, which git ignores. The library's file
 name carries a hash of its source and flags, so an edited source rebuilds
@@ -59,7 +60,11 @@ def build(name: str) -> Built:
         if name in _loaded:
             return _loaded[name]
         src = CSRC / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        # The shared headers are hashed too: an edited header rebuilds.
+        headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+        digest = hashlib.sha256(
+            src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+        ).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         out = BUILD_DIR / f"lib{name}-{digest}.so"
         log = BUILD_DIR / f"lib{name}-{digest}.log"

@@ -21,7 +21,7 @@ import torch
 from dynamo_tpu_torch.ops.cuda import build
 
 DECODE_MAX_ROWS = 64  # C·G query rows one decode block holds
-SUPPORTED_HEAD_DIMS = (64,)  # the widths csrc/paged_attention.cu is built for
+SUPPORTED_HEAD_DIMS = (64, 128)  # the widths csrc/paged_attention.cu is built for
 
 launch_counts: Dict[str, int] = {"paged_attention_decode": 0, "paged_attention_chunk": 0}
 

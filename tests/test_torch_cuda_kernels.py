@@ -1,7 +1,8 @@
-"""The hand-written CUDA paged-attention kernels against their plain PyTorch
-version, on the card. Marked ``cuda``: they skip where there is no CUDA
-device or no nvcc. On a machine with the card (which has no JAX, so the
-suite's conftest cannot load):
+"""The hand-written CUDA kernels (paged attention, the fused decoder layer,
+the int8 lm-head) against their plain PyTorch versions, on the card.
+Marked ``cuda``: they skip where there is no CUDA device or no nvcc. On a
+machine with the card (which has no JAX, so the suite's conftest cannot
+load):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -11,10 +12,22 @@ outputs round to bf16 (2^-8 relative), so they may differ by one step. The
 outputs are softmax averages of N(0, 1) values, |out| ~ 0.03-0.06 over
 hundreds of keys, where a bf16 step is ~2.4e-4: 2e-3 is a few steps there,
 small enough that an output off by a couple of percent fails.
+
+The fused layer and the int8 head are held to one bf16 step
+(tools.cases.bf16_steps).
 """
 
 import pytest
 import torch
+
+from dynamo_tpu_torch.tools.cases import (
+    LAYER_CASES,
+    bf16_steps,
+    layer_case,
+    make_layer_case,
+    q8_weight,
+    run_layer,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -108,6 +121,93 @@ def test_wrappers_count_launches_and_refuse_what_the_kernel_does_not_take(kernel
     big = _case(1, 9, 16, 2, 64, 16, [0], [9], seed=1)  # C*G = 72 > 64
     with pytest.raises(ValueError):
         kernels.paged_attention_decode(big["q"], big["k"], big["v"], big["tables"], big["start"])
-    wide = _case(1, 1, 8, 2, 128, 16, [5], [1], seed=2)  # built for head_dim 64 only
+    wide = _case(1, 1, 8, 2, 256, 16, [5], [1], seed=2)  # built for head_dim 64 and 128
     with pytest.raises(ValueError):
         kernels.paged_attention_decode(wide["q"], wide["k"], wide["v"], wide["tables"], wide["start"])
+
+
+def test_paged_attention_at_head_dim_128(kernels):
+    """Llama-3-8B attention shapes: KH 8, G 4, D 128 (decode tiles of 128 keys,
+    chunk tiles of 64 x 64)."""
+    from dynamo_tpu_torch.ops.attention import paged_attention_ref
+
+    dec = _case(6, 1, 32, 8, 128, 16, [0, 1, 16, 300, 1023, 1500], [1] * 6, seed=21)
+    out = kernels.paged_attention_decode(dec["q"], dec["k"], dec["v"], dec["tables"], dec["start"])
+    _check(out, paged_attention_ref(dec["q"], dec["k"], dec["v"], dec["tables"], dec["start"],
+                                    dec["lens"]), [1] * 6)
+    ch = _case(3, 100, 32, 8, 128, 16, [0, 37, 512], [100, 64, 1], seed=22)
+    out = kernels.paged_attention_chunk(ch["q"], ch["k"], ch["v"], ch["tables"], ch["start"],
+                                        ch["lens"], window=50, logit_cap=20.0)
+    ref = paged_attention_ref(ch["q"], ch["k"], ch["v"], ch["tables"], ch["start"], ch["lens"],
+                              window=50, logit_cap=20.0)
+    _check(out, ref, [100, 64, 1])
+
+
+# -- fused decoder layer and int8 head ----------------------------------------
+
+
+@pytest.mark.parametrize("name", list(LAYER_CASES))
+def test_fused_layer_kernel_matches_plain(kernels, name):
+    """The kernel against fused_decoder_layer_ref on the same inputs, within
+    one bf16 step (bf16_steps <= 1) — the two differ only in the order of their
+    f32 sums — and bit-for-bit equal to itself on a second run. The 8B case
+    has a row past its table (start 1600 > 94 pages x 16)."""
+    from dynamo_tpu_torch.ops.cuda import fused_layer as kernel
+    from dynamo_tpu_torch.ops.fused_layer import fused_decoder_layer_ref
+
+    c, call = make_layer_case(name, "cuda")
+    kernel.reset_launch_counts()
+    got = run_layer(kernel.fused_decoder_layer, c, call)
+    again = run_layer(kernel.fused_decoder_layer, c, call)
+    ref = run_layer(fused_decoder_layer_ref, c, call)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["fused_decoder_layer"] == 2
+    for label, a, r, a2 in zip(("x_out", "k_new", "v_new"), got, ref, again):
+        assert torch.isfinite(a.float()).all(), label
+        assert torch.equal(a, a2), f"{label} differs between two runs"
+        assert bf16_steps(a, r) <= 1.0, (label, bf16_steps(a, r))
+
+
+@pytest.mark.parametrize("tied,M,K,V", [(False, 16, 4096, 128256), (True, 16, 896, 151936),
+                                        (False, 20, 200, 1008), (True, 3, 200, 77)])
+def test_lm_head_kernel_matches_plain(kernels, tied, M, K, V):
+    """int8 head: the product rounded to bf16 before the scale, as the plain
+    version; they differ by at most one bf16 step of the product (the f32
+    sums may round to neighbouring bf16 values)."""
+    from dynamo_tpu_torch.ops.cuda import lm_head as kernel
+    from dynamo_tpu_torch.ops.quant import lm_head_ref
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    g = torch.Generator(device="cuda").manual_seed(M + K)
+    w = q8_weight(g, V, K, "cuda") if tied else q8_weight(g, K, V, "cuda")
+    if tied:  # per vocab row
+        w["s"] = (torch.rand(V, 1, generator=g, device="cuda") + 0.5) * (K**-0.5 / 73.3)
+    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    kernel.reset_launch_counts()
+    out = kernel.lm_head_int8(x, w["q8"], w["s"], tied=tied)
+    ref = lm_head_ref(x, w, tied=tied)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["lm_head_int8"] == 1
+    assert out.shape == (M, V) and out.dtype == torch.float32
+    err = (out - ref).abs()
+    assert bool((err <= 2.0**-7 * ref.abs() + 1e-5 * ref.abs().max()).all()), float(err.max())
+
+
+def test_fused_and_head_wrappers_refuse_what_the_kernels_do_not_take(kernels):
+    from dynamo_tpu_torch.ops.cuda import fused_layer, lm_head
+
+    c = layer_case(2, 256, 4, 2, 128, 512, [3, 40], device="cuda", seed=9)
+    with pytest.raises(TypeError):  # float32 residual
+        fused_layer.fused_decoder_layer(c["x"].float(), c["cos"], c["sin"], c["lp"], c["k"], c["v"],
+                                        c["tables"], c["start"], eps=1e-5, sm_scale=0.1)
+    narrow = _case(2, 1, 8, 4, 64, 16, [3, 40], [1, 1], seed=3)  # head_dim 64: not built
+    with pytest.raises(ValueError):
+        fused_layer.fused_decoder_layer(c["x"], c["cos"], c["sin"], c["lp"], narrow["k"],
+                                        narrow["v"], c["tables"], c["start"], eps=1e-5, sm_scale=0.1)
+    x = torch.randn(2, 64, device="cuda").to(torch.bfloat16)
+    with pytest.raises(ValueError):  # vocab not a multiple of 16
+        lm_head.lm_head_int8(x, torch.zeros(64, 24, dtype=torch.int8, device="cuda"),
+                             torch.ones(1, 24, device="cuda"), tied=False)
+    with pytest.raises(TypeError):  # float32 hidden states
+        lm_head.lm_head_int8(x.float(), torch.zeros(64, 16, dtype=torch.int8, device="cuda"),
+                             torch.ones(1, 16, device="cuda"), tied=False)
