@@ -36,10 +36,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
    unfused layers.
 8. profile_int8 — one decode burst of the 8B engine: host wall vs device
    busy, idle share, device ops a step, the fused layer's share.
+9. int8kv kernels — parity and timing of the int8-pool paged-attention
+   kernels (D 64: KH 2, G 7; D 128: KH 8, G 4; window and softcap cases) and
+   of the int8 weight-streaming product at the four Llama-3-8B weight shapes
+   (M 16, 32, 64; with and without qeinsum's epilogue).
+10. engine_int8kv — TorchEngine serving Llama-3-8B at full width with int8
+   weights and int8 KV pools (the fused layer off by its gate): 32 slots,
+   32 requests of 256 greedy tokens (prompts of 100-300 tokens, one of
+   1,200, two sharing a 256-token prefix). Both int8-pool attention kernels,
+   the int8 product and the int8 head must have launched, the first two at
+   least once a layer a decode step (seven products a layer a step); a
+   stream is checked against the teacher-forced dense forward.
+11. profile_int8kv — one decode burst of that engine: host wall vs device
+   busy, idle share, device ops a step, the shares of the int8 product and
+   of int8 attention; the burst's launches are exactly 32 x 8 int8 decode
+   attention and 7 x 32 x 8 int8 products.
 
-Then one JSON line {"kernels": [...]} for all four kernels, nvidia-smi's name
-and power limit, and last {"ok": true, "device": {...}}. Without a CUDA
-device it exits 2 and prints no result.
+Then one JSON line {"kernels": [...]} for all seven kernels, nvidia-smi's
+name and power limit, and last {"ok": true, "device": {...}}. Without a
+CUDA device it exits 2 and prints no result.
 """
 
 from __future__ import annotations
@@ -86,18 +101,9 @@ def smi_line() -> str:
 
 
 def make_case(torch, B, C, starts, clens, seed, H=14, KH=2, D=64, BS=16):
-    g = torch.Generator(device=DEV).manual_seed(seed)
-    P = (max(s + C for s in starts) + BS - 1) // BS
-    NB = B * P + 8
-    q = torch.randn(B, C, H, D, generator=g, device=DEV).to(torch.bfloat16)
-    k = torch.randn(NB, BS, KH, D, generator=g, device=DEV).to(torch.bfloat16)
-    v = torch.randn(NB, BS, KH, D, generator=g, device=DEV).to(torch.bfloat16)
-    tables = torch.randperm(NB, generator=g, device=DEV)[: B * P].reshape(B, P).to(torch.int32)
-    return dict(
-        q=q, k=k, v=v, tables=tables,
-        start=torch.tensor(starts, dtype=torch.int32, device=DEV),
-        clens=torch.tensor(clens, dtype=torch.int32, device=DEV),
-    )
+    from dynamo_tpu_torch.tools.cases import attention_case
+
+    return attention_case(B, C, starts, clens, seed, device=DEV, H=H, KH=KH, D=D, BS=BS)
 
 
 def run_kernel(kernels, kind, case, window=0, cap=0.0):
@@ -134,9 +140,19 @@ def compare(torch, out, ref, clens):
 
 
 def time_ms(torch, fn, iters):
+    """Device time of one call: CUDA events around ``iters`` calls. The
+    stream is first held by a sleep kernel longer than the host takes to
+    queue the calls, so a call whose host side (the wrapper's checks and
+    allocations) outlasts its kernel is timed on the device and not at the
+    host's enqueue rate."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t_host = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t_host
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(1.0, 2 * iters * host_s + 1e-3) * 2e9))  # cycles, ~2 GHz
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
@@ -150,12 +166,16 @@ def time_ms(torch, fn, iters):
 def bound(case, window=0):
     """Least time for one call: bytes of the live rows of q and out (rows
     past chunk_lens are padding the kernel need not read or write), the
-    live K/V rows, the table entries and per-row scalars, each moved once;
+    live K/V rows (int8 pools: one byte a value and a float32 scale a token
+    and head), the table entries and per-row scalars, each moved once;
     flops 4·D per visible (row, key). All counted from this case's data."""
+    from dynamo_tpu_torch.ops.kv_quant import pool_values
+
     starts = case["start"].tolist()
     clens = case["clens"].tolist()
     B, _, H, D = case["q"].shape
-    BS, KH = case["k"].shape[1:3]
+    BS, KH = pool_values(case["k"]).shape[1:3]
+    kv_bytes = D + 4 if isinstance(case["k"], dict) else 2 * D  # a token's row of one head
     live_tokens = 0
     pages = 0
     flops = 0
@@ -169,7 +189,7 @@ def bound(case, window=0):
             flops += 4 * D * H * (s + c - lo + 1)
     nbytes = (
         2 * sum(clens) * H * D * 2  # live q rows in, out
-        + 2 * live_tokens * KH * D * 2  # K and V rows
+        + 2 * live_tokens * KH * kv_bytes  # K and V rows
         + pages * 4 + 2 * B * 4  # table entries, start, chunk_lens
     )
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -178,16 +198,19 @@ def bound(case, window=0):
 
 
 def library_call(torch, case):
-    """SDPA over pre-gathered dense K/V with GQA: gathered once outside
-    the timed call."""
+    """SDPA over pre-gathered dense K/V with GQA: gathered (and int8 pools
+    dequantized to bf16) once outside the timed call."""
     import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops.kv_quant import dequantize_pool
 
     q, tables = case["q"], case["tables"].long()
     B, C, _, D = q.shape
-    BS, KH = case["k"].shape[1:3]
+    k_pool, v_pool = dequantize_pool(case["k"]), dequantize_pool(case["v"])
+    BS, KH = k_pool.shape[1:3]
     T = tables.shape[1] * BS
-    k = case["k"][tables].reshape(B, T, KH, D).transpose(1, 2).contiguous()
-    v = case["v"][tables].reshape(B, T, KH, D).transpose(1, 2).contiguous()
+    k = k_pool[tables].reshape(B, T, KH, D).transpose(1, 2).contiguous()
+    v = v_pool[tables].reshape(B, T, KH, D).transpose(1, 2).contiguous()
     qh = q.transpose(1, 2).contiguous()
     t = torch.arange(T, device=DEV)[None, None, :]
     limit = case["start"].long()[:, None, None] + torch.arange(C, device=DEV)[None, :, None]
@@ -244,16 +267,17 @@ def attention_parity(torch, cases) -> dict:
     return worst
 
 
-def attention_timing(torch, dec, chunk) -> dict:
+def attention_timing(torch, dec, chunk, suffix="") -> dict:
     """The decode kernel on ``dec`` and the chunk kernel on ``chunk``: kernel,
-    plain and SDPA times beside the bound."""
+    plain and SDPA times beside the bound. ``suffix``: "_int8" for the
+    int8-pool variants (the cases hold int8 pools)."""
     from dynamo_tpu_torch.ops import attention
     from dynamo_tpu_torch.ops.cuda import paged_attention as kernels
 
     timed = {}
     smi = smi_line()
-    for name, kind, case in (("paged_attention_decode", "decode", dec),
-                             ("paged_attention_chunk", "chunk", chunk)):
+    for name, kind, case in ((f"paged_attention_decode{suffix}", "decode", dec),
+                             (f"paged_attention_chunk{suffix}", "chunk", chunk)):
         ms = time_ms(torch, lambda: run_kernel(kernels, kind, case), 50)
         plain_ms = time_ms(torch, lambda: run_plain(attention, case), 10)
         library_ms = time_ms(torch, library_call(torch, case), 50)
@@ -261,7 +285,8 @@ def attention_timing(torch, dec, chunk) -> dict:
         timed[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=bound_ms, bound_by=bound_by)
         emit({"phase": "timing", "kernel": name, "shape": list(case["q"].shape),
-              **timed[name], "card": smi})
+              "pool": "int8" if isinstance(case["k"], dict) else "bf16", **timed[name],
+              "card": smi})
     return timed
 
 
@@ -407,6 +432,90 @@ def int8_kernel_phases(torch):
     return worst, timed
 
 
+# -- int8 KV: int8-pool attention and the int8 weight-streaming product -----
+
+
+def matmul_bound(M, K, N):
+    """Least time for one epilogue-form product: codes, scales and x read
+    once, bf16 out written once; 2·M·K·N flops at the bf16 peak."""
+    t_bytes = (K * N + 4 * N + 2 * M * K + 2 * M * N) / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * M * K * N / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def int8kv_kernel_phases(torch):
+    """Parity and timing of the int8-pool attention kernels and of the int8
+    product. Returns (worst errors, timings) of the three kernels; the
+    product's timing is one Llama-3-8B layer's seven products at M 32 (the
+    engine_int8kv phase's slots), summed."""
+    from dynamo_tpu_torch.ops.cuda import int8_matmul as mk
+    from dynamo_tpu_torch.ops.quant import int8_matmul_ref
+    from dynamo_tpu_torch.tools.cases import (
+        INT8_ATTENTION_CASES, MATMUL_SHAPES, RAW_RTOL, epilogue_ok, make_int8_attention_case,
+        matmul_case, raw_product_ok,
+    )
+
+    cases = {label: make_int8_attention_case(label, DEV) for label in INT8_ATTENTION_CASES}
+    # The limit of bf16 pools: kernel and plain version read the same codes
+    # and scales and fold the scales in at the same points.
+    worst = attention_parity(torch, [(name, kind, label, case, win, cap)
+                                     for label, (name, kind, case, win, cap) in cases.items()])
+
+    worst["int8_matmul"] = 0.0
+    for label, (K, N, _) in MATMUL_SHAPES.items():
+        for M in (16, 32, 64):
+            c = matmul_case(M, K, N, device=DEV)
+            raw = mk.int8_matmul(c["x"], c["q8"])
+            out = mk.int8_matmul(c["x"], c["q8"], c["s"])
+            again = mk.int8_matmul(c["x"], c["q8"], c["s"])
+            raw_ref = int8_matmul_ref(c["x"], c["q8"])
+            ref = int8_matmul_ref(c["x"], c["q8"], c["s"])
+            torch.cuda.synchronize()
+            raw_err, raw_ok = raw_product_ok(raw, c["x"], c["q8"], raw_ref)
+            err, step_ok = epilogue_ok(out, raw, raw_ref, c["x"], c["q8"], c["s"], ref)
+            same = torch.equal(out, again)
+            ok = raw_ok and step_ok and same and bool(torch.isfinite(raw).all())
+            emit({"phase": "parity", "kernel": "int8_matmul", "case": f"{label} M{M}",
+                  "raw_max_abs_err": raw_err, "max_abs_err": err, "repeatable": same,
+                  "tol": f"raw: {RAW_RTOL}*(|x|@|w|); epilogue: bf16(bf16(raw)*s) exactly, "
+                         "and one bf16 step of the product from the plain version's",
+                  "ok": ok})
+            if not ok:
+                fail(f"int8_matmul ({label} M{M}) disagrees with its plain version: raw {raw_ok}, "
+                     f"epilogue {step_ok}, repeatable {same}")
+            worst["int8_matmul"] = max(worst["int8_matmul"], err, raw_err)
+    reset_counts()  # parity launches do not count
+
+    timed = attention_timing(torch, cases["int8 D128 B32 C1 ragged starts"][2],
+                             cases["int8 D128 B4 C512 start 512 ragged lens"][2], "_int8")
+    smi = smi_line()
+    layer = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for label, (K, N, per_layer) in MATMUL_SHAPES.items():
+        for M in (16, 32, 64):
+            c = matmul_case(M, K, N, device=DEV)
+            x, q8, s = c["x"], c["q8"], c["s"]
+            dq = (q8.float() * s).to(torch.bfloat16)  # dequantised outside the timed call
+            t = dict(ms=time_ms(torch, lambda: mk.int8_matmul(x, q8, s), 50),
+                     plain_ms=time_ms(torch, lambda: int8_matmul_ref(x, q8, s), 10),
+                     library_ms=time_ms(torch, lambda: torch.matmul(x, dq), 50))
+            del dq
+            t["bound_ms"], t["bound_by"] = matmul_bound(M, K, N)
+            emit({"phase": "timing", "kernel": "int8_matmul", "case": f"{label} M{M}", **t,
+                  "weight_bytes": K * N, "library": "torch.matmul over the bf16-dequantised weight",
+                  "card": smi})
+            if M == 32:
+                for key in layer:
+                    layer[key] += per_layer * t[key]
+    bound_by = "bytes" if all(matmul_bound(32, K, N)[1] == "bytes"
+                              for K, N, _ in MATMUL_SHAPES.values()) else "operations"
+    timed["int8_matmul"] = dict(layer, bound_by=bound_by)
+    emit({"phase": "timing", "kernel": "int8_matmul",
+          "case": "one Llama-3-8B layer's seven products, M 32", **timed["int8_matmul"],
+          "card": smi})
+    reset_counts()
+    return worst, timed
+
+
 # -- engine ---------------------------------------------------------------
 
 
@@ -451,9 +560,9 @@ async def drive_engine(torch, engine, prompts, shared, max_tokens):
 
 
 def kernel_modules():
-    from dynamo_tpu_torch.ops.cuda import fused_layer, lm_head, paged_attention
+    from dynamo_tpu_torch.ops.cuda import fused_layer, int8_matmul, lm_head, paged_attention
 
-    return (paged_attention, fused_layer, lm_head)
+    return (paged_attention, fused_layer, lm_head, int8_matmul)
 
 
 def reset_counts() -> None:
@@ -462,20 +571,26 @@ def reset_counts() -> None:
 
 
 def read_counts() -> dict:
-    out = {}
+    from dynamo_tpu_torch.ops.cuda import paged_attention
+
+    out = dict(paged_attention.int8_launch_counts)
     for m in kernel_modules():
         out.update(m.launch_counts)
     return out
 
 
-def engine_phase(torch, smi, cfg, expect, gap_limit, phase, **engine_kw):
+def engine_phase(torch, smi, cfg, expect, gap_limit, phase, *, slots=16, n_short=5,
+                 max_tokens=64, **engine_kw):
     """Serve cfg through TorchEngine.generate(); ``expect``: the kernels
-    this path must launch. Returns (launch counts, engine)."""
+    this path must launch. The request set: two prompts sharing a 256-token
+    prefix, ``n_short`` prompts of 100-300 tokens and one of 1,200, each
+    for ``max_tokens`` greedy tokens. Returns (launch counts, engine,
+    decode steps of the request set)."""
     from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
     from dynamo_tpu_torch.models import llama
 
     args = TorchEngineArgs(
-        config=cfg, block_size=16, num_kv_blocks=2048, max_num_seqs=16,
+        config=cfg, block_size=16, num_kv_blocks=2048, max_num_seqs=slots,
         max_model_len=2048, prefill_chunk=512, seed=0, device=DEV, **engine_kw,
     )
     t0 = time.monotonic()
@@ -486,30 +601,34 @@ def engine_phase(torch, smi, cfg, expect, gap_limit, phase, **engine_kw):
     rand = lambda n: torch.randint(10, cfg.vocab_size, (n,), generator=g).tolist()  # noqa: E731
     prefix = rand(256)
     shared = [prefix + rand(40), prefix + rand(70)]
-    prompts = [rand(n) for n in (100, 140, 180, 230, 300)] + [rand(1200)]
-    max_tokens = 64
+    if n_short == 5:
+        lengths = [100, 140, 180, 230, 300]
+    else:
+        lengths = torch.randint(100, 301, (n_short,), generator=g).tolist()
+    prompts = [rand(n) for n in lengths] + [rand(1200)]
 
     async def run():
         try:
             # Warm-up (first cuBLAS/kernel loads), not measured or counted.
             await drive_engine(torch, engine, [rand(120), rand(700)], [], 16)
             torch.cuda.reset_peak_memory_stats()
-            bursts0 = engine.runner.mk_fused_bursts
+            bursts0, steps0 = engine.runner.mk_fused_bursts, engine.steps
             reset_counts()
             results, wall = await drive_engine(torch, engine, prompts, shared, max_tokens)
             counts = read_counts()
             bursts = engine.runner.mk_fused_bursts - bursts0
+            decode_steps = (engine.steps - steps0) * args.decode_steps
             # A greedy request repeated alone, twice (same cache hits, same
             # shapes): the two must give the same tokens.
             again = []
             for _ in range(2):
                 rs, _ = await drive_engine(torch, engine, [prompts[-2]], [], max_tokens)
                 again.append(rs[0]["tokens"])
-            return results, wall, counts, bursts, again
+            return results, wall, counts, bursts, decode_steps, again
         finally:
             await engine.stop()
 
-    results, wall, counts, bursts, again = asyncio.run(run())
+    results, wall, counts, bursts, decode_steps, again = asyncio.run(run())
     stats = engine.stats()
     for r in results:
         if len(r["tokens"]) != max_tokens or r["reason"] is None or r["reason"].value != "length":
@@ -582,23 +701,25 @@ def engine_phase(torch, smi, cfg, expect, gap_limit, phase, **engine_kw):
         "ttft_ms_mean": 1e3 * sum(ttft) / len(ttft), "ttft_ms_max": 1e3 * max(ttft),
         "itl_ms_mean": 1e3 * sum(itl) / len(itl), "output_tok_per_s": gen / wall,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "fused_bursts": bursts, "launches": counts, "stats": stats, "card": smi,
+        "fused_bursts": bursts, "decode_steps": decode_steps, "launches": counts,
+        "stats": stats, "card": smi,
     })
-    return counts, engine
+    return counts, engine, decode_steps
 
 
-def profile_phase(torch, runner, smi, phase="profile"):
-    """One 8-step decode burst of all 16 slots (contexts 100..1300) through
-    the engine's runner: host wall time, device busy time (sum of kernel
-    durations under torch.profiler; one stream, so kernels do not overlap),
-    the idle share, the kernels that take the most device time, and the
-    share of the fused layer's launches."""
+def profile_phase(torch, runner, smi, phase="profile", ctx_step=80, exact=None):
+    """One 8-step decode burst of every slot (contexts 100, 100 + ctx_step,
+    ...) through the engine's runner: host wall time, device busy time (sum
+    of kernel durations under torch.profiler; one stream, so kernels do not
+    overlap), the idle share, the kernels that take the most device time,
+    and the shares of the fused layer, the int8 product and int8-pool
+    attention. ``exact``: launch counts the profiled burst must show."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     S, BS = runner.args.max_num_seqs, runner.args.block_size
-    pos = np.array([100 + 80 * i for i in range(S)], np.int32)
+    pos = np.array([100 + ctx_step * i for i in range(S)], np.int32)
     width = int(pos.max() + 2 * runner.args.decode_steps) // BS + 1
     burst = (
         np.ones(S, np.int32), pos, np.ones(S, np.int32),
@@ -613,8 +734,14 @@ def profile_phase(torch, runner, smi, phase="profile"):
         runner.run_decode(*burst)
         walls.append(1e3 * (time.monotonic() - t0))
     wall_ms = sorted(walls)[len(walls) // 2]
+    reset_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         runner.run_decode(*burst)
+    counts = read_counts()
+    reset_counts()
+    for name, want in (exact or {}).items():
+        if counts[name] != want:
+            fail(f"{phase}: {name} launched {counts[name]} times in one burst, expected {want}")
     by_name = {}
     n_kernels = 0
     for e in prof.events():
@@ -627,12 +754,17 @@ def profile_phase(torch, runner, smi, phase="profile"):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     attn = sum(v for k, v in by_name.items() if "paged_attention" in k)
     fused = sum(v for k, v in by_name.items() if "fused_layer" in k)
+    matmul = sum(v for k, v in by_name.items() if "int8_matmul" in k)
+    attn8 = sum(v for k, v in by_name.items() if "paged_attention" in k and "Int8Pool" in k)
     emit({"phase": phase, "what": "one decode burst", "model": runner.config.name,
-          "steps": runner.args.decode_steps, "rows": S, "wall_ms": wall_ms,
-          "wall_ms_min": min(walls), "device_busy_ms": busy_ms,
+          "steps": runner.args.decode_steps, "rows": S, "contexts": [int(pos[0]), int(pos[-1])],
+          "wall_ms": wall_ms, "wall_ms_min": min(walls), "device_busy_ms": busy_ms,
+          "device_busy_ms_per_step": busy_ms / runner.args.decode_steps,
           "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
           "attention_ms": attn, "fused_layer_ms": fused, "fused_layer_share": fused / busy_ms,
-          "device_ops_per_step": n_kernels / runner.args.decode_steps,
+          "int8_matmul_ms": matmul, "int8_matmul_share": matmul / busy_ms,
+          "int8_attention_ms": attn8, "int8_attention_share": attn8 / busy_ms,
+          "device_ops_per_step": n_kernels / runner.args.decode_steps, "launches": counts,
           "top_ms": [[k[:60], v] for k, v in top], "card": smi})
 
 
@@ -671,7 +803,7 @@ def main() -> int:
 
     from dynamo_tpu_torch.models.config import llama3_8b_config, qwen2_500m_config
 
-    counts, engine = engine_phase(torch, smi, qwen2_500m_config(),
+    counts, engine, _ = engine_phase(torch, smi, qwen2_500m_config(),
                                   ("paged_attention_decode", "paged_attention_chunk"), 1.0,
                                   "engine")
     profile_phase(torch, engine.runner, smi)
@@ -682,27 +814,66 @@ def main() -> int:
     # Random weights give logits ~ N(0, 1); the dense check's layers round
     # q/k/v to bf16 where the fused layer keeps f32, which moves logits by a
     # few hundredths, so a chosen token may trail the dense argmax by that.
-    counts8, engine = engine_phase(torch, smi, llama3_8b_config(),
+    counts8, engine, _ = engine_phase(torch, smi, llama3_8b_config(),
                                    ("fused_decoder_layer", "lm_head_int8",
                                     "paged_attention_chunk"), 0.5, "engine_int8",
                                    quantization="int8")
     if not engine.runner.use_megakernel:
         fail("the fused layer's gate did not turn it on for Llama-3-8B int8")
     profile_phase(torch, engine.runner, smi, "profile_int8")
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    worst8kv, timed8kv = int8kv_kernel_phases(torch)
+    worst.update(worst8kv)
+    timed.update(timed8kv)
+    # Llama-3-8B, int8 weights and int8 KV pools: the gate turns the fused
+    # layer off, so every layer runs unfused — the int8-pool attention
+    # kernels and seven int8 products a layer. The dense check's reference
+    # takes the first-chunk path over bf16 pools, so its gap includes the
+    # int8-KV error; the 8B limit stays 0.5.
+    counts8kv, engine, steps8kv = engine_phase(
+        torch, smi, llama3_8b_config(),
+        ("paged_attention_decode_int8", "paged_attention_chunk_int8", "int8_matmul",
+         "lm_head_int8"), 0.5, "engine_int8kv", slots=32, n_short=29, max_tokens=256,
+        quantization="int8", kv_cache_dtype="int8")
+    cfg8 = engine.config
+    if engine.runner.use_megakernel or engine.stats()["mk_fused_bursts"]:
+        fail("the fused layer ran under int8 KV pools")
+    if counts8kv["paged_attention_decode_int8"] < cfg8.n_layers * steps8kv:
+        fail(f"paged_attention_decode_int8 launched {counts8kv['paged_attention_decode_int8']} "
+             f"times, fewer than {cfg8.n_layers} layers x {steps8kv} decode steps")
+    if counts8kv["int8_matmul"] < 7 * cfg8.n_layers * steps8kv:
+        fail(f"int8_matmul launched {counts8kv['int8_matmul']} times, fewer than 7 x "
+             f"{cfg8.n_layers} layers x {steps8kv} decode steps")
+    steps = engine.args.decode_steps
+    profile_phase(torch, engine.runner, smi, "profile_int8kv", ctx_step=25, exact={
+        "paged_attention_decode_int8": cfg8.n_layers * steps,
+        "int8_matmul": 7 * cfg8.n_layers * steps, "lm_head_int8": steps,
+        "fused_decoder_layer": 0})
+
     sources = {"paged_attention_decode": "paged_attention.cu",
                "paged_attention_chunk": "paged_attention.cu",
-               "fused_decoder_layer": "fused_layer.cu", "lm_head_int8": "lm_head_int8.cu"}
+               "fused_decoder_layer": "fused_layer.cu", "lm_head_int8": "lm_head_int8.cu",
+               "paged_attention_decode_int8": "paged_attention.cu",
+               "paged_attention_chunk_int8": "paged_attention.cu",
+               "int8_matmul": "int8_matmul.cu"}
     replaces = {
         "paged_attention_decode": "dynamo_tpu/ops/pallas/paged_attention.py:288",
         "paged_attention_chunk": "dynamo_tpu/ops/pallas/paged_attention.py:416",
         "fused_decoder_layer": "dynamo_tpu/ops/pallas/fused_layer.py:712",
         "lm_head_int8": "_prof_head.py:33",
+        "paged_attention_decode_int8": "dynamo_tpu/ops/pallas/paged_attention.py:288",
+        "paged_attention_chunk_int8": "dynamo_tpu/ops/pallas/paged_attention.py:416",
+        "int8_matmul": "_prof_stream.py:56",
     }
-    # launches: both main paths (Qwen2.5-0.5B bf16, Llama-3-8B int8)
+    # launches: the three main paths (Qwen2.5-0.5B bf16, Llama-3-8B int8,
+    # Llama-3-8B int8 with int8 KV)
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{sources[n]}",
-         "replaces": replaces[n], "launches": counts[n] + counts8[n], "max_abs_err": worst[n],
-         **timed[n]}
+         "replaces": replaces[n], "launches": counts[n] + counts8[n] + counts8kv[n],
+         "max_abs_err": worst[n], **timed[n]}
         for n in sources
     ]})
     print(smi, flush=True)

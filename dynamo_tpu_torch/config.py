@@ -1,0 +1,34 @@
+"""Environment knobs the port reads — copies of the JAX package's entries
+in dynamo_tpu/config.py, with the same names, defaults and parsing: a
+knob's value is read from the environment when ``get()`` is called, and an
+unset or unparsable value gives the default."""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Any, Callable
+
+
+@dataclass(frozen=True)
+class EnvVar:
+    name: str
+    default: Any
+    parser: Callable[[str], Any]
+    doc: str
+
+    def get(self) -> Any:
+        raw = os.environ.get(self.name)
+        if raw is None:
+            return self.default
+        try:
+            return self.parser(raw)
+        except (ValueError, TypeError):
+            return self.default
+
+
+KV_QUANT_AUTO_CTX = EnvVar(
+    "DYN_TPU_KV_QUANT_AUTO_CTX", 512, int,
+    "kv_cache_dtype='auto': quantize the KV cache to int8 when max_model_len "
+    "reaches this (dynamo_tpu/config.py:153)",
+)

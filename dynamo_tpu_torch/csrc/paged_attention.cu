@@ -1,10 +1,11 @@
-// Paged attention over a bf16 block pool, for Hopper (sm_90a).
+// Paged attention over a bf16 or an int8 block pool, for Hopper (sm_90a).
 //
-// Replaces the two TPU kernels of dynamo_tpu/ops/pallas/paged_attention.py:
-//   * paged_attention_decode_bf16 <- _paged_attention_decode_kernel_impl
+// Replaces the two TPU kernels of dynamo_tpu/ops/pallas/paged_attention.py,
+// each for both pool types the TPU kernels take:
+//   * paged_attention_decode_{bf16,int8} <- _paged_attention_decode_kernel_impl
 //     (body _decode_kernel): C <= 8 query tokens per sequence, C*G <= 64.
 //     One thread block per (sequence b, KV head h).
-//   * paged_attention_chunk_bf16  <- _paged_attention_kernel_impl
+//   * paged_attention_chunk_{bf16,int8}  <- _paged_attention_kernel_impl
 //     (body _kernel): any C, ragged chunk_lens. A grid of
 //     (B, KH, ceil(C*G / 64)) blocks, each holding up to 64 query rows of
 //     one (b, h); rows are (c, g) pairs, c-major, as the Pallas kernels
@@ -37,14 +38,28 @@
 //     once at the end.
 //   * 64-row layout (chunks, and decode with 8 < C*G <= 64): 64-key tiles;
 //     a thread scores 4 rows x 4 keys and accumulates 4 rows x D/16 columns.
+//
+// int8 pools (the `quantized` branch of both TPU kernels; layout of
+// ops/kv_quant.py): codes int8 [NB, BS, KH, D] and one float32 scale per
+// (block, head, slot), [NB, KH, BS]. The pool type is a template
+// parameter of the one kernel. A tile's codes are loaded as int8 (16 to a
+// 16-byte load: half the bytes of a bf16 tile) and converted once, exactly,
+// to bf16 as they are stored in shared memory, so the math below reads the
+// same staged tile as for bf16 pools; the tile's scales come by a second,
+// strided load (one key a thread: the scales run [KH, BS] within a block,
+// not along the codes). The scales are folded in the TPU kernel's order:
+// scores x= s_k[t] after sm_scale and before the softcap; probabilities
+// x= s_v[t] after the row sum l and before P.V (paged_attention.py:139-150).
+//
 // Left for later PRs: split-K over pages (flash-decoding) so a small batch
 // fills all 132 SMs (one block per (b, h) walks its tiles in series), mma /
-// wgmma for the products, TMA/cp.async page streaming, and the int8 pool
-// variant.
+// wgmma for the products, TMA/cp.async page streaming.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "int8_gemv.cuh"  // int8x4_to_bf16x4: the exact int8 -> bf16 convert
 
 namespace {
 
@@ -53,7 +68,18 @@ constexpr int kMaxRows = 64;  // query rows per block, at most
 constexpr int kVec = 8;       // bf16 per 16-byte load
 constexpr float kNegInf = -1e30f;
 
-template <int D, int ROWS, int TILE>
+// What a pool holds: bf16 values, or int8 codes with a float32 scale per
+// token and head.
+struct Bf16Pool {
+  using T = __nv_bfloat16;
+  static constexpr bool kScaled = false;
+};
+struct Int8Pool {
+  using T = int8_t;
+  static constexpr bool kScaled = true;
+};
+
+template <typename POOL, int D, int ROWS, int TILE>
 struct Layout {
   static constexpr bool kSmall = ROWS <= 8;
   static_assert(kThreads % TILE == 0, "a tile has at most kThreads keys");
@@ -64,9 +90,13 @@ struct Layout {
   static constexpr size_t kKvBytes = size_t(TILE) * kKvStride * sizeof(__nv_bfloat16);
   static constexpr size_t kPBytes = size_t(ROWS) * kPStride * sizeof(float);
   static constexpr size_t kStatBytes = 3 * ROWS * sizeof(float);
-  static constexpr size_t kTotal = kQBytes + 2 * kKvBytes + kPBytes + kStatBytes;
-  static constexpr int kVecPerRow = D / kVec;
+  // int8 pools: the tile's K and V scales
+  static constexpr size_t kScaleBytes = POOL::kScaled ? 2 * TILE * sizeof(float) : 0;
+  static constexpr size_t kTotal = kQBytes + 2 * kKvBytes + kPBytes + kStatBytes + kScaleBytes;
+  static constexpr int kPerLoad = 16 / sizeof(typename POOL::T);  // pool values a 16-byte load
+  static constexpr int kVecPerRow = D / kPerLoad;
   static constexpr int kLoads = TILE * kVecPerRow / kThreads;  // 16-byte loads per thread
+  static_assert(TILE * kVecPerRow % kThreads == 0, "a tile is whole 16-byte loads a thread");
   static constexpr int kKeysPerLane = TILE / 32;                // softmax phase
   // Decode layout. Scores: thread (srg, st) scores key st against rows
   // srg, srg + kRowGroups, ... P.V: thread (kg, cp) owns columns 2cp, 2cp+1
@@ -85,35 +115,73 @@ struct Layout {
   static constexpr int kCols = D / 16;
 };
 
-// One tile's K and V rows for this thread, into registers. Pages outside
+// One tile's K and V rows for this thread, into registers, and with int8
+// pools the scales of key `tid` of the tile. Pages outside
 // [first_page, last_page] (and table entries out of range) read as zeros;
 // their keys are masked.
-template <int D, int ROWS, int TILE>
+template <typename POOL, int D, int ROWS, int TILE>
 __device__ __forceinline__ void load_tile(
-    uint4 (&kreg)[Layout<D, ROWS, TILE>::kLoads], uint4 (&vreg)[Layout<D, ROWS, TILE>::kLoads],
-    const __nv_bfloat16* __restrict__ k_cache, const __nv_bfloat16* __restrict__ v_cache,
+    uint4 (&kreg)[Layout<POOL, D, ROWS, TILE>::kLoads],
+    uint4 (&vreg)[Layout<POOL, D, ROWS, TILE>::kLoads], float& ksreg, float& vsreg,
+    const typename POOL::T* __restrict__ k_cache, const float* __restrict__ k_scale,
+    const typename POOL::T* __restrict__ v_cache, const float* __restrict__ v_scale,
     const int32_t* __restrict__ table_row, int tile, int tid, int first_page, int last_page,
     int NB, int BS, int KH, int h) {
-  using L = Layout<D, ROWS, TILE>;
+  using L = Layout<POOL, D, ROWS, TILE>;
+  auto block_of = [&](int kp) {  // the pool block of key position kp, or -1
+    const int page = kp / BS;
+    if (page < first_page || page > last_page) return -1;
+    const int blk = table_row[page];
+    return blk >= 0 && blk < NB ? blk : -1;
+  };
 #pragma unroll
   for (int i = 0; i < L::kLoads; ++i) {
     const int vec = tid + i * kThreads;
-    const int t = vec / L::kVecPerRow;
-    const int kp = tile * TILE + t;
-    const int page = kp / BS;
+    const int kp = tile * TILE + vec / L::kVecPerRow;
+    const int blk = block_of(kp);
     uint4 kz = make_uint4(0, 0, 0, 0);
     uint4 vz = kz;
-    if (page >= first_page && page <= last_page) {
-      const int blk = table_row[page];
-      if (blk >= 0 && blk < NB) {
-        const size_t off =
-            ((size_t(blk) * BS + kp % BS) * KH + h) * D + (vec % L::kVecPerRow) * kVec;
-        kz = __ldg(reinterpret_cast<const uint4*>(k_cache + off));
-        vz = __ldg(reinterpret_cast<const uint4*>(v_cache + off));
-      }
+    if (blk >= 0) {
+      const size_t off =
+          ((size_t(blk) * BS + kp % BS) * KH + h) * D + (vec % L::kVecPerRow) * L::kPerLoad;
+      kz = __ldg(reinterpret_cast<const uint4*>(k_cache + off));
+      vz = __ldg(reinterpret_cast<const uint4*>(v_cache + off));
     }
     kreg[i] = kz;
     vreg[i] = vz;
+  }
+  if constexpr (POOL::kScaled) {
+    ksreg = vsreg = 0.f;
+    const int kp = tile * TILE + tid;
+    const int blk = tid < TILE ? block_of(kp) : -1;
+    if (blk >= 0) {
+      const size_t off = (size_t(blk) * KH + h) * BS + kp % BS;
+      ksreg = __ldg(k_scale + off);
+      vsreg = __ldg(v_scale + off);
+    }
+  }
+}
+
+// A tile's registers into shared memory: bf16 as loaded, int8 codes
+// converted to bf16 (16 codes -> 32 bytes).
+template <typename POOL, int D, int ROWS, int TILE>
+__device__ __forceinline__ void store_tile(const uint4 (&reg)[Layout<POOL, D, ROWS, TILE>::kLoads],
+                                           __nv_bfloat16* dst, int tid) {
+  using L = Layout<POOL, D, ROWS, TILE>;
+#pragma unroll
+  for (int i = 0; i < L::kLoads; ++i) {
+    const int vec = tid + i * kThreads;
+    const int off = (vec / L::kVecPerRow) * L::kKvStride + (vec % L::kVecPerRow) * L::kPerLoad;
+    if constexpr (POOL::kScaled) {
+      const uint2 p0 = int8_gemv::int8x4_to_bf16x4(reg[i].x);
+      const uint2 p1 = int8_gemv::int8x4_to_bf16x4(reg[i].y);
+      const uint2 p2 = int8_gemv::int8x4_to_bf16x4(reg[i].z);
+      const uint2 p3 = int8_gemv::int8x4_to_bf16x4(reg[i].w);
+      reinterpret_cast<uint4*>(dst + off)[0] = make_uint4(p0.x, p0.y, p1.x, p1.y);
+      reinterpret_cast<uint4*>(dst + off)[1] = make_uint4(p2.x, p2.y, p3.x, p3.y);
+    } else {
+      *reinterpret_cast<uint4*>(dst + off) = reg[i];
+    }
   }
 }
 
@@ -127,18 +195,20 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& raw, float (&f)[kVe
   }
 }
 
-template <int D, int ROWS, int TILE>
+template <typename POOL, int D, int ROWS, int TILE>
 __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
-    const __nv_bfloat16* __restrict__ q,        // [B, C, H, D]
-    const __nv_bfloat16* __restrict__ k_cache,  // [NB, BS, KH, D]
-    const __nv_bfloat16* __restrict__ v_cache,  // [NB, BS, KH, D]
-    const int32_t* __restrict__ block_tables,   // [B, P]
+    const __nv_bfloat16* __restrict__ q,          // [B, C, H, D]
+    const typename POOL::T* __restrict__ k_cache,  // [NB, BS, KH, D]
+    const float* __restrict__ k_scale,             // [NB, KH, BS] (int8 pools), or null
+    const typename POOL::T* __restrict__ v_cache,  // [NB, BS, KH, D]
+    const float* __restrict__ v_scale,             // [NB, KH, BS] (int8 pools), or null
+    const int32_t* __restrict__ block_tables,      // [B, P]
     const int32_t* __restrict__ start_pos,      // [B]
     const int32_t* __restrict__ chunk_lens,     // [B], or null: every row valid
     __nv_bfloat16* __restrict__ out,            // [B, C, H, D]
     int C, int H, int KH, int NB, int BS, int P, int window, float sm_scale,
     float logit_cap) {
-  using L = Layout<D, ROWS, TILE>;
+  using L = Layout<POOL, D, ROWS, TILE>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + L::kQBytes);
@@ -147,6 +217,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   float* m_s = ps + ROWS * L::kPStride;
   float* l_s = m_s + ROWS;
   float* a_s = l_s + ROWS;
+  float* ks_s = a_s + ROWS;  // int8 pools: the tile's key scales, then value scales
+  float* vs_s = ks_s + TILE;
 
   const int b = blockIdx.x;
   const int h = blockIdx.y;
@@ -190,8 +262,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int tile_first = first_page * BS / TILE;
   const int n_tiles = first_page <= last_page ? last_page * BS / TILE - tile_first + 1 : 0;
 
-  auto score = [&](float s, int rr, int kp) {  // scale, softcap, masks
+  auto score = [&](float s, int rr, int kp, int t) {  // scale, softcap, masks; t: key in tile
     s *= sm_scale;
+    if constexpr (POOL::kScaled) s *= ks_s[t];
     if (logit_cap > 0.f) s = logit_cap * tanhf(s / logit_cap);
     const int limit = start + (r0 + rr) / G;
     const bool visible = kp <= limit && kp < key_end && (window <= 0 || kp > limit - window);
@@ -220,25 +293,29 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 
   uint4 kreg[L::kLoads];
   uint4 vreg[L::kLoads];
+  float ksreg = 0.f, vsreg = 0.f;
   if (n_tiles > 0)
-    load_tile<D, ROWS, TILE>(kreg, vreg, k_cache, v_cache, table_row, tile_first, tid,
-                             first_page, last_page, NB, BS, KH, h);
+    load_tile<POOL, D, ROWS, TILE>(kreg, vreg, ksreg, vsreg, k_cache, k_scale, v_cache, v_scale,
+                                   table_row, tile_first, tid, first_page, last_page, NB, BS, KH,
+                                   h);
   __syncthreads();
 
   for (int it = 0; it < n_tiles; ++it) {
     const int tile = tile_first + it;
-    __syncthreads();  // the previous tile's P.V is done with ks/vs/ps
-#pragma unroll
-    for (int i = 0; i < L::kLoads; ++i) {
-      const int vec = tid + i * kThreads;
-      const int off = (vec / L::kVecPerRow) * L::kKvStride + (vec % L::kVecPerRow) * kVec;
-      *reinterpret_cast<uint4*>(ks + off) = kreg[i];
-      *reinterpret_cast<uint4*>(vs + off) = vreg[i];
+    __syncthreads();  // the previous tile's P.V is done with ks/vs/ps and the scales
+    store_tile<POOL, D, ROWS, TILE>(kreg, ks, tid);
+    store_tile<POOL, D, ROWS, TILE>(vreg, vs, tid);
+    if constexpr (POOL::kScaled) {
+      if (tid < TILE) {
+        ks_s[tid] = ksreg;
+        vs_s[tid] = vsreg;
+      }
     }
     __syncthreads();
     if (it + 1 < n_tiles)  // in flight during this tile's math
-      load_tile<D, ROWS, TILE>(kreg, vreg, k_cache, v_cache, table_row, tile + 1, tid,
-                               first_page, last_page, NB, BS, KH, h);
+      load_tile<POOL, D, ROWS, TILE>(kreg, vreg, ksreg, vsreg, k_cache, k_scale, v_cache, v_scale,
+                                     table_row, tile + 1, tid, first_page, last_page, NB, BS,
+                                     KH, h);
 
     // Scores into ps.
     if constexpr (L::kSmall) {
@@ -263,7 +340,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 #pragma unroll
       for (int j = 0; j < L::kScoreRows; ++j) {
         const int rr = srg + j * L::kRowGroups;
-        if (rr < nrows) ps[rr * L::kPStride + st] = score(s_acc[j], rr, tile * TILE + st);
+        if (rr < nrows) ps[rr * L::kPStride + st] = score(s_acc[j], rr, tile * TILE + st, st);
       }
     } else {
       float s4[4][4];
@@ -294,7 +371,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
         if (rr < nrows) {
 #pragma unroll
           for (int j = 0; j < 4; ++j)
-            ps[rr * L::kPStride + cg + 16 * j] = score(s4[i][j], rr, tile * TILE + cg + 16 * j);
+            ps[rr * L::kPStride + cg + 16 * j] =
+                score(s4[i][j], rr, tile * TILE + cg + 16 * j, cg + 16 * j);
         }
       }
     }
@@ -318,8 +396,11 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
 #pragma unroll
       for (int i = 0; i < L::kKeysPerLane; ++i) {
         const float p = expf(sv[i] - m_new);
-        prow[lane + 32 * i] = p;
-        sum += p;
+        sum += p;  // the row sum takes the unscaled probabilities
+        if constexpr (POOL::kScaled)
+          prow[lane + 32 * i] = p * vs_s[lane + 32 * i];
+        else
+          prow[lane + 32 * i] = p;
       }
 #pragma unroll
       for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
@@ -423,53 +504,57 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   }
 }
 
-template <int D, int ROWS, int TILE>
-cudaError_t launch(const void* q, const void* k, const void* v, const void* tables,
-                   const void* start, const void* clens, void* out, int B, int C, int H,
-                   int KH, int NB, int BS, int P, int window, float sm_scale,
+template <typename POOL, int D, int ROWS, int TILE>
+cudaError_t launch(const void* q, const void* k, const void* ks, const void* v, const void* vs,
+                   const void* tables, const void* start, const void* clens, void* out, int B,
+                   int C, int H, int KH, int NB, int BS, int P, int window, float sm_scale,
                    float logit_cap, cudaStream_t stream) {
-  const size_t smem = Layout<D, ROWS, TILE>::kTotal;
-  cudaError_t err = cudaFuncSetAttribute(paged_attention_kernel<D, ROWS, TILE>,
+  using T = typename POOL::T;
+  const size_t smem = Layout<POOL, D, ROWS, TILE>::kTotal;
+  cudaError_t err = cudaFuncSetAttribute(paged_attention_kernel<POOL, D, ROWS, TILE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
   if (err != cudaSuccess) return err;
   const int row_blocks = (C * (H / KH) + ROWS - 1) / ROWS;
   const dim3 grid(B, KH, row_blocks);
-  paged_attention_kernel<D, ROWS, TILE><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int32_t*>(tables),
-      static_cast<const int32_t*>(start), static_cast<const int32_t*>(clens),
-      static_cast<__nv_bfloat16*>(out), C, H, KH, NB, BS, P, window, sm_scale, logit_cap);
+  paged_attention_kernel<POOL, D, ROWS, TILE><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
+      static_cast<const float*>(ks), static_cast<const T*>(v), static_cast<const float*>(vs),
+      static_cast<const int32_t*>(tables), static_cast<const int32_t*>(start),
+      static_cast<const int32_t*>(clens), static_cast<__nv_bfloat16*>(out), C, H, KH, NB, BS, P,
+      window, sm_scale, logit_cap);
   return cudaGetLastError();
 }
 
 // small: the decode layout (<= 8 rows); otherwise the 64-row layout.
-template <int D>
-cudaError_t launch_d(bool small, const void* q, const void* k, const void* v,
-                     const void* tables, const void* start, const void* clens, void* out,
-                     int B, int C, int H, int KH, int NB, int BS, int P, int window,
+template <typename POOL, int D>
+cudaError_t launch_d(bool small, const void* q, const void* k, const void* ks, const void* v,
+                     const void* vs, const void* tables, const void* start, const void* clens,
+                     void* out, int B, int C, int H, int KH, int NB, int BS, int P, int window,
                      float sm_scale, float logit_cap, cudaStream_t s) {
   if (small)
-    return launch<D, 8, 16384 / D>(q, k, v, tables, start, clens, out, B, C, H, KH, NB, BS, P,
-                                   window, sm_scale, logit_cap, s);
-  return launch<D, kMaxRows, 64>(q, k, v, tables, start, clens, out, B, C, H, KH, NB, BS, P,
-                                 window, sm_scale, logit_cap, s);
+    return launch<POOL, D, 8, 16384 / D>(q, k, ks, v, vs, tables, start, clens, out, B, C, H, KH,
+                                         NB, BS, P, window, sm_scale, logit_cap, s);
+  return launch<POOL, D, kMaxRows, 64>(q, k, ks, v, vs, tables, start, clens, out, B, C, H, KH,
+                                       NB, BS, P, window, sm_scale, logit_cap, s);
 }
 
-cudaError_t dispatch(bool small, const void* q, const void* k, const void* v,
-                     const void* tables, const void* start, const void* clens, void* out,
-                     int B, int C, int H, int KH, int D, int NB, int BS, int P, int window,
-                     float sm_scale, float logit_cap, void* stream) {
+template <typename POOL>
+cudaError_t dispatch(bool small, const void* q, const void* k, const void* ks, const void* v,
+                     const void* vs, const void* tables, const void* start, const void* clens,
+                     void* out, int B, int C, int H, int KH, int D, int NB, int BS, int P,
+                     int window, float sm_scale, float logit_cap, void* stream) {
   if (B <= 0 || C <= 0 || KH <= 0 || H % KH != 0 || BS <= 0 || 64 % BS != 0 || P <= 0)
     return cudaErrorInvalidValue;
+  if (POOL::kScaled && (ks == nullptr || vs == nullptr)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // Built for head_dim 64 (Qwen2.5-0.5B) and 128 (Llama-3-8B); other widths
   // are refused. At D = 128 the decode layout takes tiles of 128 keys.
   if (D == 64)
-    return launch_d<64>(small, q, k, v, tables, start, clens, out, B, C, H, KH, NB, BS, P, window,
-                        sm_scale, logit_cap, s);
+    return launch_d<POOL, 64>(small, q, k, ks, v, vs, tables, start, clens, out, B, C, H, KH, NB,
+                              BS, P, window, sm_scale, logit_cap, s);
   if (D == 128)
-    return launch_d<128>(small, q, k, v, tables, start, clens, out, B, C, H, KH, NB, BS, P,
-                         window, sm_scale, logit_cap, s);
+    return launch_d<POOL, 128>(small, q, k, ks, v, vs, tables, start, clens, out, B, C, H, KH,
+                               NB, BS, P, window, sm_scale, logit_cap, s);
   return cudaErrorInvalidValue;
 }
 
@@ -482,8 +567,8 @@ extern "C" int paged_attention_decode_bf16(const void* q, const void* k, const v
                                            int P, int window, float sm_scale, float logit_cap,
                                            void* stream) {
   if (KH <= 0 || C * (H / KH) > kMaxRows) return cudaErrorInvalidValue;
-  return dispatch(C * (H / KH) <= 8, q, k, v, tables, start, nullptr, out, B, C, H, KH, D, NB,
-                  BS, P, window, sm_scale, logit_cap, stream);
+  return dispatch<Bf16Pool>(C * (H / KH) <= 8, q, k, nullptr, v, nullptr, tables, start, nullptr,
+                            out, B, C, H, KH, D, NB, BS, P, window, sm_scale, logit_cap, stream);
 }
 
 extern "C" int paged_attention_chunk_bf16(const void* q, const void* k, const void* v,
@@ -493,6 +578,28 @@ extern "C" int paged_attention_chunk_bf16(const void* q, const void* k, const vo
                                           int window, float sm_scale, float logit_cap,
                                           void* stream) {
   if (KH <= 0 || chunk_lens == nullptr) return cudaErrorInvalidValue;
-  return dispatch(false, q, k, v, tables, start, chunk_lens, out, B, C, H, KH, D, NB, BS, P,
-                  window, sm_scale, logit_cap, stream);
+  return dispatch<Bf16Pool>(false, q, k, nullptr, v, nullptr, tables, start, chunk_lens, out, B,
+                            C, H, KH, D, NB, BS, P, window, sm_scale, logit_cap, stream);
+}
+
+// int8 pools: k8/v8 int8 [NB, BS, KH, D], ks/vs float32 [NB, KH, BS].
+extern "C" int paged_attention_decode_int8(const void* q, const void* k8, const void* ks,
+                                           const void* v8, const void* vs, const void* tables,
+                                           const void* start, void* out, int B, int C, int H,
+                                           int KH, int D, int NB, int BS, int P, int window,
+                                           float sm_scale, float logit_cap, void* stream) {
+  if (KH <= 0 || C * (H / KH) > kMaxRows) return cudaErrorInvalidValue;
+  return dispatch<Int8Pool>(C * (H / KH) <= 8, q, k8, ks, v8, vs, tables, start, nullptr, out, B,
+                            C, H, KH, D, NB, BS, P, window, sm_scale, logit_cap, stream);
+}
+
+extern "C" int paged_attention_chunk_int8(const void* q, const void* k8, const void* ks,
+                                          const void* v8, const void* vs, const void* tables,
+                                          const void* start, const void* chunk_lens, void* out,
+                                          int B, int C, int H, int KH, int D, int NB, int BS,
+                                          int P, int window, float sm_scale, float logit_cap,
+                                          void* stream) {
+  if (KH <= 0 || chunk_lens == nullptr) return cudaErrorInvalidValue;
+  return dispatch<Int8Pool>(false, q, k8, ks, v8, vs, tables, start, chunk_lens, out, B, C, H,
+                            KH, D, NB, BS, P, window, sm_scale, logit_cap, stream);
 }

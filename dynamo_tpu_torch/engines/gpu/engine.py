@@ -83,6 +83,10 @@ class TorchEngineArgs:
     # Fused-layer decode (ops/fused_layer.py): None = on when the config is
     # eligible and the device is cuda; True on an ineligible config raises.
     use_megakernel: Optional[bool] = None
+    # KV pools: None = the model dtype; "int8" = int8 pools with per-token
+    # scales (ops/kv_quant.py); "auto" = int8 at long max_model_len or under
+    # pool pressure (resolved in place by DeviceRunner, as the JAX runner).
+    kv_cache_dtype: Optional[str] = None
 
     @property
     def max_blocks_per_seq(self) -> int:

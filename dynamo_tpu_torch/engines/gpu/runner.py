@@ -16,6 +16,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from dynamo_tpu_torch import config as knobs
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.quantize import init_quantized_params, quantize_params
@@ -30,6 +31,11 @@ class DeviceRunner:
         self.device = resolve_device(args.device)
         if args.quantization not in (None, "int8"):
             raise ValueError(f"unsupported quantization {args.quantization!r} (int8 only)")
+        if args.kv_cache_dtype not in (None, "int8", "auto"):
+            raise ValueError(f"unsupported kv_cache_dtype {args.kv_cache_dtype!r} "
+                             "(None, 'int8' or 'auto')")
+        if args.kv_cache_dtype == "auto":
+            args.kv_cache_dtype = self._resolve_auto_kv_dtype(args)
         if params is None:
             params = (
                 init_quantized_params(self.config, args.seed, self.device)
@@ -42,7 +48,8 @@ class DeviceRunner:
         self.use_megakernel = self._megakernel_gate()
         self.mk_fused_bursts = 0  # decode bursts run through the fused layer
         self.k_cache, self.v_cache = llama.init_kv_cache(
-            self.config, args.num_kv_blocks, args.block_size, self.device
+            self.config, args.num_kv_blocks, args.block_size, self.device,
+            kv_dtype=args.kv_cache_dtype,
         )
         # One fixed sampling seed; per-row noise is keyed (seed, sequence
         # salt, token index), never by dispatch order (ops/sampling.py).
@@ -50,6 +57,18 @@ class DeviceRunner:
         # Decode rows whose logits held a NaN/inf (active rows only); the
         # smoke run on the card asserts it stays 0.
         self.nonfinite_rows = 0
+
+    @staticmethod
+    def _resolve_auto_kv_dtype(args: Any) -> Optional[str]:
+        """``kv_cache_dtype="auto"`` as the JAX runner resolves it
+        (runner.py:257-282): int8 when max_model_len reaches
+        KV_QUANT_AUTO_CTX, or when the pool holds fewer tokens than
+        max_num_seqs full-length sequences; else bf16 (None). The JAX rule
+        also asks for the layered cache, which the port's always is."""
+        pool_tokens = args.num_kv_blocks * args.block_size
+        pressure = pool_tokens < args.max_num_seqs * args.max_model_len
+        long_ctx = args.max_model_len >= knobs.KV_QUANT_AUTO_CTX.get()
+        return "int8" if long_ctx or pressure else None
 
     def _megakernel_gate(self) -> bool:
         """The JAX runner's gate (runner.py:284-306): int8 weights, bf16
@@ -61,6 +80,8 @@ class DeviceRunner:
         c, want = self.config, self.args.use_megakernel
         if self.args.quantization != "int8":
             reason = "weights not int8-quantized (quantization is not 'int8')"
+        elif self.args.kv_cache_dtype:
+            reason = "int8 KV pools; the fused layer reads bf16 pools"
         elif c.dtype != torch.bfloat16:
             reason = f"KV pools are {c.dtype}, the fused layer reads bf16 pools"
         else:

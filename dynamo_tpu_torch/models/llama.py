@@ -5,14 +5,16 @@ Parameters are a plain dictionary in the JAX package's serving layout:
 ``{"embed" [V, d], "final_norm" [d], "lm_head" [d, V] (untied only),
 "layers": [per-layer dict, ...]}`` with each layer's weights laid out as
 the JAX ones (``wq`` [d, H·hd], ...), so the parity tests feed both packages
-the same arrays. KV pools are per-layer [NB, BS, KH, D] tensors (the JAX
-"layered" cache) and are updated in place.
+the same arrays. KV pools are per-layer (the JAX "layered" cache), each a
+[NB, BS, KH, D] tensor in the model dtype or an int8 pool ``{"q8", "s"}``
+(ops/kv_quant.py), and are updated in place.
 
 Covered: the dense (non-MoE, non-LoRA) decoder with the family knobs of
 ``decoder_layer`` (qkv-bias, qk-norm, post-norms, unit-offset norms, GeGLU,
 softcaps, sliding windows, Gemma-3 dual rope), ``forward_paged`` on the
 layered cache with ``first_chunk``, and ``decode_multi`` with per-sequence
-salts, int8 ``{"q8", "s"}`` weights (ops/quant.py), and the fused-layer
+salts, int8 ``{"q8", "s"}`` weights (ops/quant.py), int8 KV pools on
+the unfused layer (ops/kv_quant.py), and the fused-layer
 decode branch of ``forward_paged`` (``use_megakernel``: one
 ops/fused_layer call a layer for C = 1). Not yet: MoE, LoRA, logits
 processors, logprobs and top-N, multimodal splices.
@@ -34,6 +36,7 @@ from dynamo_tpu_torch.ops.attention import (
     write_chunk_to_cache,
 )
 from dynamo_tpu_torch.ops.fused_layer import fused_decoder_layer, history_pcounts
+from dynamo_tpu_torch.ops.kv_quant import KVPool, is_quantized_pool, pool_values
 from dynamo_tpu_torch.ops.quant import embed_lookup, lm_head as q_lm_head, qeinsum
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_table
 from dynamo_tpu_torch.ops.sampling import fold_row_keys, sample_tokens
@@ -102,14 +105,27 @@ def init_params(config: ModelConfig, seed: int, device: DeviceLike = None) -> Pa
 
 
 def init_kv_cache(
-    config: ModelConfig, num_blocks: int, block_size: int, device: DeviceLike = None
-) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
-    """Zeroed per-layer K and V pools, each [NB, BS, KH, D] in the model
-    dtype (the JAX ``init_kv_cache(layered=True)``)."""
+    config: ModelConfig, num_blocks: int, block_size: int, device: DeviceLike = None,
+    *, kv_dtype: Optional[str] = None,
+) -> Tuple[List[KVPool], List[KVPool]]:
+    """Zeroed per-layer K and V pools (the JAX ``init_kv_cache(layered=True,
+    kv_dtype=...)``): each [NB, BS, KH, D] in the model dtype, or with
+    ``kv_dtype="int8"`` an int8 pool {"q8": int8 [NB, BS, KH, D], "s":
+    float32 [NB, KH, BS]} whose zero scales dequantize to exact zeros."""
+    if kv_dtype not in (None, "int8"):
+        raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (None or 'int8')")
     dev = resolve_device(device)
     shape = (num_blocks, block_size, config.n_kv_heads, config.head_dim_)
-    k = [torch.zeros(shape, dtype=config.dtype, device=dev) for _ in range(config.n_layers)]
-    v = [torch.zeros(shape, dtype=config.dtype, device=dev) for _ in range(config.n_layers)]
+
+    def one() -> KVPool:
+        if kv_dtype == "int8":
+            return {"q8": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "s": torch.zeros((num_blocks, config.n_kv_heads, block_size),
+                                     dtype=torch.float32, device=dev)}
+        return torch.zeros(shape, dtype=config.dtype, device=dev)
+
+    k = [one() for _ in range(config.n_layers)]
+    v = [one() for _ in range(config.n_layers)]
     return k, v
 
 
@@ -137,8 +153,8 @@ def decoder_layer(
     x: torch.Tensor,  # [B, C, d]
     cos: torch.Tensor,
     sin: torch.Tensor,
-    k_c: torch.Tensor,  # this layer's pools, updated in place
-    v_c: torch.Tensor,
+    k_c: KVPool,  # this layer's pools, updated in place
+    v_c: KVPool,
     block_tables: torch.Tensor,
     start_pos: torch.Tensor,
     chunk_lens: torch.Tensor,
@@ -231,8 +247,8 @@ def _fused_layers(
     sin: torch.Tensor,
     cos_loc: Optional[torch.Tensor],
     sin_loc: Optional[torch.Tensor],
-    k_cache: List[torch.Tensor],
-    v_cache: List[torch.Tensor],
+    k_cache: List[KVPool],
+    v_cache: List[KVPool],
     block_tables: torch.Tensor,
     start_pos: torch.Tensor,
     chunk_lens: torch.Tensor,
@@ -242,6 +258,8 @@ def _fused_layers(
     the page counts are derived once a step, Gemma-3's local rope table
     is chosen on windowed layers, and each layer's k_new/v_new are
     scattered with the step's shared write index after the call."""
+    if is_quantized_pool(k_cache[0]):
+        raise ValueError("the fused layer reads bf16 pools, not int8 pools")
     sm = c.query_scale**-0.5 if c.query_scale is not None else c.head_dim_**-0.5
     pcounts = history_pcounts(start_pos, k_cache[0].shape[1], block_tables.shape[1])
     for l, win in enumerate(c.layer_windows()):
@@ -267,13 +285,13 @@ def forward_paged(
     start_pos: torch.Tensor,  # [B] int32
     chunk_lens: torch.Tensor,  # [B] int32
     block_tables: torch.Tensor,  # [B, P] int32
-    k_cache: List[torch.Tensor],  # per-layer [NB, BS, KH, D], updated in place
-    v_cache: List[torch.Tensor],
+    k_cache: List[KVPool],  # per-layer pools, updated in place
+    v_cache: List[KVPool],
     *,
     all_logits: bool = False,
     first_chunk: bool = False,
     use_megakernel: bool = False,
-) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
+) -> Tuple[torch.Tensor, List[KVPool], List[KVPool]]:
     """One forward step over a chunk: returns (logits [B, V] of each row's
     last valid position — or [B, C, V] with ``all_logits`` — k_cache,
     v_cache). The chunk's K/V are written into the pools before attending,
@@ -291,7 +309,8 @@ def forward_paged(
     cos_loc = sin_loc = None
     if c.rope_local_theta is not None:
         cos_loc, sin_loc = rope_table(pos, hd, c.rope_local_theta)
-    write_index = cache_write_index(block_tables, start_pos, chunk_lens, C, k_cache[0].shape[1])
+    write_index = cache_write_index(block_tables, start_pos, chunk_lens, C,
+                                    pool_values(k_cache[0]).shape[1])
     if use_megakernel and C == 1:
         x = _fused_layers(
             params, c, x[:, 0], cos[:, 0], sin[:, 0],
@@ -326,8 +345,8 @@ def decode_multi(
     start_pos: torch.Tensor,  # [B] int32
     active: torch.Tensor,  # [B] int32 0/1
     block_tables: torch.Tensor,  # [B, P] int32
-    k_cache: List[torch.Tensor],
-    v_cache: List[torch.Tensor],
+    k_cache: List[KVPool],
+    v_cache: List[KVPool],
     seed: int,
     temperature: torch.Tensor,  # [B]
     top_k: torch.Tensor,  # [B]

@@ -9,8 +9,13 @@ CUDA (ops/cuda/paged_attention.py); on CPU tensors their wrappers run the
 plain version here, ``paged_attention_ref``. Unlike the JAX package, a
 kernel that fails to build or launch raises — nothing falls back quietly.
 
+A pool is a bf16 [NB, BS, KH, D] tensor or an int8 pool
+``{"q8", "s"}`` (ops/kv_quant.py); every function here takes both, and the
+wrappers send int8 pools to the kernels' int8 variants.
+
 ``dense_chunk_attention`` (a fresh prompt's first chunk attends over its own
-K/V) and ``write_chunk_to_cache`` are plain PyTorch.
+K/V, so it never reads a pool) and ``write_chunk_to_cache`` are plain
+PyTorch.
 """
 
 from __future__ import annotations
@@ -19,13 +24,20 @@ from typing import Optional, Tuple
 
 import torch
 
+from dynamo_tpu_torch.ops.kv_quant import (
+    KVPool,
+    is_quantized_pool,
+    pool_values,
+    quantize_kv_chunk,
+)
+
 NEG_INF = -1e30
 
 
 def paged_attention(
     q: torch.Tensor,  # [B, C, H, D]
-    k_cache: torch.Tensor,  # [NB, BS, KH, D]
-    v_cache: torch.Tensor,  # [NB, BS, KH, D]
+    k_cache: KVPool,  # [NB, BS, KH, D], or an int8 pool
+    v_cache: KVPool,
     block_tables: torch.Tensor,  # [B, P] int32
     start_pos: torch.Tensor,  # [B] int32 — tokens in cache before the chunk
     chunk_lens: torch.Tensor,  # [B] int32 — valid query tokens in the chunk
@@ -41,7 +53,7 @@ def paged_attention(
     from dynamo_tpu_torch.ops.cuda import paged_attention as kernels
 
     C, H = q.shape[1], q.shape[2]
-    G = H // k_cache.shape[2]
+    G = H // pool_values(k_cache).shape[2]
     if C <= 8 and C * G <= 64:
         return kernels.paged_attention_decode(
             q, k_cache, v_cache, block_tables, start_pos,
@@ -55,8 +67,8 @@ def paged_attention(
 
 def paged_attention_ref(
     q: torch.Tensor,
-    k_cache: torch.Tensor,
-    v_cache: torch.Tensor,
+    k_cache: KVPool,
+    v_cache: KVPool,
     block_tables: torch.Tensor,
     start_pos: torch.Tensor,
     chunk_lens: torch.Tensor,
@@ -69,18 +81,35 @@ def paged_attention_ref(
     history, then masked float32 attention — the counterpart of
     ``_paged_attention_xla_impl`` (attention.py:124-168) and the kernels'
     oracle. ``chunk_lens`` does not change valid rows (it is accepted for
-    the shared signature)."""
+    the shared signature).
+
+    int8 pools keep the TPU kernels' dequantization points
+    (pallas/paged_attention.py:139-150), as the CUDA kernels do, not the
+    XLA oracle's (which dequantizes the gathered pages first): scores are
+    taken on the codes and multiplied by the key's scale s_k[t] after
+    ``sm_scale`` and before the softcap; the probabilities, normalised by
+    the row sum of the unscaled ones, are multiplied by the value's scale
+    s_v[t] before P·V. Both orders compute the same function; they differ
+    in float32 rounding only."""
     B, C, H, D = q.shape
-    _, BS, KH, _ = k_cache.shape
+    quantized = is_quantized_pool(k_cache)
+    _, BS, KH, _ = pool_values(k_cache).shape
     P = block_tables.shape[1]
     T = P * BS
     G = H // KH
     scale = sm_scale if sm_scale is not None else D**-0.5
     tables = block_tables.long()
-    k = k_cache[tables].reshape(B, T, KH, D).to(torch.float32)
-    v = v_cache[tables].reshape(B, T, KH, D).to(torch.float32)
+    k = pool_values(k_cache)[tables].reshape(B, T, KH, D).to(torch.float32)
+    v = pool_values(v_cache)[tables].reshape(B, T, KH, D).to(torch.float32)
     qg = q.reshape(B, C, KH, G, D).to(torch.float32)
     scores = torch.einsum("bcghd,btgd->bcght", qg, k) * scale  # [B,C,KH,G,T]
+
+    def token_scales(pool):  # [NB, KH, BS] → [B, 1, KH, 1, T]
+        s = pool["s"][tables].permute(0, 2, 1, 3).reshape(B, KH, T)
+        return s[:, None, :, None, :]
+
+    if quantized:
+        scores = scores * token_scales(k_cache)
     if logit_cap > 0.0:
         scores = logit_cap * torch.tanh(scores / logit_cap)
     t_pos = torch.arange(T, device=q.device)[None, None, :]
@@ -90,6 +119,8 @@ def paged_attention_ref(
         mask = mask & (t_pos > limit - window)
     scores = torch.where(mask[:, :, None, None, :], scores, torch.full_like(scores, NEG_INF))
     probs = torch.softmax(scores, dim=-1)
+    if quantized:
+        probs = probs * token_scales(v_cache)
     out = torch.einsum("bcght,btgd->bcghd", probs, v)
     return out.reshape(B, C, H, D).to(q.dtype)
 
@@ -161,23 +192,32 @@ def cache_write_index(
 
 
 def write_chunk_to_cache(
-    cache: torch.Tensor,  # [NB, BS, KH, D] — updated IN PLACE
+    cache: KVPool,  # [NB, BS, KH, D], or an int8 pool — updated IN PLACE
     chunk: torch.Tensor,  # [B, C, KH, D]
     block_tables: torch.Tensor,
     start_pos: torch.Tensor,
     chunk_lens: torch.Tensor,
     index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-) -> torch.Tensor:
+) -> KVPool:
     """Scatter a chunk of K or V into its pages, in place (the JAX function
     returns a new pool; the port updates the one it was given and returns
     it). Padding positions and positions past the table capacity are
     dropped (see ``cache_write_index``; pass a precomputed ``index`` to
-    share it across layers)."""
+    share it across layers). An int8 pool takes the written tokens'
+    codes and scales (ops/kv_quant.quantize_kv_chunk): codes at the same
+    slots, scales at ``s[block, :, slot]`` (attention.py:258-263)."""
     B, C = chunk.shape[:2]
-    NB, BS = cache.shape[:2]
+    values = pool_values(cache)
+    NB, BS = values.shape[:2]
     if index is None:
         index = cache_write_index(block_tables, start_pos, chunk_lens, C, BS)
     rows, dest = index
-    flat = cache.view(NB * BS, *cache.shape[2:])
-    flat[dest] = chunk.reshape(B * C, *chunk.shape[2:])[rows].to(cache.dtype)
+    written = chunk.reshape(B * C, *chunk.shape[2:])[rows]
+    flat = values.view(NB * BS, *values.shape[2:])
+    if not is_quantized_pool(cache):
+        flat[dest] = written.to(cache.dtype)
+        return cache
+    q8, s = quantize_kv_chunk(written)  # [n, KH, D], [n, KH]
+    flat[dest] = q8
+    cache["s"][dest // BS, :, dest % BS] = s
     return cache

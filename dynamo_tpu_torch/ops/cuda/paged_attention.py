@@ -3,12 +3,15 @@
 ``paged_attention_decode_kernel`` and ``paged_attention_kernel`` in
 dynamo_tpu/ops/pallas/paged_attention.py.
 
-On a CPU tensor each wrapper returns its plain version
-(ops/attention.paged_attention_ref). On a CUDA tensor it checks device,
-dtype, shape and contiguity, allocates the output with ``torch.empty``,
-launches its kernel on the current stream and raises if the launch was
-refused; it never falls back. ``launch_counts`` counts launches per kernel,
-so a run can show that its main path went through them.
+Each wrapper takes bf16 pools or int8 pools ``{"q8", "s"}``
+(ops/kv_quant.py) and launches the kernel's variant for that pool type:
+``paged_attention_{decode,chunk}_bf16`` or ``..._int8``. On a CPU tensor
+it returns its plain version (ops/attention.paged_attention_ref). On a CUDA
+tensor it checks device, dtype, shape and contiguity, allocates the output
+with ``torch.empty``, launches its kernel on the current stream and raises
+if the launch was refused; it never falls back. ``launch_counts`` (bf16
+pools) and ``int8_launch_counts`` (int8 pools) count launches per kernel,
+so a run can show which kernels its main path went through.
 """
 
 from __future__ import annotations
@@ -19,11 +22,14 @@ from typing import Dict, Optional
 import torch
 
 from dynamo_tpu_torch.ops.cuda import build
+from dynamo_tpu_torch.ops.kv_quant import KVPool, is_quantized_pool, pool_values
 
 DECODE_MAX_ROWS = 64  # C·G query rows one decode block holds
 SUPPORTED_HEAD_DIMS = (64, 128)  # the widths csrc/paged_attention.cu is built for
 
 launch_counts: Dict[str, int] = {"paged_attention_decode": 0, "paged_attention_chunk": 0}
+int8_launch_counts: Dict[str, int] = {"paged_attention_decode_int8": 0,
+                                      "paged_attention_chunk_int8": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -32,8 +38,9 @@ _lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launch_counts() -> None:
-    for name in launch_counts:
-        launch_counts[name] = 0
+    for counts in (launch_counts, int8_launch_counts):
+        for name in counts:
+            counts[name] = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -45,14 +52,29 @@ def _library() -> ctypes.CDLL:
         lib.paged_attention_decode_bf16.restype = _I
         lib.paged_attention_chunk_bf16.argtypes = [_P] * 7 + common
         lib.paged_attention_chunk_bf16.restype = _I
+        # int8: q, k codes, k scales, v codes, v scales, tables, start, [lens,] out
+        lib.paged_attention_decode_int8.argtypes = [_P] * 8 + common
+        lib.paged_attention_decode_int8.restype = _I
+        lib.paged_attention_chunk_int8.argtypes = [_P] * 9 + common
+        lib.paged_attention_chunk_int8.restype = _I
         _lib = lib
     return _lib
 
 
-def _check(q, k_cache, v_cache, block_tables, start_pos, chunk_lens=None) -> None:
+def _check(q, k_cache: KVPool, v_cache: KVPool, block_tables, start_pos, chunk_lens=None) -> None:
+    """Device, dtype, shape and contiguity of one call. A pool is bf16
+    [NB, BS, KH, D], or int8 codes of that shape with float32 scales
+    [NB, KH, BS]; K and V are of one kind."""
     dev = q.device
-    tensors = {"q": q, "k_cache": k_cache, "v_cache": v_cache,
+    quantized = is_quantized_pool(k_cache)
+    if is_quantized_pool(v_cache) != quantized:
+        raise TypeError("k_cache and v_cache must both be int8 pools or both bf16 pools")
+    k, v = pool_values(k_cache), pool_values(v_cache)
+    tensors = {"q": q, "k_cache": k, "v_cache": v,
                "block_tables": block_tables, "start_pos": start_pos}
+    if quantized:
+        tensors["k_scales"] = k_cache["s"]
+        tensors["v_scales"] = v_cache["s"]
     if chunk_lens is not None:
         tensors["chunk_lens"] = chunk_lens
     for name, t in tensors.items():
@@ -60,16 +82,25 @@ def _check(q, k_cache, v_cache, block_tables, start_pos, chunk_lens=None) -> Non
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    for name in ("q", "k_cache", "v_cache"):
-        if tensors[name].dtype != torch.bfloat16:
-            raise TypeError(f"{name} must be bfloat16, got {tensors[name].dtype}")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"q must be bfloat16, got {q.dtype}")
+    pool_dtype = torch.int8 if quantized else torch.bfloat16
+    for name in ("k_cache", "v_cache"):
+        if tensors[name].dtype != pool_dtype:
+            raise TypeError(f"{name} must be {pool_dtype}, got {tensors[name].dtype}")
     for name in ("block_tables", "start_pos", "chunk_lens"):
         if name in tensors and tensors[name].dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {tensors[name].dtype}")
     B, C, H, D = q.shape
-    NB, BS, KH, Dk = k_cache.shape
-    if v_cache.shape != k_cache.shape or Dk != D:
-        raise ValueError(f"pool shapes {tuple(k_cache.shape)}/{tuple(v_cache.shape)} vs q {tuple(q.shape)}")
+    NB, BS, KH, Dk = k.shape
+    if v.shape != k.shape or Dk != D:
+        raise ValueError(f"pool shapes {tuple(k.shape)}/{tuple(v.shape)} vs q {tuple(q.shape)}")
+    if quantized:
+        for name in ("k_scales", "v_scales"):
+            t = tensors[name]
+            if t.dtype != torch.float32 or t.shape != (NB, KH, BS):
+                raise TypeError(f"{name} must be float32 {(NB, KH, BS)}, got {t.dtype} "
+                                f"{tuple(t.shape)}")
     if H % KH:
         raise ValueError(f"n_heads {H} is not a multiple of n_kv_heads {KH}")
     if D not in SUPPORTED_HEAD_DIMS:
@@ -82,14 +113,23 @@ def _check(q, k_cache, v_cache, block_tables, start_pos, chunk_lens=None) -> Non
         raise ValueError("start_pos / chunk_lens must be [B]")
 
 
+def _pool_pointers(k_cache: KVPool, v_cache: KVPool):
+    """The pool arguments of a launch: (k, v) for bf16 pools, (k codes, k
+    scales, v codes, v scales) for int8 pools."""
+    if is_quantized_pool(k_cache):
+        return (k_cache["q8"].data_ptr(), k_cache["s"].data_ptr(),
+                v_cache["q8"].data_ptr(), v_cache["s"].data_ptr())
+    return k_cache.data_ptr(), v_cache.data_ptr()
+
+
 def _scale(sm_scale: Optional[float], head_dim: int) -> float:
     return float(sm_scale) if sm_scale is not None else head_dim**-0.5
 
 
 def paged_attention_decode(
     q: torch.Tensor,  # [B, C, H, D], C·G <= 64
-    k_cache: torch.Tensor,
-    v_cache: torch.Tensor,
+    k_cache: KVPool,
+    v_cache: KVPool,
     block_tables: torch.Tensor,
     start_pos: torch.Tensor,
     *,
@@ -112,28 +152,31 @@ def paged_attention_decode(
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k_cache, v_cache, block_tables, start_pos)
-    KH = k_cache.shape[2]
+    quantized = is_quantized_pool(k_cache)
+    NB, BS, KH = pool_values(k_cache).shape[:3]
     if C * (H // KH) > DECODE_MAX_ROWS:
         raise ValueError(f"decode kernel holds C*G <= {DECODE_MAX_ROWS} rows, got {C * (H // KH)}")
     lib = _library()
+    name = "paged_attention_decode_int8" if quantized else "paged_attention_decode"
+    launch = lib.paged_attention_decode_int8 if quantized else lib.paged_attention_decode_bf16
     out = torch.empty_like(q)
-    rc = lib.paged_attention_decode_bf16(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+    rc = launch(
+        q.data_ptr(), *_pool_pointers(k_cache, v_cache),
         block_tables.data_ptr(), start_pos.data_ptr(), out.data_ptr(),
-        B, C, H, KH, D, k_cache.shape[0], k_cache.shape[1], block_tables.shape[1],
+        B, C, H, KH, D, NB, BS, block_tables.shape[1],
         int(window), _scale(sm_scale, D), float(logit_cap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"paged_attention_decode launch failed: cudaError {rc}")
-    launch_counts["paged_attention_decode"] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    (int8_launch_counts if quantized else launch_counts)[name] += 1
     return out
 
 
 def paged_attention_chunk(
     q: torch.Tensor,  # [B, C, H, D]
-    k_cache: torch.Tensor,
-    v_cache: torch.Tensor,
+    k_cache: KVPool,
+    v_cache: KVPool,
     block_tables: torch.Tensor,
     start_pos: torch.Tensor,
     chunk_lens: torch.Tensor,
@@ -157,17 +200,21 @@ def paged_attention_chunk(
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k_cache, v_cache, block_tables, start_pos, chunk_lens)
     B, C, H, D = q.shape
+    quantized = is_quantized_pool(k_cache)
+    NB, BS, KH = pool_values(k_cache).shape[:3]
     lib = _library()
+    name = "paged_attention_chunk_int8" if quantized else "paged_attention_chunk"
+    launch = lib.paged_attention_chunk_int8 if quantized else lib.paged_attention_chunk_bf16
     out = torch.empty_like(q)
-    rc = lib.paged_attention_chunk_bf16(
-        q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+    rc = launch(
+        q.data_ptr(), *_pool_pointers(k_cache, v_cache),
         block_tables.data_ptr(), start_pos.data_ptr(), chunk_lens.data_ptr(),
         out.data_ptr(),
-        B, C, H, k_cache.shape[2], D, k_cache.shape[0], k_cache.shape[1],
+        B, C, H, KH, D, NB, BS,
         block_tables.shape[1], int(window), _scale(sm_scale, D), float(logit_cap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError(f"paged_attention_chunk launch failed: cudaError {rc}")
-    launch_counts["paged_attention_chunk"] += 1
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    (int8_launch_counts if quantized else launch_counts)[name] += 1
     return out

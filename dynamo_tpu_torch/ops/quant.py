@@ -8,26 +8,39 @@ follow the JAX package's rounding points:
 
   - ``qeinsum``: the product on the codes upcast to ``x.dtype`` (so a bf16
     model rounds it to bf16), then × scale in float32, cast back to the
-    product's dtype (quant.py:82-89);
+    product's dtype (quant.py:82-89). For CUDA tensors a bf16 product of
+    at most ``INT8_MATMUL_MAX_ROWS`` rows (decode) goes to the hand-written
+    weight-streaming kernel (ops/cuda/int8_matmul.py), which reads the
+    codes directly and keeps these points;
   - ``lm_head``: the product rounded to x's dtype, then × scale in float32
     (quant.py:110-115). For CUDA tensors the int8 head goes to the
     hand-written kernel (ops/cuda/lm_head.py), which keeps these points;
   - ``embed_lookup``: the gathered codes × their row scale in float32.
 
-Prefill products stay ``torch.matmul`` on the upcast codes: the JAX package
-leaves them to XLA, outside any Pallas kernel.
+Larger products (prefill) stay ``torch.matmul`` on the upcast codes: the
+JAX package leaves them to XLA, outside any Pallas kernel.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Sequence, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
 QTensor = Dict[str, Any]  # {"q8": int8, "s": float32 keepdims}
 MaybeQ = Union[torch.Tensor, QTensor]
+
+# Row counts up to which a CUDA int8 product runs the weight-streaming
+# kernel. One launch reads the weights once for up to 64 rows (four 16-row
+# groups share each staged chunk of codes), and at 64 rows the product does
+# 2·64 = 128 flops a weight byte, under the H100's ~295 bf16 flops-a-byte
+# ridge: the weight bytes bound it, and reading them as int8 instead of a
+# bf16 copy is the gain. It covers every decode batch up to 64 sequences.
+# Larger counts are prefill, which torch.matmul takes (as XLA in the JAX
+# package).
+INT8_MATMUL_MAX_ROWS = 64
 
 
 def quantize_q8(w: Any, contract_axes: Sequence[int]) -> QTensor:
@@ -76,11 +89,30 @@ def _product(spec: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.einsum(spec, x, w)
 
 
+def int8_matmul_ref(x: torch.Tensor, q8: torch.Tensor, s: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Plain version of the int8 weight-streaming product, x [..., K] @
+    codes [K, N]. Without ``s``: the TPU prototype's function
+    (_prof_stream.py:38-48), float32 sums of x times the codes (every
+    product is exact in float32). With per-column scales ``s`` ([1, N] or
+    [N]): qeinsum's rounding points — the product in x's dtype, then ×
+    scale in float32, cast back."""
+    if s is None:
+        return torch.matmul(x.to(torch.float32), q8.to(torch.float32))
+    y = torch.matmul(x, q8.to(x.dtype))
+    return (y.to(torch.float32) * s.reshape(-1)).to(y.dtype)
+
+
 def qeinsum(spec: str, x: torch.Tensor, w: MaybeQ) -> torch.Tensor:
     """``einsum(spec, x, w)`` where ``w`` may be int8 (same specs as the JAX
     package: "bcd,dh->bch", ...)."""
     if not is_q8(w):
         return _product(spec, x, w)
+    if (_is_matmul(spec) and x.dtype == torch.bfloat16
+            and x.numel() <= INT8_MATMUL_MAX_ROWS * x.shape[-1]):
+        from dynamo_tpu_torch.ops.cuda import int8_matmul as kernel
+
+        return kernel.int8_matmul(x.contiguous(), w["q8"], w["s"])
     lhs, out = spec.split("->")
     w_labels = lhs.split(",")[1]
     q, s = w["q8"], w["s"]

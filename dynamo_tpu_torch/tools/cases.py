@@ -1,14 +1,16 @@
-"""Random inputs for the fused decoder layer and the int8 lm-head at given
-shapes, made on a device from a seed: the cases that chip_smoke.py, the card
-tests (tests/test_torch_cuda_kernels.py) and tools/fused_layer_phases.py
-run the kernels on."""
+"""Random inputs for the kernels at given shapes, made on a device from a
+seed: the cases that chip_smoke.py, the card tests
+(tests/test_torch_cuda_kernels.py) and tools/fused_layer_phases.py run the
+kernels on — paged attention over bf16 and int8 pools, the fused decoder
+layer, the int8 lm-head and the int8 weight-streaming product."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import torch
 
+from dynamo_tpu_torch.ops.kv_quant import quantize_kv_chunk
 from dynamo_tpu_torch.ops.rope import rope_table
 
 
@@ -110,3 +112,141 @@ def make_layer_case(label: str, device: Any):
     """(case, call knobs) of LAYER_CASES[label], seeded by the label."""
     B, d, H, KH, D, F, starts, knobs, call = LAYER_CASES[label]
     return layer_case(B, d, H, KH, D, F, starts, device=device, seed=len(label), **knobs), call
+
+
+# -- paged attention ----------------------------------------------------------
+
+
+def quantize_pool(pool: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """A [NB, BS, KH, D] pool as an int8 pool (ops/kv_quant.py layout):
+    each token's codes and scale as write_chunk_to_cache would store them."""
+    q8, s = quantize_kv_chunk(pool)  # [NB, BS, KH, D], [NB, BS, KH]
+    return {"q8": q8.contiguous(), "s": s.transpose(1, 2).contiguous()}
+
+
+def ragged(n: int, hi: int, seed: int) -> List[int]:
+    """n context lengths drawn uniformly from [0, hi]."""
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, hi + 1, (n,), generator=g).tolist()
+
+
+def attention_case(B, C, starts, clens, seed, *, device, H=14, KH=2, D=64, BS=16,
+                   int8=False) -> Dict[str, Any]:
+    """q [B, C, H, D], K/V pools of N(0, 1) bf16 values (int8 pools of the
+    same values with ``int8``), shuffled block tables just long enough for
+    start + C, start and chunk lengths."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    P = (max(s + C for s in starts) + BS - 1) // BS
+    NB = B * P + 8
+    q = torch.randn(B, C, H, D, generator=g, device=device).to(torch.bfloat16)
+    k = torch.randn(NB, BS, KH, D, generator=g, device=device).to(torch.bfloat16)
+    v = torch.randn(NB, BS, KH, D, generator=g, device=device).to(torch.bfloat16)
+    tables = torch.randperm(NB, generator=g, device=device)[: B * P].reshape(B, P).to(torch.int32)
+    if int8:
+        k, v = quantize_pool(k), quantize_pool(v)
+    return dict(
+        q=q, k=k, v=v, tables=tables,
+        start=torch.tensor(starts, dtype=torch.int32, device=device),
+        clens=torch.tensor(clens, dtype=torch.int32, device=device),
+    )
+
+
+QWEN_HEADS = dict(H=14, KH=2, D=64)  # Qwen2.5-0.5B: G 7
+LLAMA_HEADS = dict(H=32, KH=8, D=128)  # Llama-3-8B: G 4
+
+# label: (kernel, kind, B, C, starts (a list, or ("ragged", hi)), chunk
+# lengths, window, softcap, heads, seed) — the int8-pool cases. The D 128
+# "B32 C1" and "B4 C512" cases are the timing cases: Llama-3-8B decode at
+# 32 sequences (the engine_int8kv phase's slots) and a 512-token chunk.
+INT8_ATTENTION_CASES: Dict[str, Tuple] = {
+    "int8 D64 B16 C1 ragged starts": (
+        "paged_attention_decode_int8", "decode", 16, 1, ("ragged", 1500), [1] * 16, 0, 0.0,
+        QWEN_HEADS, 41),
+    "int8 D64 B4 C3 window 100 softcap 30": (
+        "paged_attention_decode_int8", "decode", 4, 3, [0, 90, 400, 1000], [3] * 4, 100, 30.0,
+        QWEN_HEADS, 42),
+    "int8 D64 B4 C512 start 512 ragged lens": (
+        "paged_attention_chunk_int8", "chunk", 4, 512, [512] * 4, [512, 300, 37, 1], 0, 0.0,
+        QWEN_HEADS, 43),
+    "int8 D64 B2 C40 window 64 softcap 20": (
+        "paged_attention_chunk_int8", "chunk", 2, 40, [200, 37], [40, 17], 64, 20.0,
+        QWEN_HEADS, 44),
+    "int8 D128 B32 C1 ragged starts": (
+        "paged_attention_decode_int8", "decode", 32, 1, ("ragged", 1500), [1] * 32, 0, 0.0,
+        LLAMA_HEADS, 45),
+    "int8 D128 B4 C2 window 100 softcap 30": (
+        "paged_attention_decode_int8", "decode", 4, 2, [0, 90, 400, 1000], [2] * 4, 100, 30.0,
+        LLAMA_HEADS, 46),
+    "int8 D128 B4 C512 start 512 ragged lens": (
+        "paged_attention_chunk_int8", "chunk", 4, 512, [512] * 4, [512, 300, 37, 1], 0, 0.0,
+        LLAMA_HEADS, 47),
+    "int8 D128 B2 C40 window 64 softcap 20": (
+        "paged_attention_chunk_int8", "chunk", 2, 40, [200, 37], [40, 17], 64, 20.0,
+        LLAMA_HEADS, 48),
+}
+
+
+def make_int8_attention_case(label: str, device: Any):
+    """(kernel name, kind, case, window, softcap) of INT8_ATTENTION_CASES[label]."""
+    name, kind, B, C, starts, clens, window, cap, heads, seed = INT8_ATTENTION_CASES[label]
+    if starts[0] == "ragged":
+        starts = ragged(B, starts[1], seed)
+    case = attention_case(B, C, starts, clens, seed, device=device, int8=True, **heads)
+    return name, kind, case, window, cap
+
+
+# -- the int8 weight-streaming product ------------------------------------------
+
+# The weight shapes of one Llama-3-8B decoder layer's seven products, (K, N)
+# and how many times a layer runs each.
+MATMUL_SHAPES: Dict[str, Tuple[int, int, int]] = {
+    "q/o 4096x4096": (4096, 4096, 2),
+    "k/v 4096x1024": (4096, 1024, 2),
+    "gate/up 4096x14336": (4096, 14336, 2),
+    "down 14336x4096": (14336, 4096, 1),
+}
+
+
+def matmul_case(M: int, K: int, N: int, *, device: Any, seed: int = 0) -> Dict[str, torch.Tensor]:
+    """x [M, K] bf16 and an int8 weight [K, N] with per-column scales
+    ({"q8", "s" [1, N]}, as quantize_q8 keeps them)."""
+    g = torch.Generator(device=device).manual_seed(seed + M + K + N)
+    w = q8_weight(g, K, N, device)
+    x = torch.randn(M, K, generator=g, device=device).to(torch.bfloat16)
+    return {"x": x, "q8": w["q8"], "s": w["s"]}
+
+
+# The raw product against its plain version: both sum exact bf16 x int8
+# products in float32, in other orders (the tensor cores' adds among them).
+# The limit is 1e-5 of the sum of the terms' magnitudes, (|x| @ |w|): ~100x
+# the rounding such a sum typically collects, while a 128-deep chunk left
+# out or counted twice moves an output by ~10^3 times the limit.
+RAW_RTOL = 1e-5
+
+
+def raw_product_ok(out: torch.Tensor, x: torch.Tensor, q8: torch.Tensor,
+                   ref: torch.Tensor) -> Tuple[float, bool]:
+    """(max |out - ref|, within RAW_RTOL·(|x| @ |w|) everywhere)."""
+    mag = torch.matmul(x.float().abs(), q8.float().abs())
+    err = (out.float() - ref.float()).abs()
+    return float(err.max()), bool((err <= RAW_RTOL * mag).all())
+
+
+def epilogue_ok(out: torch.Tensor, raw: torch.Tensor, raw_ref: torch.Tensor, x: torch.Tensor,
+                q8: torch.Tensor, s: torch.Tensor, ref: torch.Tensor) -> Tuple[float, bool]:
+    """The epilogue form ``out`` of a kernel whose raw form gave ``raw``,
+    against the plain version's ``ref`` (and its float32 product
+    ``raw_ref``). Two conditions: ``out`` is bit for bit qeinsum's rounding
+    points applied to the kernel's own sums, bf16(bf16(raw)·s) — the two
+    launches sum in the same order; and it is within one bf16 step of the
+    product of the plain version's, carried through the scale:
+    |out - ref| <= s·(2^-7·|raw_ref| + 2·RAW_RTOL·(|x| @ |w|)) + 2^-7·|ref|
+    (the product may round to the next bf16 value, each side's float32 sum
+    holds the raw limit, and each side rounds once more after the scale).
+    Returns (max |out - ref|, both hold)."""
+    s = s.reshape(-1).float()
+    exact = torch.equal(out, (raw.to(torch.bfloat16).float() * s).to(torch.bfloat16))
+    mag = torch.matmul(x.float().abs(), q8.float().abs())
+    err = (out.float() - ref.float()).abs()
+    tol = s * (2.0**-7 * raw_ref.abs() + 2 * RAW_RTOL * mag) + 2.0**-7 * ref.float().abs()
+    return float(err.max()), exact and bool((err <= tol).all())

@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernels (paged attention, the fused decoder layer,
-the int8 lm-head) against their plain PyTorch versions, on the card.
+"""The hand-written CUDA kernels (paged attention over bf16 and int8 pools,
+the fused decoder layer, the int8 lm-head, the int8 weight-streaming
+product) against their plain PyTorch versions, on the card.
 Marked ``cuda``: they skip where there is no CUDA device or no nvcc. On a
 machine with the card (which has no JAX, so the suite's conftest cannot
 load):
@@ -13,19 +14,32 @@ outputs are softmax averages of N(0, 1) values, |out| ~ 0.03-0.06 over
 hundreds of keys, where a bf16 step is ~2.4e-4: 2e-3 is a few steps there,
 small enough that an output off by a couple of percent fails.
 
+int8 pools are held to the same limit: kernel and plain version read the
+same codes and scales and fold the scales in at the same points.
+
 The fused layer and the int8 head are held to one bf16 step
-(tools.cases.bf16_steps).
+(tools.cases.bf16_steps). The int8 product: the raw float32 form to
+tools.cases.RAW_RTOL of (|x| @ |w|) (float32 sums in other orders), the
+epilogue form to qeinsum's rounding points on the kernel's own sums, bit
+for bit, and to one bf16 step of the product from the plain version's
+(tools.cases.epilogue_ok); both repeat bit for bit.
 """
 
 import pytest
 import torch
 
 from dynamo_tpu_torch.tools.cases import (
+    INT8_ATTENTION_CASES,
     LAYER_CASES,
+    MATMUL_SHAPES,
     bf16_steps,
     layer_case,
+    make_int8_attention_case,
+    epilogue_ok,
     make_layer_case,
+    matmul_case,
     q8_weight,
+    raw_product_ok,
     run_layer,
 )
 
@@ -211,3 +225,111 @@ def test_fused_and_head_wrappers_refuse_what_the_kernels_do_not_take(kernels):
     with pytest.raises(TypeError):  # float32 hidden states
         lm_head.lm_head_int8(x.float(), torch.zeros(64, 16, dtype=torch.int8, device="cuda"),
                              torch.ones(1, 16, device="cuda"), tied=False)
+
+
+# -- int8 KV pools and the int8 product ---------------------------------------
+
+
+@pytest.mark.parametrize("label", list(INT8_ATTENTION_CASES))
+def test_int8_pool_attention_kernels_match_plain(kernels, label):
+    """paged_attention_{decode,chunk}_int8 against paged_attention_ref on
+    the same int8 pools, counted under their own names."""
+    from dynamo_tpu_torch.ops.attention import paged_attention_ref
+
+    name, kind, c, window, cap = make_int8_attention_case(label, "cuda")
+    kernels.reset_launch_counts()
+    fn = kernels.paged_attention_decode if kind == "decode" else kernels.paged_attention_chunk
+    extra = () if kind == "decode" else (c["clens"],)
+    out = fn(c["q"], c["k"], c["v"], c["tables"], c["start"], *extra, window=window, logit_cap=cap)
+    ref = paged_attention_ref(c["q"], c["k"], c["v"], c["tables"], c["start"], c["clens"],
+                              window=window, logit_cap=cap)
+    _check(out, ref, c["clens"].tolist())
+    assert torch.isfinite(out).all()  # padding rows too
+    assert kernels.int8_launch_counts[name] == 1
+    assert not any(kernels.launch_counts.values())
+
+
+def test_int8_pool_wrappers_refuse_what_the_kernels_do_not_take(kernels):
+    _, _, c, _, _ = make_int8_attention_case("int8 D64 B4 C3 window 100 softcap 30", "cuda")
+    q, k, v, tables, start = c["q"], c["k"], c["v"], c["tables"], c["start"]
+    with pytest.raises(TypeError):  # a bf16 pool beside an int8 pool
+        kernels.paged_attention_decode(q, k, v["q8"].to(torch.bfloat16), tables, start)
+    with pytest.raises(TypeError):  # scales in the codes' order
+        kernels.paged_attention_decode(
+            q, {"q8": k["q8"], "s": k["s"].transpose(1, 2).contiguous()}, v, tables, start)
+    with pytest.raises(ValueError):  # codes not contiguous
+        kernels.paged_attention_decode(
+            q, {"q8": k["q8"].transpose(0, 1), "s": k["s"]}, v, tables, start)
+
+
+@pytest.mark.parametrize("M", [1, 16, 32, 64, 100])
+@pytest.mark.parametrize("shape", list(MATMUL_SHAPES))
+def test_int8_matmul_kernel_matches_plain(kernels, shape, M):
+    """The raw and the epilogue form against int8_matmul_ref at the four
+    Llama-3-8B weight shapes; M 100 takes two 64-row groups."""
+    from dynamo_tpu_torch.ops.cuda import int8_matmul as kernel
+    from dynamo_tpu_torch.ops.quant import int8_matmul_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    K, N, _ = MATMUL_SHAPES[shape]
+    c = matmul_case(M, K, N, device="cuda")
+    kernel.reset_launch_counts()
+    raw = kernel.int8_matmul(c["x"], c["q8"])
+    out = kernel.int8_matmul(c["x"], c["q8"], c["s"])
+    again = kernel.int8_matmul(c["x"], c["q8"], c["s"])
+    raw_ref = int8_matmul_ref(c["x"], c["q8"])
+    ref = int8_matmul_ref(c["x"], c["q8"], c["s"])
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["int8_matmul"] == 3
+    assert raw.dtype == torch.float32 and out.dtype == torch.bfloat16 and out.shape == (M, N)
+    err, ok = raw_product_ok(raw, c["x"], c["q8"], raw_ref)
+    assert ok, err
+    err, ok = epilogue_ok(out, raw, raw_ref, c["x"], c["q8"], c["s"], ref)
+    assert ok, err
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("M,K,N", [(3, 200, 16), (20, 136, 1008), (7, 8, 48)])
+def test_int8_matmul_kernel_ragged_shapes(kernels, M, K, N):
+    """K not a multiple of 128 and N not of 64: the edges read as zero."""
+    from dynamo_tpu_torch.ops.cuda import int8_matmul as kernel
+    from dynamo_tpu_torch.ops.quant import int8_matmul_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    c = matmul_case(M, K, N, device="cuda", seed=1)
+    x3 = c["x"].reshape(M, 1, K)  # [B, C, K] as qeinsum passes it
+    raw = kernel.int8_matmul(x3, c["q8"])
+    out = kernel.int8_matmul(x3, c["q8"], c["s"])
+    raw_ref = int8_matmul_ref(c["x"], c["q8"])
+    ref = int8_matmul_ref(c["x"], c["q8"], c["s"])
+    torch.cuda.synchronize()
+    assert raw.shape == (M, 1, N) and out.shape == (M, 1, N)
+    assert raw_product_ok(raw[:, 0], c["x"], c["q8"], raw_ref)[1]
+    assert epilogue_ok(out[:, 0], raw[:, 0], raw_ref, c["x"], c["q8"], c["s"], ref)[1]
+
+
+def test_int8_matmul_wrapper_refuses_what_the_kernel_does_not_take(kernels):
+    from dynamo_tpu_torch.ops.cuda import int8_matmul as kernel
+
+    c = matmul_case(4, 256, 64, device="cuda")
+    with pytest.raises(TypeError):  # float32 activations
+        kernel.int8_matmul(c["x"].float(), c["q8"])
+    with pytest.raises(ValueError):  # N not a multiple of 16
+        kernel.int8_matmul(c["x"], c["q8"][:, :40].contiguous())
+    with pytest.raises(ValueError):  # transposed codes
+        kernel.int8_matmul(c["x"], c["q8"].t())
+    with pytest.raises(TypeError):  # bf16 scales
+        kernel.int8_matmul(c["x"], c["q8"], c["s"].to(torch.bfloat16))
+
+
+def test_qeinsum_runs_the_int8_product_for_decode_rows_only(kernels):
+    from dynamo_tpu_torch.ops import quant
+    from dynamo_tpu_torch.ops.cuda import int8_matmul as kernel
+
+    c = matmul_case(64, 512, 256, device="cuda")
+    w = {"q8": c["q8"], "s": c["s"]}
+    kernel.reset_launch_counts()
+    y = quant.qeinsum("bcd,dh->bch", c["x"].reshape(64, 1, 512), w)
+    assert kernel.launch_counts["int8_matmul"] == 1 and y.shape == (64, 1, 256)
+    quant.qeinsum("bcd,dh->bch", c["x"].reshape(1, 64, 512).repeat(2, 1, 1), w)  # 128 rows
+    assert kernel.launch_counts["int8_matmul"] == 1
