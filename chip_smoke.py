@@ -51,6 +51,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    busy, idle share, device ops a step, the shares of the int8 product and
    of int8 attention; the burst's launches are exactly 32 x 8 int8 decode
    attention and 7 x 32 x 8 int8 products.
+12. d256 kernels — parity of both bf16-pool attention kernels at head_dim
+   256 in the Gemma-2 geometry (KH 4, G 2, softcap 50, window 4,096 at
+   contexts of 4,000-6,600, window boundaries inside pages and tiles) and
+   the Gemma-3 one (KH 1, G 4, window 512), and timing of each geometry's
+   decode (B 16, C 1) and chunk (B 4, C 512) case.
+13. engine_gemma2 — TorchEngine serving Gemma-2-2B at full width (26
+   layers, d 2,304, V 256,000 tied, random bf16 weights from a seed;
+   max_model_len 8,192): the request set of the engine phase plus one
+   prompt of 4,600 tokens, whose later chunks and decode steps cross the
+   4,096-key window of the local layers. Both paged-attention kernels must
+   have launched, decode at least once a layer a decode step, and no
+   kernel of the int8 or fused paths; the 4,600-token stream is checked
+   against the teacher-forced dense forward too.
+14. profile_gemma2 — one decode burst of that engine: idle share, device
+   ops a step, attention's share; the burst's launches are exactly 26 x 8
+   decode attention and none of any other kernel.
 
 Then one JSON line {"kernels": [...]} for all seven kernels, nvidia-smi's
 name and power limit, and last {"ok": true, "device": {...}}. Without a
@@ -197,9 +213,10 @@ def bound(case, window=0):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def library_call(torch, case):
-    """SDPA over pre-gathered dense K/V with GQA: gathered (and int8 pools
-    dequantized to bf16) once outside the timed call."""
+def library_call(torch, case, window=0):
+    """SDPA over pre-gathered dense K/V with GQA and the causal (and
+    ``window``) mask: gathered (and int8 pools dequantized to bf16) once
+    outside the timed call."""
     import torch.nn.functional as F
 
     from dynamo_tpu_torch.ops.kv_quant import dequantize_pool
@@ -214,7 +231,10 @@ def library_call(torch, case):
     qh = q.transpose(1, 2).contiguous()
     t = torch.arange(T, device=DEV)[None, None, :]
     limit = case["start"].long()[:, None, None] + torch.arange(C, device=DEV)[None, :, None]
-    mask = (t <= limit)[:, None]  # [B, 1, C, T]
+    mask = t <= limit
+    if window > 0:
+        mask = mask & (t > limit - window)
+    mask = mask[:, None]  # [B, 1, C, T]
 
     def call():
         return F.scaled_dot_product_attention(qh, k, v, attn_mask=mask, enable_gqa=True)
@@ -241,7 +261,7 @@ def kernel_phases(torch):
     ]
     worst = attention_parity(torch, cases)
     reset_counts()  # parity launches do not count
-    timed = attention_timing(torch, dec1, chunk)
+    timed = attention_timing(torch, dec1, chunk, label="qwen2.5-0.5b D64")
     reset_counts()
     return worst, timed
 
@@ -267,10 +287,11 @@ def attention_parity(torch, cases) -> dict:
     return worst
 
 
-def attention_timing(torch, dec, chunk, suffix="") -> dict:
+def attention_timing(torch, dec, chunk, suffix="", window=0, cap=0.0, label="") -> dict:
     """The decode kernel on ``dec`` and the chunk kernel on ``chunk``: kernel,
-    plain and SDPA times beside the bound. ``suffix``: "_int8" for the
-    int8-pool variants (the cases hold int8 pools)."""
+    plain and SDPA times beside the bound, at the cases' ``window`` and
+    softcap. ``suffix``: "_int8" for the int8-pool variants (the cases hold
+    int8 pools). SDPA has no softcap: with ``cap`` it is timed without one."""
     from dynamo_tpu_torch.ops import attention
     from dynamo_tpu_torch.ops.cuda import paged_attention as kernels
 
@@ -278,15 +299,16 @@ def attention_timing(torch, dec, chunk, suffix="") -> dict:
     smi = smi_line()
     for name, kind, case in ((f"paged_attention_decode{suffix}", "decode", dec),
                              (f"paged_attention_chunk{suffix}", "chunk", chunk)):
-        ms = time_ms(torch, lambda: run_kernel(kernels, kind, case), 50)
-        plain_ms = time_ms(torch, lambda: run_plain(attention, case), 10)
-        library_ms = time_ms(torch, library_call(torch, case), 50)
-        bound_ms, bound_by = bound(case)
+        ms = time_ms(torch, lambda: run_kernel(kernels, kind, case, window, cap), 50)
+        plain_ms = time_ms(torch, lambda: run_plain(attention, case, window, cap), 10)
+        library_ms = time_ms(torch, library_call(torch, case, window), 50)
+        bound_ms, bound_by = bound(case, window)
         timed[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=bound_ms, bound_by=bound_by)
-        emit({"phase": "timing", "kernel": name, "shape": list(case["q"].shape),
-              "pool": "int8" if isinstance(case["k"], dict) else "bf16", **timed[name],
-              "card": smi})
+        emit({"phase": "timing", "kernel": name, "case": label, "shape": list(case["q"].shape),
+              "pool": "int8" if isinstance(case["k"], dict) else "bf16", "window": window,
+              "softcap": cap, **timed[name],
+              "library": "SDPA" + (" without the softcap" if cap else ""), "card": smi})
     return timed
 
 
@@ -403,7 +425,7 @@ def int8_kernel_phases(torch):
         worst["lm_head_int8"] = max(worst["lm_head_int8"], float(err.max()))
     reset_counts()  # parity launches do not count
 
-    attention_timing(torch, dec, chunk)  # D 128: printed, not in the kernels line
+    attention_timing(torch, dec, chunk, label="llama-3-8b D128")  # printed, not in the kernels line
     timed = {}
     smi = smi_line()
     c, call = cases["llama3-8b B16"]
@@ -487,7 +509,8 @@ def int8kv_kernel_phases(torch):
     reset_counts()  # parity launches do not count
 
     timed = attention_timing(torch, cases["int8 D128 B32 C1 ragged starts"][2],
-                             cases["int8 D128 B4 C512 start 512 ragged lens"][2], "_int8")
+                             cases["int8 D128 B4 C512 start 512 ragged lens"][2], "_int8",
+                             label="llama-3-8b int8 D128")
     smi = smi_line()
     layer = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
     for label, (K, N, per_layer) in MATMUL_SHAPES.items():
@@ -514,6 +537,36 @@ def int8kv_kernel_phases(torch):
           "card": smi})
     reset_counts()
     return worst, timed
+
+
+# -- head_dim 256: bf16-pool attention at Gemma shapes ---------------------
+
+
+def d256_kernel_phases(torch):
+    """Parity of both bf16-pool attention kernels at head_dim 256 on every
+    tools.cases.D256_ATTENTION_CASES case (Gemma-2: KH 4, G 2, softcap 50,
+    window 4,096 at contexts of 4,000-6,600; Gemma-3: KH 1, G 4, window 512;
+    window boundaries inside pages and tiles), then the timing of each
+    geometry's decode (B 16, C 1) and chunk (B 4, C 512) case. Returns the
+    worst errors; the D 256 times are printed (and kept in PERF.md), while
+    the kernels line keeps the D 64 cases of earlier runs."""
+    from dynamo_tpu_torch.tools.cases import D256_ATTENTION_CASES, make_d256_attention_case
+
+    cases = {label: make_d256_attention_case(label, DEV) for label in D256_ATTENTION_CASES}
+    worst = attention_parity(torch, [(name, kind, label, case, win, cap)
+                                     for label, (name, kind, case, win, cap) in cases.items()])
+    reset_counts()  # parity launches do not count
+    for geometry, dec, chunk in (
+            ("gemma2 D256", "gemma2 D256 B16 C1 window 4096 softcap 50",
+             "gemma2 D256 B4 C512 window 4096 softcap 50"),
+            ("gemma3 D256", "gemma3 D256 B16 C1 window 512", "gemma3 D256 B4 C512 window 512")):
+        _, _, dec_case, window, cap = cases[dec]
+        attention_timing(torch, dec_case, cases[chunk][2], window=window, cap=cap, label=geometry)
+    reset_counts()
+    del cases
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst
 
 
 # -- engine ---------------------------------------------------------------
@@ -580,18 +633,20 @@ def read_counts() -> dict:
 
 
 def engine_phase(torch, smi, cfg, expect, gap_limit, phase, *, slots=16, n_short=5,
-                 max_tokens=64, **engine_kw):
+                 max_tokens=64, max_model_len=2048, extra_lengths=(), **engine_kw):
     """Serve cfg through TorchEngine.generate(); ``expect``: the kernels
     this path must launch. The request set: two prompts sharing a 256-token
-    prefix, ``n_short`` prompts of 100-300 tokens and one of 1,200, each
-    for ``max_tokens`` greedy tokens. Returns (launch counts, engine,
+    prefix, ``n_short`` prompts of 100-300 tokens, one of 1,200 and one of
+    each of ``extra_lengths`` tokens, each for ``max_tokens`` greedy tokens.
+    The first short request and every ``extra_lengths`` request are checked
+    against a teacher-forced dense forward. Returns (launch counts, engine,
     decode steps of the request set)."""
     from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
     from dynamo_tpu_torch.models import llama
 
     args = TorchEngineArgs(
         config=cfg, block_size=16, num_kv_blocks=2048, max_num_seqs=slots,
-        max_model_len=2048, prefill_chunk=512, seed=0, device=DEV, **engine_kw,
+        max_model_len=max_model_len, prefill_chunk=512, seed=0, device=DEV, **engine_kw,
     )
     t0 = time.monotonic()
     engine = TorchEngine(args)
@@ -606,6 +661,8 @@ def engine_phase(torch, smi, cfg, expect, gap_limit, phase, *, slots=16, n_short
     else:
         lengths = torch.randint(100, 301, (n_short,), generator=g).tolist()
     prompts = [rand(n) for n in lengths] + [rand(1200)]
+    extra = [rand(n) for n in extra_lengths]
+    repeat = prompts[n_short - 1]  # the last short prompt
 
     async def run():
         try:
@@ -614,21 +671,22 @@ def engine_phase(torch, smi, cfg, expect, gap_limit, phase, *, slots=16, n_short
             torch.cuda.reset_peak_memory_stats()
             bursts0, steps0 = engine.runner.mk_fused_bursts, engine.steps
             reset_counts()
-            results, wall = await drive_engine(torch, engine, prompts, shared, max_tokens)
+            results, wall = await drive_engine(torch, engine, prompts + extra, shared, max_tokens)
             counts = read_counts()
+            peak = torch.cuda.max_memory_allocated()
             bursts = engine.runner.mk_fused_bursts - bursts0
             decode_steps = (engine.steps - steps0) * args.decode_steps
             # A greedy request repeated alone, twice (same cache hits, same
             # shapes): the two must give the same tokens.
             again = []
             for _ in range(2):
-                rs, _ = await drive_engine(torch, engine, [prompts[-2]], [], max_tokens)
+                rs, _ = await drive_engine(torch, engine, [repeat], [], max_tokens)
                 again.append(rs[0]["tokens"])
-            return results, wall, counts, bursts, decode_steps, again
+            return results, wall, counts, peak, bursts, decode_steps, again
         finally:
             await engine.stop()
 
-    results, wall, counts, bursts, decode_steps, again = asyncio.run(run())
+    results, wall, counts, peak, bursts, decode_steps, again = asyncio.run(run())
     stats = engine.stats()
     for r in results:
         if len(r["tokens"]) != max_tokens or r["reason"] is None or r["reason"].value != "length":
@@ -665,26 +723,29 @@ def engine_phase(torch, smi, cfg, expect, gap_limit, phase, *, slots=16, n_short
             )
         return logits[0, len(prompt) - 1 : len(seq) - 1].float()
 
-    r = results[2]
-    ref = dense_logits(r["prompt"], r["tokens"])
-    picked = torch.tensor(r["tokens"], device=DEV)
-    gap = ref.max(dim=-1).values - ref[torch.arange(len(r["tokens"]), device=DEV), picked]
     # The repeated request against its run inside the batch: prefill there
     # ran at other shapes, so a near-tie may go the other way; where the
     # streams part, both tokens must be within the gap limit of the dense
     # reference's best.
-    batched = next(x["tokens"] for x in results if x["prompt"] == prompts[-2])
+    batched = next(x["tokens"] for x in results if x["prompt"] is repeat)
     part = next((i for i, (a, b) in enumerate(zip(batched, again[0])) if a != b), None)
     part_gap = 0.0
     if part is not None:
-        at = dense_logits(prompts[-2], batched[: part + 1])[-1]  # predicts token `part`
+        at = dense_logits(repeat, batched[: part + 1])[-1]  # predicts token `part`
         part_gap = float(at.max() - min(at[batched[part]], at[again[0][part]]))
-    emit({"phase": f"{phase}_reference", "tokens": len(r["tokens"]),
-          "exact_argmax": int((gap == 0).sum()), "max_logit_gap": float(gap.max()),
-          "gap_limit": gap_limit, "logit_std": float(ref.std()),
-          "repeat_parts_from_batched_run_at": part, "repeat_part_gap": part_gap})
-    if float(gap.max()) > gap_limit:
-        fail(f"engine token is {float(gap.max())} below the dense reference's max logit")
+    for r in [results[2]] + [next(x for x in results if x["prompt"] is p) for p in extra]:
+        ref = dense_logits(r["prompt"], r["tokens"])
+        picked = torch.tensor(r["tokens"], device=DEV)
+        gap = ref.max(dim=-1).values - ref[torch.arange(len(r["tokens"]), device=DEV), picked]
+        emit({"phase": f"{phase}_reference", "prompt_tokens": len(r["prompt"]),
+              "tokens": len(r["tokens"]), "exact_argmax": int((gap == 0).sum()),
+              "max_logit_gap": float(gap.max()), "gap_limit": gap_limit,
+              "logit_std": float(ref.std()), "repeat_parts_from_batched_run_at": part,
+              "repeat_part_gap": part_gap})
+        del ref
+        if float(gap.max()) > gap_limit:
+            fail(f"engine token is {float(gap.max())} below the dense reference's max logit "
+                 f"({len(r['prompt'])}-token prompt)")
     if part_gap > gap_limit:
         fail(f"the repeated request parted from its batched run at token {part} by a "
              f"logit gap of {part_gap}")
@@ -700,7 +761,7 @@ def engine_phase(torch, smi, cfg, expect, gap_limit, phase, *, slots=16, n_short
         "max_tokens": max_tokens, "init_s": init_s, "wall_s": wall,
         "ttft_ms_mean": 1e3 * sum(ttft) / len(ttft), "ttft_ms_max": 1e3 * max(ttft),
         "itl_ms_mean": 1e3 * sum(itl) / len(itl), "output_tok_per_s": gen / wall,
-        "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "peak_mem_gib": peak / 2**30,
         "fused_bursts": bursts, "decode_steps": decode_steps, "launches": counts,
         "stats": stats, "card": smi,
     })
@@ -761,7 +822,8 @@ def profile_phase(torch, runner, smi, phase="profile", ctx_step=80, exact=None):
           "wall_ms": wall_ms, "wall_ms_min": min(walls), "device_busy_ms": busy_ms,
           "device_busy_ms_per_step": busy_ms / runner.args.decode_steps,
           "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
-          "attention_ms": attn, "fused_layer_ms": fused, "fused_layer_share": fused / busy_ms,
+          "attention_ms": attn, "attention_share": attn / busy_ms,
+          "fused_layer_ms": fused, "fused_layer_share": fused / busy_ms,
           "int8_matmul_ms": matmul, "int8_matmul_share": matmul / busy_ms,
           "int8_attention_ms": attn8, "int8_attention_share": attn8 / busy_ms,
           "device_ops_per_step": n_kernels / runner.args.decode_steps, "launches": counts,
@@ -801,7 +863,9 @@ def main() -> int:
         worst[k] = max(worst.get(k, 0.0), v)
     timed.update(timed8)
 
-    from dynamo_tpu_torch.models.config import llama3_8b_config, qwen2_500m_config
+    from dynamo_tpu_torch.models.config import (
+        gemma2_2b_config, llama3_8b_config, qwen2_500m_config,
+    )
 
     counts, engine, _ = engine_phase(torch, smi, qwen2_500m_config(),
                                   ("paged_attention_decode", "paged_attention_chunk"), 1.0,
@@ -852,6 +916,39 @@ def main() -> int:
         "paged_attention_decode_int8": cfg8.n_layers * steps,
         "int8_matmul": 7 * cfg8.n_layers * steps, "lm_head_int8": steps,
         "fused_decoder_layer": 0})
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for k, v in d256_kernel_phases(torch).items():
+        worst[k] = max(worst[k], v)
+    # Gemma-2-2B at full width, random bf16 weights: every layer unfused
+    # (the fused layer's gate says no to bf16 weights), both bf16-pool
+    # attention kernels at head_dim 256, the tied head a torch.matmul. The
+    # 4,600-token request is prefilled in 9 chunks of up to 512; from its
+    # ninth chunk on, the 4,096-key window of the 13 local layers masks in
+    # the chunk kernel and in every decode step, and the dense check holds
+    # that request against dense_chunk_attention's window. Gap limit 1.0, as
+    # for the Qwen bf16 phase: both paths round to bf16 at other points
+    # through 26 layers, and past the final softcap (30) a bf16 step of a
+    # logit is 0.125, so a near-tie may go the other way by a few steps.
+    cfg_g = gemma2_2b_config()
+    counts_g, engine, steps_g = engine_phase(
+        torch, smi, cfg_g, ("paged_attention_decode", "paged_attention_chunk"), 1.0,
+        "engine_gemma2", max_model_len=8192, extra_lengths=(4600,))
+    if counts_g["paged_attention_decode"] < cfg_g.n_layers * steps_g:
+        fail(f"paged_attention_decode launched {counts_g['paged_attention_decode']} times, "
+             f"fewer than {cfg_g.n_layers} layers x {steps_g} decode steps")
+    others = {n: counts_g[n] for n in ("fused_decoder_layer", "lm_head_int8", "int8_matmul",
+                                       "paged_attention_decode_int8",
+                                       "paged_attention_chunk_int8") if counts_g[n]}
+    if others:
+        fail(f"kernels of other paths launched on the Gemma-2-2B path: {others}")
+    steps = engine.args.decode_steps
+    profile_phase(torch, engine.runner, smi, "profile_gemma2", exact={
+        "paged_attention_decode": cfg_g.n_layers * steps, "paged_attention_chunk": 0,
+        "fused_decoder_layer": 0, "lm_head_int8": 0, "int8_matmul": 0,
+        "paged_attention_decode_int8": 0, "paged_attention_chunk_int8": 0})
 
     sources = {"paged_attention_decode": "paged_attention.cu",
                "paged_attention_chunk": "paged_attention.cu",
@@ -868,11 +965,13 @@ def main() -> int:
         "paged_attention_chunk_int8": "dynamo_tpu/ops/pallas/paged_attention.py:416",
         "int8_matmul": "_prof_stream.py:56",
     }
-    # launches: the three main paths (Qwen2.5-0.5B bf16, Llama-3-8B int8,
-    # Llama-3-8B int8 with int8 KV)
+    # launches: the four main paths (Qwen2.5-0.5B bf16, Llama-3-8B int8,
+    # Llama-3-8B int8 with int8 KV, Gemma-2-2B bf16); times of the D 64
+    # (bf16 pools) and D 128 (int8 pools) cases, the D 256 ones above
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{sources[n]}",
-         "replaces": replaces[n], "launches": counts[n] + counts8[n] + counts8kv[n],
+         "replaces": replaces[n],
+         "launches": counts[n] + counts8[n] + counts8kv[n] + counts_g[n],
          "max_abs_err": worst[n], **timed[n]}
         for n in sources
     ]})

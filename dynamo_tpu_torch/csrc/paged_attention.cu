@@ -31,7 +31,8 @@
 // Scores, the softmax update and P.V run on CUDA cores in f32 from shared
 // memory, with each thread computing a small block of outputs so that one
 // shared-memory read feeds several FMAs:
-//   * decode layout (C*G <= 8 rows, e.g. 7 for Qwen2.5-0.5B): 8-row blocks
+//   * decode layout (C*G <= 8 rows, e.g. 7 for Qwen2.5-0.5B, 2 for
+//     Gemma-2-2B, whose other 6 rows are padding): 8-row blocks
 //     over tiles of 16384/D keys (32 KB each of K and V). A thread scores
 //     one key against every row; in P.V it accumulates two columns of every
 //     row over its own group of keys, and the groups' partial sums are added
@@ -547,14 +548,23 @@ cudaError_t dispatch(bool small, const void* q, const void* k, const void* ks, c
     return cudaErrorInvalidValue;
   if (POOL::kScaled && (ks == nullptr || vs == nullptr)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // Built for head_dim 64 (Qwen2.5-0.5B) and 128 (Llama-3-8B); other widths
-  // are refused. At D = 128 the decode layout takes tiles of 128 keys.
+  // Built for head_dim 64 (Qwen2.5-0.5B) and 128 (Llama-3-8B) over both
+  // pool types, and 256 (Gemma) over bf16 pools; other widths, and int8
+  // pools at 256, are refused. At D = 128 the decode layout takes tiles of
+  // 128 keys, at D = 256 tiles of 64. At D = 256 the 64-row layout holds
+  // 148 KB of shared memory (q in f32 64 KB, K and V 33 KB each, P 17 KB):
+  // one block an SM.
   if (D == 64)
     return launch_d<POOL, 64>(small, q, k, ks, v, vs, tables, start, clens, out, B, C, H, KH, NB,
                               BS, P, window, sm_scale, logit_cap, s);
   if (D == 128)
     return launch_d<POOL, 128>(small, q, k, ks, v, vs, tables, start, clens, out, B, C, H, KH,
                                NB, BS, P, window, sm_scale, logit_cap, s);
+  if constexpr (!POOL::kScaled) {
+    if (D == 256)
+      return launch_d<POOL, 256>(small, q, k, ks, v, vs, tables, start, clens, out, B, C, H, KH,
+                                 NB, BS, P, window, sm_scale, logit_cap, s);
+  }
   return cudaErrorInvalidValue;
 }
 

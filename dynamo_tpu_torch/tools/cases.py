@@ -124,10 +124,10 @@ def quantize_pool(pool: torch.Tensor) -> Dict[str, torch.Tensor]:
     return {"q8": q8.contiguous(), "s": s.transpose(1, 2).contiguous()}
 
 
-def ragged(n: int, hi: int, seed: int) -> List[int]:
-    """n context lengths drawn uniformly from [0, hi]."""
+def ragged(n: int, hi: int, seed: int, lo: int = 0) -> List[int]:
+    """n context lengths drawn uniformly from [lo, hi]."""
     g = torch.Generator().manual_seed(seed)
-    return torch.randint(0, hi + 1, (n,), generator=g).tolist()
+    return torch.randint(lo, hi + 1, (n,), generator=g).tolist()
 
 
 def attention_case(B, C, starts, clens, seed, *, device, H=14, KH=2, D=64, BS=16,
@@ -153,6 +153,42 @@ def attention_case(B, C, starts, clens, seed, *, device, H=14, KH=2, D=64, BS=16
 
 QWEN_HEADS = dict(H=14, KH=2, D=64)  # Qwen2.5-0.5B: G 7
 LLAMA_HEADS = dict(H=32, KH=8, D=128)  # Llama-3-8B: G 4
+GEMMA2_HEADS = dict(H=8, KH=4, D=256)  # Gemma-2-2B: G 2
+GEMMA3_HEADS = dict(H=4, KH=1, D=256)  # Gemma-3-1B: G 4
+
+# label: (kernel, kind, B, C, starts (a list, or ("ragged", lo, hi)), chunk
+# lengths, window, softcap, heads, seed) — bf16 pools at head_dim 256. The
+# "B16 C1" and "B4 C512" cases of each geometry are the timing cases. The
+# Gemma-2 cases sit at contexts of 4,000-6,600, past the 4,096-key window of
+# its local layers, so the window masks: in the chunk case the first
+# visible key moves through the chunk's rows (start 4,601: key 506, inside
+# page 31 and inside the 64-key tile 448-511). The "boundary" cases put the
+# first visible key at chosen places: one key into a page (start 4,096),
+# inside a page and a tile (4,133: key 38; 5,000: key 905), and not yet past
+# the window (4,095; 4,090).
+D256_ATTENTION_CASES: Dict[str, Tuple] = {
+    "gemma2 D256 B16 C1 window 4096 softcap 50": (
+        "paged_attention_decode", "decode", 16, 1, ("ragged", 4000, 6000), [1] * 16, 4096, 50.0,
+        GEMMA2_HEADS, 61),
+    "gemma2 D256 B4 C512 window 4096 softcap 50": (
+        "paged_attention_chunk", "chunk", 4, 512, [4000, 4601, 5200, 6000], [512, 300, 37, 1],
+        4096, 50.0, GEMMA2_HEADS, 62),
+    "gemma2 D256 B4 C1 window boundary": (
+        "paged_attention_decode", "decode", 4, 1, [4133, 5000, 4095, 4096], [1] * 4, 4096, 50.0,
+        GEMMA2_HEADS, 63),
+    "gemma2 D256 B2 C40 window boundary": (
+        "paged_attention_chunk", "chunk", 2, 40, [4133, 4090], [40, 17], 4096, 50.0,
+        GEMMA2_HEADS, 64),
+    "gemma3 D256 B16 C1 window 512": (
+        "paged_attention_decode", "decode", 16, 1, ("ragged", 0, 1500), [1] * 16, 512, 0.0,
+        GEMMA3_HEADS, 65),
+    "gemma3 D256 B4 C512 window 512": (
+        "paged_attention_chunk", "chunk", 4, 512, [512] * 4, [512, 300, 37, 1], 512, 0.0,
+        GEMMA3_HEADS, 66),
+    "gemma3 D256 B4 C2 window 512": (
+        "paged_attention_decode", "decode", 4, 2, [0, 90, 600, 1000], [2] * 4, 512, 0.0,
+        GEMMA3_HEADS, 67),
+}
 
 # label: (kernel, kind, B, C, starts (a list, or ("ragged", hi)), chunk
 # lengths, window, softcap, heads, seed) — the int8-pool cases. The D 128
@@ -188,10 +224,19 @@ INT8_ATTENTION_CASES: Dict[str, Tuple] = {
 
 def make_int8_attention_case(label: str, device: Any):
     """(kernel name, kind, case, window, softcap) of INT8_ATTENTION_CASES[label]."""
-    name, kind, B, C, starts, clens, window, cap, heads, seed = INT8_ATTENTION_CASES[label]
+    return _make_attention_case(INT8_ATTENTION_CASES[label], device, int8=True)
+
+
+def make_d256_attention_case(label: str, device: Any):
+    """(kernel name, kind, case, window, softcap) of D256_ATTENTION_CASES[label]."""
+    return _make_attention_case(D256_ATTENTION_CASES[label], device, int8=False)
+
+
+def _make_attention_case(entry: Tuple, device: Any, int8: bool):
+    name, kind, B, C, starts, clens, window, cap, heads, seed = entry
     if starts[0] == "ragged":
-        starts = ragged(B, starts[1], seed)
-    case = attention_case(B, C, starts, clens, seed, device=device, int8=True, **heads)
+        starts = ragged(B, starts[-1], seed, lo=starts[1] if len(starts) == 3 else 0)
+    case = attention_case(B, C, starts, clens, seed, device=device, int8=int8, **heads)
     return name, kind, case, window, cap
 
 

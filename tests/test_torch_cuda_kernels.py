@@ -1,6 +1,7 @@
-"""The hand-written CUDA kernels (paged attention over bf16 and int8 pools,
-the fused decoder layer, the int8 lm-head, the int8 weight-streaming
-product) against their plain PyTorch versions, on the card.
+"""The hand-written CUDA kernels (paged attention over bf16 pools at head_dim
+64, 128 and 256 and over int8 pools at 64 and 128, the fused decoder layer,
+the int8 lm-head, the int8 weight-streaming product) against their plain
+PyTorch versions, on the card.
 Marked ``cuda``: they skip where there is no CUDA device or no nvcc. On a
 machine with the card (which has no JAX, so the suite's conftest cannot
 load):
@@ -29,12 +30,15 @@ import pytest
 import torch
 
 from dynamo_tpu_torch.tools.cases import (
+    D256_ATTENTION_CASES,
     INT8_ATTENTION_CASES,
     LAYER_CASES,
     MATMUL_SHAPES,
     bf16_steps,
     layer_case,
+    make_d256_attention_case,
     make_int8_attention_case,
+    quantize_pool,
     epilogue_ok,
     make_layer_case,
     matmul_case,
@@ -135,9 +139,9 @@ def test_wrappers_count_launches_and_refuse_what_the_kernel_does_not_take(kernel
     big = _case(1, 9, 16, 2, 64, 16, [0], [9], seed=1)  # C*G = 72 > 64
     with pytest.raises(ValueError):
         kernels.paged_attention_decode(big["q"], big["k"], big["v"], big["tables"], big["start"])
-    wide = _case(1, 1, 8, 2, 256, 16, [5], [1], seed=2)  # built for head_dim 64 and 128
+    odd = _case(1, 1, 8, 2, 96, 16, [5], [1], seed=2)  # built for head_dim 64, 128 and 256
     with pytest.raises(ValueError):
-        kernels.paged_attention_decode(wide["q"], wide["k"], wide["v"], wide["tables"], wide["start"])
+        kernels.paged_attention_decode(odd["q"], odd["k"], odd["v"], odd["tables"], odd["start"])
 
 
 def test_paged_attention_at_head_dim_128(kernels):
@@ -155,6 +159,41 @@ def test_paged_attention_at_head_dim_128(kernels):
     ref = paged_attention_ref(ch["q"], ch["k"], ch["v"], ch["tables"], ch["start"], ch["lens"],
                               window=50, logit_cap=20.0)
     _check(out, ref, [100, 64, 1])
+
+
+@pytest.mark.parametrize("label", list(D256_ATTENTION_CASES))
+def test_paged_attention_at_head_dim_256(kernels, label):
+    """Gemma shapes over bf16 pools: Gemma-2 (KH 4, G 2, softcap 50, window
+    4,096 at contexts of 4,000-6,600) and Gemma-3 (KH 1, G 4, window 512),
+    with window boundaries inside a page and inside a 64-key tile. Each
+    launches its kernel once, counted under the bf16 name."""
+    from dynamo_tpu_torch.ops.attention import paged_attention_ref
+
+    name, kind, c, window, cap = make_d256_attention_case(label, "cuda")
+    kernels.reset_launch_counts()
+    fn = kernels.paged_attention_decode if kind == "decode" else kernels.paged_attention_chunk
+    extra = () if kind == "decode" else (c["clens"],)
+    out = fn(c["q"], c["k"], c["v"], c["tables"], c["start"], *extra, window=window, logit_cap=cap)
+    ref = paged_attention_ref(c["q"], c["k"], c["v"], c["tables"], c["start"], c["clens"],
+                              window=window, logit_cap=cap)
+    _check(out, ref, c["clens"].tolist())
+    assert torch.isfinite(out).all()  # padding rows too
+    assert kernels.launch_counts[name] == 1 and sum(kernels.launch_counts.values()) == 1
+
+
+def test_int8_pools_at_head_dim_256_are_refused(kernels):
+    """int8 pools are built for head_dim 64 and 128 only: at 256 both
+    wrappers raise before any launch (the bf16 pools of the same case run)."""
+    c = _case(2, 1, 8, 4, 256, 16, [4200, 37], [1, 1], seed=4)
+    k8, v8 = quantize_pool(c["k"]), quantize_pool(c["v"])
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="int8 pools at head_dim 256"):
+        kernels.paged_attention_decode(c["q"], k8, v8, c["tables"], c["start"])
+    with pytest.raises(ValueError, match="int8 pools at head_dim 256"):
+        kernels.paged_attention_chunk(c["q"], k8, v8, c["tables"], c["start"], c["lens"])
+    assert not any(kernels.int8_launch_counts.values())
+    kernels.paged_attention_decode(c["q"], c["k"], c["v"], c["tables"], c["start"])
+    assert kernels.launch_counts["paged_attention_decode"] == 1
 
 
 # -- fused decoder layer and int8 head ----------------------------------------

@@ -142,7 +142,7 @@ def test_forward_paged_matches_jax_first_chunk_then_paged(name):
         start = start + lens
 
 
-@pytest.mark.parametrize("name", ["llama", "qwen2"])
+@pytest.mark.parametrize("name", ["llama", "qwen2", "gemma2", "gemma3"])
 def test_decode_multi_matches_jax(name):
     """Greedy bursts: tokens exact, and the per-step logits agree — read
     through the JAX package's logprob of each chosen token. Row 2 is
