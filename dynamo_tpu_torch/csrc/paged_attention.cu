@@ -32,7 +32,7 @@
 // memory, with each thread computing a small block of outputs so that one
 // shared-memory read feeds several FMAs:
 //   * decode layout (C*G <= 8 rows, e.g. 7 for Qwen2.5-0.5B, 2 for
-//     Gemma-2-2B, whose other 6 rows are padding): 8-row blocks
+//     Gemma-2-2B and 4 for Gemma-3-1B, the rest padding): 8-row blocks
 //     over tiles of 16384/D keys (32 KB each of K and V). A thread scores
 //     one key against every row; in P.V it accumulates two columns of every
 //     row over its own group of keys, and the groups' partial sums are added
@@ -548,23 +548,23 @@ cudaError_t dispatch(bool small, const void* q, const void* k, const void* ks, c
     return cudaErrorInvalidValue;
   if (POOL::kScaled && (ks == nullptr || vs == nullptr)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // Built for head_dim 64 (Qwen2.5-0.5B) and 128 (Llama-3-8B) over both
-  // pool types, and 256 (Gemma) over bf16 pools; other widths, and int8
-  // pools at 256, are refused. At D = 128 the decode layout takes tiles of
-  // 128 keys, at D = 256 tiles of 64. At D = 256 the 64-row layout holds
-  // 148 KB of shared memory (q in f32 64 KB, K and V 33 KB each, P 17 KB):
-  // one block an SM.
+  // Built for head_dim 64 (Qwen2.5-0.5B), 128 (Llama-3-8B) and 256
+  // (Gemma-2-2B, Gemma-3-1B) over both pool types; other widths are
+  // refused. At D = 128 the decode layout takes tiles of 128 keys, at
+  // D = 256 tiles of 64. At D = 256 the 64-row layout holds 148 KB of
+  // shared memory (q in f32 64 KB, K and V 33 KB each, P 17 KB; int8 pools
+  // add the tile's 512 bytes of scales): one block an SM. An int8 tile
+  // takes half the prefetch registers of a bf16 one (16 codes a 16-byte
+  // load), so the int8 instantiations fit where the bf16 ones do.
   if (D == 64)
     return launch_d<POOL, 64>(small, q, k, ks, v, vs, tables, start, clens, out, B, C, H, KH, NB,
                               BS, P, window, sm_scale, logit_cap, s);
   if (D == 128)
     return launch_d<POOL, 128>(small, q, k, ks, v, vs, tables, start, clens, out, B, C, H, KH,
                                NB, BS, P, window, sm_scale, logit_cap, s);
-  if constexpr (!POOL::kScaled) {
-    if (D == 256)
-      return launch_d<POOL, 256>(small, q, k, ks, v, vs, tables, start, clens, out, B, C, H, KH,
-                                 NB, BS, P, window, sm_scale, logit_cap, s);
-  }
+  if (D == 256)
+    return launch_d<POOL, 256>(small, q, k, ks, v, vs, tables, start, clens, out, B, C, H, KH,
+                               NB, BS, P, window, sm_scale, logit_cap, s);
   return cudaErrorInvalidValue;
 }
 

@@ -18,7 +18,8 @@ this engine keeps that reservation so its preemption points are the same.
 It needs no shape buckets: eager PyTorch has no compile per shape.
 
 Not ported yet (ROADMAP): pipeline depth 2, speculative decoding, logprobs
-and top-N, logits processors, LoRA, MoE, the tick budget, sleep/wake, KV
+and top-N, logits processors (a request that sets a penalty, min_p,
+logit_bias or logprobs is refused with FinishReason.ERROR), LoRA, MoE, the tick budget, sleep/wake, KV
 export/import/checkpoint, multimodal, metrics and the flight recorder.
 
 All device work runs on one executor thread so the asyncio loop never
@@ -116,6 +117,28 @@ class _Prep:
     sp: Tuple[float, int, float]
 
 
+def _unported_sampling(s: Any) -> Optional[str]:
+    """The refusal of a request whose sampling sets a logits processor or
+    asks for logprobs, which the port does not compute yet: without it the
+    request would stream other tokens than the JAX engine's, or no
+    logprobs, and say nothing. Neutral values are served, as the JAX
+    admission treats them as off (admission.py:568-574)."""
+    set_fields = [
+        name for name, on in (
+            ("repetition_penalty", s.repetition_penalty not in (None, 0, 1.0)),
+            ("presence_penalty", bool(s.presence_penalty)),
+            ("frequency_penalty", bool(s.frequency_penalty)),
+            ("min_p", s.min_p is not None and s.min_p > 0),
+            ("logit_bias", bool(s.logit_bias)),
+            ("logprobs", s.logprobs is not None),
+        ) if on
+    ]
+    if not set_fields:
+        return None
+    return (f"sampling field(s) {', '.join(set_fields)} not supported: logits processors "
+            "and logprobs are not ported yet")
+
+
 class TorchEngine:
     """AsyncEngine over the port's model: ``generate(request, context)``."""
 
@@ -204,6 +227,8 @@ class TorchEngine:
             error = f"engine failed: {self._failure}"
         elif request.lora_name:
             error = f"unknown LoRA adapter {request.lora_name!r} (LoRA is not ported yet)"
+        else:
+            error = _unported_sampling(request.sampling)
         if error is not None:
             yield BackendOutput(error=error, finish_reason=FinishReason.ERROR)
             return

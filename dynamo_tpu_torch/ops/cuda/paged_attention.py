@@ -25,11 +25,8 @@ from dynamo_tpu_torch.ops.cuda import build
 from dynamo_tpu_torch.ops.kv_quant import KVPool, is_quantized_pool, pool_values
 
 DECODE_MAX_ROWS = 64  # C·G query rows one decode block holds
-# The widths csrc/paged_attention.cu is built for, by pool type: head_dim 256
-# (Gemma) over bf16 pools only; int8 pools at 256 come with the Gemma-3-1B
-# int8 path (ROADMAP A1).
-BF16_HEAD_DIMS = (64, 128, 256)
-INT8_HEAD_DIMS = (64, 128)
+# The widths csrc/paged_attention.cu is built for, over both pool types.
+HEAD_DIMS = (64, 128, 256)
 
 launch_counts: Dict[str, int] = {"paged_attention_decode": 0, "paged_attention_chunk": 0}
 int8_launch_counts: Dict[str, int] = {"paged_attention_decode_int8": 0,
@@ -107,12 +104,8 @@ def _check(q, k_cache: KVPool, v_cache: KVPool, block_tables, start_pos, chunk_l
                                 f"{tuple(t.shape)}")
     if H % KH:
         raise ValueError(f"n_heads {H} is not a multiple of n_kv_heads {KH}")
-    dims = INT8_HEAD_DIMS if quantized else BF16_HEAD_DIMS
-    if D not in dims:
-        pool = "int8" if quantized else "bf16"
-        later = (" (int8 pools at head_dim 256 are not built yet: they come with the "
-                 "Gemma-3-1B int8 path)" if quantized and D in BF16_HEAD_DIMS else "")
-        raise ValueError(f"head_dim {D} not in {dims} for {pool} pools{later}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     if 64 % BS:
         raise ValueError(f"block_size {BS} must divide 64")
     if block_tables.dim() != 2 or block_tables.shape[0] != B:

@@ -190,6 +190,40 @@ D256_ATTENTION_CASES: Dict[str, Tuple] = {
         GEMMA3_HEADS, 67),
 }
 
+# label: (kernel, kind, B, C, starts, chunk lengths, window, softcap, heads,
+# seed) — int8 pools at head_dim 256, Gemma-3-1B's heads (KH 1, G 4; window
+# 512 on its local layers, 0 on its global ones). The "B32 C1" and "B4 C512"
+# cases are the timing cases: decode at 32 sequences (the
+# engine_gemma3_int8kv phase's slots) and a 512-token chunk. The windowed
+# decode case mixes the engine's decode contexts (100-900) with one row at
+# start 592, whose first visible key, 81, sits one key into page 5 and
+# inside the 64-key tile 64-127; the global cases attend over 4,000-6,000
+# keys. In the windowed chunk case the first visible key moves through the
+# chunk's rows (start 4,601: key 4,090, inside page 255 and inside the
+# tile 4,032-4,095). C·G = 160 in the "B2 C40" case: the 64-row layout's
+# second and third row blocks; C·G = 12 in the "B4 C3" case: the decode
+# wrapper's 64-row layout.
+INT8_D256_ATTENTION_CASES: Dict[str, Tuple] = {
+    "gemma3 int8 D256 B32 C1 window 512": (
+        "paged_attention_decode_int8", "decode", 32, 1, [592] + ragged(31, 900, 81, lo=100),
+        [1] * 32, 512, 0.0, GEMMA3_HEADS, 81),
+    "gemma3 int8 D256 B32 C1 global": (
+        "paged_attention_decode_int8", "decode", 32, 1, ("ragged", 4000, 6000), [1] * 32, 0, 0.0,
+        GEMMA3_HEADS, 82),
+    "gemma3 int8 D256 B4 C512 window 512": (
+        "paged_attention_chunk_int8", "chunk", 4, 512, [4000, 4601, 5200, 6000],
+        [512, 300, 37, 1], 512, 0.0, GEMMA3_HEADS, 83),
+    "gemma3 int8 D256 B4 C512 global": (
+        "paged_attention_chunk_int8", "chunk", 4, 512, [4000, 4601, 5200, 6000],
+        [512, 300, 37, 1], 0, 0.0, GEMMA3_HEADS, 84),
+    "gemma3 int8 D256 B2 C40 window 512": (
+        "paged_attention_chunk_int8", "chunk", 2, 40, [4133, 600], [40, 17], 512, 0.0,
+        GEMMA3_HEADS, 85),
+    "gemma3 int8 D256 B4 C3 window 512": (
+        "paged_attention_decode_int8", "decode", 4, 3, [0, 90, 600, 1000], [3] * 4, 512, 0.0,
+        GEMMA3_HEADS, 86),
+}
+
 # label: (kernel, kind, B, C, starts (a list, or ("ragged", hi)), chunk
 # lengths, window, softcap, heads, seed) — the int8-pool cases. The D 128
 # "B32 C1" and "B4 C512" cases are the timing cases: Llama-3-8B decode at
@@ -223,8 +257,10 @@ INT8_ATTENTION_CASES: Dict[str, Tuple] = {
 
 
 def make_int8_attention_case(label: str, device: Any):
-    """(kernel name, kind, case, window, softcap) of INT8_ATTENTION_CASES[label]."""
-    return _make_attention_case(INT8_ATTENTION_CASES[label], device, int8=True)
+    """(kernel name, kind, case, window, softcap) of INT8_ATTENTION_CASES[label]
+    or INT8_D256_ATTENTION_CASES[label]."""
+    entry = INT8_ATTENTION_CASES.get(label) or INT8_D256_ATTENTION_CASES[label]
+    return _make_attention_case(entry, device, int8=True)
 
 
 def make_d256_attention_case(label: str, device: Any):
@@ -249,6 +285,17 @@ MATMUL_SHAPES: Dict[str, Tuple[int, int, int]] = {
     "k/v 4096x1024": (4096, 1024, 2),
     "gate/up 4096x14336": (4096, 14336, 2),
     "down 14336x4096": (14336, 4096, 1),
+}
+
+
+# The same for one Gemma-3-1B layer (d 1,152, 4 q heads and 1 KV head of
+# 256, d_ff 6,912).
+GEMMA3_MATMUL_SHAPES: Dict[str, Tuple[int, int, int]] = {
+    "q 1152x1024": (1152, 1024, 1),
+    "k/v 1152x256": (1152, 256, 2),
+    "gate/up 1152x6912": (1152, 6912, 2),
+    "o 1024x1152": (1024, 1152, 1),
+    "down 6912x1152": (6912, 1152, 1),
 }
 
 

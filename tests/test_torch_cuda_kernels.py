@@ -1,7 +1,6 @@
-"""The hand-written CUDA kernels (paged attention over bf16 pools at head_dim
-64, 128 and 256 and over int8 pools at 64 and 128, the fused decoder layer,
-the int8 lm-head, the int8 weight-streaming product) against their plain
-PyTorch versions, on the card.
+"""The hand-written CUDA kernels (paged attention over bf16 and int8 pools at
+head_dim 64, 128 and 256, the fused decoder layer, the int8 lm-head, the int8
+weight-streaming product) against their plain PyTorch versions, on the card.
 Marked ``cuda``: they skip where there is no CUDA device or no nvcc. On a
 machine with the card (which has no JAX, so the suite's conftest cannot
 load):
@@ -31,14 +30,15 @@ import torch
 
 from dynamo_tpu_torch.tools.cases import (
     D256_ATTENTION_CASES,
+    GEMMA3_MATMUL_SHAPES,
     INT8_ATTENTION_CASES,
+    INT8_D256_ATTENTION_CASES,
     LAYER_CASES,
     MATMUL_SHAPES,
     bf16_steps,
     layer_case,
     make_d256_attention_case,
     make_int8_attention_case,
-    quantize_pool,
     epilogue_ok,
     make_layer_case,
     matmul_case,
@@ -181,21 +181,6 @@ def test_paged_attention_at_head_dim_256(kernels, label):
     assert kernels.launch_counts[name] == 1 and sum(kernels.launch_counts.values()) == 1
 
 
-def test_int8_pools_at_head_dim_256_are_refused(kernels):
-    """int8 pools are built for head_dim 64 and 128 only: at 256 both
-    wrappers raise before any launch (the bf16 pools of the same case run)."""
-    c = _case(2, 1, 8, 4, 256, 16, [4200, 37], [1, 1], seed=4)
-    k8, v8 = quantize_pool(c["k"]), quantize_pool(c["v"])
-    kernels.reset_launch_counts()
-    with pytest.raises(ValueError, match="int8 pools at head_dim 256"):
-        kernels.paged_attention_decode(c["q"], k8, v8, c["tables"], c["start"])
-    with pytest.raises(ValueError, match="int8 pools at head_dim 256"):
-        kernels.paged_attention_chunk(c["q"], k8, v8, c["tables"], c["start"], c["lens"])
-    assert not any(kernels.int8_launch_counts.values())
-    kernels.paged_attention_decode(c["q"], c["k"], c["v"], c["tables"], c["start"])
-    assert kernels.launch_counts["paged_attention_decode"] == 1
-
-
 # -- fused decoder layer and int8 head ----------------------------------------
 
 
@@ -222,7 +207,8 @@ def test_fused_layer_kernel_matches_plain(kernels, name):
 
 
 @pytest.mark.parametrize("tied,M,K,V", [(False, 16, 4096, 128256), (True, 16, 896, 151936),
-                                        (False, 20, 200, 1008), (True, 3, 200, 77)])
+                                        (True, 32, 1152, 262144), (False, 20, 200, 1008),
+                                        (True, 3, 200, 77)])
 def test_lm_head_kernel_matches_plain(kernels, tied, M, K, V):
     """int8 head: the product rounded to bf16 before the scale, as the plain
     version; they differ by at most one bf16 step of the product (the f32
@@ -269,10 +255,13 @@ def test_fused_and_head_wrappers_refuse_what_the_kernels_do_not_take(kernels):
 # -- int8 KV pools and the int8 product ---------------------------------------
 
 
-@pytest.mark.parametrize("label", list(INT8_ATTENTION_CASES))
+@pytest.mark.parametrize("label", list(INT8_ATTENTION_CASES) + list(INT8_D256_ATTENTION_CASES))
 def test_int8_pool_attention_kernels_match_plain(kernels, label):
     """paged_attention_{decode,chunk}_int8 against paged_attention_ref on
-    the same int8 pools, counted under their own names."""
+    the same int8 pools, counted under their own names: Qwen2.5-0.5B and
+    Llama-3-8B heads, and Gemma-3-1B's at head_dim 256 (KH 1, G 4: window
+    512 with the first visible key inside a page and a 64-key tile, global
+    layers at contexts of 4,000-6,000, and C·G > 64)."""
     from dynamo_tpu_torch.ops.attention import paged_attention_ref
 
     name, kind, c, window, cap = make_int8_attention_case(label, "cuda")
@@ -284,7 +273,7 @@ def test_int8_pool_attention_kernels_match_plain(kernels, label):
                               window=window, logit_cap=cap)
     _check(out, ref, c["clens"].tolist())
     assert torch.isfinite(out).all()  # padding rows too
-    assert kernels.int8_launch_counts[name] == 1
+    assert kernels.int8_launch_counts[name] == 1 and sum(kernels.int8_launch_counts.values()) == 1
     assert not any(kernels.launch_counts.values())
 
 
@@ -302,15 +291,16 @@ def test_int8_pool_wrappers_refuse_what_the_kernels_do_not_take(kernels):
 
 
 @pytest.mark.parametrize("M", [1, 16, 32, 64, 100])
-@pytest.mark.parametrize("shape", list(MATMUL_SHAPES))
+@pytest.mark.parametrize("shape", list(MATMUL_SHAPES) + list(GEMMA3_MATMUL_SHAPES))
 def test_int8_matmul_kernel_matches_plain(kernels, shape, M):
     """The raw and the epilogue form against int8_matmul_ref at the four
-    Llama-3-8B weight shapes; M 100 takes two 64-row groups."""
+    Llama-3-8B weight shapes and a Gemma-3-1B layer's seven widths (d
+    1,152, d_ff 6,912); M 100 takes two 64-row groups."""
     from dynamo_tpu_torch.ops.cuda import int8_matmul as kernel
     from dynamo_tpu_torch.ops.quant import int8_matmul_ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    K, N, _ = MATMUL_SHAPES[shape]
+    K, N, _ = {**MATMUL_SHAPES, **GEMMA3_MATMUL_SHAPES}[shape]
     c = matmul_case(M, K, N, device="cuda")
     kernel.reset_launch_counts()
     raw = kernel.int8_matmul(c["x"], c["q8"])

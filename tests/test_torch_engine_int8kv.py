@@ -70,9 +70,9 @@ def test_forward_paged_and_decode_multi_with_int8_pools_match_jax(over):
     for C, lens, first in ((11, [11, 7, 2], True), (9, [9, 4, 1], False), (2, [2, 2, 1], False)):
         toks = rng.integers(0, jc.vocab_size, (B, C)).astype(np.int32)
         lens = np.asarray(lens, np.int32)
-        jl, jk, jv = jllama.forward_paged(params, jc, jnp.asarray(toks), jnp.asarray(start),
-                                          jnp.asarray(lens), jnp.asarray(tables), jk, jv,
-                                          first_chunk=first)
+        jl, jk, jv = jax.block_until_ready(jllama.forward_paged(
+            params, jc, jnp.asarray(toks), jnp.asarray(start), jnp.asarray(lens),
+            jnp.asarray(tables), jk, jv, first_chunk=first))
         tl, tk, tv = tllama.forward_paged(tp, tc, T(toks), T(start), T(lens), T(tables), tk, tv,
                                           first_chunk=first)
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4, rtol=1e-4)
@@ -85,12 +85,12 @@ def test_forward_paged_and_decode_multi_with_int8_pools_match_jax(over):
     active = np.array([1, 1, 0], np.int32)
     tok0 = np.array([5, 9, 0], np.int32)
     zeros = np.zeros(B, np.float32)
-    out = jllama.decode_multi(
+    out = jax.block_until_ready(jllama.decode_multi(
         params, jc, jnp.asarray(tok0), jnp.asarray(pos), jnp.asarray(active), jnp.asarray(tables),
         jk, jv, jax.random.PRNGKey(0), jnp.asarray(zeros), jnp.zeros(B, jnp.int32),
         jnp.ones(B, jnp.float32), num_steps=5, salts=jnp.arange(B, dtype=jnp.int32),
         want_logprobs=True,
-    )
+    ))
     t = tllama.decode_multi(
         tp, tc, T(tok0), T(pos), T(active), T(tables), tk, tv, 0, T(zeros),
         torch.zeros(B, dtype=torch.int32), torch.ones(B), num_steps=5, salts=torch.arange(B),

@@ -1,0 +1,77 @@
+"""``TorchEngine.generate()`` refuses a request whose sampling sets a logits
+processor or asks for logprobs — which the port does not compute yet — with
+``FinishReason.ERROR`` and a message naming the field, instead of streaming
+other tokens than the JAX engine would. Neutral values (the ones the JAX
+admission treats as off) are served, and give the plain request's stream.
+"""
+
+import asyncio
+
+import pytest
+
+from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
+from dynamo_tpu_torch.llm.protocols.common import (
+    FinishReason,
+    PreprocessedRequest,
+    SamplingOptions,
+    StopConditions,
+)
+from dynamo_tpu_torch.models import config as tconfig
+from dynamo_tpu_torch.runtime.context import Context
+
+ARGS = dict(block_size=4, num_kv_blocks=32, max_num_seqs=2, max_model_len=64, prefill_chunk=16,
+            decode_steps=2)
+PROMPT = [5, 17, 99, 3, 250, 41, 7]
+
+
+async def _collect(engine, sampling):
+    req = PreprocessedRequest(token_ids=PROMPT, request_id="r", sampling=sampling,
+                              stop=StopConditions(max_tokens=6))
+    outs = [out async for out in engine.generate(req, Context())]
+    return outs
+
+
+def _engine():
+    return TorchEngine(TorchEngineArgs(config=tconfig.tiny_config(), device="cpu", **ARGS))
+
+
+@pytest.mark.parametrize("field,value", [
+    ("repetition_penalty", 1.2),
+    ("presence_penalty", 0.5),
+    ("frequency_penalty", -0.3),
+    ("min_p", 0.05),
+    ("logit_bias", {7: 2.0}),
+    ("logprobs", 0),
+])
+def test_request_setting_a_processor_or_logprobs_is_refused(field, value):
+    async def run():
+        engine = _engine()
+        try:
+            return await _collect(engine, SamplingOptions(temperature=0.0, **{field: value}))
+        finally:
+            await engine.stop()
+
+    outs = asyncio.run(run())
+    assert len(outs) == 1
+    assert outs[0].finish_reason is FinishReason.ERROR
+    assert field in outs[0].error and not outs[0].token_ids
+
+
+def test_neutral_values_are_served_as_the_plain_request():
+    neutral = SamplingOptions(temperature=0.0, repetition_penalty=1.0, presence_penalty=0.0,
+                              frequency_penalty=0.0, min_p=0.0, logit_bias={}, logprobs=None)
+
+    async def run():
+        engine = _engine()
+        try:
+            plain = await _collect(engine, SamplingOptions(temperature=0.0))
+            served = await _collect(engine, neutral)
+            return plain, served
+        finally:
+            await engine.stop()
+
+    plain, served = asyncio.run(run())
+    tokens = [[t for o in outs for t in o.token_ids] for outs in (plain, served)]
+    assert all(o.error is None for o in plain + served)
+    assert tokens[0] == tokens[1] and len(tokens[0]) == 6
+    assert served[-1].finish_reason is FinishReason.LENGTH

@@ -147,7 +147,7 @@ def test_history_pcounts_and_window_page_bounds_match_jax():
             tfused.history_pcounts(torch.from_numpy(start), BS, P).numpy(),
             np.asarray(jfused.history_pcounts(jnp.asarray(start), BS, P)))
         for window in (0, 1, 17, 40, 512):
-            want = jfused.window_page_bounds(jnp.asarray(start), window, BS)
+            want = jax.block_until_ready(jfused.window_page_bounds(jnp.asarray(start), window, BS))
             got = tfused.window_page_bounds(torch.from_numpy(start), window, BS)
             for a, b in zip(got, want):
                 assert a.dtype == torch.int32
@@ -179,8 +179,8 @@ def test_plain_version_matches_pallas_kernel(name):
              jnp.asarray(win, jnp.int32))
     fn = _strict_pallas(jc.rms_norm_eps, _sm(jc), jc.act_fn, jc.rmsnorm_unit_offset,
                         float(jc.attn_logit_softcap or 0.0), win > 0)
-    want = fn.lower(*jargs).compile(
-        compiler_options={"xla_allow_excess_precision": False})(*jargs)
+    want = jax.block_until_ready(fn.lower(*jargs).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*jargs))
     got = _plain(tc, lp, inputs, win)
     for label, a, b in zip(("x_out", "k_new", "v_new"), got, want):
         assert a.dtype == torch.bfloat16 and tuple(a.shape) == b.shape
@@ -197,12 +197,12 @@ def test_plain_version_matches_xla_layer(name):
     x, cos, sin, kp, vp, tables, start = inputs
     B = len(start)
     jcos, jsin = jrope_table(jnp.asarray(start)[:, None], jc.head_dim_, jc.rope_theta)
-    want, k_c, _ = jllama.decoder_layer(
+    want, k_c, _ = jax.block_until_ready(jllama.decoder_layer(
         jc, jax.tree.map(jnp.asarray, lp), {}, jnp.asarray(win, jnp.int32),
         jnp.asarray(x, jnp.bfloat16)[:, None], jcos, jsin, jnp.asarray(kp, jnp.bfloat16),
         jnp.asarray(vp, jnp.bfloat16), jnp.asarray(tables), jnp.asarray(start),
         jnp.ones((B,), jnp.int32), use_kernel=False, adapter_ids=None,
-    )
+    ))
     want = np.asarray(want[:, 0], np.float32)
     got, k_new, _ = _plain(tc, lp, inputs, win)
     assert float((got.float() - torch.from_numpy(want)).abs().max()) <= 3e-2 * np.abs(want).max()
@@ -233,12 +233,12 @@ def test_decode_multi_through_the_fused_layer_matches_jax_int8():
     tv = [torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16) for a in jv]
     pos, active = np.array([20, 0, 20], np.int32), np.array([1, 1, 0], np.int32)
     tok0, zeros = np.array([5, 9, 0], np.int32), np.zeros(B, np.float32)
-    out = jllama.decode_multi(
+    out = jax.block_until_ready(jllama.decode_multi(
         q, jc, jnp.asarray(tok0), jnp.asarray(pos), jnp.asarray(active), jnp.asarray(tables),
         jk, jv, jax.random.PRNGKey(0), jnp.asarray(zeros), jnp.zeros(B, jnp.int32),
         jnp.ones(B, jnp.float32), num_steps=K, salts=jnp.arange(B, dtype=jnp.int32),
         want_logprobs=False, use_megakernel=False,
-    )
+    ))
     got = tllama.decode_multi(
         tp, tc, _t(tok0), _t(pos), _t(active), _t(tables), tk, tv, 0, _t(zeros),
         torch.zeros(B, dtype=torch.int32), torch.ones(B), num_steps=K, salts=torch.arange(B),

@@ -63,7 +63,7 @@ def test_quantize_kv_chunk_bit_equal(shape, scale, dtype):
     tx = T(x)
     if dtype == "bf16":
         jx, tx = jx.astype(jnp.bfloat16), tx.to(torch.bfloat16)
-    want_q, want_s = jkv.quantize_kv_chunk(jx)
+    want_q, want_s = jax.block_until_ready(jkv.quantize_kv_chunk(jx))
     got_q, got_s = tkv.quantize_kv_chunk(tx)
     assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
     np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
@@ -112,8 +112,9 @@ def test_write_chunk_to_cache_int8_drops_padding_and_overshoot():
     tables = np.array([[3, 7], [1, 10], [5, 0]], np.int32)
     start = np.array([0, 5, 6], np.int32)  # row 1: 5..10 crosses capacity 8
     lens = np.array([4, 6, 1], np.int32)  # row 0 padding past 4
-    want = jattn.write_chunk_to_cache(_jpool(pool), jnp.asarray(chunk), jnp.asarray(tables),
-                                      jnp.asarray(start), jnp.asarray(lens))
+    want = jax.block_until_ready(jattn.write_chunk_to_cache(
+        _jpool(pool), jnp.asarray(chunk), jnp.asarray(tables), jnp.asarray(start),
+        jnp.asarray(lens)))
     got = tattn.write_chunk_to_cache(_tpool(pool), T(chunk), T(tables), T(start), T(lens))
     np.testing.assert_array_equal(got["q8"].numpy(), np.asarray(want["q8"]))
     np.testing.assert_array_equal(got["s"].numpy(), np.asarray(want["s"]))
@@ -187,8 +188,9 @@ def test_int8_decode_plain_matches_pallas_decode_kernel(seed, B, C, H, KH, D, BS
                                                         window, cap):
     c = _int8_case(seed, B, C, H, KH, D, BS, P, starts, [C] * B)
     q, k, v, tables, start, _ = _jax_args(c)
-    want = paged_attention_decode_kernel(q, k, v, tables, start, window, interpret=True,
-                                         batch_block=B if B % 2 else 2, logit_cap=cap)
+    want = jax.block_until_ready(paged_attention_decode_kernel(
+        q, k, v, tables, start, window, interpret=True, batch_block=B if B % 2 else 2,
+        logit_cap=cap))
     q_t, k_t, v_t, tables_t, start_t, _ = _torch_args(c)
     got = tkernels.paged_attention_decode(q_t, k_t, v_t, tables_t, start_t,
                                           window=window, logit_cap=cap)
@@ -199,7 +201,8 @@ def test_int8_decode_plain_matches_pallas_decode_kernel(seed, B, C, H, KH, D, BS
 def test_int8_chunk_plain_matches_pallas_chunk_kernel(seed, B, C, H, KH, D, BS, P, starts, lens,
                                                       window, cap):
     c = _int8_case(seed, B, C, H, KH, D, BS, P, starts, lens)
-    want = paged_attention_kernel(*_jax_args(c), window, interpret=True, logit_cap=cap)
+    want = jax.block_until_ready(
+        paged_attention_kernel(*_jax_args(c), window, interpret=True, logit_cap=cap))
     got = tkernels.paged_attention_chunk(*_torch_args(c), window=window, logit_cap=cap)
     _assert_valid_rows(got.numpy(), _np(want), lens, 1e-4)
 
@@ -241,8 +244,9 @@ def test_int8_matmul_ref_matches_the_prototype_reference(M, K, N):
     rng = np.random.default_rng(M + K + N)
     x = jnp.asarray(rng.standard_normal((M, K)).astype(np.float32)).astype(jnp.bfloat16)
     w = rng.integers(-127, 127, size=(K, N)).astype(np.int8)
-    want = jax.lax.dot_general(x, jnp.asarray(w).astype(x.dtype), (((1,), (0,)), ((), ())),
-                               preferred_element_type=jnp.float32)
+    want = jax.block_until_ready(jax.lax.dot_general(
+        x, jnp.asarray(w).astype(x.dtype), (((1,), (0,)), ((), ())),
+        preferred_element_type=jnp.float32))
     xt = T(np.asarray(x.astype(jnp.float32))).to(torch.bfloat16)
     got = tquant.int8_matmul_ref(xt, T(w))
     assert got.dtype == torch.float32 and got.shape == (M, N)

@@ -107,10 +107,10 @@ def _forward_both(jc, tc, params, tree, tokens, start, lens, tables, caches=None
     if caches is None:
         caches = (jllama.init_kv_cache(jc, NB, BS, layered=True), tllama.init_kv_cache(tc, NB, BS, "cpu"))
     (jk, jv), (tk, tv) = caches
-    jl, jk, jv = jllama.forward_paged(
+    jl, jk, jv = jax.block_until_ready(jllama.forward_paged(
         params, jc, jnp.asarray(tokens), jnp.asarray(start), jnp.asarray(lens),
         jnp.asarray(tables), jk, jv, first_chunk=first_chunk,
-    )
+    ))
     tp = params_from_jax(tree, tc, "cpu")
     tl, tk, tv = tllama.forward_paged(
         tp, tc, T(tokens), T(start), T(lens), T(tables), tk, tv, first_chunk=first_chunk,
@@ -162,12 +162,12 @@ def test_decode_multi_matches_jax(name):
     active = np.array([1, 1, 0], np.int32)
     tok0 = np.array([5, 9, 0], np.int32)
     zeros = np.zeros(B, np.float32)
-    out = jllama.decode_multi(
+    out = jax.block_until_ready(jllama.decode_multi(
         params, jc, jnp.asarray(tok0), jnp.asarray(pos), jnp.asarray(active), jnp.asarray(tables),
         jk, jv, jax.random.PRNGKey(0), jnp.asarray(zeros), jnp.zeros(B, jnp.int32),
         jnp.ones(B, jnp.float32), num_steps=K, salts=jnp.arange(B, dtype=jnp.int32),
         want_logprobs=True,
-    )
+    ))
     j_toks, j_logp = np.asarray(out[0]), np.asarray(out[1])
     tp = params_from_jax(tree, tc, "cpu")
     t = tllama.decode_multi(

@@ -44,11 +44,11 @@ def test_rope_matches_jax(head_dim, theta, scale):
     rng = np.random.default_rng(head_dim)
     pos = rng.integers(0, 5000, (3, 7)).astype(np.int32)
     x = rng.standard_normal((3, 7, 4, head_dim)).astype(np.float32)
-    jc, js = jrope.rope_table(jnp.asarray(pos), head_dim, theta, scale)
+    jc, js = jax.block_until_ready(jrope.rope_table(jnp.asarray(pos), head_dim, theta, scale))
     tc, ts = trope.rope_table(T(pos), head_dim, theta, scale)
     np.testing.assert_allclose(tc.numpy(), _np(jc), atol=1e-5)
     np.testing.assert_allclose(ts.numpy(), _np(js), atol=1e-5)
-    want = jrope.apply_rope(jnp.asarray(x), jc, js)
+    want = jax.block_until_ready(jrope.apply_rope(jnp.asarray(x), jc, js))
     got = trope.apply_rope(T(x), tc, ts)
     np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-5)
 
@@ -58,7 +58,8 @@ def test_rms_norm_matches_jax(unit_offset):
     rng = np.random.default_rng(3)
     x = (rng.standard_normal((2, 5, 96)) * 3).astype(np.float32)
     w = rng.standard_normal(96).astype(np.float32)
-    want = jllama._rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-6, unit_offset)
+    want = jax.block_until_ready(
+        jllama._rms_norm(jnp.asarray(x), jnp.asarray(w), 1e-6, unit_offset))
     got = tllama._rms_norm(T(x), T(w), 1e-6, unit_offset)
     np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-5)
 
@@ -69,7 +70,8 @@ def test_rms_norm_bf16_rounds_before_the_weight():
     rng = np.random.default_rng(4)
     x = rng.standard_normal((3, 64)).astype(np.float32)
     w = rng.standard_normal(64).astype(np.float32)
-    want = jllama._rms_norm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16), 1e-5)
+    want = jax.block_until_ready(
+        jllama._rms_norm(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16), 1e-5))
     got = tllama._rms_norm(T(x).bfloat16(), T(w).bfloat16(), 1e-5)
     np.testing.assert_array_equal(got.float().numpy(), _np(want.astype(jnp.float32)))
 
@@ -77,7 +79,7 @@ def test_rms_norm_bf16_rounds_before_the_weight():
 @pytest.mark.parametrize("act_fn", ["silu", "gelu_tanh"])
 def test_act_matches_jax(act_fn):
     x = np.linspace(-6, 6, 301, dtype=np.float32)
-    want = jllama._act(jnp.asarray(x), act_fn)
+    want = jax.block_until_ready(jllama._act(jnp.asarray(x), act_fn))
     got = tllama._act(T(x), act_fn)
     np.testing.assert_allclose(got.numpy(), _np(want), atol=1e-5)
 
@@ -94,7 +96,7 @@ def test_qeinsum_matches_jax(spec, xs, ws):
     rng = np.random.default_rng(len(spec))
     x = rng.standard_normal(xs).astype(np.float32)
     w = rng.standard_normal(ws).astype(np.float32)
-    want = jquant.qeinsum(spec, jnp.asarray(x), jnp.asarray(w))
+    want = jax.block_until_ready(jquant.qeinsum(spec, jnp.asarray(x), jnp.asarray(w)))
     np.testing.assert_allclose(tquant.qeinsum(spec, T(x), T(w)).numpy(), _np(want), atol=1e-5)
 
 
@@ -112,8 +114,9 @@ def test_write_chunk_to_cache_drops_padding_and_overshoot():
     tables = np.array([[3, 7], [1, 10], [5, 0]], np.int32)
     start = np.array([0, 5, 6], np.int32)  # row 1: 5..10 crosses capacity 8
     lens = np.array([4, 6, 1], np.int32)  # row 0 padding past 4
-    want = jattn.write_chunk_to_cache(jnp.asarray(cache), jnp.asarray(chunk),
-                                      jnp.asarray(tables), jnp.asarray(start), jnp.asarray(lens))
+    want = jax.block_until_ready(jattn.write_chunk_to_cache(
+        jnp.asarray(cache), jnp.asarray(chunk), jnp.asarray(tables), jnp.asarray(start),
+        jnp.asarray(lens)))
     got = tattn.write_chunk_to_cache(T(cache.copy()), T(chunk), T(tables), T(start), T(lens))
     np.testing.assert_array_equal(got.numpy(), _np(want))
     # Row 0 writes positions 0..3 (block 3); row 1 positions 5..7 (block 10
@@ -167,7 +170,7 @@ PAGED_CASES = [
 @pytest.mark.parametrize("seed,B,C,H,KH,D,BS,P,starts,lens,window,cap", PAGED_CASES)
 def test_paged_attention_ref_matches_xla(seed, B, C, H, KH, D, BS, P, starts, lens, window, cap):
     c = _paged_case(seed, B, C, H, KH, D, BS, P, starts, lens)
-    want = jattn._paged_attention_xla(*_jax_args(c), window, logit_cap=cap)
+    want = jax.block_until_ready(jattn._paged_attention_xla(*_jax_args(c), window, logit_cap=cap))
     got = tattn.paged_attention_ref(*_torch_args(c), window=window, logit_cap=cap)
     _assert_valid_rows(got.numpy(), _np(want), lens)
     # paged_attention on CPU tensors routes through the wrappers' plain path
@@ -180,8 +183,8 @@ def test_paged_attention_ref_matches_xla(seed, B, C, H, KH, D, BS, P, starts, le
 def test_decode_plain_matches_pallas_decode_kernel(seed, B, C, H, KH, D, BS, P, starts, lens, window, cap):
     c = _paged_case(seed, B, C, H, KH, D, BS, P, starts, [C] * B)
     q, k, v, tables, start, _ = _jax_args(c)
-    want = paged_attention_decode_kernel(q, k, v, tables, start, window,
-                                         interpret=True, batch_block=2, logit_cap=cap)
+    want = jax.block_until_ready(paged_attention_decode_kernel(
+        q, k, v, tables, start, window, interpret=True, batch_block=2, logit_cap=cap))
     q_t, k_t, v_t, tables_t, start_t, _ = _torch_args(c)
     got = tkernels.paged_attention_decode(q_t, k_t, v_t, tables_t, start_t,
                                           window=window, logit_cap=cap)
@@ -191,7 +194,8 @@ def test_decode_plain_matches_pallas_decode_kernel(seed, B, C, H, KH, D, BS, P, 
 @pytest.mark.parametrize("seed,B,C,H,KH,D,BS,P,starts,lens,window,cap", PAGED_CASES)
 def test_chunk_plain_matches_pallas_chunk_kernel(seed, B, C, H, KH, D, BS, P, starts, lens, window, cap):
     c = _paged_case(seed, B, C, H, KH, D, BS, P, starts, lens)
-    want = paged_attention_kernel(*_jax_args(c), window, interpret=True, logit_cap=cap)
+    want = jax.block_until_ready(
+        paged_attention_kernel(*_jax_args(c), window, interpret=True, logit_cap=cap))
     got = tkernels.paged_attention_chunk(*_torch_args(c), window=window, logit_cap=cap)
     _assert_valid_rows(got.numpy(), _np(want), lens)
 
@@ -222,8 +226,9 @@ def test_dense_chunk_attention_matches_jax(H, KH, window, cap):
     k = rng.standard_normal((B, C, KH, D)).astype(np.float32)
     v = rng.standard_normal((B, C, KH, D)).astype(np.float32)
     lens = np.array([16, 9, 1], np.int32)
-    want = jattn.dense_chunk_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                                       jnp.asarray(lens), window=window, logit_cap=cap)
+    want = jax.block_until_ready(jattn.dense_chunk_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(lens), window=window,
+        logit_cap=cap))
     got = tattn.dense_chunk_attention(T(q), T(k), T(v), T(lens), window=window, logit_cap=cap)
     _assert_valid_rows(got.numpy(), _np(want), lens)
     assert torch.isfinite(got).all()  # padding rows stay finite (the -1e30 sentinel)
@@ -237,10 +242,10 @@ def _sample_both(logits, temp, topk, topp, minp=None, seed=0, salts=None, pos=No
     salts = np.arange(B, dtype=np.int32) if salts is None else salts
     pos = np.full(B, 5, np.int32) if pos is None else pos
     jkeys = jsampling.fold_row_keys(jax.random.PRNGKey(seed), jnp.asarray(salts), jnp.asarray(pos))
-    want = jsampling.sample_tokens(
+    want = jax.block_until_ready(jsampling.sample_tokens(
         jnp.asarray(logits), None, jnp.asarray(temp), jnp.asarray(topk), jnp.asarray(topp),
         None if minp is None else jnp.asarray(minp), row_keys=jkeys,
-    )
+    ))
     tkeys = tsampling.fold_row_keys(seed, T(salts), T(pos))
     got = tsampling.sample_tokens(T(logits), T(temp), T(topk), T(topp),
                                   None if minp is None else T(minp), row_keys=tkeys)

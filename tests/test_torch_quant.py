@@ -116,7 +116,7 @@ def test_quantize_params_matches_jax(tied):
     jc = jconfig.tiny_config(qkv_bias=True, tie_word_embeddings=tied)
     tc = tconfig.tiny_config(qkv_bias=True, tie_word_embeddings=tied)
     params = jllama.init_params(jc, jax.random.PRNGKey(2))
-    want, _ = jquantize.quantize_params(params)
+    want, _ = jax.block_until_ready(jquantize.quantize_params(params))
     plain = params_from_jax(jax.tree.map(np.asarray, params), tc, "cpu")
     assert not tquantize.is_quantized(plain)
     got = tquantize.quantize_params(plain)
@@ -142,9 +142,9 @@ def test_init_quantized_params_shapes_dtypes_and_std():
                             rmsnorm_unit_offset=True, dtype=torch.bfloat16)
     a = tquantize.init_quantized_params(c, 3, "cpu")
     b = tquantize.init_quantized_params(c, 3, "cpu")
-    ref = jquantize.init_quantized_params(jconfig.tiny_config(
+    ref = jax.block_until_ready(jquantize.init_quantized_params(jconfig.tiny_config(
         d_model=256, d_ff=512, qk_norm=True, post_norms=True, qkv_bias=True,
-        rmsnorm_unit_offset=True))
+        rmsnorm_unit_offset=True)))
     assert tquantize.is_quantized(a) and len(a["layers"]) == c.n_layers
     assert a["embed"]["q8"].shape == ref["embed"]["q8"].shape and a["embed"]["s"].shape == (c.vocab_size, 1)
     assert a["lm_head"]["s"].shape == (1, c.vocab_size)
