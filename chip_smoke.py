@@ -88,7 +88,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the burst's launches are exactly 26 x 8 int8 decode attention, 7 x 26 x
    8 int8 products and 8 heads, and none of any other kernel.
 
-Then one JSON line {"kernels": [...]} for all seven kernels, nvidia-smi's
+18. bs128 — parity of both paged-attention kernels at block size 128 over
+   bf16 and int8 pools (D 128 at KH 8, G 4, and one D 64 case; window
+   boundaries in a page's second 64-key tile, chunks across a page edge),
+   and the bf16 kernels' times at _prof_attn.py's case and B 4 x C 512.
+19. proto kernels — decode_packed (#6) and decode_bf16 (#7) against their
+   plain version (decode_attention_bf16_ref) at _prof_attn.py's case (B 64,
+   KH 8, G 4, D 128, block size 128, context 160), at B 13, at Gemma-2's
+   heads (D 256, window 4,096, softcap 50, contexts 4,000-6,000) and at
+   block size 16; ffn_int8 (#5) against ffn_int8_ref at 64 and 13 rows of
+   Llama-3-8B's FFN (d 4,096, F 14,336); each timed beside its plain
+   version, its bound and a library call.
+20. prof_attn, prof_fused_ffn — the profiling entry points
+   (tools/prof_attn.py at B 64, tools/prof_fused_ffn.py) with launch counts
+   zeroed before and read after; the counts are exact.
+21. prof_8b — tools/prof_8b.py's modes full (#1), floor, v2 (#6) and bf (#7)
+   on the int8 Llama-3-8B weights of phase 10 (B 64, block size 128,
+   context 160, 16 steps a call): ms a step and tok/s a mode, exact launch
+   counts, finite logits, v2's and bf's first-step logits within
+   LOGIT_LIMIT of full's.
+
+(18-20 run right after the Llama-3-8B kernels of phases 3-4, 21 right
+after phase 11.)
+Then one JSON line {"kernels": [...]} for all ten kernels, nvidia-smi's
 name and power limit, and last {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result.
 """
@@ -674,6 +696,223 @@ def gemma3_int8_kernel_phases(torch):
     return worst
 
 
+# -- block size 128, and the last three TPU kernels (#5, #6, #7) ------------
+
+# The first-step logits of prof_8b's v2 and bf modes against the full mode's:
+# at most LOGIT_LIMIT apart (max |a - b|). The modes differ only in
+# attention's probabilities (bf16 against float32), about a bf16 step of
+# an attention output; carried through 32 layers to logits of std ~1, that
+# moves a logit by a few hundredths. A wrong attention output (the floor
+# mode's differs by whole units) moves them by far more.
+LOGIT_LIMIT = 0.25
+
+
+def bs128_phase(torch) -> dict:
+    """Parity of both paged-attention kernels at block size 128 over bf16 and
+    int8 pools on every tools.cases.BS128_ATTENTION_CASES case (D 128 at KH
+    8, G 4, and one D 64 case; window boundaries in a page's second 64-key
+    tile, chunks across a page edge), then the timing of the bf16 decode
+    kernel at _prof_attn.py's case (B 64, context 160) and of the chunk
+    kernel at B 4 x C 512. Returns the worst errors."""
+    from dynamo_tpu_torch.tools.cases import (
+        BS128_ATTENTION_CASES, make_bs128_attention_case, make_proto_attention_case,
+    )
+
+    cases = []
+    for label in BS128_ATTENTION_CASES:
+        for int8 in (False, True):
+            name, kind, case, win, cap = make_bs128_attention_case(label, DEV, int8)
+            cases.append((name, kind, f"{'int8' if int8 else 'bf16'} {label}", case, win, cap))
+    worst = attention_parity(torch, cases)
+    reset_counts()  # parity launches do not count
+    dec, _, _ = make_proto_attention_case("llama3-8b B64 ctx 160 bs128", DEV)
+    chunk = next(c[3] for c in cases if c[2] == "bf16 bs128 D128 B4 C512 ragged lens")
+    attention_timing(torch, dec, chunk, label="llama-3-8b D128 bs128")
+    reset_counts()
+    del cases
+    return worst
+
+
+def ffn_bound(M, d, F):
+    """Least time for the int8 FFN: the 3·d·F codes, the scales, x and out
+    moved once (h stays on chip in the ideal); 6·M·d·F flops at the bf16
+    peak."""
+    t_bytes = (3 * d * F + 4 * (2 * F + d) + 2 * 2 * M * d) / HBM_BYTES_PER_S * 1e3
+    t_ops = 6 * M * d * F / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def proto_kernel_phases(torch):
+    """Parity of decode_packed (#6) and decode_bf16 (#7) against their plain
+    version (decode_attention_bf16_ref) on every
+    tools.cases.PROTO_ATTENTION_CASES case, and of ffn_int8 (#5) against
+    ffn_int8_ref at Llama-3-8B's FFN (d 4,096, F 14,336) for 64 and 13 rows;
+    then the timing of each at its main case (#6, #7: B 64 at context 160,
+    block size 128; #5: 64 rows). Returns (worst errors, timings)."""
+    import torch.nn.functional as F
+
+    from dynamo_tpu_torch.ops.attention import decode_attention_bf16_ref
+    from dynamo_tpu_torch.ops.cuda import decode_attention_proto as dk
+    from dynamo_tpu_torch.ops.cuda import ffn_int8 as fk
+    from dynamo_tpu_torch.ops.ffn_int8 import ffn_int8_ref
+    from dynamo_tpu_torch.tools.cases import (
+        PROTO_ATTENTION_CASES, bf16_steps, ffn_case, make_proto_attention_case,
+    )
+
+    def args(case):
+        return case["q"], case["k"], case["v"], case["tables"], case["start"]
+
+    worst = {"decode_packed": 0.0, "decode_bf16": 0.0, "ffn_int8": 0.0}
+    cases = {label: make_proto_attention_case(label, DEV) for label in PROTO_ATTENTION_CASES}
+    for label, (case, win, cap) in cases.items():
+        ref = decode_attention_bf16_ref(*args(case), win, logit_cap=cap)
+        for name in ("decode_packed", "decode_bf16"):
+            out = getattr(dk, name)(*args(case), win, logit_cap=cap)
+            torch.cuda.synchronize()
+            err, ok = compare(torch, out, ref, case["clens"].tolist())
+            emit({"phase": "parity", "kernel": name, "case": label, "max_abs_err": err,
+                  "tol": f"{ATOL} + {RTOL}*|plain|", "ok": ok})
+            if not ok:
+                fail(f"{name} ({label}) disagrees with its plain version: max abs err {err}")
+            worst[name] = max(worst[name], err)
+    d, ff = 4096, 14336
+    ffn_inputs = {}
+    for M in (64, 13):
+        x, *w = ffn_inputs[M] = ffn_case(M, d, ff, device=DEV)
+        out = fk.ffn_int8(x, *w)
+        again = fk.ffn_int8(x, *w)
+        ref = ffn_int8_ref(x, *w)
+        torch.cuda.synchronize()
+        steps = bf16_steps(out, ref)
+        same = torch.equal(out, again)
+        ok = steps <= STEP_LIMIT and same and bool(torch.isfinite(out.float()).all())
+        err = float((out.float() - ref.float()).abs().max())
+        emit({"phase": "parity", "kernel": "ffn_int8", "case": f"M{M} d{d} F{ff}",
+              "max_abs_err": err, "max_abs_plain": float(ref.float().abs().max()),
+              "bf16_steps": steps, "repeatable": same, "tol": f"{STEP_LIMIT} bf16 step",
+              "ok": ok})
+        if not ok:
+            fail(f"ffn_int8 (M{M}) disagrees with its plain version: {steps} bf16 steps, "
+                 f"repeatable={same}")
+        worst["ffn_int8"] = max(worst["ffn_int8"], err)
+    reset_counts()  # parity launches do not count
+
+    timed = {}
+    smi = smi_line()
+    case, _, _ = cases["llama3-8b B64 ctx 160 bs128"]
+    library_ms = time_ms(torch, library_call(torch, case), 50)
+    bound_ms, bound_by = bound(case)
+    for name in ("decode_packed", "decode_bf16"):
+        fn = getattr(dk, name)
+        timed[name] = dict(ms=time_ms(torch, lambda: fn(*args(case)), 50),
+                           plain_ms=time_ms(torch, lambda: decode_attention_bf16_ref(*args(case)),
+                                            10),
+                           library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
+        emit({"phase": "timing", "kernel": name, "case": "llama3-8b B64 ctx 160 bs128",
+              **timed[name], "library": "SDPA over the gathered pages", "card": smi})
+    x, wg, wu, wd, sg, su, sd = ffn_inputs[64]
+    # dequantised outside the timed call: bf16 weights with the scales folded in
+    dq = [(w_.float() * s_).to(torch.bfloat16) for w_, s_ in ((wg, sg), (wu, su), (wd, sd))]
+
+    def library():
+        return torch.matmul(F.silu(torch.matmul(x, dq[0])) * torch.matmul(x, dq[1]), dq[2])
+
+    timed["ffn_int8"] = dict(ms=time_ms(torch, lambda: fk.ffn_int8(x, wg, wu, wd, sg, su, sd), 50),
+                             plain_ms=time_ms(torch, lambda: ffn_int8_ref(x, wg, wu, wd, sg, su,
+                                                                           sd), 5),
+                             library_ms=time_ms(torch, library, 50))
+    timed["ffn_int8"]["bound_ms"], timed["ffn_int8"]["bound_by"] = ffn_bound(64, d, ff)
+    emit({"phase": "timing", "kernel": "ffn_int8", "case": f"M64 d{d} F{ff}", **timed["ffn_int8"],
+          "weight_bytes": 3 * d * ff,
+          "library": "torch.matmul over the bf16-dequantised weights, plus silu", "card": smi})
+    reset_counts()
+    del cases, ffn_inputs, dq
+    gc.collect()
+    torch.cuda.empty_cache()
+    return worst, timed
+
+
+def prof_paths(torch, smi):
+    """The entry points tools/prof_attn.py (B 64) and tools/prof_fused_ffn.py
+    as a user runs them, each with the launch counts zeroed just before and
+    read just after; their launches are exact (prof_attn: one parity call
+    and 6 x 32 timed layer calls of #1 and of #6; prof_fused_ffn: one gate
+    call and 6 x 16 chained calls of #5). Returns both paths' counts."""
+    from dynamo_tpu_torch.tools import prof_attn, prof_fused_ffn
+
+    reset_counts()
+    res = prof_attn.run(64, DEV)
+    counts_attn = read_counts()
+    reset_counts()
+    want = 1 + prof_attn.LAYERS * 6
+    emit({"phase": "prof_attn", **res, "launches": counts_attn, "card": smi})
+    for name in ("paged_attention_decode", "decode_packed"):
+        if counts_attn[name] != want:
+            fail(f"prof_attn: {name} launched {counts_attn[name]} times, expected {want}")
+    res = prof_fused_ffn.run(DEV)
+    counts_ffn = read_counts()
+    reset_counts()
+    emit({"phase": "prof_fused_ffn", **res, "launches": counts_ffn, "card": smi})
+    want = 1 + prof_fused_ffn.CHAIN * 6
+    if counts_ffn["ffn_int8"] != want:
+        fail(f"prof_fused_ffn: ffn_int8 launched {counts_ffn['ffn_int8']} times, expected {want}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts_attn, counts_ffn
+
+
+def prof_8b_phase(torch, smi, params, cfg) -> dict:
+    """tools/prof_8b.py's modes full, floor, v2 and bf on ``params`` (the
+    int8 Llama-3-8B weights the engine phase built): B 64, block size 128,
+    context 160, 16 steps a call. Each mode's decode-attention launches are
+    exact; the first step's logits are finite, and v2's and bf's within
+    LOGIT_LIMIT of full's. Then one call a mode under torch.profiler: device
+    busy time a step and attention's part. Returns the launches of all
+    modes, summed."""
+    from dynamo_tpu_torch.tools import prof_8b
+
+    steps = 16  # prof_8b's default, as _prof_8b.py's PSTEPS
+    res = prof_8b.run(params, cfg, device=DEV)
+    # Device time of one call a mode (the launches of these calls are not
+    # counted): busy ms a step, and attention's part of it.
+    setup = prof_8b.Setup(cfg, torch.device(DEV), 64, 128, 160)
+    busy = {}
+    with torch.inference_mode():
+        for mode in res:
+            with prof_8b.attention(mode):
+                by_name, n_ops = device_times(
+                    lambda: setup.decode(params, cfg, steps).tokens.cpu())
+            attn = sum(v for k, v in by_name.items() if "attention" in k)
+            busy[mode] = dict(device_busy_ms_per_step=sum(by_name.values()) / steps,
+                              attention_ms_per_step=attn / steps,
+                              device_ops_per_step=n_ops / steps)
+    del setup
+    reset_counts()
+    full = res["full"]["logits"]
+    total = {n: 0 for n in prof_8b.ATTENTION_KERNELS}
+    for mode, r in res.items():
+        want = prof_8b.expected_launches(mode, cfg, steps, r["calls"])
+        line = {"phase": "prof_8b", "mode": mode, "ms_step": r["ms_step"], "tok_s": r["tok_s"],
+                **busy[mode], "launches": r["launches"], "expected": want,
+                "logits_finite": bool(torch.isfinite(r["logits"]).all()),
+                "max_abs_logit_diff_vs_full": float((r["logits"] - full).abs().max()),
+                "logit_std": float(r["logits"].std()), "card": smi}
+        emit(line)
+        if r["launches"] != want:
+            fail(f"prof_8b {mode}: launches {r['launches']}, expected {want}")
+        if not line["logits_finite"]:
+            fail(f"prof_8b {mode}: non-finite logits")
+        if mode in ("v2", "bf") and line["max_abs_logit_diff_vs_full"] > LOGIT_LIMIT:
+            fail(f"prof_8b {mode}: first-step logits {line['max_abs_logit_diff_vs_full']} from "
+                 f"the full mode's (limit {LOGIT_LIMIT})")
+        for n in total:
+            total[n] += r["launches"][n]
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 # -- engine ---------------------------------------------------------------
 
 
@@ -718,9 +957,11 @@ async def drive_engine(torch, engine, prompts, shared, max_tokens):
 
 
 def kernel_modules():
-    from dynamo_tpu_torch.ops.cuda import fused_layer, int8_matmul, lm_head, paged_attention
+    from dynamo_tpu_torch.ops.cuda import (
+        decode_attention_proto, ffn_int8, fused_layer, int8_matmul, lm_head, paged_attention,
+    )
 
-    return (paged_attention, fused_layer, lm_head, int8_matmul)
+    return (paged_attention, fused_layer, lm_head, int8_matmul, decode_attention_proto, ffn_int8)
 
 
 def reset_counts() -> None:
@@ -906,6 +1147,23 @@ def int8kv_burst_launches(engine) -> dict:
             "paged_attention_chunk": 0, "fused_decoder_layer": 0}
 
 
+def device_times(fn):
+    """(device ms by kernel name, kernels launched) of one call of ``fn``
+    under torch.profiler: the sum of each kernel's durations (one stream,
+    so kernels do not overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+    by_name, n_kernels = {}, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            n_kernels += 1
+    return by_name, n_kernels
+
+
 def profile_phase(torch, runner, smi, phase="profile", ctx_step=80, exact=None):
     """One 8-step decode burst of every slot (contexts 100, 100 + ctx_step,
     ...) through the engine's runner: host wall time, device busy time (sum
@@ -914,8 +1172,6 @@ def profile_phase(torch, runner, smi, phase="profile", ctx_step=80, exact=None):
     and the shares of the fused layer, the int8 product and int8-pool
     attention. ``exact``: launch counts the profiled burst must show."""
     import numpy as np
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     S, BS = runner.args.max_num_seqs, runner.args.block_size
     pos = np.array([100 + ctx_step * i for i in range(S)], np.int32)
@@ -934,19 +1190,12 @@ def profile_phase(torch, runner, smi, phase="profile", ctx_step=80, exact=None):
         walls.append(1e3 * (time.monotonic() - t0))
     wall_ms = sorted(walls)[len(walls) // 2]
     reset_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        runner.run_decode(*burst)
+    by_name, n_kernels = device_times(lambda: runner.run_decode(*burst))
     counts = read_counts()
     reset_counts()
     for name, want in (exact or {}).items():
         if counts[name] != want:
             fail(f"{phase}: {name} launched {counts[name]} times in one burst, expected {want}")
-    by_name = {}
-    n_kernels = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-            n_kernels += 1
     busy_ms = sum(by_name.values())
     if busy_ms <= 0:
         fail("the profiler saw no device time in a decode burst")
@@ -1000,6 +1249,12 @@ def main() -> int:
     for k, v in worst8.items():
         worst[k] = max(worst.get(k, 0.0), v)
     timed.update(timed8)
+    for k, v in bs128_phase(torch).items():
+        worst[k] = max(worst.get(k, 0.0), v)
+    worst_proto, timed_proto = proto_kernel_phases(torch)
+    worst.update(worst_proto)
+    timed.update(timed_proto)
+    counts_attn, counts_ffn = prof_paths(torch, smi)
 
     from dynamo_tpu_torch.models.config import (
         gemma2_2b_config, gemma3_1b_config, llama3_8b_config, qwen2_500m_config,
@@ -1043,6 +1298,8 @@ def main() -> int:
     check_int8kv_path(engine, counts8kv, steps8kv)
     profile_phase(torch, engine.runner, smi, "profile_int8kv", ctx_step=25,
                   exact=int8kv_burst_launches(engine))
+    # _prof_8b.py's path on the same int8 Llama-3-8B weights (not built twice)
+    counts_8b = prof_8b_phase(torch, smi, engine.runner.params, engine.config)
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -1116,7 +1373,9 @@ def main() -> int:
                "fused_decoder_layer": "fused_layer.cu", "lm_head_int8": "lm_head_int8.cu",
                "paged_attention_decode_int8": "paged_attention.cu",
                "paged_attention_chunk_int8": "paged_attention.cu",
-               "int8_matmul": "int8_matmul.cu"}
+               "int8_matmul": "int8_matmul.cu",
+               "decode_packed": "decode_attention_proto.cu",
+               "decode_bf16": "decode_attention_proto.cu", "ffn_int8": "ffn_int8.cu"}
     replaces = {
         "paged_attention_decode": "dynamo_tpu/ops/pallas/paged_attention.py:288",
         "paged_attention_chunk": "dynamo_tpu/ops/pallas/paged_attention.py:416",
@@ -1125,15 +1384,20 @@ def main() -> int:
         "paged_attention_decode_int8": "dynamo_tpu/ops/pallas/paged_attention.py:288",
         "paged_attention_chunk_int8": "dynamo_tpu/ops/pallas/paged_attention.py:416",
         "int8_matmul": "_prof_stream.py:56",
+        "decode_packed": "_prof_attn.py:113",
+        "decode_bf16": "_prof_attn.py:312",
+        "ffn_int8": "_prof_fused_ffn.py:116",
     }
-    # launches: the five main paths (Qwen2.5-0.5B bf16, Llama-3-8B int8,
+    # launches: the five engine paths (Qwen2.5-0.5B bf16, Llama-3-8B int8,
     # Llama-3-8B int8 with int8 KV, Gemma-2-2B bf16, Gemma-3-1B int8 with
-    # int8 KV); times of the D 64 (bf16 pools) and D 128 (int8 pools) cases,
-    # the D 256 ones above
+    # int8 KV) and the three profiling paths (prof_attn, prof_fused_ffn,
+    # prof_8b's four modes); times of the D 64 (bf16 pools) and D 128 (int8
+    # pools) cases, the D 256 and block-size-128 ones above, #5-#7 at their
+    # main cases
+    paths = (counts, counts8, counts8kv, counts_g, counts_3, counts_attn, counts_ffn, counts_8b)
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{sources[n]}",
-         "replaces": replaces[n],
-         "launches": counts[n] + counts8[n] + counts8kv[n] + counts_g[n] + counts_3[n],
+         "replaces": replaces[n], "launches": sum(c.get(n, 0) for c in paths),
          "max_abs_err": worst[n], **timed[n]}
         for n in sources
     ]})

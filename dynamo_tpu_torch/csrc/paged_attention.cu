@@ -24,6 +24,10 @@
 // at C = 512 does 4*C*G*D flops per key for the same key bytes and sits
 // on the compute side, where only tensor cores reach the card's peak.
 //
+// Block sizes: any that divides 64 (a tile holds whole pages) or is a
+// multiple of 64 up to 256 (a page spans whole tiles, e.g. 128 for the
+// recipes and _prof_8b.py); the tile walk counts keys, not pages.
+//
 // This simple design: a block walks its pages in tiles of TILE keys. Each
 // thread holds its share of the next tile in registers (16-byte loads: one
 // token's [D] row lies at stride KH*D in the pool) while the current tile
@@ -255,13 +259,18 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   // Pages this block needs: up to its last valid row's causal limit, and
   // with a window, none wholly before start - W + 1 (paged_attention.py
   // :216-227, with the chunk bound taken per row block, not per sequence).
+  // Tiles are counted in keys, not pages: a page of BS > TILE keys spans
+  // several tiles, and the walk runs from the tile of the first key any row
+  // may see to the tile of the last one (load_tile finds each key's page).
   const int c_hi = min((r0 + nrows - 1) / G, clen - 1);
   const int last_key = max(start + c_hi, 0);
   const int last_page = min(last_key / BS, P - 1);
-  const int first_page = window > 0 ? max(start - window + 1, 0) / BS : 0;
+  const int first_key = window > 0 ? max(start - window + 1, 0) : 0;
+  const int first_page = first_key / BS;
   const int key_end = min((last_key / BS + 1) * BS, P * BS);  // keys >= this: not loaded
-  const int tile_first = first_page * BS / TILE;
-  const int n_tiles = first_page <= last_page ? last_page * BS / TILE - tile_first + 1 : 0;
+  const int tile_first = first_key / TILE;
+  const int n_tiles =
+      first_page <= last_page ? (min(last_key, key_end - 1)) / TILE - tile_first + 1 : 0;
 
   auto score = [&](float s, int rr, int kp, int t) {  // scale, softcap, masks; t: key in tile
     s *= sm_scale;
@@ -544,7 +553,10 @@ cudaError_t dispatch(bool small, const void* q, const void* k, const void* ks, c
                      const void* vs, const void* tables, const void* start, const void* clens,
                      void* out, int B, int C, int H, int KH, int D, int NB, int BS, int P,
                      int window, float sm_scale, float logit_cap, void* stream) {
-  if (B <= 0 || C <= 0 || KH <= 0 || H % KH != 0 || BS <= 0 || 64 % BS != 0 || P <= 0)
+  // Block sizes that divide 64, or multiples of 64 up to 256 (the tile walk
+  // takes any size; these are the ones the wrappers admit and the tests hold).
+  const bool bs_ok = BS > 0 && (64 % BS == 0 || (BS % 64 == 0 && BS <= 256));
+  if (B <= 0 || C <= 0 || KH <= 0 || H % KH != 0 || !bs_ok || P <= 0)
     return cudaErrorInvalidValue;
   if (POOL::kScaled && (ks == nullptr || vs == nullptr)) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

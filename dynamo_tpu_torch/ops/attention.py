@@ -15,7 +15,10 @@ wrappers send int8 pools to the kernels' int8 variants.
 
 ``dense_chunk_attention`` (a fresh prompt's first chunk attends over its own
 K/V, so it never reads a pool) and ``write_chunk_to_cache`` are plain
-PyTorch.
+PyTorch. ``decode_attention_bf16_ref`` is the plain version of the
+decode kernels with bf16 probabilities (ops/cuda/decode_attention_proto.py),
+counterparts of the TPU prototypes in _prof_attn.py; no serving path calls
+them.
 """
 
 from __future__ import annotations
@@ -123,6 +126,57 @@ def paged_attention_ref(
         probs = probs * token_scales(v_cache)
     out = torch.einsum("bcght,btgd->bcghd", probs, v)
     return out.reshape(B, C, H, D).to(q.dtype)
+
+
+def decode_attention_bf16_ref(
+    q: torch.Tensor,  # [B, 1, H, D]
+    k_cache: torch.Tensor,  # [NB, BS, KH, D]
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, P] int32
+    start_pos: torch.Tensor,  # [B] int32
+    window: int = 0,
+    *,
+    sm_scale: Optional[float] = None,
+    logit_cap: float = 0.0,
+) -> torch.Tensor:
+    """Plain version of decode attention at the rounding points of the TPU
+    prototypes ``decode_packed`` and ``decode_bf16`` (_prof_attn.py:22-107,
+    :244-308), which compute this one function in two work splits (the
+    kernels of ops/cuda/decode_attention_proto.py). Key t is visible to
+    sequence b iff t <= start_pos[b] and, with ``window`` > 0,
+    t > start_pos[b] - window. q, K and V as bf16 operands (each product
+    exact in float32), float32 scores × ``sm_scale``, the optional softcap,
+    the finite -1e30 mask; probabilities exp(s - max) rounded to bf16, and
+    both the row sum and P·V taken over the rounded values;
+    out = bf16(P·V / max(sum, 1e-30)). The prototypes run an online
+    softmax page by page; this takes one max over all keys, so its bf16
+    roundings of the probabilities fall at other points (the outputs agree
+    within a bf16 step). Unlike ``paged_attention_ref`` (float32
+    probabilities), this is the function the prototypes compute."""
+    B, C, H, D = q.shape
+    if C != 1:
+        raise ValueError(f"decode attention takes one query token a sequence, got C = {C}")
+    _, BS, KH, _ = k_cache.shape
+    T = block_tables.shape[1] * BS
+    G = H // KH
+    scale = sm_scale if sm_scale is not None else D**-0.5
+    bf = torch.bfloat16
+    tables = block_tables.long()
+    k = k_cache[tables].reshape(B, T, KH, D).to(bf).to(torch.float32)
+    v = v_cache[tables].reshape(B, T, KH, D).to(bf).to(torch.float32)
+    qg = q.reshape(B, KH, G, D).to(bf).to(torch.float32)
+    s = torch.einsum("bhgd,bthd->bhgt", qg, k) * scale
+    if logit_cap > 0.0:
+        s = logit_cap * torch.tanh(s / logit_cap)
+    t_pos = torch.arange(T, device=q.device)[None, :]
+    start = start_pos.long()[:, None]
+    visible = t_pos <= start
+    if window > 0:
+        visible = visible & (t_pos > start - window)
+    s = torch.where(visible[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True)).to(bf).to(torch.float32)
+    out = torch.einsum("bhgt,bthd->bhgd", p, v) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return out.reshape(B, 1, H, D).to(q.dtype)
 
 
 def dense_chunk_attention(

@@ -62,6 +62,15 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+def check_block_size(block_size: int) -> None:
+    """The block sizes the kernels take: those that divide 64 (a 64-key
+    tile holds whole pages) and the multiples of 64 up to 256 (a page spans
+    whole tiles), as the TPU kernels take both; any other raises."""
+    BS = int(block_size)
+    if BS <= 0 or not (64 % BS == 0 or (BS % 64 == 0 and BS <= 256)):
+        raise ValueError(f"block_size {BS} must divide 64 or be a multiple of 64 up to 256")
+
+
 def _check(q, k_cache: KVPool, v_cache: KVPool, block_tables, start_pos, chunk_lens=None) -> None:
     """Device, dtype, shape and contiguity of one call. A pool is bf16
     [NB, BS, KH, D], or int8 codes of that shape with float32 scales
@@ -106,8 +115,7 @@ def _check(q, k_cache: KVPool, v_cache: KVPool, block_tables, start_pos, chunk_l
         raise ValueError(f"n_heads {H} is not a multiple of n_kv_heads {KH}")
     if D not in HEAD_DIMS:
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
-    if 64 % BS:
-        raise ValueError(f"block_size {BS} must divide 64")
+    check_block_size(BS)
     if block_tables.dim() != 2 or block_tables.shape[0] != B:
         raise ValueError(f"block_tables shape {tuple(block_tables.shape)} vs batch {B}")
     if start_pos.shape != (B,) or (chunk_lens is not None and chunk_lens.shape != (B,)):

@@ -2,7 +2,8 @@
 seed: the cases that chip_smoke.py, the card tests
 (tests/test_torch_cuda_kernels.py) and tools/fused_layer_phases.py run the
 kernels on — paged attention over bf16 and int8 pools, the fused decoder
-layer, the int8 lm-head and the int8 weight-streaming product."""
+layer, the int8 lm-head, the int8 weight-streaming product, decode
+attention with bf16 probabilities and the int8 FFN."""
 
 from __future__ import annotations
 
@@ -254,6 +255,85 @@ INT8_ATTENTION_CASES: Dict[str, Tuple] = {
         "paged_attention_chunk_int8", "chunk", 2, 40, [200, 37], [40, 17], 64, 20.0,
         LLAMA_HEADS, 48),
 }
+
+
+# label: (kernel, kind, B, C, starts (a list, or ("ragged", lo, hi)), chunk
+# lengths, window, softcap, heads, seed) — block size 128, each over bf16
+# and over int8 pools (chip_smoke.py's bs128 phase, the card tests). A page
+# of 128 keys spans two of the kernels' 64-key tiles (and at D 128 one
+# decode tile of 128). Window boundaries: decode start 300 with window 100
+# puts the first visible key at 201 (page 1, offset 73: the page's second
+# 64-key tile); the chunk at start 230 crosses the page edge at 256, and
+# with window 64 its first visible key moves from 167 to 206 (page 1,
+# offsets 39-78: both tiles). The D 64 case is Qwen2.5-0.5B's heads (the
+# decode layout's 256-key tile holds two pages).
+BS128_ATTENTION_CASES: Dict[str, Tuple] = {
+    "bs128 D128 B16 C1 ragged starts": (
+        "paged_attention_decode", "decode", 16, 1, ("ragged", 0, 1500), [1] * 16, 0, 0.0,
+        LLAMA_HEADS, 91),
+    "bs128 D128 B4 C2 window 100 softcap 30": (
+        "paged_attention_decode", "decode", 4, 2, [0, 90, 300, 1000], [2] * 4, 100, 30.0,
+        LLAMA_HEADS, 92),
+    "bs128 D128 B4 C512 ragged lens": (
+        "paged_attention_chunk", "chunk", 4, 512, [0, 100, 300, 700], [512, 300, 37, 1], 0, 0.0,
+        LLAMA_HEADS, 93),
+    "bs128 D128 B2 C40 window 64 softcap 20 across a page": (
+        "paged_attention_chunk", "chunk", 2, 40, [230, 37], [40, 17], 64, 20.0, LLAMA_HEADS, 94),
+    "bs128 D64 B8 C1 window 100": (
+        "paged_attention_decode", "decode", 8, 1, [300, 0, 127, 128, 255, 256, 700, 1500], [1] * 8,
+        100, 0.0, QWEN_HEADS, 95),
+}
+
+
+def make_bs128_attention_case(label: str, device: Any, int8: bool):
+    """(kernel name, kind, case, window, softcap) of BS128_ATTENTION_CASES[label]
+    at block size 128, over int8 pools with ``int8`` (the kernel name then
+    takes the ``_int8`` suffix)."""
+    name, kind, B, C, starts, clens, window, cap, heads, seed = BS128_ATTENTION_CASES[label]
+    if starts[0] == "ragged":
+        starts = ragged(B, starts[2], seed, lo=starts[1])
+    case = attention_case(B, C, starts, clens, seed, device=device, int8=int8, BS=128, **heads)
+    return name + ("_int8" if int8 else ""), kind, case, window, cap
+
+
+# label: (B, heads, block size, starts (a list, or ("ragged", lo, hi)),
+# window, softcap, seed) — decode attention with bf16 probabilities
+# (decode_packed and decode_bf16, one query token a sequence over bf16
+# pools). The first is _prof_attn.py's case (the timing case), the second
+# leaves B 13 (not a multiple of the prototypes' blocks of 8) at ragged
+# contexts, the third is Gemma-2's heads, window and softcap at contexts of
+# 4,000-6,000, the last block size 16.
+PROTO_ATTENTION_CASES: Dict[str, Tuple] = {
+    "llama3-8b B64 ctx 160 bs128": (64, LLAMA_HEADS, 128, [160] * 64, 0, 0.0, 101),
+    "llama3-8b B13 ragged bs128": (13, LLAMA_HEADS, 128, ("ragged", 0, 1000), 0, 0.0, 102),
+    "gemma2 D256 B16 window 4096 softcap 50 bs128": (16, GEMMA2_HEADS, 128, ("ragged", 4000, 6000),
+                                                     4096, 50.0, 103),
+    "llama3-8b B16 ragged bs16": (16, LLAMA_HEADS, 16, ("ragged", 0, 1500), 0, 0.0, 104),
+}
+
+
+def make_proto_attention_case(label: str, device: Any):
+    """(case, window, softcap) of PROTO_ATTENTION_CASES[label]."""
+    B, heads, BS, starts, window, cap, seed = PROTO_ATTENTION_CASES[label]
+    if starts[0] == "ragged":
+        starts = ragged(B, starts[2], seed, lo=starts[1])
+    return attention_case(B, 1, starts, [1] * B, seed, device=device, BS=BS, **heads), window, cap
+
+
+def ffn_case(M: int, d: int, F: int, *, device: Any, seed: int = 0):
+    """(x, wg, wu, wd, sg, su, sd) of the int8 FFN as _prof_fused_ffn.py
+    draws them: codes in [-127, 127), scales N(0, 0.01²), x N(0, 1) bf16."""
+    g = torch.Generator(device=device).manual_seed(seed + M + d + F)
+
+    def codes(*shape):
+        return torch.randint(-127, 127, shape, generator=g, device=device, dtype=torch.int8)
+
+    wg, wu, wd = codes(d, F), codes(d, F), codes(F, d)
+    sg = torch.randn(1, F, generator=g, device=device) * 0.01
+    su = torch.randn(1, F, generator=g, device=device) * 0.01
+    sd = torch.randn(1, d, generator=g, device=device) * 0.01
+    x = torch.randn(M, d, generator=g, device=device).to(torch.bfloat16)
+    return x, wg, wu, wd, sg, su, sd
 
 
 def make_int8_attention_case(label: str, device: Any):

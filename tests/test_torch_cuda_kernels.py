@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels (paged attention over bf16 and int8 pools at
-head_dim 64, 128 and 256, the fused decoder layer, the int8 lm-head, the int8
-weight-streaming product) against their plain PyTorch versions, on the card.
+head_dim 64, 128 and 256 and block sizes up to 256, the fused decoder layer,
+the int8 lm-head, the int8 weight-streaming product, decode attention with
+bf16 probabilities, the int8 FFN) against their plain PyTorch versions, on
+the card.
 Marked ``cuda``: they skip where there is no CUDA device or no nvcc. On a
 machine with the card (which has no JAX, so the suite's conftest cannot
 load):
@@ -17,7 +19,11 @@ small enough that an output off by a couple of percent fails.
 int8 pools are held to the same limit: kernel and plain version read the
 same codes and scales and fold the scales in at the same points.
 
-The fused layer and the int8 head are held to one bf16 step
+Decode attention with bf16 probabilities (decode_packed, decode_bf16) is
+held to the same limit against decode_attention_bf16_ref: the two round the
+probabilities against different running maxima, a bf16 step apart at most.
+
+The fused layer, the int8 head and the int8 FFN are held to one bf16 step
 (tools.cases.bf16_steps). The int8 product: the raw float32 form to
 tools.cases.RAW_RTOL of (|x| @ |w|) (float32 sums in other orders), the
 epilogue form to qeinsum's rounding points on the kernel's own sums, bit
@@ -29,18 +35,23 @@ import pytest
 import torch
 
 from dynamo_tpu_torch.tools.cases import (
+    BS128_ATTENTION_CASES,
     D256_ATTENTION_CASES,
     GEMMA3_MATMUL_SHAPES,
     INT8_ATTENTION_CASES,
     INT8_D256_ATTENTION_CASES,
     LAYER_CASES,
     MATMUL_SHAPES,
+    PROTO_ATTENTION_CASES,
     bf16_steps,
+    epilogue_ok,
+    ffn_case,
     layer_case,
+    make_bs128_attention_case,
     make_d256_attention_case,
     make_int8_attention_case,
-    epilogue_ok,
     make_layer_case,
+    make_proto_attention_case,
     matmul_case,
     q8_weight,
     raw_product_ok,
@@ -362,3 +373,86 @@ def test_qeinsum_runs_the_int8_product_for_decode_rows_only(kernels):
     assert kernel.launch_counts["int8_matmul"] == 1 and y.shape == (64, 1, 256)
     quant.qeinsum("bcd,dh->bch", c["x"].reshape(1, 64, 512).repeat(2, 1, 1), w)  # 128 rows
     assert kernel.launch_counts["int8_matmul"] == 1
+
+
+# -- block size 128; decode attention with bf16 probabilities; the int8 FFN ---
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("label", list(BS128_ATTENTION_CASES))
+def test_paged_attention_at_block_size_128(kernels, label, int8):
+    """Both kernels over pages of 128 keys (two 64-key tiles each), bf16 and
+    int8 pools: window boundaries in a page's second tile, chunks across a
+    page edge, and Qwen2.5-0.5B's heads at D 64."""
+    from dynamo_tpu_torch.ops.attention import paged_attention_ref
+
+    name, kind, c, window, cap = make_bs128_attention_case(label, "cuda", int8)
+    kernels.reset_launch_counts()
+    fn = kernels.paged_attention_decode if kind == "decode" else kernels.paged_attention_chunk
+    extra = () if kind == "decode" else (c["clens"],)
+    out = fn(c["q"], c["k"], c["v"], c["tables"], c["start"], *extra, window=window, logit_cap=cap)
+    ref = paged_attention_ref(c["q"], c["k"], c["v"], c["tables"], c["start"], c["clens"],
+                              window=window, logit_cap=cap)
+    _check(out, ref, c["clens"].tolist())
+    counts = {**kernels.launch_counts, **kernels.int8_launch_counts}
+    assert counts[name] == 1 and sum(counts.values()) == 1
+
+
+@pytest.mark.parametrize("name", ["decode_packed", "decode_bf16"])
+@pytest.mark.parametrize("label", list(PROTO_ATTENTION_CASES))
+def test_proto_attention_kernels_match_plain(kernels, label, name):
+    from dynamo_tpu_torch.ops.attention import decode_attention_bf16_ref
+    from dynamo_tpu_torch.ops.cuda import decode_attention_proto as kernel
+
+    c, window, cap = make_proto_attention_case(label, "cuda")
+    args = (c["q"], c["k"], c["v"], c["tables"], c["start"])
+    kernel.reset_launch_counts()
+    out = getattr(kernel, name)(*args, window, logit_cap=cap)
+    ref = decode_attention_bf16_ref(*args, window, logit_cap=cap)
+    _check(out, ref, c["clens"].tolist())
+    assert kernel.launch_counts == {"decode_packed": 0, "decode_bf16": 0, name: 1}
+
+
+def test_proto_attention_wrappers_refuse_what_the_kernels_do_not_take(kernels):
+    from dynamo_tpu_torch.ops.cuda import decode_attention_proto as kernel
+
+    c = _case(2, 1, 8, 2, 64, 16, [3, 40], [1, 1], seed=4)  # head_dim 64: not built
+    with pytest.raises(ValueError, match="head_dim"):
+        kernel.decode_packed(c["q"], c["k"], c["v"], c["tables"], c["start"])
+    c = _case(2, 2, 8, 2, 128, 16, [3, 40], [2, 2], seed=5)  # two query tokens
+    with pytest.raises(ValueError, match="one query token"):
+        kernel.decode_bf16(c["q"], c["k"], c["v"], c["tables"], c["start"])
+    c = _case(1, 1, 8, 2, 128, 48, [5], [1], seed=6)  # block size 48
+    with pytest.raises(ValueError, match="block_size"):
+        kernel.decode_packed(c["q"], c["k"], c["v"], c["tables"], c["start"])
+
+
+@pytest.mark.parametrize("M,d,F", [(64, 4096, 14336), (13, 4096, 14336), (1, 256, 512),
+                                   (33, 384, 1152)])
+def test_ffn_int8_kernel_matches_plain(kernels, M, d, F):
+    from dynamo_tpu_torch.ops.cuda import ffn_int8 as kernel
+    from dynamo_tpu_torch.ops.ffn_int8 import ffn_int8_ref
+
+    x, *w = ffn_case(M, d, F, device="cuda")
+    kernel.reset_launch_counts()
+    out = kernel.ffn_int8(x, *w)
+    again = kernel.ffn_int8(x, *w)
+    ref = ffn_int8_ref(x, *w)
+    torch.cuda.synchronize()
+    assert kernel.launch_counts["ffn_int8"] == 2
+    assert out.dtype == torch.bfloat16 and out.shape == (M, d)
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, again)
+    assert bf16_steps(out, ref) <= 1.0, bf16_steps(out, ref)
+
+
+def test_ffn_int8_wrapper_refuses_what_the_kernel_does_not_take(kernels):
+    from dynamo_tpu_torch.ops.cuda import ffn_int8 as kernel
+
+    x, wg, wu, wd, sg, su, sd = ffn_case(8, 256, 512, device="cuda")
+    with pytest.raises(ValueError, match="rows"):
+        kernel.ffn_int8(x.repeat(9, 1), wg, wu, wd, sg, su, sd)
+    with pytest.raises(TypeError):
+        kernel.ffn_int8(x, wg, wu, wd, sg.to(torch.bfloat16), su, sd)
+    with pytest.raises(ValueError, match="is on cpu"):
+        kernel.ffn_int8(x, wg.cpu(), wu, wd, sg, su, sd)

@@ -59,6 +59,11 @@ import dynamo_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(dynamo_tpu_torch.__path__, "dynamo_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+# the profiling entry points and the kernels of the last three TPU kernels
+wanted = set("dynamo_tpu_torch." + n for n in (
+    "tools.prof_attn", "tools.prof_fused_ffn", "tools.prof_8b", "ops.ffn_int8",
+    "ops.cuda.decode_attention_proto", "ops.cuda.ffn_int8"))
+assert wanted <= set(names), sorted(wanted - set(names))
 spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "dynamo_tpu")]
