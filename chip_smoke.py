@@ -14,12 +14,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
    Llama-3-8B layer (B 16, ragged contexts up to 1,600) and at miniatures
    of each epilogue variant (Qwen3, Gemma-2, Gemma-3, Qwen2, head_dim 256);
    the int8 lm-head untied at Llama-3-8B (V 128,256 x d 4,096) and tied at
-   Qwen2.5-0.5B (V 151,936 x d 896).
+   Qwen2.5-0.5B (V 151,936 x d 896). Every decode case of every phase is
+   also checked with its keys split over 1, 2, 5 and 16 blocks, and two
+   runs at the wrapper's own split count must agree bit for bit.
 4. timing — each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (a yardstick the port never
    calls), CUDA events over many launches after warm-up, beside the least
    time the card could take (bytes over 3.35 TB/s or flops over the bf16
-   989 TFLOP/s, counted from the case's own data).
+   989 TFLOP/s, counted from the case's own data). A decode line names the
+   key splits the wrapper chose (1: the one-pass kernel).
 5. engine — TorchEngine serving Qwen2.5-0.5B at full width (24 layers,
    random bf16 weights from a seed) through generate(): concurrent
    requests, a prompt long enough for chunked prefill, a prefix hit, and a
@@ -310,8 +313,9 @@ def kernel_phases(torch):
 
 def attention_parity(torch, cases) -> dict:
     """Each (kernel, kind, label, case, window, softcap) against the plain
-    version; fails on the first disagreement. Returns the worst error of
-    each kernel."""
+    version, the decode cases also at forced key splits (split_parity);
+    fails on the first disagreement. Returns the worst error of each
+    kernel."""
     from dynamo_tpu_torch.ops import attention
     from dynamo_tpu_torch.ops.cuda import paged_attention as kernels
 
@@ -326,6 +330,8 @@ def attention_parity(torch, cases) -> dict:
         if not ok:
             fail(f"{name} ({label}) disagrees with its plain version: max abs err {err}")
         worst[name] = max(worst.get(name, 0.0), err)
+    for name, err in split_parity(torch, cases).items():
+        worst[name] = max(worst[name], err)
     return worst
 
 
@@ -347,11 +353,49 @@ def attention_timing(torch, dec, chunk, suffix="", window=0, cap=0.0, label="") 
         bound_ms, bound_by = bound(case, window)
         timed[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=bound_ms, bound_by=bound_by)
+        # the decode kernel's key splits (1: the one-pass kernel, no combine)
+        extra = {"splits": kernels.split_count(case["q"], case["k"])} if kind == "decode" else {}
         emit({"phase": "timing", "kernel": name, "case": label, "shape": list(case["q"].shape),
               "pool": "int8" if isinstance(case["k"], dict) else "bf16", "window": window,
-              "softcap": cap, **timed[name],
+              "softcap": cap, **extra, **timed[name],
               "library": "SDPA" + (" without the softcap" if cap else ""), "card": smi})
     return timed
+
+
+def split_parity(torch, cases) -> dict:
+    """The decode kernel at forced key splits 1, 2, 5 and 16 on each decode
+    (kernel, kind, label, case, window, softcap) of ``cases``, against the
+    plain version under the same limit, and two runs at the split count the
+    wrapper chooses bit for bit equal (the combine adds the splits in a
+    fixed order); fails on the first disagreement. Returns the worst error
+    of each kernel."""
+    from dynamo_tpu_torch.ops import attention
+    from dynamo_tpu_torch.ops.cuda import paged_attention as kernels
+
+    worst = {}
+    for name, kind, label, case, win, cap in cases:
+        if kind != "decode":
+            continue
+        ref = run_plain(attention, case, win, cap)
+        args = (case["q"], case["k"], case["v"], case["tables"], case["start"])
+        for splits in (1, 2, 5, 16):
+            out = kernels.paged_attention_decode(*args, window=win, logit_cap=cap, splits=splits)
+            torch.cuda.synchronize()
+            err, ok = compare(torch, out, ref, case["clens"].tolist())
+            emit({"phase": "parity", "kernel": name, "case": f"{label}, splits {splits}",
+                  "max_abs_err": err, "tol": f"{ATOL} + {RTOL}*|plain|", "ok": ok})
+            if not ok:
+                fail(f"{name} ({label}) at {splits} splits disagrees with its plain version: "
+                     f"max abs err {err}")
+            worst[name] = max(worst.get(name, 0.0), err)
+        a = kernels.paged_attention_decode(*args, window=win, logit_cap=cap)
+        b = kernels.paged_attention_decode(*args, window=win, logit_cap=cap)
+        same = torch.equal(a, b)
+        emit({"phase": "parity", "kernel": name, "case": f"{label}, two runs",
+              "splits": kernels.split_count(case["q"], case["k"]), "bit_equal": same, "ok": same})
+        if not same:
+            fail(f"{name} ({label}): two runs differ")
+    return worst
 
 
 # -- Llama-3-8B int8 kernels ----------------------------------------------

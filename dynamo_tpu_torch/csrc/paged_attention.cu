@@ -4,7 +4,7 @@
 // each for both pool types the TPU kernels take:
 //   * paged_attention_decode_{bf16,int8} <- _paged_attention_decode_kernel_impl
 //     (body _decode_kernel): C <= 8 query tokens per sequence, C*G <= 64.
-//     One thread block per (sequence b, KV head h).
+//     One thread block per (sequence b, KV head h, split of its keys).
 //   * paged_attention_chunk_{bf16,int8}  <- _paged_attention_kernel_impl
 //     (body _kernel): any C, ragged chunk_lens. A grid of
 //     (B, KH, ceil(C*G / 64)) blocks, each holding up to 64 query rows of
@@ -44,6 +44,29 @@
 //   * 64-row layout (chunks, and decode with 8 < C*G <= 64): 64-key tiles;
 //     a thread scores 4 rows x 4 keys and accumulates 4 rows x D/16 columns.
 //
+// Decode split over the keys (flash-decoding). A block's tiles run in
+// series, so B x KH one-pass blocks (32 at Gemma-3-1B's 32 sequences and
+// one KV head, 64 at Gemma-2-2B's 16 x 4) leave most of the 132 SMs idle
+// while each walks thousands of keys (on an H100, 0.52 ms for Gemma-3's
+// global layers against a bound of 0.025). The decode entry points take a
+// split count, chosen by the caller from the shapes and this kernel's
+// occupancy alone (never from start_pos, which lives on the card): with
+// splits > 1 a second kernel, paged_attention_split_kernel, runs a grid of
+// (B * splits, KH, 1) blocks, and split s walks an equal share, in whole
+// tiles, of its (b, h)'s own tile range (the range the window and the
+// causal limit leave), writing its unnormalised f32 accumulator and its
+// running max m and sum l to a workspace; an empty share writes m = -1e30,
+// l = 0, acc = 0. paged_attention_combine then adds the splits in a fixed
+// order: out = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30),
+// M the largest m_s; a split whose keys are all masked for a row carries
+// the weight e^(-1e30 - M) = 0 there. The split blocks, two an SM, do more
+// per tile than the one-pass ones, with the same rounding points:
+//   * decode layout: scores on the tensor cores (mma.sync m16n8k16, bf16 q
+//     and K, both exact, f32 sums), q's 8 rows the top half of the A tile
+//     and the staged K tile the B operand as it lies ([key][d]);
+//   * P.V skips the padding rows.
+// With splits == 1 the one-pass kernel above runs as before and no combine.
+//
 // int8 pools (the `quantized` branch of both TPU kernels; layout of
 // ops/kv_quant.py): codes int8 [NB, BS, KH, D] and one float32 scale per
 // (block, head, slot), [NB, KH, BS]. The pool type is a template
@@ -55,10 +78,11 @@
 // not along the codes). The scales are folded in the TPU kernel's order:
 // scores x= s_k[t] after sm_scale and before the softcap; probabilities
 // x= s_v[t] after the row sum l and before P.V (paged_attention.py:139-150).
+// The split's combine is linear in acc and l, so that order holds.
 //
-// Left for later PRs: split-K over pages (flash-decoding) so a small batch
-// fills all 132 SMs (one block per (b, h) walks its tiles in series), mma /
-// wgmma for the products, TMA/cp.async page streaming.
+// Left for later PRs: tensor cores in the one-pass and chunk kernels,
+// wgmma, TMA/cp.async page streaming, a decode layout narrower than 8
+// rows.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -71,6 +95,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kMaxRows = 64;  // query rows per block, at most
 constexpr int kVec = 8;       // bf16 per 16-byte load
+constexpr int kMaxSplits = 16;  // key splits of a decode call, at most
 constexpr float kNegInf = -1e30f;
 
 // What a pool holds: bf16 values, or int8 codes with a float32 scale per
@@ -200,8 +225,12 @@ __device__ __forceinline__ void bf16x8_to_float(const uint4& raw, float (&f)[kVe
   }
 }
 
-template <typename POOL, int D, int ROWS, int TILE>
-__global__ void __launch_bounds__(kThreads) paged_attention_kernel(
+// The kernels' body. SPLIT: a split of a decode block's keys (blockIdx.x =
+// b * splits + s) writing its partials to `part`: acc [splits][B*C*H][D],
+// then (m, l) [splits][B*C*H][2], all f32. Otherwise `part` and `splits`
+// are unused.
+template <typename POOL, int D, int ROWS, int TILE, bool SPLIT>
+__device__ __forceinline__ void paged_attention_body(
     const __nv_bfloat16* __restrict__ q,          // [B, C, H, D]
     const typename POOL::T* __restrict__ k_cache,  // [NB, BS, KH, D]
     const float* __restrict__ k_scale,             // [NB, KH, BS] (int8 pools), or null
@@ -211,8 +240,9 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     const int32_t* __restrict__ start_pos,      // [B]
     const int32_t* __restrict__ chunk_lens,     // [B], or null: every row valid
     __nv_bfloat16* __restrict__ out,            // [B, C, H, D]
+    float* __restrict__ part,                   // SPLIT: the partials
     int C, int H, int KH, int NB, int BS, int P, int window, float sm_scale,
-    float logit_cap) {
+    float logit_cap, int splits) {
   using L = Layout<POOL, D, ROWS, TILE>;
   extern __shared__ __align__(16) unsigned char smem[];
   float* qs = reinterpret_cast<float*>(smem);
@@ -225,7 +255,8 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   float* ks_s = a_s + ROWS;  // int8 pools: the tile's key scales, then value scales
   float* vs_s = ks_s + TILE;
 
-  const int b = blockIdx.x;
+  const int b = SPLIT ? blockIdx.x / splits : blockIdx.x;
+  const int split = SPLIT ? blockIdx.x % splits : 0;
   const int h = blockIdx.y;
   const int G = H / KH;
   const int r0 = blockIdx.z * ROWS;
@@ -247,9 +278,11 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     return;
   }
 
-  for (int e = tid; e < ROWS * D; e += kThreads) {
-    const int rr = e / D;
-    qs[e] = rr < nrows ? __bfloat162float(q[row_offset(rr) + e % D]) : 0.f;
+  if constexpr (!SPLIT) {
+    for (int e = tid; e < ROWS * D; e += kThreads) {
+      const int rr = e / D;
+      qs[e] = rr < nrows ? __bfloat162float(q[row_offset(rr) + e % D]) : 0.f;
+    }
   }
   for (int rr = tid; rr < ROWS; rr += kThreads) {
     m_s[rr] = kNegInf;
@@ -268,9 +301,15 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
   const int first_key = window > 0 ? max(start - window + 1, 0) : 0;
   const int first_page = first_key / BS;
   const int key_end = min((last_key / BS + 1) * BS, P * BS);  // keys >= this: not loaded
-  const int tile_first = first_key / TILE;
-  const int n_tiles =
+  int tile_first = first_key / TILE;
+  int n_tiles =
       first_page <= last_page ? (min(last_key, key_end - 1)) / TILE - tile_first + 1 : 0;
+  if constexpr (SPLIT) {  // this split's share of the tiles, whole tiles; may be empty
+    const int lo = split * n_tiles / splits;
+    const int hi = (split + 1) * n_tiles / splits;
+    tile_first += lo;
+    n_tiles = hi - lo;
+  }
 
   auto score = [&](float s, int rr, int kp, int t) {  // scale, softcap, masks; t: key in tile
     s *= sm_scale;
@@ -308,6 +347,19 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     load_tile<POOL, D, ROWS, TILE>(kreg, vreg, ksreg, vsreg, k_cache, k_scale, v_cache, v_scale,
                                    table_row, tile_first, tid, first_page, last_page, NB, BS, KH,
                                    h);
+  if constexpr (SPLIT) {
+    // q, staged once the first tile is in flight: in the decode layout as
+    // bf16 rows of stride kKvStride (the score mma's A operand, in the f32
+    // q area), in the 64-row layout as f32
+    for (int e = tid; e < ROWS * D; e += kThreads) {
+      const int rr = e / D;
+      const __nv_bfloat16 v = rr < nrows ? q[row_offset(rr) + e % D] : __float2bfloat16(0.f);
+      if constexpr (L::kSmall)
+        reinterpret_cast<__nv_bfloat16*>(qs)[rr * L::kKvStride + e % D] = v;
+      else
+        qs[e] = __bfloat162float(v);
+    }
+  }
   __syncthreads();
 
   for (int it = 0; it < n_tiles; ++it) {
@@ -328,7 +380,46 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
                                      KH, h);
 
     // Scores into ps.
-    if constexpr (L::kSmall) {
+    if constexpr (L::kSmall && SPLIT) {
+      // The split blocks score on the tensor cores: the 8 rows of q (bf16,
+      // exact) are the top half of an m16 A tile, a tile's keys are n8 B
+      // tiles read from K as staged ([key][d] is the B operand's "col"
+      // layout: ldmatrix without .trans), f32 sums of exact products. Warp w
+      // takes kNT of the tile's TILE / 8 key groups.
+      constexpr int kNT = TILE / 8 / (kThreads / 32);
+      const __nv_bfloat16* a_row = reinterpret_cast<const __nv_bfloat16*>(qs) +
+                                   (lane % 8) * L::kKvStride + (lane / 8) * 8;
+      const __nv_bfloat16* b_row = ks + (warp * kNT * 8 + lane % 8) * L::kKvStride + (lane / 8) * 8;
+      float c[kNT][2][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[j][0][e] = c[j][1][e] = 0.f;
+#pragma unroll
+      for (int k2 = 0; k2 < D / 32; ++k2) {  // two 16-deep steps
+        uint32_t a[4];
+        int8_gemv::ldmatrix_x4(a, a_row + k2 * 32);  // rows 0-7: (k, k + 8) of both steps
+        const uint32_t a0[4] = {a[0], 0u, a[1], 0u};
+        const uint32_t a1[4] = {a[2], 0u, a[3], 0u};
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          uint32_t b[4];
+          int8_gemv::ldmatrix_x4(b, b_row + j * 8 * L::kKvStride + k2 * 32);
+          int8_gemv::mma_bf16(c[j][0], a0, b[0], b[1]);
+          int8_gemv::mma_bf16(c[j][1], a1, b[2], b[3]);
+        }
+      }
+      const int g = lane / 4;  // the accumulator's row; keys 2 (lane % 4) + {0, 1}
+      if (g < nrows) {
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const int t = (warp * kNT + j) * 8 + 2 * (lane % 4);
+          ps[g * L::kPStride + t] = score(c[j][0][0] + c[j][1][0], g, tile * TILE + t, t);
+          ps[g * L::kPStride + t + 1] =
+              score(c[j][0][1] + c[j][1][1], g, tile * TILE + t + 1, t + 1);
+        }
+      }
+    } else if constexpr (L::kSmall) {
       const int st = tid % TILE;
       const int srg = tid / TILE;
       float s_acc[L::kScoreRows];
@@ -441,6 +532,7 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
               *reinterpret_cast<const __nv_bfloat162*>(vs + (t + u) * L::kKvStride + 2 * cp));
 #pragma unroll
         for (int r = 0; r < ROWS; ++r) {
+          if (SPLIT && r >= nrows) continue;  // block-uniform
           const float4 p4 = *reinterpret_cast<const float4*>(ps + r * L::kPStride + t);
           pacc[r].x += p4.x * v[0].x + p4.y * v[1].x + p4.z * v[2].x + p4.w * v[3].x;
           pacc[r].y += p4.x * v[0].y + p4.y * v[1].y + p4.z * v[2].y + p4.w * v[3].y;
@@ -482,6 +574,18 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
     }
   }
 
+  // SPLIT: this split's slices of the partials; row_offset(rr) / D is the
+  // row's index in [B*C*H].
+  float* part_acc = nullptr;
+  if constexpr (SPLIT) {
+    const size_t n_out = size_t(gridDim.x / splits) * C * H * D;
+    part_acc = part + size_t(split) * n_out;
+    float* part_ml = part + size_t(splits) * n_out + size_t(split) * (n_out / D) * 2;
+    for (int rr = tid; rr < nrows; rr += kThreads) {
+      part_ml[row_offset(rr) / D * 2] = m_s[rr];
+      part_ml[row_offset(rr) / D * 2 + 1] = l_s[rr];
+    }
+  }
   if constexpr (L::kSmall) {
     // Add the key groups' partial sums (in the K tile's shared memory).
     float* red = reinterpret_cast<float*>(ks);
@@ -497,41 +601,146 @@ __global__ void __launch_bounds__(kThreads) paged_attention_kernel(
       float sum = 0.f;
 #pragma unroll
       for (int g = 0; g < L::kKeyGroups; ++g) sum += red[(g * ROWS + rr) * D + e % D];
-      out[row_offset(rr) + e % D] = __float2bfloat16(sum / fmaxf(l_s[rr], 1e-30f));
+      if constexpr (SPLIT)
+        part_acc[row_offset(rr) + e % D] = sum;
+      else
+        out[row_offset(rr) + e % D] = __float2bfloat16(sum / fmaxf(l_s[rr], 1e-30f));
     }
   } else {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int rr = 4 * rq + i;
       if (rr < nrows) {
-        const float inv = 1.f / fmaxf(l_s[rr], 1e-30f);
-        __nv_bfloat162* o2 = reinterpret_cast<__nv_bfloat162*>(out + row_offset(rr) + L::kCols * cg);
+        if constexpr (SPLIT) {
+          float2* p2 = reinterpret_cast<float2*>(part_acc + row_offset(rr) + L::kCols * cg);
 #pragma unroll
-        for (int c2 = 0; c2 < L::kCols / 2; ++c2)
-          o2[c2] = __floats2bfloat162_rn(acc[i][2 * c2] * inv, acc[i][2 * c2 + 1] * inv);
+          for (int c2 = 0; c2 < L::kCols / 2; ++c2)
+            p2[c2] = make_float2(acc[i][2 * c2], acc[i][2 * c2 + 1]);
+        } else {
+          const float inv = 1.f / fmaxf(l_s[rr], 1e-30f);
+          __nv_bfloat162* o2 =
+              reinterpret_cast<__nv_bfloat162*>(out + row_offset(rr) + L::kCols * cg);
+#pragma unroll
+          for (int c2 = 0; c2 < L::kCols / 2; ++c2)
+            o2[c2] = __floats2bfloat162_rn(acc[i][2 * c2] * inv, acc[i][2 * c2 + 1] * inv);
+        }
       }
     }
   }
 }
 
+// One pass: a block per (b, h, row block) writes its rows of out.
+template <typename POOL, int D, int ROWS, int TILE>
+__global__ void __launch_bounds__(kThreads) paged_attention_kernel(
+    const __nv_bfloat16* __restrict__ q, const typename POOL::T* __restrict__ k_cache,
+    const float* __restrict__ k_scale, const typename POOL::T* __restrict__ v_cache,
+    const float* __restrict__ v_scale, const int32_t* __restrict__ block_tables,
+    const int32_t* __restrict__ start_pos, const int32_t* __restrict__ chunk_lens,
+    __nv_bfloat16* __restrict__ out, int C, int H, int KH, int NB, int BS, int P, int window,
+    float sm_scale, float logit_cap) {
+  paged_attention_body<POOL, D, ROWS, TILE, false>(q, k_cache, k_scale, v_cache, v_scale,
+                                                   block_tables, start_pos, chunk_lens, out,
+                                                   nullptr, C, H, KH, NB, BS, P, window,
+                                                   sm_scale, logit_cap, 1);
+}
+
+// A split of a decode block's keys, writing partials. Two blocks an SM (at
+// most 128 registers a thread) in the decode layout and at D 64; the 64-row
+// layout at D 128 and 256 needs more.
+template <typename POOL, int D, int ROWS, int TILE>
+__global__ void __launch_bounds__(kThreads, ROWS <= 8 || D <= 64 ? 2 : 1)
+    paged_attention_split_kernel(
+    const __nv_bfloat16* __restrict__ q, const typename POOL::T* __restrict__ k_cache,
+    const float* __restrict__ k_scale, const typename POOL::T* __restrict__ v_cache,
+    const float* __restrict__ v_scale, const int32_t* __restrict__ block_tables,
+    const int32_t* __restrict__ start_pos, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ part, int C, int H, int KH, int NB, int BS, int P, int window,
+    float sm_scale, float logit_cap, int splits) {
+  paged_attention_body<POOL, D, ROWS, TILE, true>(q, k_cache, k_scale, v_cache, v_scale,
+                                                  block_tables, start_pos, nullptr, out, part, C,
+                                                  H, KH, NB, BS, P, window, sm_scale, logit_cap,
+                                                  splits);
+}
+
+// The splits' partials of a decode call into bf16 out [B, C, H, D] (`rows`
+// = B*C*H), adding the splits in order 0, 1, ... (no atomics: runs repeat
+// bit for bit). Templated on the pool type only so that a profile names it
+// beside its pool's split kernel.
+template <typename POOL>
+__global__ void __launch_bounds__(kThreads)
+    paged_attention_combine(const float* __restrict__ part, __nv_bfloat16* __restrict__ out,
+                            int rows, int D, int splits) {
+  const size_t n_out = size_t(rows) * D;
+  const size_t e = size_t(blockIdx.x) * kThreads + threadIdx.x;
+  if (e >= n_out) return;
+  const float* ml = part + size_t(splits) * n_out + (e / D) * 2;
+  // every split's loads issued before any is used: one memory latency
+  float m[kMaxSplits], l[kMaxSplits], acc[kMaxSplits];
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s) {
+    if (s < splits) {
+      m[s] = ml[size_t(s) * rows * 2];
+      l[s] = ml[size_t(s) * rows * 2 + 1];
+      acc[s] = part[size_t(s) * n_out + e];
+    }
+  }
+  float mx = kNegInf;
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s)
+    if (s < splits) mx = fmaxf(mx, m[s]);
+  float num = 0.f, den = 0.f;
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s) {
+    if (s < splits) {
+      const float w = expf(m[s] - mx);
+      num += w * acc[s];
+      den += w * l[s];
+    }
+  }
+  out[e] = __float2bfloat16(num / fmaxf(den, 1e-30f));
+}
+
 template <typename POOL, int D, int ROWS, int TILE>
 cudaError_t launch(const void* q, const void* k, const void* ks, const void* v, const void* vs,
-                   const void* tables, const void* start, const void* clens, void* out, int B,
-                   int C, int H, int KH, int NB, int BS, int P, int window, float sm_scale,
-                   float logit_cap, cudaStream_t stream) {
+                   const void* tables, const void* start, const void* clens, void* out,
+                   float* part, int B, int C, int H, int KH, int NB, int BS, int P, int window,
+                   float sm_scale, float logit_cap, int splits, cudaStream_t stream) {
   using T = typename POOL::T;
   const size_t smem = Layout<POOL, D, ROWS, TILE>::kTotal;
-  cudaError_t err = cudaFuncSetAttribute(paged_attention_kernel<POOL, D, ROWS, TILE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
   const int row_blocks = (C * (H / KH) + ROWS - 1) / ROWS;
-  const dim3 grid(B, KH, row_blocks);
-  paged_attention_kernel<POOL, D, ROWS, TILE><<<grid, kThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const T*>(k),
-      static_cast<const float*>(ks), static_cast<const T*>(v), static_cast<const float*>(vs),
-      static_cast<const int32_t*>(tables), static_cast<const int32_t*>(start),
-      static_cast<const int32_t*>(clens), static_cast<__nv_bfloat16*>(out), C, H, KH, NB, BS, P,
-      window, sm_scale, logit_cap);
+  const auto* qb = static_cast<const __nv_bfloat16*>(q);
+  const auto* kc = static_cast<const T*>(k);
+  const auto* vc = static_cast<const T*>(v);
+  const auto* ksf = static_cast<const float*>(ks);
+  const auto* vsf = static_cast<const float*>(vs);
+  const auto* tb = static_cast<const int32_t*>(tables);
+  const auto* sp = static_cast<const int32_t*>(start);
+  auto* ob = static_cast<__nv_bfloat16*>(out);
+  cudaError_t err;
+  if (splits == 1) {  // one pass, no combine
+    err = cudaFuncSetAttribute(paged_attention_kernel<POOL, D, ROWS, TILE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+    paged_attention_kernel<POOL, D, ROWS, TILE>
+        <<<dim3(B, KH, row_blocks), kThreads, smem, stream>>>(
+            qb, kc, ksf, vc, vsf, tb, sp, static_cast<const int32_t*>(clens), ob, C, H, KH, NB,
+            BS, P, window, sm_scale, logit_cap);
+    return cudaGetLastError();
+  }
+  // splits > 1 (decode only, one row block a (b, h)): the split kernel into
+  // `part`, then the combine into out
+  err = cudaFuncSetAttribute(paged_attention_split_kernel<POOL, D, ROWS, TILE>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  paged_attention_split_kernel<POOL, D, ROWS, TILE>
+      <<<dim3(B * splits, KH, row_blocks), kThreads, smem, stream>>>(
+          qb, kc, ksf, vc, vsf, tb, sp, ob, part, C, H, KH, NB, BS, P, window, sm_scale,
+          logit_cap, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int rows = B * C * H;
+  const int blocks = int((size_t(rows) * D + kThreads - 1) / kThreads);
+  paged_attention_combine<POOL><<<blocks, kThreads, 0, stream>>>(part, ob, rows, D, splits);
   return cudaGetLastError();
 }
 
@@ -539,27 +748,56 @@ cudaError_t launch(const void* q, const void* k, const void* ks, const void* v, 
 template <typename POOL, int D>
 cudaError_t launch_d(bool small, const void* q, const void* k, const void* ks, const void* v,
                      const void* vs, const void* tables, const void* start, const void* clens,
-                     void* out, int B, int C, int H, int KH, int NB, int BS, int P, int window,
-                     float sm_scale, float logit_cap, cudaStream_t s) {
+                     void* out, float* part, int B, int C, int H, int KH, int NB, int BS, int P,
+                     int window, float sm_scale, float logit_cap, int splits, cudaStream_t s) {
   if (small)
-    return launch<POOL, D, 8, 16384 / D>(q, k, ks, v, vs, tables, start, clens, out, B, C, H, KH,
-                                         NB, BS, P, window, sm_scale, logit_cap, s);
-  return launch<POOL, D, kMaxRows, 64>(q, k, ks, v, vs, tables, start, clens, out, B, C, H, KH,
-                                       NB, BS, P, window, sm_scale, logit_cap, s);
+    return launch<POOL, D, 8, 16384 / D>(q, k, ks, v, vs, tables, start, clens, out, part, B, C,
+                                         H, KH, NB, BS, P, window, sm_scale, logit_cap, splits, s);
+  return launch<POOL, D, kMaxRows, 64>(q, k, ks, v, vs, tables, start, clens, out, part, B, C, H,
+                                       KH, NB, BS, P, window, sm_scale, logit_cap, splits, s);
+}
+
+// Blocks of the split decode kernel the card holds at once: SMs x blocks an
+// SM at its registers and shared memory (0 if a query fails).
+template <typename POOL, int D, int ROWS, int TILE>
+int split_capacity() {
+  const auto kernel = paged_attention_split_kernel<POOL, D, ROWS, TILE>;
+  const int smem = int(Layout<POOL, D, ROWS, TILE>::kTotal);
+  int per_sm = 0, dev = 0, sms = 0;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem) ||
+      cudaGetDevice(&dev) || cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+    return 0;
+  return per_sm * sms;
+}
+
+template <typename POOL>
+int split_capacity_d(bool small, int D) {
+  if (D == 64)
+    return small ? split_capacity<POOL, 64, 8, 256>() : split_capacity<POOL, 64, 64, 64>();
+  if (D == 128)
+    return small ? split_capacity<POOL, 128, 8, 128>() : split_capacity<POOL, 128, 64, 64>();
+  if (D == 256)
+    return small ? split_capacity<POOL, 256, 8, 64>() : split_capacity<POOL, 256, 64, 64>();
+  return 0;
 }
 
 template <typename POOL>
 cudaError_t dispatch(bool small, const void* q, const void* k, const void* ks, const void* v,
                      const void* vs, const void* tables, const void* start, const void* clens,
-                     void* out, int B, int C, int H, int KH, int D, int NB, int BS, int P,
-                     int window, float sm_scale, float logit_cap, void* stream) {
+                     void* out, void* part, int B, int C, int H, int KH, int D, int NB, int BS,
+                     int P, int window, float sm_scale, float logit_cap, int splits,
+                     void* stream) {
   // Block sizes that divide 64, or multiples of 64 up to 256 (the tile walk
   // takes any size; these are the ones the wrappers admit and the tests hold).
   const bool bs_ok = BS > 0 && (64 % BS == 0 || (BS % 64 == 0 && BS <= 256));
   if (B <= 0 || C <= 0 || KH <= 0 || H % KH != 0 || !bs_ok || P <= 0)
     return cudaErrorInvalidValue;
   if (POOL::kScaled && (ks == nullptr || vs == nullptr)) return cudaErrorInvalidValue;
+  if (splits < 1 || splits > kMaxSplits || (splits > 1 && part == nullptr))
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* pf = static_cast<float*>(part);
   // Built for head_dim 64 (Qwen2.5-0.5B), 128 (Llama-3-8B) and 256
   // (Gemma-2-2B, Gemma-3-1B) over both pool types; other widths are
   // refused. At D = 128 the decode layout takes tiles of 128 keys, at
@@ -569,28 +807,39 @@ cudaError_t dispatch(bool small, const void* q, const void* k, const void* ks, c
   // takes half the prefetch registers of a bf16 one (16 codes a 16-byte
   // load), so the int8 instantiations fit where the bf16 ones do.
   if (D == 64)
-    return launch_d<POOL, 64>(small, q, k, ks, v, vs, tables, start, clens, out, B, C, H, KH, NB,
-                              BS, P, window, sm_scale, logit_cap, s);
+    return launch_d<POOL, 64>(small, q, k, ks, v, vs, tables, start, clens, out, pf, B, C, H, KH,
+                              NB, BS, P, window, sm_scale, logit_cap, splits, s);
   if (D == 128)
-    return launch_d<POOL, 128>(small, q, k, ks, v, vs, tables, start, clens, out, B, C, H, KH,
-                               NB, BS, P, window, sm_scale, logit_cap, s);
+    return launch_d<POOL, 128>(small, q, k, ks, v, vs, tables, start, clens, out, pf, B, C, H, KH,
+                               NB, BS, P, window, sm_scale, logit_cap, splits, s);
   if (D == 256)
-    return launch_d<POOL, 256>(small, q, k, ks, v, vs, tables, start, clens, out, B, C, H, KH,
-                               NB, BS, P, window, sm_scale, logit_cap, s);
+    return launch_d<POOL, 256>(small, q, k, ks, v, vs, tables, start, clens, out, pf, B, C, H, KH,
+                               NB, BS, P, window, sm_scale, logit_cap, splits, s);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Each launcher returns cudaGetLastError() after the launch (0 = launched).
+// The split decode kernel's capacity (blocks resident at once) for the
+// caller's split count: int8 pools or bf16, the decode layout (C*G <= 8) or
+// the 64-row one, head_dim D.
+extern "C" int paged_attention_decode_capacity(int int8, int small, int D) {
+  return int8 ? split_capacity_d<Int8Pool>(small, D) : split_capacity_d<Bf16Pool>(small, D);
+}
+
+// Each launcher returns cudaGetLastError() after its launches (0 = launched).
+// The decode launchers take `splits` (1: one pass, no workspace) and, for
+// splits > 1, `part`: a float32 workspace of splits * B*C*H * (D + 2)
+// values (ops/cuda/paged_attention.py allocates it).
 extern "C" int paged_attention_decode_bf16(const void* q, const void* k, const void* v,
                                            const void* tables, const void* start, void* out,
-                                           int B, int C, int H, int KH, int D, int NB, int BS,
-                                           int P, int window, float sm_scale, float logit_cap,
-                                           void* stream) {
+                                           void* part, int B, int C, int H, int KH, int D,
+                                           int NB, int BS, int P, int window, float sm_scale,
+                                           float logit_cap, int splits, void* stream) {
   if (KH <= 0 || C * (H / KH) > kMaxRows) return cudaErrorInvalidValue;
   return dispatch<Bf16Pool>(C * (H / KH) <= 8, q, k, nullptr, v, nullptr, tables, start, nullptr,
-                            out, B, C, H, KH, D, NB, BS, P, window, sm_scale, logit_cap, stream);
+                            out, part, B, C, H, KH, D, NB, BS, P, window, sm_scale, logit_cap,
+                            splits, stream);
 }
 
 extern "C" int paged_attention_chunk_bf16(const void* q, const void* k, const void* v,
@@ -600,19 +849,22 @@ extern "C" int paged_attention_chunk_bf16(const void* q, const void* k, const vo
                                           int window, float sm_scale, float logit_cap,
                                           void* stream) {
   if (KH <= 0 || chunk_lens == nullptr) return cudaErrorInvalidValue;
-  return dispatch<Bf16Pool>(false, q, k, nullptr, v, nullptr, tables, start, chunk_lens, out, B,
-                            C, H, KH, D, NB, BS, P, window, sm_scale, logit_cap, stream);
+  return dispatch<Bf16Pool>(false, q, k, nullptr, v, nullptr, tables, start, chunk_lens, out,
+                            nullptr, B, C, H, KH, D, NB, BS, P, window, sm_scale, logit_cap, 1,
+                            stream);
 }
 
 // int8 pools: k8/v8 int8 [NB, BS, KH, D], ks/vs float32 [NB, KH, BS].
 extern "C" int paged_attention_decode_int8(const void* q, const void* k8, const void* ks,
                                            const void* v8, const void* vs, const void* tables,
-                                           const void* start, void* out, int B, int C, int H,
-                                           int KH, int D, int NB, int BS, int P, int window,
-                                           float sm_scale, float logit_cap, void* stream) {
+                                           const void* start, void* out, void* part, int B, int C,
+                                           int H, int KH, int D, int NB, int BS, int P,
+                                           int window, float sm_scale, float logit_cap,
+                                           int splits, void* stream) {
   if (KH <= 0 || C * (H / KH) > kMaxRows) return cudaErrorInvalidValue;
-  return dispatch<Int8Pool>(C * (H / KH) <= 8, q, k8, ks, v8, vs, tables, start, nullptr, out, B,
-                            C, H, KH, D, NB, BS, P, window, sm_scale, logit_cap, stream);
+  return dispatch<Int8Pool>(C * (H / KH) <= 8, q, k8, ks, v8, vs, tables, start, nullptr, out,
+                            part, B, C, H, KH, D, NB, BS, P, window, sm_scale, logit_cap, splits,
+                            stream);
 }
 
 extern "C" int paged_attention_chunk_int8(const void* q, const void* k8, const void* ks,
@@ -622,6 +874,6 @@ extern "C" int paged_attention_chunk_int8(const void* q, const void* k8, const v
                                           int P, int window, float sm_scale, float logit_cap,
                                           void* stream) {
   if (KH <= 0 || chunk_lens == nullptr) return cudaErrorInvalidValue;
-  return dispatch<Int8Pool>(false, q, k8, ks, v8, vs, tables, start, chunk_lens, out, B, C, H,
-                            KH, D, NB, BS, P, window, sm_scale, logit_cap, stream);
+  return dispatch<Int8Pool>(false, q, k8, ks, v8, vs, tables, start, chunk_lens, out, nullptr, B,
+                            C, H, KH, D, NB, BS, P, window, sm_scale, logit_cap, 1, stream);
 }

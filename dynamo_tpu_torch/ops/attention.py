@@ -18,7 +18,8 @@ K/V, so it never reads a pool) and ``write_chunk_to_cache`` are plain
 PyTorch. ``decode_attention_bf16_ref`` is the plain version of the
 decode kernels with bf16 probabilities (ops/cuda/decode_attention_proto.py),
 counterparts of the TPU prototypes in _prof_attn.py; no serving path calls
-them.
+them. ``paged_attention_split_ref`` is the decode kernel's split over the
+keys (per-split partials and their combine), for the tests.
 """
 
 from __future__ import annotations
@@ -95,10 +96,24 @@ def paged_attention_ref(
     s_v[t] before P·V. Both orders compute the same function; they differ
     in float32 rounding only."""
     B, C, H, D = q.shape
+    scores, v, v_scale = _masked_scores(q, k_cache, v_cache, block_tables, start_pos, sm_scale,
+                                        window, logit_cap)
+    probs = torch.softmax(scores, dim=-1)
+    if v_scale is not None:
+        probs = probs * v_scale
+    out = torch.einsum("bcght,btgd->bcghd", probs, v)
+    return out.reshape(B, C, H, D).to(q.dtype)
+
+
+def _masked_scores(q, k_cache, v_cache, block_tables, start_pos, sm_scale, window, logit_cap):
+    """The plain versions' float32 scores [B, C, KH, G, T] over every table
+    page (T = P·BS), scaled (and int8 pools: times s_k), softcapped and
+    masked with -1e30; the gathered values [B, T, KH, D] in float32; the
+    value scales [B, 1, KH, 1, T] of int8 pools, else None."""
+    B, C, H, D = q.shape
     quantized = is_quantized_pool(k_cache)
     _, BS, KH, _ = pool_values(k_cache).shape
-    P = block_tables.shape[1]
-    T = P * BS
+    T = block_tables.shape[1] * BS
     G = H // KH
     scale = sm_scale if sm_scale is not None else D**-0.5
     tables = block_tables.long()
@@ -121,11 +136,81 @@ def paged_attention_ref(
     if window > 0:
         mask = mask & (t_pos > limit - window)
     scores = torch.where(mask[:, :, None, None, :], scores, torch.full_like(scores, NEG_INF))
-    probs = torch.softmax(scores, dim=-1)
-    if quantized:
-        probs = probs * token_scales(v_cache)
-    out = torch.einsum("bcght,btgd->bcghd", probs, v)
-    return out.reshape(B, C, H, D).to(q.dtype)
+    return scores, v, token_scales(v_cache) if quantized else None
+
+
+def paged_attention_split_ref(
+    q: torch.Tensor,  # [B, C, H, D], every row valid (decode)
+    k_cache: KVPool,
+    v_cache: KVPool,
+    block_tables: torch.Tensor,
+    start_pos: torch.Tensor,
+    *,
+    splits: int,
+    tile: int,
+    sm_scale: Optional[float] = None,
+    window: int = 0,
+    logit_cap: float = 0.0,
+):
+    """Plain version of the split decode kernel's algebra
+    (csrc/paged_attention.cu, splits > 1): each (b, h)'s tile range — from
+    the tile of its first visible key to that of its last, tiles of ``tile``
+    keys — is cut into ``splits`` equal shares of whole tiles; each share
+    gives float32 partials m (max score, -1e30 if every key of the share is
+    masked for the row), l (sum of exp(s - m)) and acc (sum of exp(s - m) ×
+    s_v × v); then out = Σ e^(m_s - M) acc_s / max(Σ e^(m_s - M) l_s, 1e-30)
+    with M the largest m_s. An empty share is m = -1e30, l = 0, acc = 0.
+    Keys on pages outside the walked range read as zeros, as the kernel
+    loads them. Only tests use it. Returns out [B, C, H, D] in q's dtype,
+    m and l [splits, B, C, H] and acc [splits, B, C, H, D]."""
+    B, C, H, D = q.shape
+    _, BS, KH, _ = pool_values(k_cache).shape
+    P = block_tables.shape[1]
+    T = P * BS
+    G = H // KH
+    scores, v, v_scale = _masked_scores(q, k_cache, v_cache, block_tables, start_pos, sm_scale,
+                                        window, logit_cap)
+    if v_scale is None:
+        v_scale = torch.ones(B, 1, KH, 1, T, device=q.device)
+    keys = torch.arange(T, device=q.device)
+
+    m = torch.full((splits, B, C, KH, G), NEG_INF, device=q.device)
+    l = torch.zeros(splits, B, C, KH, G, device=q.device)
+    acc = torch.zeros(splits, B, C, KH, G, D, device=q.device)
+    for b in range(B):
+        start = int(start_pos[b])
+        # the kernel's walk (paged_attention.cu, rows 0 .. C·G - 1 of one block)
+        last_key = max(start + C - 1, 0)
+        last_page = min(last_key // BS, P - 1)
+        first_key = max(start - window + 1, 0) if window > 0 else 0
+        first_page = first_key // BS
+        key_end = min((last_key // BS + 1) * BS, T)
+        tile_first = first_key // tile
+        n_tiles = (min(last_key, key_end - 1) // tile - tile_first + 1
+                   if first_page <= last_page else 0)
+        loaded = (keys // BS >= first_page) & (keys // BS <= last_page)
+        v_b = v[b] * loaded[:, None, None]  # [T, KH, D]
+        for s in range(splits):
+            k0 = (tile_first + s * n_tiles // splits) * tile
+            k1 = (tile_first + (s + 1) * n_tiles // splits) * tile
+            if k1 == k0:
+                continue
+            n = max(0, min(k1, T) - k0)  # keys of the share inside the table; the
+            sc = torch.full((C, KH, G, k1 - k0), NEG_INF, device=q.device)  # rest: masked,
+            sc[..., :n] = scores[b, ..., k0:k0 + n]  # zero scales and values
+            vs = torch.zeros(1, KH, 1, k1 - k0, device=q.device)
+            vs[..., :n] = v_scale[b, ..., k0:k0 + n]
+            vv = torch.zeros(k1 - k0, KH, D, device=q.device)
+            vv[:n] = v_b[k0:k0 + n]
+            m[s, b] = sc.amax(dim=-1)
+            p = torch.exp(sc - m[s, b][..., None])
+            l[s, b] = p.sum(dim=-1)
+            acc[s, b] = torch.einsum("cght,tgd->cghd", p * vs, vv)
+    big = m.amax(dim=0)
+    w = torch.exp(m - big)
+    out = (w[..., None] * acc).sum(dim=0) / (w * l).sum(dim=0).clamp_min(1e-30)[..., None]
+    return (out.reshape(B, C, H, D).to(q.dtype), m.reshape(splits, B, C, H),
+            l.reshape(splits, B, C, H), acc.reshape(splits, B, C, H, D))
 
 
 def decode_attention_bf16_ref(

@@ -64,7 +64,8 @@ def lm_head_int8(x: torch.Tensor, q8: torch.Tensor, s: torch.Tensor, *, tied: bo
     if s.shape != ((V, 1) if tied else (1, V)):
         raise ValueError(f"scales {tuple(s.shape)} for {V} vocab rows (tied={tied})")
     # untied: 16-byte loads of 16 vocab columns and of 8 values of x; tied:
-    # 8-byte loads of 8 k of a vocab row
+    # cp.async copies of 16 (or, when K is not a multiple of 16, 8) codes of
+    # a vocab row and of 8 values of x
     if K % 8 or (not tied and V % 16):
         raise ValueError(f"d_model {K} / vocab {V} not aligned for the kernel (tied={tied})")
     if q8.data_ptr() % 16 or x.data_ptr() % 16:

@@ -12,6 +12,13 @@ with ``torch.empty``, launches its kernel on the current stream and raises
 if the launch was refused; it never falls back. ``launch_counts`` (bf16
 pools) and ``int8_launch_counts`` (int8 pools) count launches per kernel,
 so a run can show which kernels its main path went through.
+
+The decode wrapper splits each sequence's keys over ``split_count(...)``
+blocks (flash-decoding), a count taken from the shapes and the split
+kernel's occupancy alone, so the step reads nothing back from the card.
+With more than one split it allocates the partials' workspace with
+``torch.empty`` and the library launches the split kernel and its combine;
+that call counts once.
 """
 
 from __future__ import annotations
@@ -25,6 +32,10 @@ from dynamo_tpu_torch.ops.cuda import build
 from dynamo_tpu_torch.ops.kv_quant import KVPool, is_quantized_pool, pool_values
 
 DECODE_MAX_ROWS = 64  # C·G query rows one decode block holds
+MAX_SPLITS = 16
+# Split blocks an H100 holds at once when two fit an SM (132 SMs): the
+# capacity decode_splits assumes where the card is not asked.
+H100_CAPACITY = 2 * 132
 # The widths csrc/paged_attention.cu is built for, over both pool types.
 HEAD_DIMS = (64, 128, 256)
 
@@ -36,6 +47,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _lib: Optional[ctypes.CDLL] = None
+_capacity: Dict[tuple, int] = {}
 
 
 def reset_launch_counts() -> None:
@@ -49,15 +61,19 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.build("paged_attention").lib
         common = [_I] * 9 + [_F, _F, _P]  # B C H KH D NB BS P window, scale cap, stream
-        lib.paged_attention_decode_bf16.argtypes = [_P] * 6 + common
+        decode = [_I] * 9 + [_F, _F, _I, _P]  # the same with splits before the stream
+        # decode: ..., out, part (the splits' workspace, or null), B, ...
+        lib.paged_attention_decode_bf16.argtypes = [_P] * 7 + decode
         lib.paged_attention_decode_bf16.restype = _I
         lib.paged_attention_chunk_bf16.argtypes = [_P] * 7 + common
         lib.paged_attention_chunk_bf16.restype = _I
         # int8: q, k codes, k scales, v codes, v scales, tables, start, [lens,] out
-        lib.paged_attention_decode_int8.argtypes = [_P] * 8 + common
+        lib.paged_attention_decode_int8.argtypes = [_P] * 9 + decode
         lib.paged_attention_decode_int8.restype = _I
         lib.paged_attention_chunk_int8.argtypes = [_P] * 9 + common
         lib.paged_attention_chunk_int8.restype = _I
+        lib.paged_attention_decode_capacity.argtypes = [_I] * 3  # int8, small, D
+        lib.paged_attention_decode_capacity.restype = _I
         _lib = lib
     return _lib
 
@@ -135,6 +151,46 @@ def _scale(sm_scale: Optional[float], head_dim: int) -> float:
     return float(sm_scale) if sm_scale is not None else head_dim**-0.5
 
 
+def decode_tile(rows: int, head_dim: int) -> int:
+    """Keys a decode block's tile holds, the unit its splits share out: the
+    decode layout's 16384 / D for C·G <= 8 rows, else the 64-row layout's
+    64."""
+    return 16384 // head_dim if rows <= 8 else 64
+
+
+def decode_splits(B: int, KH: int, row_blocks: int = 1, capacity: int = H100_CAPACITY) -> int:
+    """How many blocks a decode call splits each (sequence, KV head)'s keys
+    over. While the B·KH·row_blocks blocks of one pass would leave the card
+    less than full (fewer than ``capacity``, the split blocks it holds at
+    once), as many splits as fill it once, at least 2 and at most
+    MAX_SPLITS; otherwise 1, the one-pass kernel. From the shapes alone:
+    never from start_pos, which lives on the card, so a decode step reads
+    nothing back to choose it. More splits than fit at once run in waves
+    and only add partials to combine."""
+    blocks = max(1, B * KH * row_blocks)
+    if blocks >= capacity:
+        return 1
+    return min(MAX_SPLITS, max(2, capacity // blocks))
+
+
+def split_count(q: torch.Tensor, k_cache: KVPool) -> int:
+    """The split count the decode wrapper takes for these shapes on q's
+    card: decode_splits at the split kernel's capacity there (its blocks an
+    SM, asked of the card once per kernel variant and cached)."""
+    B, C, H, D = q.shape
+    KH = pool_values(k_cache).shape[2]
+    if q.device.type != "cuda":  # no card to ask: an H100's capacity
+        return decode_splits(B, KH)
+    key = (q.device.index, is_quantized_pool(k_cache), C * (H // KH) <= 8, D)
+    if key not in _capacity:
+        with torch.cuda.device(q.device):
+            _capacity[key] = _library().paged_attention_decode_capacity(
+                int(key[1]), int(key[2]), D)
+        if _capacity[key] <= 0:
+            raise RuntimeError(f"paged_attention_decode_capacity failed for {key}")
+    return decode_splits(B, KH, capacity=_capacity[key])
+
+
 def paged_attention_decode(
     q: torch.Tensor,  # [B, C, H, D], C·G <= 64
     k_cache: KVPool,
@@ -145,11 +201,16 @@ def paged_attention_decode(
     sm_scale: Optional[float] = None,
     window: int = 0,
     logit_cap: float = 0.0,
+    splits: Optional[int] = None,
 ) -> torch.Tensor:
     """Decode / short-chunk paged attention (counterpart of
     ``paged_attention_decode_kernel``): every one of the C rows counts as
-    valid, as in the Pallas decode kernel."""
+    valid, as in the Pallas decode kernel. ``splits`` forces the number of
+    key splits (1..MAX_SPLITS; tests and chip_smoke.py use it), else
+    ``split_count`` chooses it."""
     B, C, H, D = q.shape
+    if splits is not None and not 1 <= int(splits) <= MAX_SPLITS:
+        raise ValueError(f"splits must be 1..{MAX_SPLITS}, got {splits}")
     if q.device.type == "cpu":
         from dynamo_tpu_torch.ops.attention import paged_attention_ref
 
@@ -165,15 +226,20 @@ def paged_attention_decode(
     NB, BS, KH = pool_values(k_cache).shape[:3]
     if C * (H // KH) > DECODE_MAX_ROWS:
         raise ValueError(f"decode kernel holds C*G <= {DECODE_MAX_ROWS} rows, got {C * (H // KH)}")
+    splits = split_count(q, k_cache) if splits is None else int(splits)
     lib = _library()
     name = "paged_attention_decode_int8" if quantized else "paged_attention_decode"
     launch = lib.paged_attention_decode_int8 if quantized else lib.paged_attention_decode_bf16
     out = torch.empty_like(q)
+    # the splits' partials: acc [splits, B*C*H, D], then (m, l) [splits, B*C*H, 2]
+    part = (torch.empty(splits * B * C * H * (D + 2), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
     rc = launch(
         q.data_ptr(), *_pool_pointers(k_cache, v_cache),
         block_tables.data_ptr(), start_pos.data_ptr(), out.data_ptr(),
+        part.data_ptr() if part is not None else None,
         B, C, H, KH, D, NB, BS, block_tables.shape[1],
-        int(window), _scale(sm_scale, D), float(logit_cap),
+        int(window), _scale(sm_scale, D), float(logit_cap), splits,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:

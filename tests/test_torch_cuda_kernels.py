@@ -1,5 +1,6 @@
 """The hand-written CUDA kernels (paged attention over bf16 and int8 pools at
-head_dim 64, 128 and 256 and block sizes up to 256, the fused decoder layer,
+head_dim 64, 128 and 256 and block sizes up to 256, decode attention split
+over the keys, the fused decoder layer,
 the int8 lm-head, the int8 weight-streaming product, decode attention with
 bf16 probabilities, the int8 FFN) against their plain PyTorch versions, on
 the card.
@@ -54,6 +55,7 @@ from dynamo_tpu_torch.tools.cases import (
     make_proto_attention_case,
     matmul_case,
     q8_weight,
+    quantize_pool,
     raw_product_ok,
     run_layer,
 )
@@ -192,6 +194,57 @@ def test_paged_attention_at_head_dim_256(kernels, label):
     assert kernels.launch_counts[name] == 1 and sum(kernels.launch_counts.values()) == 1
 
 
+SPLIT_CASES = {
+    # label: (B, C, H, KH, D, BS, starts, window, softcap)
+    "D64 C1 G7": (4, 1, 14, 2, 64, 16, [0, 100, 1500, 3000], 0, 0.0),
+    "D64 C5 G7 64-row layout": (3, 5, 14, 2, 64, 16, [7, 900, 2000], 0, 0.0),
+    "D128 C1 G4 window 300 softcap 30": (4, 1, 32, 8, 128, 16, [50, 700, 1500, 2900], 300, 30.0),
+    "D128 C2 G4 block size 128": (3, 2, 32, 8, 128, 128, [0, 129, 1000], 0, 0.0),
+    "D256 C1 G2 window 4096 softcap 50": (3, 1, 8, 4, 256, 16, [4000, 5000, 6000], 4096, 50.0),
+    "D256 C1 G4 B1 at 6,000 keys": (1, 1, 4, 1, 256, 16, [6000], 0, 0.0),
+    "D256 C1 G4 100 and 6,000 keys": (2, 1, 4, 1, 256, 16, [100, 6000], 0, 0.0),
+    "D256 C3 G4 window 512 64-row layout": (2, 3, 4, 1, 256, 16, [600, 4000], 512, 0.0),
+}
+
+
+@pytest.mark.parametrize("splits", [1, 2, 5, 16])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("label", list(SPLIT_CASES))
+def test_decode_kernel_at_forced_splits(kernels, label, int8, splits):
+    """The decode kernel with its keys split over `splits` blocks (1: the
+    one-pass kernel) against paged_attention_ref, under the limit above, at
+    D 64, 128 and 256 over both pool types, in both layouts; one launch
+    counted a call, and two runs bit-equal (the splits are combined in a
+    fixed order)."""
+    from dynamo_tpu_torch.ops.attention import paged_attention_ref
+
+    B, C, H, KH, D, BS, starts, window, cap = SPLIT_CASES[label]
+    c = _case(B, C, H, KH, D, BS, starts, [C] * B, seed=B * 100 + D + C)
+    k, v = (quantize_pool(c["k"]), quantize_pool(c["v"])) if int8 else (c["k"], c["v"])
+    kernels.reset_launch_counts()
+    out = kernels.paged_attention_decode(c["q"], k, v, c["tables"], c["start"], window=window,
+                                         logit_cap=cap, splits=splits)
+    again = kernels.paged_attention_decode(c["q"], k, v, c["tables"], c["start"], window=window,
+                                           logit_cap=cap, splits=splits)
+    ref = paged_attention_ref(c["q"], k, v, c["tables"], c["start"], c["lens"], window=window,
+                              logit_cap=cap)
+    _check(out, ref, [C] * B)
+    assert torch.equal(out, again)
+    counts = kernels.int8_launch_counts if int8 else kernels.launch_counts
+    name = "paged_attention_decode_int8" if int8 else "paged_attention_decode"
+    assert counts[name] == 2 and sum(counts.values()) == 2
+
+
+def test_decode_split_count_comes_from_the_shapes(kernels):
+    """split_count asks the card for the split kernel's capacity once and
+    takes decode_splits of it: Gemma-3-1B's B 32 x KH 1 splits, _prof_attn.py's
+    B 64 x KH 8 does not."""
+    g3 = _case(32, 1, 4, 1, 256, 16, [10] * 32, [1] * 32, seed=1)
+    p8 = _case(64, 1, 32, 8, 128, 128, [160] * 64, [1] * 64, seed=2)
+    assert kernels.split_count(g3["q"], quantize_pool(g3["k"])) > 1
+    assert kernels.split_count(p8["q"], p8["k"]) == 1
+
+
 # -- fused decoder layer and int8 head ----------------------------------------
 
 
@@ -239,6 +292,32 @@ def test_lm_head_kernel_matches_plain(kernels, tied, M, K, V):
     torch.cuda.synchronize()
     assert kernel.launch_counts["lm_head_int8"] == 1
     assert out.shape == (M, V) and out.dtype == torch.float32
+    err = (out - ref).abs()
+    assert bool((err <= 2.0**-7 * ref.abs() + 1e-5 * ref.abs().max()).all()), float(err.max())
+
+
+@pytest.mark.parametrize("M,K,V", [(1, 1152, 262144), (32, 1152, 262144), (64, 1152, 262144),
+                                   (100, 1152, 262144), (5, 1152, 1000), (9, 136, 262144),
+                                   (40, 136, 1000)])
+def test_tied_lm_head_on_tensor_cores(kernels, M, K, V):
+    """The tied head at Gemma-3-1B's width (K 1,152 x V 262,144) for one to
+    two row groups of 64, a ragged vocabulary (V 1,000: the last block's
+    rows past V) and K 136 (not a multiple of 16: 8-byte copies, a zero-
+    filled tail), against the plain version under the limit above; two runs
+    bit-equal (sums in a fixed order)."""
+    from dynamo_tpu_torch.ops.cuda import lm_head as kernel
+    from dynamo_tpu_torch.ops.quant import lm_head_ref
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    g = torch.Generator(device="cuda").manual_seed(M + K + V)
+    w = q8_weight(g, V, K, "cuda")
+    w["s"] = (torch.rand(V, 1, generator=g, device="cuda") + 0.5) * (K**-0.5 / 73.3)
+    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    out = kernel.lm_head_int8(x, w["q8"], w["s"], tied=True)
+    again = kernel.lm_head_int8(x, w["q8"], w["s"], tied=True)
+    ref = lm_head_ref(x, w, tied=True)
+    torch.cuda.synchronize()
+    assert out.shape == (M, V) and torch.equal(out, again)
     err = (out - ref).abs()
     assert bool((err <= 2.0**-7 * ref.abs() + 1e-5 * ref.abs().max()).all()), float(err.max())
 
