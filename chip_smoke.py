@@ -22,7 +22,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    calls), CUDA events over many launches after warm-up, beside the least
    time the card could take (bytes over 3.35 TB/s or flops over the bf16
    989 TFLOP/s, counted from the case's own data). A decode line names the
-   key splits the wrapper chose (1: the one-pass kernel).
+   key splits the wrapper chose (1: the one-pass kernel). Every chunk case
+   also runs twice, bit for bit equal, and a chunk_cases line gathers the
+   run's chunk times beside SDPA's.
 5. engine — TorchEngine serving Qwen2.5-0.5B at full width (24 layers,
    random bf16 weights from a seed) through generate(): concurrent
    requests, a prompt long enough for chunked prefill, a prefix hit, and a
@@ -42,7 +44,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
 9. int8kv kernels — parity and timing of the int8-pool paged-attention
    kernels (D 64: KH 2, G 7; D 128: KH 8, G 4; window and softcap cases) and
    of the int8 weight-streaming product at the four Llama-3-8B weight shapes
-   (M 16, 32, 64; with and without qeinsum's epilogue).
+   (M 16, 32, 64; with and without qeinsum's epilogue); at M 32 each shape
+   and a layer's seven are also timed with a cold L2 (the calls rotate
+   through weight copies exceeding 100 MB), and q/o at M 64 is a named
+   case, warm and cold.
 10. engine_int8kv — TorchEngine serving Llama-3-8B at full width with int8
    weights and int8 KV pools (the fused layer off by its gate): 32 slots,
    32 requests of 256 greedy tokens (prompts of 100-300 tokens, one of
@@ -201,27 +206,12 @@ def compare(torch, out, ref, clens):
 
 
 def time_ms(torch, fn, iters):
-    """Device time of one call: CUDA events around ``iters`` calls. The
-    stream is first held by a sleep kernel longer than the host takes to
-    queue the calls, so a call whose host side (the wrapper's checks and
-    allocations) outlasts its kernel is timed on the device and not at the
-    host's enqueue rate."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t_host = time.perf_counter()
-    fn()
-    host_s = time.perf_counter() - t_host
-    torch.cuda.synchronize()
-    torch.cuda._sleep(int(min(1.0, 2 * iters * host_s + 1e-3) * 2e9))  # cycles, ~2 GHz
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    for _ in range(iters):
-        fn()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / iters
+    """Device ms of one call: tools/timing.queued_ms (CUDA events around
+    ``iters`` calls queued behind a sleep kernel that outlasts the host's
+    queueing)."""
+    from dynamo_tpu_torch.tools.timing import queued_ms
+
+    return queued_ms(fn, iters)
 
 
 def bound(case, window=0):
@@ -330,9 +320,19 @@ def attention_parity(torch, cases) -> dict:
         if not ok:
             fail(f"{name} ({label}) disagrees with its plain version: max abs err {err}")
         worst[name] = max(worst.get(name, 0.0), err)
+        if kind == "chunk":  # sums in a fixed order: two runs give the same bits
+            same = torch.equal(out, run_kernel(kernels, kind, case, win, cap))
+            emit({"phase": "parity", "kernel": name, "case": f"{label}, two runs",
+                  "bit_equal": same, "ok": same})
+            if not same:
+                fail(f"{name} ({label}): two runs differ")
     for name, err in split_parity(torch, cases).items():
         worst[name] = max(worst[name], err)
     return worst
+
+
+# Every chunk-kernel timing of the run, for the chunk_cases line.
+CHUNK_TIMES = []
 
 
 def attention_timing(torch, dec, chunk, suffix="", window=0, cap=0.0, label="") -> dict:
@@ -355,6 +355,9 @@ def attention_timing(torch, dec, chunk, suffix="", window=0, cap=0.0, label="") 
                            bound_ms=bound_ms, bound_by=bound_by)
         # the decode kernel's key splits (1: the one-pass kernel, no combine)
         extra = {"splits": kernels.split_count(case["q"], case["k"])} if kind == "decode" else {}
+        if kind == "chunk":
+            CHUNK_TIMES.append(dict(kernel=name, case=label, **timed[name],
+                                    sdpa_ratio=timed[name]["ms"] / timed[name]["library_ms"]))
         emit({"phase": "timing", "kernel": name, "case": label, "shape": list(case["q"].shape),
               "pool": "int8" if isinstance(case["k"], dict) else "bf16", "window": window,
               "softcap": cap, **extra, **timed[name],
@@ -597,6 +600,10 @@ def int8kv_kernel_phases(torch):
                              label="llama-3-8b int8 D128")
     timed["int8_matmul"] = matmul_layer_timing(torch, MATMUL_SHAPES, (16, 32, 64),
                                                "one Llama-3-8B layer's seven products, M 32")
+    # q/o at prof_8b's 64 rows, warm and cold
+    emit({"phase": "timing", "kernel": "int8_matmul", "case": "q/o 4096x4096 M64 (prof_8b rows)",
+          **matmul_times(torch, 4096, 4096, 64, cold=True), "weight_bytes": 4096 * 4096,
+          "library": "torch.matmul over the bf16-dequantised weight", "card": smi_line()})
     reset_counts()
     return worst, timed
 
@@ -635,36 +642,75 @@ def matmul_parity(torch, shapes, Ms) -> float:
     return worst
 
 
-def matmul_layer_timing(torch, shapes, Ms, layer_label) -> dict:
-    """The int8 product, its plain version and torch.matmul over the
-    bf16-dequantised weight at each shape and row count; returns one
-    layer's products at M 32 (each shape times its count a layer), summed."""
+# Weight bytes a cold-L2 timing rotates through: twice the H100's 50 MB L2.
+COLD_BYTES = 100 * 2**20
+
+
+def matmul_times(torch, K, N, M, cold) -> dict:
+    """The int8 product (epilogue form), its plain version and torch.matmul
+    over the bf16-dequantised weight at one shape, warm (the same weight on
+    every call); with ``cold`` also the kernel and torch.matmul rotating
+    through copies of the weight that together exceed COLD_BYTES, as a
+    decode step finds its weights."""
     from dynamo_tpu_torch.ops.cuda import int8_matmul as mk
     from dynamo_tpu_torch.ops.quant import int8_matmul_ref
     from dynamo_tpu_torch.tools.cases import matmul_case
 
+    copies = max(2, -(-COLD_BYTES // (K * N)) + 1) if cold else 1
+    cs = [matmul_case(M, K, N, device=DEV, seed=i) for i in range(copies)]
+    x, q8, s = cs[0]["x"], cs[0]["q8"], cs[0]["s"]
+    dq = (q8.float() * s).to(torch.bfloat16)  # dequantised outside the timed call
+    t = dict(ms=time_ms(torch, lambda: mk.int8_matmul(x, q8, s), 50),
+             plain_ms=time_ms(torch, lambda: int8_matmul_ref(x, q8, s), 10),
+             library_ms=time_ms(torch, lambda: torch.matmul(x, dq), 50))
+    del dq
+    if cold:
+        turn = [0]
+
+        def rotate(fns):
+            def call():
+                turn[0] = (turn[0] + 1) % len(fns)
+                return fns[turn[0]]()
+            return call
+
+        t["cold_ms"] = time_ms(torch, rotate([lambda c=c: mk.int8_matmul(c["x"], c["q8"], c["s"])
+                                              for c in cs]), 50)
+        dqs = [(c["q8"].float() * c["s"]).to(torch.bfloat16) for c in cs]
+        t["library_cold_ms"] = time_ms(torch, rotate([lambda c=c, d=d: torch.matmul(c["x"], d)
+                                                      for c, d in zip(cs, dqs)]), 50)
+        del dqs
+    del cs
+    t["bound_ms"], t["bound_by"] = matmul_bound(M, K, N)
+    return t
+
+
+def matmul_layer_timing(torch, shapes, Ms, layer_label) -> dict:
+    """The int8 product, its plain version and torch.matmul over the
+    bf16-dequantised weight at each shape and row count (at M 32 warm and
+    cold); returns one layer's products at M 32 (each shape times its count
+    a layer), summed, warm — and prints that sum cold too."""
     smi = smi_line()
     layer = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    cold = dict(ms=0.0, library_ms=0.0, bound_ms=0.0)
     for label, (K, N, per_layer) in shapes.items():
         for M in Ms:
-            c = matmul_case(M, K, N, device=DEV)
-            x, q8, s = c["x"], c["q8"], c["s"]
-            dq = (q8.float() * s).to(torch.bfloat16)  # dequantised outside the timed call
-            t = dict(ms=time_ms(torch, lambda: mk.int8_matmul(x, q8, s), 50),
-                     plain_ms=time_ms(torch, lambda: int8_matmul_ref(x, q8, s), 10),
-                     library_ms=time_ms(torch, lambda: torch.matmul(x, dq), 50))
-            del dq
-            t["bound_ms"], t["bound_by"] = matmul_bound(M, K, N)
+            t = matmul_times(torch, K, N, M, cold=M == 32)
             emit({"phase": "timing", "kernel": "int8_matmul", "case": f"{label} M{M}", **t,
                   "weight_bytes": K * N, "library": "torch.matmul over the bf16-dequantised weight",
                   "card": smi})
             if M == 32:
                 for key in layer:
                     layer[key] += per_layer * t[key]
+                cold["ms"] += per_layer * t["cold_ms"]
+                cold["library_ms"] += per_layer * t["library_cold_ms"]
+                cold["bound_ms"] += per_layer * t["bound_ms"]
     bound_by = "bytes" if all(matmul_bound(32, K, N)[1] == "bytes"
                               for K, N, _ in shapes.values()) else "operations"
     timed = dict(layer, bound_by=bound_by)
-    emit({"phase": "timing", "kernel": "int8_matmul", "case": layer_label, **timed, "card": smi})
+    emit({"phase": "timing", "kernel": "int8_matmul", "case": layer_label, "l2": "warm", **timed,
+          "card": smi})
+    emit({"phase": "timing", "kernel": "int8_matmul", "case": layer_label, "l2": "cold",
+          **cold, "bound_by": bound_by, "card": smi})
     return timed
 
 
@@ -1412,6 +1458,8 @@ def main() -> int:
     profile_phase(torch, engine.runner, smi, "profile_gemma3_int8kv", ctx_step=25,
                   exact=int8kv_burst_launches(engine))
 
+    # every chunk case of the run beside SDPA
+    emit({"phase": "chunk_cases", "cases": CHUNK_TIMES, "card": smi})
     sources = {"paged_attention_decode": "paged_attention.cu",
                "paged_attention_chunk": "paged_attention.cu",
                "fused_decoder_layer": "fused_layer.cu", "lm_head_int8": "lm_head_int8.cu",

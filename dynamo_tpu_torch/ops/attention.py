@@ -19,7 +19,9 @@ PyTorch. ``decode_attention_bf16_ref`` is the plain version of the
 decode kernels with bf16 probabilities (ops/cuda/decode_attention_proto.py),
 counterparts of the TPU prototypes in _prof_attn.py; no serving path calls
 them. ``paged_attention_split_ref`` is the decode kernel's split over the
-keys (per-split partials and their combine), for the tests.
+keys (per-split partials and their combine) and
+``paged_attention_chunk_mma_ref`` the chunk kernel's tile walk on the
+tensor cores, both for the tests.
 """
 
 from __future__ import annotations
@@ -211,6 +213,112 @@ def paged_attention_split_ref(
     out = (w[..., None] * acc).sum(dim=0) / (w * l).sum(dim=0).clamp_min(1e-30)[..., None]
     return (out.reshape(B, C, H, D).to(q.dtype), m.reshape(splits, B, C, H),
             l.reshape(splits, B, C, H), acc.reshape(splits, B, C, H, D))
+
+
+CHUNK_TILE = 64  # keys a tile of the chunk kernel walks
+
+
+CHUNK_ROWS = 64  # query rows a block of the chunk kernel holds
+
+
+def paged_attention_chunk_mma_ref(
+    q: torch.Tensor,  # [B, C, H, D]
+    k_cache: KVPool,
+    v_cache: KVPool,
+    block_tables: torch.Tensor,
+    start_pos: torch.Tensor,
+    chunk_lens: torch.Tensor,
+    *,
+    sm_scale: Optional[float] = None,
+    window: int = 0,
+    logit_cap: float = 0.0,
+) -> torch.Tensor:
+    """Plain emulation of the chunk kernel's algebra on the tensor cores
+    (csrc/paged_attention.cu, paged_attention_chunk_kernel), for the tests.
+    Rows (c, g), c-major, in blocks of 64 of one (b, h); a block whose rows
+    are all past ``chunk_lens`` is zeros. A block walks 64-key tiles from
+    the tile of its first row's first visible key (start + c_lo - W + 1,
+    or 0 without a window) to that of its last valid row's causal limit;
+    keys on pages outside the walked pages (or past the table) read as
+    zeros and are masked. Per tile, in walk order: float32 scores × sm_scale
+    (× s_k with int8 pools), the softcap, the causal and window masks
+    (-1e30); the online softmax (running max m, sum l of the unscaled
+    probabilities, the accumulator rescaled by e^(m_old - m_new)); the
+    probabilities × s_v (int8 pools), split into hi = bf16(p) and lo =
+    bf16(p - hi), and hi·V + lo·V added to the float32 accumulator. out =
+    acc / max(l, 1e-30) in q's dtype. Only tests use it."""
+    B, C, H, D = q.shape
+    quantized = is_quantized_pool(k_cache)
+    _, BS, KH, _ = pool_values(k_cache).shape
+    P = block_tables.shape[1]
+    G = H // KH
+    T = P * BS
+    scale = sm_scale if sm_scale is not None else D**-0.5
+    tables = block_tables.long()
+    pad = (T // CHUNK_TILE + 2) * CHUNK_TILE - T  # tiles may run past the table: zeros
+    k = pool_values(k_cache)[tables].reshape(B, T, KH, D).to(torch.float32)
+    v = pool_values(v_cache)[tables].reshape(B, T, KH, D).to(torch.float32)
+    k = torch.cat([k, k.new_zeros(B, pad, KH, D)], dim=1)
+    v = torch.cat([v, v.new_zeros(B, pad, KH, D)], dim=1)
+    if quantized:
+        def token_scales(pool):  # [NB, KH, BS] -> [B, T + pad, KH]
+            sc = pool["s"][tables].permute(0, 2, 1, 3).reshape(B, KH, T).transpose(1, 2)
+            return torch.cat([sc, sc.new_zeros(B, pad, KH)], dim=1)
+
+        k_s, v_s = token_scales(k_cache), token_scales(v_cache)
+    qf = q.to(torch.float32)
+    out = torch.zeros(B, C, H, D, dtype=torch.float32)
+    rows_all, block_rows = C * G, CHUNK_ROWS
+    for b in range(B):
+        start, clen = int(start_pos[b]), int(chunk_lens[b])
+        for h in range(KH):
+            for r0 in range(0, rows_all, block_rows):
+                nrows = min(block_rows, rows_all - r0)
+                if r0 // G >= clen:
+                    continue  # every row is chunk padding: zeros
+                r = torch.arange(r0, r0 + nrows)
+                c_idx, g_idx = r // G, r % G
+                qb = qf[b, c_idx, h * G + g_idx]  # [nrows, D]
+                limit = start + c_idx  # [nrows]
+                c_lo, c_hi = r0 // G, min((r0 + nrows - 1) // G, clen - 1)
+                last_key = max(start + c_hi, 0)
+                last_page = min(last_key // BS, P - 1)
+                first_key = max(start + c_lo - window + 1, 0) if window > 0 else 0
+                first_page = first_key // BS
+                key_end = min((last_key // BS + 1) * BS, T)
+                tile_first = first_key // CHUNK_TILE
+                n_tiles = (min(last_key, key_end - 1) // CHUNK_TILE - tile_first + 1
+                           if first_page <= last_page else 0)
+                m = torch.full((nrows,), NEG_INF)
+                l = torch.zeros(nrows)
+                acc = torch.zeros(nrows, D)
+                for it in range(n_tiles):
+                    kp = torch.arange(CHUNK_TILE) + (tile_first + it) * CHUNK_TILE
+                    page = kp // BS
+                    loaded = ((page >= first_page) & (page <= last_page)).float()
+                    kt = k[b, kp, h] * loaded[:, None]
+                    vt = v[b, kp, h] * loaded[:, None]
+                    sc = qb @ kt.T * scale  # [nrows, 64]
+                    if quantized:
+                        sc = sc * (k_s[b, kp, h] * loaded)[None]
+                    if logit_cap > 0.0:
+                        sc = logit_cap * torch.tanh(sc / logit_cap)
+                    visible = (kp[None] <= limit[:, None]) & (kp[None] < key_end)
+                    if window > 0:
+                        visible = visible & (kp[None] > limit[:, None] - window)
+                    sc = torch.where(visible, sc, torch.full_like(sc, NEG_INF))
+                    m_new = torch.maximum(m, sc.amax(dim=1))
+                    alpha = torch.exp(m - m_new)
+                    p = torch.exp(sc - m_new[:, None])
+                    l = l * alpha + p.sum(dim=1)
+                    m = m_new
+                    if quantized:
+                        p = p * (v_s[b, kp, h] * loaded)[None]
+                    hi = p.to(torch.bfloat16).to(torch.float32)
+                    lo = (p - hi).to(torch.bfloat16).to(torch.float32)
+                    acc = acc * alpha[:, None] + (hi @ vt + lo @ vt)
+                out[b, c_idx, h * G + g_idx] = acc / l.clamp_min(1e-30)[:, None]
+    return out.to(q.dtype)
 
 
 def decode_attention_bf16_ref(

@@ -51,15 +51,16 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found (looked on PATH and in $CUDA_HOME/bin)")
 
 
-def build(name: str) -> Built:
-    """Compile ``csrc/<name>.cu`` if needed and load it (once per process;
-    different sources build concurrently)."""
+def build(name: str, directory: Path = CSRC) -> Built:
+    """Compile ``<directory>/<name>.cu`` (``csrc/`` by default; a source
+    elsewhere may include the ``csrc/*.cuh`` headers) if needed and load it
+    (once per process; different sources build concurrently)."""
     with _locks_guard:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:
         if name in _loaded:
             return _loaded[name]
-        src = CSRC / f"{name}.cu"
+        src = Path(directory) / f"{name}.cu"
         # The shared headers are hashed too: an edited header rebuilds.
         headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
         digest = hashlib.sha256(
@@ -71,7 +72,7 @@ def build(name: str) -> Built:
         if not out.exists():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             proc = subprocess.run(
-                [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)],
                 capture_output=True, text=True,
             )
             if proc.returncode != 0:

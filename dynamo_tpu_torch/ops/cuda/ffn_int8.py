@@ -20,7 +20,6 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from dynamo_tpu_torch.ops.cuda import build
-from dynamo_tpu_torch.ops.cuda.int8_matmul import plan
 
 launch_counts: Dict[str, int] = {"ffn_int8": 0}
 
@@ -53,6 +52,28 @@ def _library() -> ctypes.CDLL:
         lib.ffn_int8_blocks_per_sm.restype = _I
         _lib = lib
     return _lib
+
+
+def plan(M: int, K: int, N: int, slots: int) -> Tuple[int, int]:
+    """(splits, split_k) of one phase on a card that holds ``slots`` blocks
+    at once: whole 128-deep chunks in each split, none empty. N/64 column
+    tiles alone leave most SMs idle at N = 4,096, and a split that spills a
+    few blocks into a second wave doubles the time, so the split minimises
+    the chunk-steps on the critical path: waves × (chunks a block + its
+    partial-sum write, a chunk's worth of bytes at 32 rows) + the adds of
+    the tile's last block; the fewest splits win a tie."""
+    chunks = -(-K // ALIGN)
+    tiles = -(-N // TILE_N) * -(-M // MAX_ROWS)
+    partial = min(M, MAX_ROWS) / 32  # a block's partial sums, in chunks of codes
+    best = None
+    for want in range(1, min(chunks, 64) + 1):
+        per = -(-chunks // want)
+        splits = -(-chunks // per)
+        waves = -(-tiles * splits // slots)
+        steps = waves * (per + partial) + splits * partial if splits > 1 else waves * per
+        if best is None or steps < best[0]:
+            best = (steps, splits, per * ALIGN)
+    return best[1], best[2]
 
 
 def _slots_for(device_index: int, M: int, nw: int) -> int:

@@ -261,9 +261,10 @@ def paged_attention_chunk(
     logit_cap: float = 0.0,
 ) -> torch.Tensor:
     """Chunked-prefill paged attention for any C with ragged ``chunk_lens``
-    (counterpart of ``paged_attention_kernel``). Rows past a sequence's
-    chunk length are padding: the kernel writes zeros or finite garbage
-    there, and callers never read them."""
+    (counterpart of ``paged_attention_kernel``), on the tensor cores: its
+    plain emulation is ops/attention.paged_attention_chunk_mma_ref. Rows
+    past a sequence's chunk length are padding: the kernel writes zeros or
+    finite garbage there, and callers never read them."""
     if q.device.type == "cpu":
         from dynamo_tpu_torch.ops.attention import paged_attention_ref
 
@@ -274,6 +275,9 @@ def paged_attention_chunk(
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check(q, k_cache, v_cache, block_tables, start_pos, chunk_lens)
+    if q.data_ptr() % 16 or any(t.data_ptr() % 16 for t in (pool_values(k_cache),
+                                                             pool_values(v_cache))):
+        raise ValueError("q and the pools must be 16-byte aligned (16-byte copies)")
     B, C, H, D = q.shape
     quantized = is_quantized_pool(k_cache)
     NB, BS, KH = pool_values(k_cache).shape[:3]

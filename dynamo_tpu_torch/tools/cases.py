@@ -348,6 +348,25 @@ def make_d256_attention_case(label: str, device: Any):
     return _make_attention_case(D256_ATTENTION_CASES[label], device, int8=False)
 
 
+def make_chunk_case(label: str, device: Any, int8: bool):
+    """(case, window, softcap) of a chunk case of D256_ATTENTION_CASES,
+    INT8_ATTENTION_CASES, INT8_D256_ATTENTION_CASES or BS128_ATTENTION_CASES
+    over int8 pools with ``int8``, else bf16 pools."""
+    if label in BS128_ATTENTION_CASES:
+        _, _, case, window, cap = make_bs128_attention_case(label, device, int8)
+    else:
+        entry = {**D256_ATTENTION_CASES, **INT8_ATTENTION_CASES, **INT8_D256_ATTENTION_CASES}[label]
+        _, _, case, window, cap = _make_attention_case(entry, device, int8)
+    return case, window, cap
+
+
+# The labels of every chunk case above.
+CHUNK_CASE_LABELS: List[str] = [
+    label for table in (D256_ATTENTION_CASES, INT8_ATTENTION_CASES, INT8_D256_ATTENTION_CASES,
+                        BS128_ATTENTION_CASES)
+    for label, entry in table.items() if entry[1] == "chunk"]
+
+
 def _make_attention_case(entry: Tuple, device: Any, int8: bool):
     name, kind, B, C, starts, clens, window, cap, heads, seed = entry
     if starts[0] == "ragged":

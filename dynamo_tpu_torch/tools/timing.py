@@ -43,3 +43,27 @@ def elapsed_ms(fn: Callable[[], object], device: torch.device, reps: int) -> Lis
             fn()
             times.append(1e3 * (time.perf_counter() - t0))
     return times
+
+
+def queued_ms(fn: Callable[[], object], iters: int) -> float:
+    """Device ms of one call of ``fn`` on the card: CUDA events around
+    ``iters`` calls queued back to back, after three warm-up calls. The
+    stream is first held by a sleep kernel longer than the host takes to
+    queue the calls, so a call whose host side outlasts its kernel is timed
+    on the device and not at the host's enqueue rate."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t_host = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t_host
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(min(1.0, 2 * iters * host_s + 1e-3) * 2e9))  # cycles, ~2 GHz
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters

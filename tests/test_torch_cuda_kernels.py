@@ -1,6 +1,6 @@
 """The hand-written CUDA kernels (paged attention over bf16 and int8 pools at
 head_dim 64, 128 and 256 and block sizes up to 256, decode attention split
-over the keys, the fused decoder layer,
+over the keys, chunk attention on the tensor cores, the fused decoder layer,
 the int8 lm-head, the int8 weight-streaming product, decode attention with
 bf16 probabilities, the int8 FFN) against their plain PyTorch versions, on
 the card.
@@ -37,6 +37,7 @@ import torch
 
 from dynamo_tpu_torch.tools.cases import (
     BS128_ATTENTION_CASES,
+    CHUNK_CASE_LABELS,
     D256_ATTENTION_CASES,
     GEMMA3_MATMUL_SHAPES,
     INT8_ATTENTION_CASES,
@@ -49,6 +50,7 @@ from dynamo_tpu_torch.tools.cases import (
     ffn_case,
     layer_case,
     make_bs128_attention_case,
+    make_chunk_case,
     make_d256_attention_case,
     make_int8_attention_case,
     make_layer_case,
@@ -452,6 +454,92 @@ def test_qeinsum_runs_the_int8_product_for_decode_rows_only(kernels):
     assert kernel.launch_counts["int8_matmul"] == 1 and y.shape == (64, 1, 256)
     quant.qeinsum("bcd,dh->bch", c["x"].reshape(1, 64, 512).repeat(2, 1, 1), w)  # 128 rows
     assert kernel.launch_counts["int8_matmul"] == 1
+
+
+# -- the chunk kernel on the tensor cores; the wide-tile int8 product ---------
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("label", CHUNK_CASE_LABELS)
+def test_chunk_kernel_at_every_chunk_case(kernels, label, int8):
+    """The chunk kernel (scores and P·V on the tensor cores, probabilities
+    as bf16 hi + lo halves) against paged_attention_ref at every chunk case
+    of tools/cases.py over both pool types, under the limit above; padding
+    rows finite; two runs bit-equal (sums in a fixed order); one launch
+    counted a call."""
+    from dynamo_tpu_torch.ops.attention import paged_attention_ref
+
+    c, window, cap = make_chunk_case(label, "cuda", int8)
+    args = (c["q"], c["k"], c["v"], c["tables"], c["start"], c["clens"])
+    kernels.reset_launch_counts()
+    out = kernels.paged_attention_chunk(*args, window=window, logit_cap=cap)
+    again = kernels.paged_attention_chunk(*args, window=window, logit_cap=cap)
+    ref = paged_attention_ref(*args, window=window, logit_cap=cap)
+    _check(out, ref, c["clens"].tolist())
+    assert torch.isfinite(out).all() and torch.equal(out, again)
+    counts = kernels.int8_launch_counts if int8 else kernels.launch_counts
+    name = "paged_attention_chunk_int8" if int8 else "paged_attention_chunk"
+    assert counts[name] == 2 and sum(counts.values()) == 2
+
+
+@pytest.mark.parametrize("M", [13, 33])
+@pytest.mark.parametrize("shape", list(MATMUL_SHAPES) + list(GEMMA3_MATMUL_SHAPES))
+def test_int8_matmul_kernel_at_partial_row_groups(kernels, shape, M):
+    """M 13 and 33 (a partial 16-row group) at every Llama-3-8B and
+    Gemma-3-1B weight shape, as test_int8_matmul_kernel_matches_plain holds
+    M 1, 16, 32, 64 and 100."""
+    from dynamo_tpu_torch.ops.cuda import int8_matmul as kernel
+    from dynamo_tpu_torch.ops.quant import int8_matmul_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    K, N, _ = {**MATMUL_SHAPES, **GEMMA3_MATMUL_SHAPES}[shape]
+    c = matmul_case(M, K, N, device="cuda")
+    raw = kernel.int8_matmul(c["x"], c["q8"])
+    out = kernel.int8_matmul(c["x"], c["q8"], c["s"])
+    again = kernel.int8_matmul(c["x"], c["q8"], c["s"])
+    raw_ref = int8_matmul_ref(c["x"], c["q8"])
+    ref = int8_matmul_ref(c["x"], c["q8"], c["s"])
+    torch.cuda.synchronize()
+    assert raw_product_ok(raw, c["x"], c["q8"], raw_ref)[1]
+    assert epilogue_ok(out, raw, raw_ref, c["x"], c["q8"], c["s"], ref)[1]
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("M,K,N", [(32, 4096, 1024), (64, 1152, 256), (7, 1024, 1008),
+                                   (64, 14336, 256)])
+def test_int8_matmul_at_forced_splits(kernels, M, K, N, splits):
+    """K split over 1 to 8 blocks of one cluster (the splits' sums added
+    through distributed shared memory), N 1,008 a ragged 128-column tile,
+    K 14,336 at 64 rows x staged in two windows: raw and epilogue forms
+    against the plain version, and two runs bit-equal."""
+    from dynamo_tpu_torch.ops.cuda import int8_matmul as kernel
+    from dynamo_tpu_torch.ops.quant import int8_matmul_ref
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    split_k = -(-(-(-K // 128)) // splits) * 128
+    c = matmul_case(M, K, N, device="cuda", seed=splits)
+    raw = kernel.int8_matmul(c["x"], c["q8"], split_k=split_k)
+    out = kernel.int8_matmul(c["x"], c["q8"], c["s"], split_k=split_k)
+    again = kernel.int8_matmul(c["x"], c["q8"], c["s"], split_k=split_k)
+    raw_ref = int8_matmul_ref(c["x"], c["q8"])
+    ref = int8_matmul_ref(c["x"], c["q8"], c["s"])
+    torch.cuda.synchronize()
+    err, ok = raw_product_ok(raw, c["x"], c["q8"], raw_ref)
+    assert ok, err
+    err, ok = epilogue_ok(out, raw, raw_ref, c["x"], c["q8"], c["s"], ref)
+    assert ok, err
+    assert torch.equal(out, again)
+
+
+def test_int8_matmul_refuses_more_splits_than_a_cluster(kernels):
+    from dynamo_tpu_torch.ops.cuda import int8_matmul as kernel
+
+    c = matmul_case(4, 2048, 128, device="cuda")
+    with pytest.raises(ValueError, match="split_k"):
+        kernel.int8_matmul(c["x"], c["q8"], split_k=128)  # 16 splits
+    with pytest.raises(ValueError, match="split_k"):
+        kernel.int8_matmul(c["x"], c["q8"], split_k=200)
 
 
 # -- block size 128; decode attention with bf16 probabilities; the int8 FFN ---

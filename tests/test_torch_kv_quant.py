@@ -40,6 +40,7 @@ from dynamo_tpu_torch.ops import kv_quant as tkv
 from dynamo_tpu_torch.ops import quant as tquant
 from dynamo_tpu_torch.ops.cuda import int8_matmul as tmatmul
 from dynamo_tpu_torch.ops.cuda import paged_attention as tkernels
+from dynamo_tpu_torch.tools.cases import GEMMA3_MATMUL_SHAPES, MATMUL_SHAPES
 
 T = torch.from_numpy
 
@@ -296,21 +297,53 @@ def test_qeinsum_sends_only_decode_sized_bf16_products_to_the_kernel(monkeypatch
     assert not calls
 
 
+# Clusters of S blocks (blocks, for S = 1) an H100 SXM holds at once, at
+# one and at two blocks an SM, as the card reports them
+# (tools/int8_stream_probe.py's capacity line): a cluster's blocks share a
+# GPC, and 132 SMs do not split evenly into clusters of 3 to 8.
+H100_CAPACITY = {**{(s, 1): n for s, n in
+                    {1: 132, 2: 66, 3: 39, 4: 30, 5: 22, 6: 17, 7: 15, 8: 15}.items()},
+                 **{(s, 2): n for s, n in
+                    {1: 264, 2: 132, 3: 79, 4: 62, 5: 47, 6: 39, 7: 32, 8: 30}.items()}}
+
+
 def test_int8_matmul_plan_fills_whole_waves_with_whole_chunks():
-    """The launch plan covers K with non-empty 128-deep splits, and picks
-    the split that keeps every block in one wave where one wave can hold
-    them (an H100 holds 264 blocks at 32 rows: 132 SMs x 2)."""
-    for M, K, N in ((32, 4096, 4096), (32, 4096, 1024), (32, 4096, 14336),
-                    (64, 14336, 4096), (3, 200, 16), (200, 4096, 4096)):
-        splits, split_k = tmatmul.plan(M, K, N, 264)
-        assert split_k % 128 == 0 and splits * split_k >= K > (splits - 1) * split_k
-    # q/o and down: 64 column tiles x 4 splits = 256 blocks, one wave (5
-    # splits would put 56 blocks in a second wave)
-    assert tmatmul.plan(32, 4096, 4096, 264) == (4, 1024)
-    assert tmatmul.plan(32, 14336, 4096, 264) == (4, 3584)
-    # gate/up: 224 tiles already fill most of the wave
-    assert tmatmul.plan(32, 4096, 14336, 264) == (1, 4096)
-    assert tmatmul.plan(32, 4096, 1024, 264) == (4, 1024)
+    """The launch plan covers K with at most 8 non-empty 128-deep splits (a
+    tile's splits are one thread block cluster), is a pure function of its
+    arguments, keeps a big product of few tiles in one wave of what the card
+    holds, and at the Llama-3-8B and Gemma-3-1B shapes picks the split
+    counts that the card timed fastest."""
+    shapes = [(K, N) for K, N, _ in (*MATMUL_SHAPES.values(), *GEMMA3_MATMUL_SHAPES.values())]
+    for M in (1, 13, 32, 33, 64, 200):
+        for K, N in shapes + [(200, 16), (136, 1008), (8, 48)]:
+            splits, split_k = tmatmul.plan(M, K, N, 132, H100_CAPACITY)
+            assert split_k % 128 == 0 and splits * split_k >= K > (splits - 1) * split_k
+            assert 1 <= splits <= tmatmul.MAX_SPLITS
+            assert (splits, split_k) == tmatmul.plan(M, K, N, 132, dict(H100_CAPACITY))
+            rows = tmatmul.block_rows(M)
+            tiles = -(-N // tmatmul.TILE_N) * -(-M // tmatmul.ROWS_PER_BLOCK)
+            b = tmatmul.blocks_per_sm(rows, split_k // 128)
+            if K >= 4096 and tiles <= 39:  # a big product of few tiles: one wave
+                assert tiles <= H100_CAPACITY[(splits, b)], (M, K, N, splits)
+    # Llama-3-8B at the int8-KV engine's 32 rows: q/o 32 tiles in 3 splits
+    # (39 clusters of 3 fit at one block an SM), k/v 8 tiles in 8, gate/up
+    # 112 tiles unsplit (one wave), down 32 tiles in 3
+    plan = {label: tmatmul.plan(32, K, N, 132, H100_CAPACITY)
+            for label, (K, N, _) in MATMUL_SHAPES.items()}
+    assert plan == {"q/o 4096x4096": (3, 1408), "k/v 4096x1024": (8, 512),
+                    "gate/up 4096x14336": (1, 4096), "down 14336x4096": (3, 4864)}
+    # Gemma-3-1B: the small products split as far as their chunks allow
+    plan = {label: tmatmul.plan(32, K, N, 132, H100_CAPACITY)
+            for label, (K, N, _) in GEMMA3_MATMUL_SHAPES.items()}
+    assert plan == {"q 1152x1024": (5, 256), "k/v 1152x256": (5, 256),
+                    "gate/up 1152x6912": (2, 640), "o 1024x1152": (8, 128),
+                    "down 6912x1152": (8, 896)}
+    # shared memory decides the blocks an SM: two for 32 rows and a small x
+    assert tmatmul.blocks_per_sm(32, 5) == 2 and tmatmul.blocks_per_sm(32, 11) == 1
+    assert tmatmul.blocks_per_sm(64, 1) == 1
+    # without the card's table, slots · b // S
+    assert tmatmul.plan(32, 4096, 4096, 132) == tmatmul.plan(
+        32, 4096, 4096, 132, {(s, b): 132 * b // s for s in range(1, 9) for b in (1, 2)})
 
 
 # -- the "auto" KV policy -----------------------------------------------------
