@@ -104,9 +104,13 @@ Phases, each printing one JSON line; any failure exits non-zero:
    plain version (decode_attention_bf16_ref) at _prof_attn.py's case (B 64,
    KH 8, G 4, D 128, block size 128, context 160), at B 13, at Gemma-2's
    heads (D 256, window 4,096, softcap 50, contexts 4,000-6,000) and at
-   block size 16; ffn_int8 (#5) against ffn_int8_ref at 64 and 13 rows of
-   Llama-3-8B's FFN (d 4,096, F 14,336); each timed beside its plain
-   version, its bound and a library call.
+   block size 16, each at the wrapper's key splits and at forced splits 1,
+   2 and 16, and two runs bit for bit equal; ffn_int8 (#5) against
+   ffn_int8_ref at 64 and 13 rows of Llama-3-8B's FFN (d 4,096, F 14,336).
+   #6 and #7 timed at every case beside the plain version, SDPA and the
+   bound (a proto_cases line), and at splits 1, 2, 4 and 8 at the first
+   case (a proto_splits line); #5 beside its plain version, its bound and
+   a library call.
 20. prof_attn, prof_fused_ffn — the profiling entry points
    (tools/prof_attn.py at B 64, tools/prof_fused_ffn.py) with launch counts
    zeroed before and read after; the counts are exact.
@@ -832,13 +836,22 @@ def ffn_bound(M, d, F):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# Every proto-kernel timing of the run, for the proto_cases line.
+PROTO_TIMES = []
+PROTO_MAIN = "llama3-8b B64 ctx 160 bs128"  # _prof_attn.py's case: the kernels line's times
+
+
 def proto_kernel_phases(torch):
     """Parity of decode_packed (#6) and decode_bf16 (#7) against their plain
     version (decode_attention_bf16_ref) on every
-    tools.cases.PROTO_ATTENTION_CASES case, and of ffn_int8 (#5) against
-    ffn_int8_ref at Llama-3-8B's FFN (d 4,096, F 14,336) for 64 and 13 rows;
-    then the timing of each at its main case (#6, #7: B 64 at context 160,
-    block size 128; #5: 64 rows). Returns (worst errors, timings)."""
+    tools.cases.PROTO_ATTENTION_CASES case, at the wrapper's key splits and
+    at forced splits 1, 2 and 16, and two runs bit for bit equal; of
+    ffn_int8 (#5) against ffn_int8_ref at Llama-3-8B's FFN (d 4,096, F
+    14,336) for 64 and 13 rows. Then the timing of #6 and #7 at every proto
+    case beside the plain version, SDPA and the bound (a proto_cases line
+    gathers them), both at forced splits at the main case (a proto_splits
+    line), and #5 at 64 rows. Returns (worst errors, timings of the main
+    cases)."""
     import torch.nn.functional as F
 
     from dynamo_tpu_torch.ops.attention import decode_attention_bf16_ref
@@ -852,19 +865,32 @@ def proto_kernel_phases(torch):
     def args(case):
         return case["q"], case["k"], case["v"], case["tables"], case["start"]
 
+    names = ("decode_packed", "decode_bf16")
     worst = {"decode_packed": 0.0, "decode_bf16": 0.0, "ffn_int8": 0.0}
     cases = {label: make_proto_attention_case(label, DEV) for label in PROTO_ATTENTION_CASES}
     for label, (case, win, cap) in cases.items():
         ref = decode_attention_bf16_ref(*args(case), win, logit_cap=cap)
-        for name in ("decode_packed", "decode_bf16"):
-            out = getattr(dk, name)(*args(case), win, logit_cap=cap)
-            torch.cuda.synchronize()
-            err, ok = compare(torch, out, ref, case["clens"].tolist())
-            emit({"phase": "parity", "kernel": name, "case": label, "max_abs_err": err,
-                  "tol": f"{ATOL} + {RTOL}*|plain|", "ok": ok})
-            if not ok:
-                fail(f"{name} ({label}) disagrees with its plain version: max abs err {err}")
-            worst[name] = max(worst[name], err)
+        for name in names:
+            fn = getattr(dk, name)
+            auto = dk.split_count(case["q"], case["k"], name == "decode_packed")
+            for splits in (None, 1, 2, 16):
+                out = fn(*args(case), win, logit_cap=cap, splits=splits)
+                torch.cuda.synchronize()
+                err, ok = compare(torch, out, ref, case["clens"].tolist())
+                tag = f"splits {auto} (the wrapper's)" if splits is None else f"splits {splits}"
+                emit({"phase": "parity", "kernel": name, "case": f"{label}, {tag}",
+                      "max_abs_err": err, "tol": f"{ATOL} + {RTOL}*|plain|", "ok": ok})
+                if not ok:
+                    fail(f"{name} ({label}, {tag}) disagrees with its plain version: "
+                         f"max abs err {err}")
+                worst[name] = max(worst[name], err)
+            # the key groups and the splits are added in a fixed order
+            same = torch.equal(fn(*args(case), win, logit_cap=cap),
+                               fn(*args(case), win, logit_cap=cap))
+            emit({"phase": "parity", "kernel": name, "case": f"{label}, two runs",
+                  "splits": auto, "bit_equal": same, "ok": same})
+            if not same:
+                fail(f"{name} ({label}): two runs differ")
     d, ff = 4096, 14336
     ffn_inputs = {}
     for M in (64, 13):
@@ -889,17 +915,33 @@ def proto_kernel_phases(torch):
 
     timed = {}
     smi = smi_line()
-    case, _, _ = cases["llama3-8b B64 ctx 160 bs128"]
-    library_ms = time_ms(torch, library_call(torch, case), 50)
-    bound_ms, bound_by = bound(case)
-    for name in ("decode_packed", "decode_bf16"):
-        fn = getattr(dk, name)
-        timed[name] = dict(ms=time_ms(torch, lambda: fn(*args(case)), 50),
-                           plain_ms=time_ms(torch, lambda: decode_attention_bf16_ref(*args(case)),
-                                            10),
-                           library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by)
-        emit({"phase": "timing", "kernel": name, "case": "llama3-8b B64 ctx 160 bs128",
-              **timed[name], "library": "SDPA over the gathered pages", "card": smi})
+    for label, (case, win, cap) in cases.items():
+        library_ms = time_ms(torch, library_call(torch, case, win), 50)
+        plain_ms = time_ms(torch, lambda: decode_attention_bf16_ref(*args(case), win,
+                                                                   logit_cap=cap), 10)
+        bound_ms, bound_by = bound(case, win)
+        for name in names:
+            fn = getattr(dk, name)
+            row = dict(ms=time_ms(torch, lambda: fn(*args(case), win, logit_cap=cap), 50),
+                       plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                       bound_by=bound_by)
+            if label == PROTO_MAIN:
+                timed[name] = row
+            splits = dk.split_count(case["q"], case["k"], name == "decode_packed")
+            PROTO_TIMES.append(dict(kernel=name, case=label, splits=splits, **row,
+                                    sdpa_ratio=row["ms"] / library_ms))
+            emit({"phase": "timing", "kernel": name, "case": label, "window": win,
+                  "softcap": cap, "splits": splits, **row,
+                  "library": "SDPA over the gathered pages" + (" without the softcap" if cap
+                                                               else ""), "card": smi})
+    # the split count's choice against its neighbours at the main case
+    case, _, _ = cases[PROTO_MAIN]
+    sweep = {name: {s: time_ms(torch, lambda: getattr(dk, name)(*args(case), splits=s), 50)
+                    for s in (1, 2, 4, 8)} for name in names}
+    emit({"phase": "proto_splits", "case": PROTO_MAIN, "ms": sweep,
+          "wrapper": {n: dk.split_count(case["q"], case["k"], n == "decode_packed")
+                      for n in names}, "card": smi})
+    emit({"phase": "proto_cases", "cases": PROTO_TIMES, "card": smi})
     x, wg, wu, wd, sg, su, sd = ffn_inputs[64]
     # dequantised outside the timed call: bf16 weights with the scales folded in
     dq = [(w_.float() * s_).to(torch.bfloat16) for w_, s_ in ((wg, sg), (wu, su), (wd, sd))]

@@ -372,6 +372,107 @@ def decode_attention_bf16_ref(
     return out.reshape(B, 1, H, D).to(q.dtype)
 
 
+PROTO_STEP = 16  # keys a warp of decode_packed / decode_bf16 takes at a time
+
+
+def decode_attention_bf16_split_ref(
+    q: torch.Tensor,  # [B, 1, H, D]
+    k_cache: torch.Tensor,  # [NB, BS, KH, D]
+    v_cache: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, P] int32
+    start_pos: torch.Tensor,  # [B] int32
+    window: int = 0,
+    *,
+    splits: int,
+    tile: int,
+    sm_scale: Optional[float] = None,
+    logit_cap: float = 0.0,
+):
+    """Plain emulation of the walk of the kernels ``decode_packed`` and
+    ``decode_bf16`` (csrc/decode_attention_proto.cu), for the tests. Per
+    (sequence, KV head): the visible keys [first, last] (first = start - W
+    + 1 with a window, else 0; last = min(start, P·BS - 1)); the tiles of
+    ``tile`` keys from first's to last's, cut into ``splits`` equal shares
+    of whole tiles; within a share, key group j (keys 16j .. 16j + 15 of
+    each tile) runs its own online softmax over its 16-key steps in walk
+    order: scores × sm_scale, the softcap, -1e30 outside [first, last]
+    (where the values read as zeros), m_new = max(m, step max), bf16
+    probabilities exp(s - m_new), l = l·alpha + their sum, acc = acc·alpha
+    + P·V. The groups of a share are added in order (weights e^(m_j - M)),
+    giving the share's float32 (m, l, acc); an empty share is (-1e30, 0, 0).
+    Then out = Σ e^(m_s - M) acc_s / max(Σ e^(m_s - M) l_s, 1e-30) over the
+    shares in order, in q's dtype. Returns out [B, 1, H, D], m and l
+    [splits, B, H], acc [splits, B, H, D]."""
+    B, C, H, D = q.shape
+    if C != 1:
+        raise ValueError(f"decode attention takes one query token a sequence, got C = {C}")
+    _, BS, KH, _ = k_cache.shape
+    T = block_tables.shape[1] * BS
+    G = H // KH
+    scale = sm_scale if sm_scale is not None else D**-0.5
+    bf, f32 = torch.bfloat16, torch.float32
+    tables = block_tables.long()
+    pad = (T // tile + 2) * tile  # tiles may run past the table: masked zeros
+    k = k_cache[tables].reshape(B, T, KH, D).to(bf).to(f32)
+    v = v_cache[tables].reshape(B, T, KH, D).to(bf).to(f32)
+    qg = q.reshape(B, KH, G, D).to(bf).to(f32)
+    keys = torch.arange(pad, device=q.device)
+    m = torch.full((splits, B, KH, G), NEG_INF, device=q.device)
+    l = torch.zeros(splits, B, KH, G, device=q.device)
+    acc = torch.zeros(splits, B, KH, G, D, device=q.device)
+    for b in range(B):
+        start = int(start_pos[b])
+        first = max(start - window + 1, 0) if window > 0 else 0
+        last = min(start, T - 1)
+        tile_first = first // tile
+        n_all = last // tile - tile_first + 1 if last >= first else 0
+        s = torch.einsum("hgd,thd->hgt", qg[b], k[b]) * scale  # [KH, G, T]
+        if logit_cap > 0.0:
+            s = logit_cap * torch.tanh(s / logit_cap)
+        s = torch.nn.functional.pad(s, (0, pad - T))
+        vb = torch.nn.functional.pad(v[b], (0, 0, 0, 0, 0, pad - T))
+        visible = (keys >= first) & (keys <= last)
+        s = torch.where(visible, s, torch.full_like(s, NEG_INF))
+        vb = vb * visible[:, None, None]
+        for sp in range(splits):
+            t0 = tile_first + sp * n_all // splits
+            t1 = tile_first + (sp + 1) * n_all // splits
+            if t1 == t0:
+                continue
+            groups = []
+            for j in range(tile // PROTO_STEP):
+                mg = torch.full((KH, G), NEG_INF, device=q.device)
+                lg = torch.zeros(KH, G, device=q.device)
+                ag = torch.zeros(KH, G, D, device=q.device)
+                for t in range(t0, t1):
+                    k0 = t * tile + j * PROTO_STEP
+                    sc = s[..., k0:k0 + PROTO_STEP]
+                    m_new = torch.maximum(mg, sc.amax(dim=-1))
+                    alpha = torch.exp(mg - m_new)
+                    p = torch.exp(sc - m_new[..., None]).to(bf).to(f32)
+                    lg = lg * alpha + p.sum(dim=-1)
+                    ag = ag * alpha[..., None] + torch.einsum(
+                        "hgt,thd->hgd", p, vb[k0:k0 + PROTO_STEP])
+                    mg = m_new
+                groups.append((mg, lg, ag))
+            M = torch.stack([g[0] for g in groups]).amax(dim=0)
+            for mg, lg, ag in groups:  # in order, as the kernel adds its key groups
+                w = torch.exp(mg - M)
+                l[sp, b] = l[sp, b] + w * lg
+                acc[sp, b] = acc[sp, b] + w[..., None] * ag
+            m[sp, b] = M
+    big = m.amax(dim=0)
+    num = torch.zeros(B, KH, G, D, device=q.device)
+    den = torch.zeros(B, KH, G, device=q.device)
+    for sp in range(splits):  # in order, as the combine adds the splits
+        w = torch.exp(m[sp] - big)
+        num = num + w[..., None] * acc[sp]
+        den = den + w * l[sp]
+    out = (num / den.clamp_min(1e-30)[..., None]).reshape(B, 1, H, D).to(q.dtype)
+    return (out, m.reshape(splits, B, H), l.reshape(splits, B, H),
+            acc.reshape(splits, B, H, D))
+
+
 def dense_chunk_attention(
     q: torch.Tensor,  # [B, C, H, D]
     k: torch.Tensor,  # [B, C, KH, D] — the chunk's own K

@@ -16,7 +16,16 @@ On a CPU tensor a wrapper returns the plain version. On a CUDA tensor it
 checks device, dtype, shape and contiguity, allocates the output with
 ``torch.empty``, launches its kernel on the current stream and raises if
 the launch was refused; it never falls back. ``launch_counts`` counts
-launches per kernel.
+launches per kernel: one a wrapper call, whatever kernels the call runs.
+
+Both kernels split each block's keys over ``split_count(...)`` blocks
+(flash-decoding) where the blocks of one pass (B for ``decode_packed``,
+B·KH for ``decode_bf16``) would leave the card unfilled: a count from the
+shapes and the kernel's occupancy alone, so a call reads nothing back from
+the card. With more than one split the wrapper allocates the partials'
+workspace with ``torch.empty`` and the library launches the split kernel
+and its fixed-order combine. ``splits=`` forces the count (tests and
+chip_smoke.py).
 """
 
 from __future__ import annotations
@@ -26,8 +35,9 @@ from typing import Dict, Optional
 
 import torch
 
+from dynamo_tpu_torch.ops.attention import PROTO_STEP, decode_attention_bf16_ref
 from dynamo_tpu_torch.ops.cuda import build
-from dynamo_tpu_torch.ops.cuda.paged_attention import check_block_size
+from dynamo_tpu_torch.ops.cuda.paged_attention import H100_CAPACITY, MAX_SPLITS, check_block_size
 
 # The widths csrc/decode_attention_proto.cu is built for.
 HEAD_DIMS = (128, 256)
@@ -41,6 +51,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _lib: Optional[ctypes.CDLL] = None
+_capacity: Dict[tuple, int] = {}
 
 
 def reset_launch_counts() -> None:
@@ -52,11 +63,13 @@ def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = build.build("decode_attention_proto").lib
-        # q k v tables start out, B H KH D NB BS P window, scale cap, stream
-        argtypes = [_P] * 6 + [_I] * 8 + [_F, _F, _P]
+        # q k v tables start out part, B H KH D NB BS P window, scale cap, splits, stream
+        argtypes = [_P] * 7 + [_I] * 8 + [_F, _F, _I, _P]
         for fn in (lib.decode_packed, lib.decode_bf16):
             fn.argtypes = argtypes
             fn.restype = _I
+        lib.decode_attention_proto_capacity.argtypes = [_I] * 3  # packed, KH, D
+        lib.decode_attention_proto_capacity.restype = _I
         _lib = lib
     return _lib
 
@@ -66,7 +79,8 @@ def check(q, k_cache, v_cache, block_tables, start_pos, packed: bool) -> None:
     at D 128 or 256, int32 tables [B, P] and starts [B], all contiguous on
     one device; G = H / KH at most 8, and for ``decode_packed`` all of a
     sequence's rows (H <= 64) and KH x D <= 2,048 in one block; a block
-    size that ``paged_attention.check_block_size`` admits."""
+    size that ``paged_attention.check_block_size`` admits; q and the pools
+    starting on 16-byte boundaries."""
     tensors = {"q": q, "k_cache": k_cache, "v_cache": v_cache,
                "block_tables": block_tables, "start_pos": start_pos}
     for name, t in tensors.items():
@@ -74,6 +88,9 @@ def check(q, k_cache, v_cache, block_tables, start_pos, packed: bool) -> None:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for name in ("q", "k_cache", "v_cache"):  # the copy engine takes 16-byte aligned tensors
+        if tensors[name].data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     for name in ("q", "k_cache", "v_cache"):
         if tensors[name].dtype != torch.bfloat16:
             raise TypeError(f"{name} must be bfloat16, got {tensors[name].dtype}")
@@ -101,24 +118,69 @@ def check(q, k_cache, v_cache, block_tables, start_pos, packed: bool) -> None:
                          f"{tuple(start_pos.shape)} vs batch {B}")
 
 
-def _run(name: str, q, k_cache, v_cache, block_tables, start_pos, window, sm_scale,
-         logit_cap) -> torch.Tensor:
-    if q.device.type == "cpu":
-        from dynamo_tpu_torch.ops.attention import decode_attention_bf16_ref
+def tile_keys(packed: bool, KH: int) -> int:
+    """Keys of one tile of a block's walk, the unit its splits share out:
+    PROTO_STEP (16) keys a warp's key group, max(1, 4 // NH) groups, NH = KH
+    heads a block for ``decode_packed`` and 1 for ``decode_bf16`` (the csrc
+    Geometry)."""
+    NH = KH if packed else 1
+    return PROTO_STEP * max(1, 4 // NH)
 
+
+def proto_splits(blocks: int, capacity: int = H100_CAPACITY) -> int:
+    """How many splits a call cuts each block's keys into: as many as fit
+    the card once beside the ``blocks`` of one pass (``capacity`` // blocks,
+    at most MAX_SPLITS), or 1 where fewer than two do. Unlike
+    ``paged_attention.decode_splits`` it does not split a pass that nearly
+    fills the card: decode_bf16's 512 blocks at B 64 run in one wave of
+    528, and two splits of them in two."""
+    return max(1, min(MAX_SPLITS, capacity // max(1, blocks)))
+
+
+def split_count(q: torch.Tensor, k_cache: torch.Tensor, packed: bool) -> int:
+    """The key splits a call takes on q's card: ``proto_splits`` over the
+    blocks of one pass (B for ``decode_packed``, B·KH for ``decode_bf16``)
+    at the kernel's capacity there (its blocks an SM x SMs, asked of the
+    card once per geometry and cached); without a card, an H100's two
+    blocks an SM. From the shapes alone, never from start_pos."""
+    B, _, _, D = q.shape
+    KH = k_cache.shape[2]
+    blocks = B if packed else B * KH
+    if q.device.type != "cuda":
+        return proto_splits(blocks)
+    key = (q.device.index, packed, KH if packed else 1, D)
+    if key not in _capacity:
+        with torch.cuda.device(q.device):
+            _capacity[key] = _library().decode_attention_proto_capacity(int(packed), key[2], D)
+        if _capacity[key] <= 0:
+            raise RuntimeError(f"decode_attention_proto_capacity failed for {key}")
+    return proto_splits(blocks, _capacity[key])
+
+
+def _run(name: str, q, k_cache, v_cache, block_tables, start_pos, window, sm_scale,
+         logit_cap, splits) -> torch.Tensor:
+    if splits is not None and not 1 <= int(splits) <= MAX_SPLITS:
+        raise ValueError(f"splits must be 1..{MAX_SPLITS}, got {splits}")
+    if q.device.type == "cpu":
         return decode_attention_bf16_ref(q, k_cache, v_cache, block_tables, start_pos, window,
                                          sm_scale=sm_scale, logit_cap=logit_cap)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    check(q, k_cache, v_cache, block_tables, start_pos, packed=name == "decode_packed")
+    packed = name == "decode_packed"
+    check(q, k_cache, v_cache, block_tables, start_pos, packed=packed)
     B, _, H, D = q.shape
     NB, BS, KH = k_cache.shape[:3]
+    splits = split_count(q, k_cache, packed) if splits is None else int(splits)
     out = torch.empty_like(q)
+    # the splits' partials: acc [splits, B*H, D], then (m, l) [splits, B*H, 2]
+    part = (torch.empty(splits * B * H * (D + 2), dtype=torch.float32, device=q.device)
+            if splits > 1 else None)
     rc = getattr(_library(), name)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), block_tables.data_ptr(),
-        start_pos.data_ptr(), out.data_ptr(), B, H, KH, D, NB, BS, block_tables.shape[1],
+        start_pos.data_ptr(), out.data_ptr(), part.data_ptr() if part is not None else None,
+        B, H, KH, D, NB, BS, block_tables.shape[1],
         int(window), float(sm_scale) if sm_scale is not None else D**-0.5, float(logit_cap),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        splits, torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
@@ -128,17 +190,22 @@ def _run(name: str, q, k_cache, v_cache, block_tables, start_pos, window, sm_sca
 
 def decode_packed(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                   block_tables: torch.Tensor, start_pos: torch.Tensor, window: int = 0, *,
-                  sm_scale: Optional[float] = None, logit_cap: float = 0.0) -> torch.Tensor:
-    """[B, 1, H, D] decode attention, one thread block a sequence holding
-    all of its H rows (the counterpart of ``_prof_attn.decode_packed``)."""
+                  sm_scale: Optional[float] = None, logit_cap: float = 0.0,
+                  splits: Optional[int] = None) -> torch.Tensor:
+    """[B, 1, H, D] decode attention, one thread block a sequence (and key
+    split) holding all of its H rows (the counterpart of
+    ``_prof_attn.decode_packed``). ``splits`` forces the number of key
+    splits (1..MAX_SPLITS), else ``split_count`` chooses it."""
     return _run("decode_packed", q, k_cache, v_cache, block_tables, start_pos, window, sm_scale,
-                logit_cap)
+                logit_cap, splits)
 
 
 def decode_bf16(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                 block_tables: torch.Tensor, start_pos: torch.Tensor, window: int = 0, *,
-                sm_scale: Optional[float] = None, logit_cap: float = 0.0) -> torch.Tensor:
+                sm_scale: Optional[float] = None, logit_cap: float = 0.0,
+                splits: Optional[int] = None) -> torch.Tensor:
     """[B, 1, H, D] decode attention, one thread block a (sequence, KV
-    head) holding its G rows (the counterpart of ``_prof_attn.decode_bf16``)."""
+    head) and key split holding its G rows (the counterpart of
+    ``_prof_attn.decode_bf16``). ``splits`` as for ``decode_packed``."""
     return _run("decode_bf16", q, k_cache, v_cache, block_tables, start_pos, window, sm_scale,
-                logit_cap)
+                logit_cap, splits)

@@ -21,7 +21,8 @@ int8 pools are held to the same limit: kernel and plain version read the
 same codes and scales and fold the scales in at the same points.
 
 Decode attention with bf16 probabilities (decode_packed, decode_bf16) is
-held to the same limit against decode_attention_bf16_ref: the two round the
+held to the same limit against decode_attention_bf16_ref at the wrapper's
+split count and at forced splits 1, 2 and 16: the two round the
 probabilities against different running maxima, a bf16 step apart at most.
 
 The fused layer, the int8 head and the int8 FFN are held to one bf16 step
@@ -580,6 +581,51 @@ def test_proto_attention_kernels_match_plain(kernels, label, name):
     assert kernel.launch_counts == {"decode_packed": 0, "decode_bf16": 0, name: 1}
 
 
+@pytest.mark.parametrize("splits", [1, 2, 16])
+@pytest.mark.parametrize("name", ["decode_packed", "decode_bf16"])
+@pytest.mark.parametrize("label", list(PROTO_ATTENTION_CASES))
+def test_proto_attention_kernels_at_forced_splits(kernels, label, name, splits):
+    """Each case with its keys split over 1, 2 and 16 blocks (a split count
+    the shapes would not choose; 16 leaves shares empty at the short
+    contexts): one launch a call, whatever kernels the call runs."""
+    from dynamo_tpu_torch.ops.attention import decode_attention_bf16_ref
+    from dynamo_tpu_torch.ops.cuda import decode_attention_proto as kernel
+
+    c, window, cap = make_proto_attention_case(label, "cuda")
+    args = (c["q"], c["k"], c["v"], c["tables"], c["start"])
+    kernel.reset_launch_counts()
+    out = getattr(kernel, name)(*args, window, logit_cap=cap, splits=splits)
+    ref = decode_attention_bf16_ref(*args, window, logit_cap=cap)
+    _check(out, ref, c["clens"].tolist())
+    assert kernel.launch_counts == {"decode_packed": 0, "decode_bf16": 0, name: 1}
+
+
+@pytest.mark.parametrize("name", ["decode_packed", "decode_bf16"])
+@pytest.mark.parametrize("label", list(PROTO_ATTENTION_CASES))
+def test_proto_attention_kernels_repeat_bit_for_bit(kernels, label, name):
+    """Two runs at the split count the wrapper chooses give the same bits:
+    the key groups and the splits are added in a fixed order."""
+    from dynamo_tpu_torch.ops.cuda import decode_attention_proto as kernel
+
+    c, window, cap = make_proto_attention_case(label, "cuda")
+    args = (c["q"], c["k"], c["v"], c["tables"], c["start"])
+    fn = getattr(kernel, name)
+    kernel.reset_launch_counts()
+    assert torch.equal(fn(*args, window, logit_cap=cap), fn(*args, window, logit_cap=cap))
+    assert kernel.launch_counts[name] == 2
+    assert 1 <= kernel.split_count(c["q"], c["k"], name == "decode_packed") <= 16
+
+
+def test_proto_attention_split_count_at_the_timed_case(kernels):
+    """At _prof_attn.py's case (B 64, KH 8) the card's occupancy splits
+    decode_packed's 64 blocks and leaves decode_bf16's 512 whole."""
+    from dynamo_tpu_torch.ops.cuda import decode_attention_proto as kernel
+
+    c, _, _ = make_proto_attention_case("llama3-8b B64 ctx 160 bs128", "cuda")
+    assert kernel.split_count(c["q"], c["k"], True) >= 2
+    assert kernel.split_count(c["q"], c["k"], False) == 1
+
+
 def test_proto_attention_wrappers_refuse_what_the_kernels_do_not_take(kernels):
     from dynamo_tpu_torch.ops.cuda import decode_attention_proto as kernel
 
@@ -592,6 +638,10 @@ def test_proto_attention_wrappers_refuse_what_the_kernels_do_not_take(kernels):
     c = _case(1, 1, 8, 2, 128, 48, [5], [1], seed=6)  # block size 48
     with pytest.raises(ValueError, match="block_size"):
         kernel.decode_packed(c["q"], c["k"], c["v"], c["tables"], c["start"])
+    c = _case(2, 1, 8, 2, 128, 16, [3, 40], [1, 1], seed=7)
+    for splits in (0, 17):
+        with pytest.raises(ValueError, match="splits"):
+            kernel.decode_bf16(c["q"], c["k"], c["v"], c["tables"], c["start"], splits=splits)
 
 
 @pytest.mark.parametrize("M,d,F", [(64, 4096, 14336), (13, 4096, 14336), (1, 256, 512),
