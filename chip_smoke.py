@@ -120,8 +120,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    counts, finite logits, v2's and bf's first-step logits within
    LOGIT_LIMIT of full's.
 
-(18-20 run right after the Llama-3-8B kernels of phases 3-4, 21 right
-after phase 11.)
+22. fused_layer_phases — the fused layer's µs a phase at the Llama-3-8B
+   case (tools/fused_layer_phases.py, a stamped copy of the kernel, the
+   median of three runs) and the grid barriers a layer passes; a
+   cluster_probe line says whether the card takes a cooperative launch with
+   a thread block cluster dimension.
+
+(18-20 run right after the Llama-3-8B kernels of phases 3-4, 22 right after
+the fused layer's timing, 21 right after phase 11.)
 Then one JSON line {"kernels": [...]} for all ten kernels, nvidia-smi's
 name and power limit, and last {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result.
@@ -510,11 +516,33 @@ def int8_kernel_phases(torch):
     emit({"phase": "timing", "kernel": "fused_decoder_layer", "case": "llama3-8b B16",
           **timed["fused_decoder_layer"], "library": "none: no one PyTorch call computes a layer",
           "card": smi})
+    fused_layer_phases_line(torch, smi)
 
     timed["lm_head_int8"] = head_timing(torch, "llama3-8b untied M16",
                                         *heads["llama3-8b untied M16"])
     reset_counts()
     return worst, timed
+
+
+def fused_layer_phases_line(torch, smi) -> None:
+    """The fused layer's µs a phase at the Llama-3-8B B 16 case
+    (tools/fused_layer_phases.py: a stamped copy of the kernel; the median
+    of three runs a phase), the grid barriers a layer passes, and whether
+    the card takes a cooperative launch with a thread block cluster
+    dimension (ops/cuda/fused_layer.cluster_probe). Timed launches of the
+    stamped copy do not count."""
+    import statistics
+
+    from dynamo_tpu_torch.ops.cuda import fused_layer as fk
+    from dynamo_tpu_torch.tools import fused_layer_phases
+
+    runs = fused_layer_phases.run("llama3-8b B16", 3)
+    us = {name: statistics.median(r["us"][name] for r in runs) for name in runs[0]["us"]}
+    emit({"phase": "fused_layer_phases", "case": "llama3-8b B16", "us": us,
+          "total_us": statistics.median(r["total_us"] for r in runs),
+          "barriers": runs[0]["barriers"], "card": smi})
+    emit({"phase": "cluster_probe", **fk.cluster_probe(DEV), "card": smi})
+    reset_counts()
 
 
 def head_case(torch, tied, M, K, V):
@@ -1334,7 +1362,8 @@ def profile_phase(torch, runner, smi, phase="profile", ctx_step=80, exact=None):
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     attn = sum(v for k, v in by_name.items() if "paged_attention" in k)
     fused = sum(v for k, v in by_name.items() if "fused_layer" in k)
-    matmul = sum(v for k, v in by_name.items() if "int8_matmul" in k)
+    # the int8 product runs int8_stream.cuh's stream_kernel
+    matmul = sum(v for k, v in by_name.items() if "stream_kernel" in k)
     attn8 = sum(v for k, v in by_name.items() if "paged_attention" in k and "Int8Pool" in k)
     emit({"phase": phase, "what": "one decode burst", "model": runner.config.name,
           "steps": runner.args.decode_steps, "rows": S, "contexts": [int(pos[0]), int(pos[-1])],
@@ -1367,10 +1396,15 @@ def main() -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
     t0 = time.monotonic()
+    from dynamo_tpu_torch.tools import fused_layer_phases
+
     sources = sorted(p[:-3] for p in os.listdir(build.CSRC) if p.endswith(".cu"))
-    # One nvcc per source, all started together.
-    with ThreadPoolExecutor(len(sources)) as pool:
+    # One nvcc per source, all started together, and the fused layer's
+    # stamped copy for its phase timer beside them.
+    with ThreadPoolExecutor(len(sources) + 1) as pool:
+        stamped = pool.submit(fused_layer_phases.stamped_library)
         builts = list(pool.map(build.build, sources))
+        stamped.result()
     for src, b in zip(sources, builts):
         for line in b.ptxas:
             print(f"[ptxas {src}] {line.strip()}", flush=True)

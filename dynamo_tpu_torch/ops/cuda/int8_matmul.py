@@ -30,8 +30,10 @@ CHUNK_K = 128  # contracted values a staged chunk holds (csrc/int8_matmul.cu kCh
 TILE_N = 128  # output columns a block owns (kTileN)
 ROWS_PER_BLOCK = 64  # rows one read of the weights serves (four 16-row groups)
 MAX_SPLITS = 8  # the K splits of a tile are one thread block cluster (kMaxSplits)
-MAX_X_BYTES = 163_840  # a block's staged x, at most (kMaxXBytes)
-RING_BYTES = 1024 + 4 * CHUNK_K * TILE_N  # the aligned ring of code chunks
+# A block's staged x, at most, with one or two matrices a stage
+# (int8_stream.cuh max_x_bytes; two: the FFN's gate and up side by side).
+MAX_X_BYTES = {1: 163_840, 2: 98_304}
+STAGES = 4  # the ring's stages of code chunks (kStages)
 TWO_PER_SM_BYTES = 115_648  # a block's shared memory that lets two share an SM
 # The launch plan's cost model, in µs and bytes a µs of an H100 SXM (the
 # int8_matmul cases of tools/int8_stream_probe.py): a launch of one block
@@ -75,50 +77,52 @@ def block_rows(M: int) -> int:
     return 16 * -(-min(M, ROWS_PER_BLOCK) // 16)
 
 
-def smem_bytes(rows: int, chunks: int) -> int:
-    """A block's shared memory (the kernel's smem_bytes): the ring, then its
-    x, whole, or in two windows of as many chunks as fit half of
-    MAX_X_BYTES."""
+def smem_bytes(rows: int, chunks: int, mats: int = 1) -> int:
+    """A block's shared memory (the kernel's smem_bytes): the aligned ring
+    of ``mats`` matrices' chunks, then its x, whole, or in two windows of as
+    many chunks as fit half of MAX_X_BYTES[mats]."""
     chunk = rows * CHUNK_K * 2
-    x = chunks * chunk if chunks * chunk <= MAX_X_BYTES else 2 * (MAX_X_BYTES // 2 // chunk) * chunk
-    return RING_BYTES + x
+    most = MAX_X_BYTES[mats]
+    x = chunks * chunk if chunks * chunk <= most else 2 * (most // 2 // chunk) * chunk
+    return 1024 + STAGES * mats * CHUNK_K * TILE_N + x
 
 
-def blocks_per_sm(rows: int, chunks: int) -> int:
+def blocks_per_sm(rows: int, chunks: int, mats: int = 1) -> int:
     """Blocks an SM holds: two where their registers (up to 32 rows) and
     shared memory allow, else one."""
-    return 2 if rows <= 32 and smem_bytes(rows, chunks) <= TWO_PER_SM_BYTES else 1
+    return 2 if rows <= 32 and smem_bytes(rows, chunks, mats) <= TWO_PER_SM_BYTES else 1
 
 
 def plan(M: int, K: int, N: int, slots: int,
-         clusters: Optional[Dict[Tuple[int, int], int]] = None) -> Tuple[int, int]:
+         clusters: Optional[Dict[Tuple[int, int], int]] = None, mats: int = 1) -> Tuple[int, int]:
     """(splits, split_k) of a launch on a card with ``slots`` SMs whose
     capacity ``clusters[(S, b)]`` is the clusters of S blocks (blocks, for
     S = 1) it holds at once at b blocks an SM (a tile's splits run as one
     cluster, and a cluster's blocks share a GPC; by default slots·b // S):
     whole 128-deep chunks in each split, none empty, at most MAX_SPLITS.
-    Each split count is priced by the cost model above — each wave START_US
-    plus its chunks a block, at the larger of a lone block's pace (times
-    the blocks an SM runs) and the resident blocks' codes over the
-    streaming rate, the last wave at its own size; TAIL_US where K is split
-    — and the cheapest wins, the fewest splits on a tie. A pure function of
-    its arguments."""
+    ``mats`` matrices share each stage (2: the FFN's gate and up), so a
+    chunk brings and multiplies that many chunks of codes. Each split count
+    is priced by the cost model above — each wave START_US plus its chunks
+    a block, at the larger of a lone block's pace (times the blocks an SM
+    runs) and the resident blocks' codes over the streaming rate, the last
+    wave at its own size; TAIL_US where K is split — and the cheapest wins,
+    the fewest splits on a tie. A pure function of its arguments."""
     chunks = -(-K // CHUNK_K)
     rows = block_rows(M)
     tiles = -(-N // TILE_N) * -(-M // ROWS_PER_BLOCK)
-    lone_us = CHUNK_US + rows * CHUNK_US_PER_ROW
+    lone_us = mats * (CHUNK_US + rows * CHUNK_US_PER_ROW)
     best = None
     for splits in range(1, min(chunks, MAX_SPLITS) + 1):
         per = -(-chunks // splits)
         if -(-chunks // per) != splits:
             continue  # the same ranges as fewer splits
-        b = blocks_per_sm(rows, per)
+        b = blocks_per_sm(rows, per, mats)
         held = max(1, (clusters or {}).get((splits, b), slots * b // splits))
 
         def wave_us(n):  # a wave of n tiles' clusters; blocks that share an SM share its pace
             resident = n * splits
             return START_US + per * max(lone_us * -(-resident // slots),
-                                        resident * CHUNK_K * TILE_N / CODE_BYTES_PER_US)
+                                        mats * resident * CHUNK_K * TILE_N / CODE_BYTES_PER_US)
 
         full, rest = divmod(tiles, held)
         cost = full * wave_us(held) + (wave_us(rest) if rest else 0.0)
@@ -129,11 +133,11 @@ def plan(M: int, K: int, N: int, slots: int,
 
 
 @functools.lru_cache(maxsize=4096)
-def _plan_for(device_index: int, M: int, K: int, N: int) -> Tuple[int, int]:
+def plan_for(device_index: int, M: int, K: int, N: int, mats: int = 1) -> Tuple[int, int]:
     """plan() on this card, kept per shape: a decode step asks for the same
     few shapes every step."""
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return plan(M, K, N, sms, _capacity_for(device_index))
+    return plan(M, K, N, sms, _capacity_for(device_index), mats)
 
 
 def _capacity_for(device_index: int) -> Dict[Tuple[int, int], int]:
@@ -193,7 +197,7 @@ def int8_matmul(x: torch.Tensor, q8: torch.Tensor, s: Optional[torch.Tensor] = N
         return out
     if split_k is None:
         dev = x.device.index if x.device.index is not None else torch.cuda.current_device()
-        splits, split_k = _plan_for(dev, M, K, N)
+        splits, split_k = plan_for(dev, M, K, N)
     else:
         splits = -(-K // split_k)
         if split_k % CHUNK_K or split_k <= 0 or splits > MAX_SPLITS:

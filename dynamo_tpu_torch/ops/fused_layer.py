@@ -22,6 +22,7 @@ float32; h, attn and gu are bf16.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -29,10 +30,11 @@ import torch.nn.functional as F
 
 NEG_INF = -1e30
 _SUPPORTED_ACTS = ("silu", "gelu_tanh")
-# Head dims csrc/fused_layer.cu is built for, and the widest GQA group
-# (G · head_dim values) its attention step holds in shared memory.
+# Head dims csrc/fused_layer.cu is built for, and the most query heads a KV
+# head (G) its tensor-core attention stages in shared memory (the mma's 8
+# columns).
 BUILT_HEAD_DIMS = (128, 256)
-MAX_GROUP_WIDTH = 8192
+MAX_GROUP = 8
 
 
 def _tiles_for(d: int, HD: int, KHD: int, F: int, D: int):
@@ -90,10 +92,10 @@ def supports_reason(config, *, lora: bool, quantized_weights: bool) -> Optional[
         )
     if D not in BUILT_HEAD_DIMS:
         return f"head_dim {D} not built into the CUDA kernel (built: {BUILT_HEAD_DIMS})"
-    if (c.n_heads // c.n_kv_heads) * D > MAX_GROUP_WIDTH:
+    if c.n_heads // c.n_kv_heads > MAX_GROUP:
         return (
-            f"{c.n_heads // c.n_kv_heads} query heads per KV head × head_dim {D} "
-            f"exceeds the {MAX_GROUP_WIDTH} the CUDA kernel's shared memory holds"
+            f"{c.n_heads // c.n_kv_heads} query heads per KV head exceed the {MAX_GROUP} "
+            "the CUDA kernel's attention stages in shared memory"
         )
     return None
 
@@ -121,31 +123,149 @@ def window_page_bounds(
     return wlo.to(torch.int32), (wlo // block_size).to(torch.int32)
 
 
-def fused_decoder_layer_ref(
-    x: torch.Tensor,  # [B, d] residual
-    cos: torch.Tensor,  # [B, D] float32, already the layer's (local/global) table
-    sin: torch.Tensor,  # [B, D]
-    lp: Dict[str, Any],  # one layer's params, int8 {"q8", "s"} weights
-    k_pool: torch.Tensor,  # [NB, BS, KH, D]
-    v_pool: torch.Tensor,
-    block_tables: torch.Tensor,  # [B, P] int32
-    start_pos: torch.Tensor,  # [B] int32
-    *,
-    eps: float,
-    sm_scale: float,
-    pcounts: Optional[torch.Tensor] = None,  # [B] int32 (history_pcounts)
-    window: Optional[int] = None,  # 0 / None = full attention
-    act_fn: str = "silu",
-    unit_offset: bool = False,
-    softcap: float = 0.0,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version, at the TPU kernel's rounding points
-    (fused_layer.py:269-661). The kernel's oracle on the card."""
+def _attention_plain(q, k_new, v_new, k_pool, v_pool, block_tables, start_pos, pcounts, *,
+                     window, sm_scale, softcap):
+    """The layer's attention at the TPU kernel's points: f32 scores over
+    the visible history keys t in [wlo, start), below the row's page count,
+    plus the current token; finite -1e30 mask; f32 probabilities; attn =
+    bf16(acc / l). q [B, H, D] f32; returns [B, H·D] bf16."""
+    B, H, D = q.shape
+    NB, BS, KH, _ = k_pool.shape
+    P = block_tables.shape[1]
+    G = H // KH
+    f32 = torch.float32
+    start = start_pos.to(torch.int64)
+    wlo, _ = window_page_bounds(start_pos, window or 0, BS)
+    T = P * BS
+    tables = block_tables.to(torch.int64).clamp(0, NB - 1)
+    kh_hist = k_pool[tables].reshape(B, T, KH, D).to(f32)
+    vh_hist = v_pool[tables].reshape(B, T, KH, D).to(f32)
+    qg = q.reshape(B, KH, G, D)
+
+    def capped(s: torch.Tensor) -> torch.Tensor:
+        return softcap * torch.tanh(s / softcap) if softcap > 0.0 else s
+
+    s_hist = capped(torch.einsum("bkgd,btkd->bkgt", qg, kh_hist) * sm_scale)
+    t = torch.arange(T, device=q.device)[None, :]
+    visible = (t < start[:, None]) & (t >= wlo.to(torch.int64)[:, None]) & (
+        t < pcounts.to(torch.int64)[:, None] * BS
+    )
+    s_hist = torch.where(visible[:, None, None, :], s_hist, torch.full_like(s_hist, NEG_INF))
+    kc = k_new.to(f32)
+    vc = v_new.to(f32)
+    s_cur = capped(torch.einsum("bkgd,bkd->bkg", qg, kc) * sm_scale)[..., None]
+    s_all = torch.cat([s_hist, s_cur], dim=-1)
+    m = torch.amax(s_all, dim=-1, keepdim=True)
+    p = torch.exp(s_all - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    acc = torch.einsum("bkgt,btkd->bkgd", p[..., :T], vh_hist) + p[..., T:] * vc[:, :, None, :]
+    return (acc / torch.clamp(l, min=1e-30)).to(torch.bfloat16).reshape(B, H * D)
+
+
+# The CUDA kernel's attention walk (csrc/fused_layer.cu): 256-key items,
+# a 32 KB slot of keys a tile (SLOT_VALUES = keys x head_dim), 16 keys a
+# warp.
+SPLIT_KEYS = 256
+SLOT_VALUES = 16384
+TERMS = 3  # bf16 terms of an f32 q or probability in its product
+
+
+def _attention_mma(q, k_new, v_new, k_pool, v_pool, block_tables, start_pos, pcounts, *,
+                   window, sm_scale, softcap, terms=TERMS):
+    """The CUDA kernel's attention arithmetic, emulated on the CPU (the
+    plain version's function, other sums): each (row, KV head) walks its
+    history keys from base = wlo rounded down to 16, in items of 256 keys,
+    each item in tiles of SLOT_VALUES / D keys, each tile in groups of 16
+    keys with an online softmax of its own (one per warp). q enters the
+    score product as ``terms`` bf16 terms (hi, the rest's hi, ...) and the
+    f32 probabilities enter P·V the same way (masked keys weigh exactly 0,
+    l sums the f32 values);
+    an item adds its groups in order, and the current token's merge adds
+    the items in order. Same arguments and result as _attention_plain."""
+    B, H, D = q.shape
+    NB, BS, KH, _ = k_pool.shape
+    P = block_tables.shape[1]
+    G = H // KH
+    f32, bf = torch.float32, torch.bfloat16
+    SK = SLOT_VALUES // D
+    KG = SK // 16
+
+    def split_bf16(v: torch.Tensor):
+        parts = []
+        for _ in range(terms):
+            parts.append(v.to(bf).to(f32))
+            v = v - parts[-1]
+        return parts
+
+    def capped(s: torch.Tensor) -> torch.Tensor:
+        return softcap * torch.tanh(s / softcap) if softcap > 0.0 else s
+
+    out = torch.empty(B, KH, G, D, dtype=f32)
+    qg = q.to(f32).reshape(B, KH, G, D)
+    tables = block_tables.to(torch.int64).clamp(0, NB - 1)
+    for b in range(B):
+        start = int(start_pos[b])
+        kend = min(start, int(pcounts[b]) * BS)
+        wlo = max(start - window + 1, 0) if window and window > 0 else 0
+        base = wlo // 16 * 16
+        n_split = -(-(kend - base) // SPLIT_KEYS) if kend > wlo else 1
+        for kh in range(KH):
+            qs = split_bf16(qg[b, kh])  # terms of [G, D]
+            items = []
+            for split in range(n_split):
+                lo = base + split * SPLIT_KEYS
+                vlo, vhi = max(lo, wlo), min(lo + SPLIT_KEYS, kend)
+                n_tiles = -(-(vhi - lo) // SK) if vhi > vlo else 0
+                m = torch.full((KG, G), NEG_INF, dtype=f32)
+                l = torch.zeros(KG, G, dtype=f32)
+                acc = torch.zeros(KG, G, D, dtype=f32)
+                for it in range(n_tiles):
+                    keys = lo + it * SK + torch.arange(SK)
+                    page = tables[b, torch.clamp(keys // BS, max=P - 1)]
+                    kt = k_pool[page, keys % BS, kh].to(f32).reshape(KG, 16, D)
+                    vt = v_pool[page, keys % BS, kh].to(f32).reshape(KG, 16, D)
+                    vis = ((keys >= vlo) & (keys < vhi)).reshape(KG, 16, 1)
+                    s = capped(sum(kt @ qj.T for qj in qs) * sm_scale)  # [KG, 16 keys, G]
+                    s = torch.where(vis, s, torch.full_like(s, NEG_INF))
+                    m_new = torch.maximum(m, s.amax(dim=1))
+                    alpha = torch.exp(m - m_new)
+                    m = m_new
+                    p = torch.where(vis, torch.exp(s - m[:, None, :]), torch.zeros_like(s))
+                    l = l * alpha + p.sum(dim=1)
+                    pv = sum(pj.transpose(1, 2) @ vt for pj in split_bf16(p))  # [KG, G, D]
+                    acc = acc * alpha[..., None] + pv
+                M = m.amax(dim=0)  # the item: its groups in order
+                w = torch.exp(m - M)
+                A = torch.zeros(G, D, dtype=f32)
+                L = torch.zeros(G, dtype=f32)
+                for j in range(KG):
+                    A = A + w[j][:, None] * acc[j]
+                    L = L + w[j] * l[j]
+                items.append((M, L, A))
+            sc = capped((qg[b, kh] @ k_new[b, kh].to(f32)) * sm_scale)  # [G]
+            mm = sc.clone()
+            for M, _, _ in items:
+                mm = torch.maximum(mm, M)
+            ll = torch.zeros(G, dtype=f32)
+            A = torch.zeros(G, D, dtype=f32)
+            for M, L, Ai in items:
+                ws = torch.exp(M - mm)
+                ll = ll + L * ws
+                A = A + Ai * ws[:, None]
+            pc = torch.exp(sc - mm)
+            A = A + pc[:, None] * v_new[b, kh].to(f32)[None, :]
+            out[b, kh] = A / torch.clamp(ll + pc, min=1e-30)[:, None]
+    return out.to(bf).reshape(B, H * D)
+
+
+def _layer(x, cos, sin, lp, k_pool, v_pool, block_tables, start_pos, *, eps, sm_scale,
+           pcounts, window, act_fn, unit_offset, softcap, attention):
+    """The layer at the TPU kernel's rounding points (fused_layer.py:269-661),
+    with ``attention`` one of _attention_plain or _attention_mma."""
     B, d = x.shape
     NB, BS, KH, D = k_pool.shape
     P = block_tables.shape[1]
     H = lp["wq"]["q8"].shape[1] // D
-    G = H // KH
     bf = torch.bfloat16
     f32 = torch.float32
 
@@ -174,9 +294,6 @@ def fused_decoder_layer_ref(
         hv = torch.mean(v * v, dim=-1, keepdim=True)
         return v * torch.rsqrt(hv + eps) * w1(w, f32)
 
-    def capped(s: torch.Tensor) -> torch.Tensor:
-        return softcap * torch.tanh(s / softcap) if softcap > 0.0 else s
-
     # attn norm, q/k/v in f32 (+bias, qk-norm, rope)
     h = norm_bf16(x.to(f32), lp["attn_norm"])
     q = (mm(h, lp["wq"]) + bias("bq")).reshape(B, H, D)
@@ -188,33 +305,10 @@ def fused_decoder_layer_ref(
     q = rope(q)
     k_new = rope(k).to(x.dtype)
     v_new = v.to(x.dtype)
-
-    # attention: visible history keys t in [wlo, start), below the row's
-    # page count, plus the current token; finite -1e30 mask
-    start = start_pos.to(torch.int64)
     if pcounts is None:
         pcounts = history_pcounts(start_pos, BS, P)
-    wlo, _ = window_page_bounds(start_pos, window or 0, BS)
-    T = P * BS
-    tables = block_tables.to(torch.int64).clamp(0, NB - 1)
-    kh_hist = k_pool[tables].reshape(B, T, KH, D).to(f32)
-    vh_hist = v_pool[tables].reshape(B, T, KH, D).to(f32)
-    qg = q.reshape(B, KH, G, D)
-    s_hist = capped(torch.einsum("bkgd,btkd->bkgt", qg, kh_hist) * sm_scale)
-    t = torch.arange(T, device=x.device)[None, :]
-    visible = (t < start[:, None]) & (t >= wlo.to(torch.int64)[:, None]) & (
-        t < pcounts.to(torch.int64)[:, None] * BS
-    )
-    s_hist = torch.where(visible[:, None, None, :], s_hist, torch.full_like(s_hist, NEG_INF))
-    kc = k_new.to(f32)
-    vc = v_new.to(f32)
-    s_cur = capped(torch.einsum("bkgd,bkd->bkg", qg, kc) * sm_scale)[..., None]
-    s_all = torch.cat([s_hist, s_cur], dim=-1)
-    m = torch.amax(s_all, dim=-1, keepdim=True)
-    p = torch.exp(s_all - m)
-    l = torch.sum(p, dim=-1, keepdim=True)
-    acc = torch.einsum("bkgt,btkd->bkgd", p[..., :T], vh_hist) + p[..., T:] * vc[:, :, None, :]
-    attn = (acc / torch.clamp(l, min=1e-30)).to(bf).reshape(B, H * D)
+    attn = attention(q, k_new, v_new, k_pool, v_pool, block_tables, start_pos, pcounts,
+                     window=window, sm_scale=sm_scale, softcap=softcap)
 
     # o-proj (+post-norm) + residual, in f32
     y = mm(attn, lp["wo"])
@@ -233,6 +327,46 @@ def fused_decoder_layer_ref(
         mlp = norm_bf16(mlp, lp["mlp_post_norm"]).to(f32)
     x_out = (xo.to(f32) + mlp).to(x.dtype)
     return x_out, k_new, v_new
+
+
+def fused_decoder_layer_ref(
+    x: torch.Tensor,  # [B, d] residual
+    cos: torch.Tensor,  # [B, D] float32, already the layer's (local/global) table
+    sin: torch.Tensor,  # [B, D]
+    lp: Dict[str, Any],  # one layer's params, int8 {"q8", "s"} weights
+    k_pool: torch.Tensor,  # [NB, BS, KH, D]
+    v_pool: torch.Tensor,
+    block_tables: torch.Tensor,  # [B, P] int32
+    start_pos: torch.Tensor,  # [B] int32
+    *,
+    eps: float,
+    sm_scale: float,
+    pcounts: Optional[torch.Tensor] = None,  # [B] int32 (history_pcounts)
+    window: Optional[int] = None,  # 0 / None = full attention
+    act_fn: str = "silu",
+    unit_offset: bool = False,
+    softcap: float = 0.0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version, at the TPU kernel's rounding points
+    (fused_layer.py:269-661). The kernel's oracle on the card."""
+    return _layer(x, cos, sin, lp, k_pool, v_pool, block_tables, start_pos, eps=eps,
+                  sm_scale=sm_scale, pcounts=pcounts, window=window, act_fn=act_fn,
+                  unit_offset=unit_offset, softcap=softcap, attention=_attention_plain)
+
+
+def fused_decoder_layer_mma_ref(
+    x, cos, sin, lp, k_pool, v_pool, block_tables, start_pos, *, eps: float, sm_scale: float,
+    pcounts: Optional[torch.Tensor] = None, window: Optional[int] = None, act_fn: str = "silu",
+    unit_offset: bool = False, softcap: float = 0.0, terms: int = TERMS,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """fused_decoder_layer_ref with the CUDA kernel's attention arithmetic
+    (_attention_mma, q and P in ``terms`` bf16 terms) in place of the plain
+    attention: the CPU check of the kernel's walk, terms and merge orders
+    (the tests; CPU tensors)."""
+    return _layer(x, cos, sin, lp, k_pool, v_pool, block_tables, start_pos, eps=eps,
+                  sm_scale=sm_scale, pcounts=pcounts, window=window, act_fn=act_fn,
+                  unit_offset=unit_offset, softcap=softcap,
+                  attention=functools.partial(_attention_mma, terms=terms))
 
 
 def fused_decoder_layer(

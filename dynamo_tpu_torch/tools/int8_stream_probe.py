@@ -41,7 +41,6 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from dynamo_tpu_torch.ops.cuda import build
-from dynamo_tpu_torch.ops.cuda import ffn_int8
 from dynamo_tpu_torch.ops.cuda import int8_matmul as mk
 from dynamo_tpu_torch.tools.cases import GEMMA3_MATMUL_SHAPES, MATMUL_SHAPES, matmul_case
 from dynamo_tpu_torch.tools.timing import queued_ms
@@ -54,6 +53,26 @@ CASES = [(label, 32) for label in MATMUL_SHAPES] + [("q/o 4096x4096", 64)] + [
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+
+
+def _old_plan(M: int, K: int, N: int, slots: int):
+    """(splits, split_k) of the 64-column kernel on a card that holds
+    ``slots`` of its blocks at once, as its wrapper chose them: whole
+    128-deep chunks a split, none empty, the fewest chunk-steps on the
+    critical path (waves x (chunks a block + its partial-sum write) + the
+    tile's last block's adds), the fewest splits on a tie."""
+    chunks = -(-K // 128)
+    tiles = -(-N // 64) * -(-M // 64)
+    partial = min(M, 64) / 32  # a block's partial sums, in chunks of codes
+    best = None
+    for want in range(1, min(chunks, 64) + 1):
+        per = -(-chunks // want)
+        splits = -(-chunks // per)
+        waves = -(-tiles * splits // slots)
+        steps = waves * (per + partial) + splits * partial if splits > 1 else waves * per
+        if best is None or steps < best[0]:
+            best = (steps, splits, per * 128)
+    return best[1], best[2]
 
 
 def _library() -> ctypes.CDLL:
@@ -136,7 +155,7 @@ def run(out_path: Optional[str] = None) -> List[Dict[str, Any]]:
                 for c in cs]
         blocks = ctypes.c_int(0)
         lib.old_int8_matmul_blocks_per_sm(M, 1, ctypes.byref(blocks))
-        old_plan = ffn_int8.plan(M, K, N, sms * blocks.value)
+        old_plan = _old_plan(M, K, N, sms * blocks.value)
         variants[f"old splits {old_plan[0]} (its plan)"] = [old_call(c, *old_plan) for c in cs]
         variants["old splits 1"] = [old_call(c, 1, -(-K // 128) * 128) for c in cs]
         for name, fns in variants.items():

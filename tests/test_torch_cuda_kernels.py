@@ -663,6 +663,26 @@ def test_ffn_int8_kernel_matches_plain(kernels, M, d, F):
     assert bf16_steps(out, ref) <= 1.0, bf16_steps(out, ref)
 
 
+@pytest.mark.parametrize("M", [1, 13, 64])
+@pytest.mark.parametrize("split_k", [(4096, 14336), (2048, 4864), (512, 1792), (1024, 2048)])
+def test_ffn_int8_at_forced_splits(kernels, M, split_k):
+    """Both launches at forced K splits, from one block a tile to eight (a
+    cluster; the split sums added in order through distributed shared
+    memory): within one bf16 step of the plain version, two runs bit-equal,
+    at the Llama-3-8B FFN widths."""
+    from dynamo_tpu_torch.ops.cuda import ffn_int8 as kernel
+    from dynamo_tpu_torch.ops.ffn_int8 import ffn_int8_ref
+
+    x, *w = ffn_case(M, 4096, 14336, device="cuda")
+    out = kernel.ffn_int8(x, *w, split_k=split_k)
+    again = kernel.ffn_int8(x, *w, split_k=split_k)
+    ref = ffn_int8_ref(x, *w)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, again)
+    assert bf16_steps(out, ref) <= 1.0, bf16_steps(out, ref)
+
+
 def test_ffn_int8_wrapper_refuses_what_the_kernel_does_not_take(kernels):
     from dynamo_tpu_torch.ops.cuda import ffn_int8 as kernel
 
@@ -673,3 +693,5 @@ def test_ffn_int8_wrapper_refuses_what_the_kernel_does_not_take(kernels):
         kernel.ffn_int8(x, wg, wu, wd, sg.to(torch.bfloat16), su, sd)
     with pytest.raises(ValueError, match="is on cpu"):
         kernel.ffn_int8(x, wg.cpu(), wu, wd, sg, su, sd)
+    with pytest.raises(ValueError, match="split_k"):
+        kernel.ffn_int8(x, wg, wu, wd, sg, su, sd, split_k=(128, 64))
