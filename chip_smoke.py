@@ -26,13 +26,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    also runs twice, bit for bit equal, and a chunk_cases line gathers the
    run's chunk times beside SDPA's.
 5. engine — TorchEngine serving Qwen2.5-0.5B at full width (24 layers,
-   random bf16 weights from a seed) through generate(): concurrent
-   requests, a prompt long enough for chunked prefill, a prefix hit, and a
-   repeated greedy request. Kernel launch counts are zeroed just before and
-   read just after; both paged-attention kernels must have launched. One
-   stream is checked against a teacher-forced dense forward of the model.
-6. profile — one decode burst of the same engine under torch.profiler:
-   host wall vs device busy time, and where the device time goes.
+   random bf16 weights from a seed, the tied embedding scaled by
+   QWEN_EMBED_SCALE so that attention decides the greedy stream) through
+   generate(), at the engine's defaults: pipeline depth 2, each decode
+   width bucket's burst one CUDA graph. Concurrent requests, a prompt long enough for chunked prefill, a
+   prefix hit, and a greedy request repeated alone at the defaults and at
+   depth 1 with eager bursts, which must give the same tokens. Kernel
+   launch counts are zeroed just before and read just after (a graph
+   replay adds its capture's launches); both paged-attention kernels must
+   have launched. One stream is checked against a teacher-forced dense
+   forward of the model.
+6. profile — one decode burst of the same engine, eagerly and as a graph
+   replay from the same pools and slot state: tokens, finite flags and
+   every pool byte bit-equal. Then each mode under torch.profiler (a line
+   a mode): host wall vs device busy time, kernels and host launch calls a
+   step, and where the device time goes; a profile_graphs line sets the
+   two modes side by side with the graphs captured, their capture time and
+   replays, and whether the profiler sees the kernels inside a replay (if
+   not, the replay's device time comes from CUDA events).
+   Every engine phase below runs the same way, and every profile phase
+   holds its burst eager against replayed and has its _graphs line.
 7. engine_int8 — TorchEngine serving Llama-3-8B at full width (32 layers,
    random int8 weights from a seed) with the fused layer turned on by its
    gate, the same request set: the fused layer (32 launches a decode step),
@@ -66,8 +79,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the Gemma-3 one (KH 1, G 4, window 512), and timing of each geometry's
    decode (B 16, C 1) and chunk (B 4, C 512) case.
 13. engine_gemma2 — TorchEngine serving Gemma-2-2B at full width (26
-   layers, d 2,304, V 256,000 tied, random bf16 weights from a seed;
-   max_model_len 8,192): the request set of the engine phase plus one
+   layers, d 2,304, V 256,000 tied, random bf16 weights from a seed, the
+   embedding scaled by GEMMA2_EMBED_SCALE so that attention decides the
+   greedy stream; max_model_len 8,192): the request set of the engine
+   phase plus one
    prompt of 4,600 tokens, whose later chunks and decode steps cross the
    4,096-key window of the local layers. Both paged-attention kernels must
    have launched, decode at least once a layer a decode step, and no
@@ -83,7 +98,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and of the int8 product at a Gemma-3 layer's seven widths; timing of
    each (decode B 32, chunk B 4 x 512, at window 512 and global).
 16. engine_gemma3_int8kv — TorchEngine serving Gemma-3-1B at full width (26
-   layers, d 1,152, V 262,144 tied, random int8 weights from a seed) with
+   layers, d 1,152, V 262,144 tied, random int8 weights from a seed, the
+   embedding scaled by GEMMA3_EMBED_SCALE) with
    int8 KV pools (the fused layer off by its gate), max_model_len 8,192:
    the engine_int8kv request set plus one prompt of 4,600 tokens that
    crosses the 512-key window. Both int8-pool attention kernels, the int8
@@ -131,11 +147,18 @@ the fused layer's timing, 21 right after phase 11.)
 Then one JSON line {"kernels": [...]} for all ten kernels, nvidia-smi's
 name and power limit, and last {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result.
+
+    python3 chip_smoke.py --probe qwen:0.01,0.1:none,pos gemma3:0.01
+
+runs only the named engine phases, at each embedding scale and with each
+fault planted (``probe``), without limits: the calibration of the dense
+checks. It prints no result line.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import gc
 import json
 import os
@@ -154,6 +177,54 @@ BF16_FLOPS = 989e12  # dense bf16 tensor-core peak, same source
 # step is ~2.4e-4: ATOL is a few steps there, so an output off by a couple
 # of percent fails.
 ATOL, RTOL = 2e-3, 1e-2
+# The Qwen and Gemma engine phases multiply their random embedding by a
+# scale at which attention decides the greedy stream. With a tied head at
+# init scale the input token's own row leads the logits, so the stream
+# repeats its input (Qwen: 100 % of tokens; the Gemma reference lines read
+# min_top2_margin 942-981) and a fault in attention or in the decode carry
+# leaves the tokens as they were. Scales and limits were chosen from
+# `chip_smoke.py --probe ...` on the card (PERF.md), which runs a phase at
+# given scales with faults planted in memory (FAULTS), after a full run had
+# failed the Gemma limits first stated here (Gemma-2 at 0.01 still
+# repeated 98 % of its inputs; Gemma-3's share of tokens that are the
+# reference's argmax read 0.039 against a floor of 0.25).
+#
+# Qwen2.5-0.5B (bf16, d 896): at 0.01, 11 % of tokens repeat their input
+# and the engine took the reference's argmax at 64 of 64 tokens (logits'
+# std 0.30; the request's batched and alone runs part by 0.0078, one bf16
+# step). With the carry's pos held back (fault "pos") the worst token
+# reads 0.93 below the argmax (median rank 28); at 0.3 the same fault read
+# 0 (98 % repeats). The limit, 0.1, lies between the two.
+QWEN_EMBED_SCALE = 0.01
+QWEN_GAP_LIMIT = 0.1
+# Gemma-2-2B (bf16, d 2,304): at 0.0025 about half the tokens are not the
+# input token (0.47-0.56 repeat), the logits spread with std 0.12, and the
+# engine took the reference's argmax at 127 of 128 tokens, at most 0.0039
+# below it (batched and alone runs parted once, 0.0078 apart). The limit,
+# 0.03, is a quarter of a std and eight times that: a token off by more
+# fails, and most steps' top two lie closer (min_top2_margin 0).
+GEMMA2_EMBED_SCALE = 0.0025
+GEMMA2_GAP_LIMIT = 0.03
+# Gemma-3-1B (int8 weights and KV, d 1,152): at every scale tried the
+# model with random weights is chaotic. The engine's own runs of one
+# request, batched and alone (prefill at other shapes, last bits apart),
+# part within the first three tokens by 0.08-1.07 logits, so no reference
+# that is not bit-identical holds its argmax (6-51 of 256 tokens) or its
+# worst token (up to 0.85 of a random token's gap; the largest rank of a
+# sound stream's token reaches 47,059). What does hold is the rank of the
+# engine's tokens among the reference's 262,144 logits: median 13-368 at
+# every scale, where a token chosen without the model gives ~131,000, and
+# the mean gap: 0.17-0.35 of a random token's. At 0.01 (1 % of tokens
+# repeat their input) the planted faults read, on the 4,600-token stream:
+# window off in decode 112,684 and 0.96, pos held back 109,157 and 0.95,
+# int8 KV scales 5 % high 7,031 and 0.58 (on the 226-token stream, inside
+# the window, 194 and 0.31: not caught). Each limit lies between the
+# sound runs' largest and the faults' smallest reading: a median rank of
+# at most 1,600 (their geometric middle) and a mean gap of at most 0.46 of
+# a random token's (their middle). No limit is set on a single token.
+GEMMA3_EMBED_SCALE = 0.01
+GEMMA3_MEDIAN_RANK_LIMIT = 1600
+GEMMA3_MEAN_GAP_SHARE = 0.46
 
 
 def emit(obj) -> None:
@@ -1040,7 +1111,7 @@ def prof_8b_phase(torch, smi, params, cfg) -> dict:
     with torch.inference_mode():
         for mode in res:
             with prof_8b.attention(mode):
-                by_name, n_ops = device_times(
+                by_name, n_ops, _, _ = device_times(
                     lambda: setup.decode(params, cfg, steps).tokens.cpu())
             attn = sum(v for k, v in by_name.items() if "attention" in k)
             busy[mode] = dict(device_busy_ms_per_step=sum(by_name.values()) / steps,
@@ -1139,15 +1210,29 @@ def read_counts() -> dict:
 
 
 def engine_phase(torch, smi, cfg, expect, gap_limit, phase, *, slots=16, n_short=5,
-                 max_tokens=64, max_model_len=2048, extra_lengths=(), **engine_kw):
-    """Serve cfg through TorchEngine.generate(); ``expect``: the kernels
-    this path must launch. The request set: two prompts sharing a 256-token
-    prefix, ``n_short`` prompts of 100-300 tokens, one of 1,200 and one of
-    each of ``extra_lengths`` tokens, each for ``max_tokens`` greedy tokens.
-    The first short request and every ``extra_lengths`` request are checked
-    against a teacher-forced dense forward. Returns (launch counts, engine,
-    decode steps of the request set)."""
-    from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
+                 max_tokens=64, max_model_len=2048, extra_lengths=(), embed_scale=None,
+                 median_rank_limit=None, mean_gap_share=None, **engine_kw):
+    """Serve cfg through TorchEngine.generate() at the engine's defaults
+    (pipeline depth 2, each decode width bucket one CUDA graph);
+    ``expect``: the kernels this path must launch. The request set: two
+    prompts sharing a 256-token prefix, ``n_short`` prompts of 100-300
+    tokens, one of 1,200 and one of each of ``extra_lengths`` tokens, each
+    for ``max_tokens`` greedy tokens. The last short prompt is then served
+    alone twice: at the defaults, and at depth 1 with the bursts run
+    eagerly (the reference the graphs are held against); the two streams
+    must be equal. The first short request and every ``extra_lengths``
+    request are checked against a teacher-forced dense forward.
+    ``embed_scale`` multiplies the random embedding (tied heads: the head
+    too). The limits: ``gap_limit`` on each token's gap below the
+    reference's best logit (None: not checked), ``median_rank_limit`` on
+    the median rank of a stream's tokens among the reference's logits, and
+    ``mean_gap_share`` on its mean gap as a share of the gap a random token
+    would have. Over int8 KV pools the reference reads K and V through the
+    same int8 round trip. Returns (launch counts, engine, decode steps of
+    the request set)."""
+    from dynamo_tpu_torch.engines.gpu.engine import (
+        TorchEngine, TorchEngineArgs, table_width_bucket,
+    )
     from dynamo_tpu_torch.models import llama
 
     args = TorchEngineArgs(
@@ -1155,7 +1240,7 @@ def engine_phase(torch, smi, cfg, expect, gap_limit, phase, *, slots=16, n_short
         max_model_len=max_model_len, prefill_chunk=512, seed=0, device=DEV, **engine_kw,
     )
     t0 = time.monotonic()
-    engine = TorchEngine(args)
+    engine = TorchEngine(args, scaled_params(torch, cfg, args, embed_scale))
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
     g = torch.Generator().manual_seed(11)
@@ -1174,6 +1259,17 @@ def engine_phase(torch, smi, cfg, expect, gap_limit, phase, *, slots=16, n_short
         try:
             # Warm-up (first cuBLAS/kernel loads), not measured or counted.
             await drive_engine(torch, engine, [rand(120), rand(700)], [], 16)
+            # and one request alone a decode width bucket the request set
+            # can reach, so every graph is captured before the measured run
+            # (a capture costs about one eager burst; capture_ms says how
+            # much in all)
+            K, BS = args.decode_steps, args.block_size
+            longest = max(lengths + [1200] + list(extra_lengths)) + max_tokens + 2 * K
+            b = table_width_bucket(-(-(min(lengths) + K) // BS), args.max_blocks_per_seq)
+            while b <= table_width_bucket(-(-longest // BS), args.max_blocks_per_seq):
+                n = min(BS * b - K - BS // 2, args.max_model_len - 2 * K - 1)
+                await drive_engine(torch, engine, [rand(n)], [], 2 * K)
+                b *= 2
             torch.cuda.reset_peak_memory_stats()
             bursts0, steps0 = engine.runner.mk_fused_bursts, engine.steps
             reset_counts()
@@ -1183,11 +1279,15 @@ def engine_phase(torch, smi, cfg, expect, gap_limit, phase, *, slots=16, n_short
             bursts = engine.runner.mk_fused_bursts - bursts0
             decode_steps = (engine.steps - steps0) * args.decode_steps
             # A greedy request repeated alone, twice (same cache hits, same
-            # shapes): the two must give the same tokens.
+            # shapes): at the defaults, then at depth 1 with eager bursts.
+            # The two must give the same tokens.
             again = []
-            for _ in range(2):
+            defaults = args.pipeline_depth, args.cuda_graphs
+            for depth, graphs in (defaults, (1, False)):
+                args.pipeline_depth, args.cuda_graphs = depth, graphs
                 rs, _ = await drive_engine(torch, engine, [repeat], [], max_tokens)
                 again.append(rs[0]["tokens"])
+            args.pipeline_depth, args.cuda_graphs = defaults
             return results, wall, counts, peak, bursts, decode_steps, again
         finally:
             await engine.stop()
@@ -1200,7 +1300,10 @@ def engine_phase(torch, smi, cfg, expect, gap_limit, phase, *, slots=16, n_short
     if stats["nonfinite_logit_rows"]:
         fail(f"{stats['nonfinite_logit_rows']} decode rows had non-finite logits")
     if again[0] != again[1]:
-        fail("a greedy request repeated alone gave different tokens")
+        fail("a greedy request served alone at depth 2 with CUDA graphs and at depth 1 "
+             "eagerly gave different tokens")
+    if not stats["decode_graphs"] or not stats["graph_replays"]:
+        fail(f"the decode bursts did not run as CUDA graphs: {stats}")
     for name in expect:
         if counts[name] <= 0:
             fail(f"{name} never launched on the {cfg.name} path")
@@ -1218,7 +1321,7 @@ def engine_phase(torch, smi, cfg, expect, gap_limit, phase, *, slots=16, n_short
     # path).
     def dense_logits(prompt, tokens):
         seq = prompt + tokens
-        with torch.inference_mode():
+        with torch.inference_mode(), int8_round_trip(llama, args.kv_cache_dtype == "int8"):
             kc, vc = llama.init_kv_cache(cfg, (len(seq) + 15) // 16, 16, DEV)
             logits, _, _ = llama.forward_paged(
                 engine.runner.params, cfg, torch.tensor([seq], device=DEV),
@@ -1244,18 +1347,37 @@ def engine_phase(torch, smi, cfg, expect, gap_limit, phase, *, slots=16, n_short
         picked = torch.tensor(r["tokens"], device=DEV)
         gap = ref.max(dim=-1).values - ref[torch.arange(len(r["tokens"]), device=DEV), picked]
         top2 = ref.topk(2, dim=-1).values
+        # each engine token's rank among the reference's logits (0: its
+        # argmax), and the gap a token drawn at random would have
+        rank = (ref > ref[torch.arange(len(r["tokens"]), device=DEV), picked][:, None]).sum(-1)
+        random_gap = float((ref.max(dim=-1).values - ref.mean(dim=-1)).mean())
+        inputs = (r["prompt"] + r["tokens"])[len(r["prompt"]) - 1 : -1]
         emit({"phase": f"{phase}_reference", "prompt_tokens": len(r["prompt"]),
               "tokens": len(r["tokens"]), "exact_argmax": int((gap == 0).sum()),
+              "repeats_input_share": sum(a == b for a, b in zip(r["tokens"], inputs))
+              / len(r["tokens"]),
               "max_logit_gap": float(gap.max()), "gap_limit": gap_limit,
+              "mean_logit_gap": float(gap.mean()), "random_token_gap": random_gap,
+              "mean_gap_share_limit": mean_gap_share,
+              "median_rank": int(rank.median()), "median_rank_limit": median_rank_limit,
+              "max_rank": int(rank.max()),
               "logit_std": float(ref.std()),
               "min_top2_margin": float((top2[:, 0] - top2[:, 1]).min()),
               "repeat_parts_from_batched_run_at": part,
               "repeat_part_gap": part_gap})
-        del ref, top2
-        if float(gap.max()) > gap_limit:
+        where = f"{len(r['prompt'])}-token prompt"
+        if gap_limit is not None and float(gap.max()) > gap_limit:
             fail(f"engine token is {float(gap.max())} below the dense reference's max logit "
-                 f"({len(r['prompt'])}-token prompt)")
-    if part_gap > gap_limit:
+                 f"({where})")
+        if median_rank_limit is not None and int(rank.median()) > median_rank_limit:
+            fail(f"the engine's tokens rank {int(rank.median())} (median) among the dense "
+                 f"reference's logits, above {median_rank_limit} ({where})")
+        if mean_gap_share is not None and float(gap.mean()) > mean_gap_share * random_gap:
+            fail(f"the engine's tokens lie {float(gap.mean())} below the dense reference's "
+                 f"best on average, above {mean_gap_share} x a random token's {random_gap} "
+                 f"({where})")
+        del ref, top2, rank
+    if gap_limit is not None and part_gap > gap_limit:
         fail(f"the repeated request parted from its batched run at token {part} by a "
              f"logit gap of {part_gap}")
 
@@ -1307,75 +1429,304 @@ def int8kv_burst_launches(engine) -> dict:
             "paged_attention_chunk": 0, "fused_decoder_layer": 0}
 
 
+@contextlib.contextmanager
+def int8_round_trip(llama, on):
+    """While on: models/llama's dense attention reads K and V as int8 pools
+    hold them (each token's codes times its scale, float32), so a dense
+    reference of an int8-KV engine carries the same rounding of K and V."""
+    attend = llama.dense_chunk_attention
+    if on:
+        from dynamo_tpu_torch.ops.kv_quant import quantize_kv_chunk
+
+        def held(x):
+            q8, s = quantize_kv_chunk(x)
+            return q8.float() * s[..., None]
+
+        llama.dense_chunk_attention = lambda q, k, v, lens, **kw: attend(
+            q, held(k), held(v), lens, **kw)
+    try:
+        yield
+    finally:
+        llama.dense_chunk_attention = attend
+
+
+def scaled_params(torch, cfg, args, scale):
+    """The engine's random weights (its seed, its quantization) with the
+    embedding multiplied by ``scale``; None (the engine makes its own) when
+    no scale is given. An int8 embedding keeps its codes and scales its
+    per-row scales."""
+    if scale is None:
+        return None
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.quantize import init_quantized_params
+
+    with torch.no_grad():
+        if args.quantization:
+            params = init_quantized_params(cfg, args.seed, DEV)
+            params["embed"]["s"].mul_(scale)
+        else:
+            params = llama.init_params(cfg, args.seed, DEV)
+            params["embed"] = (params["embed"].float() * scale).to(cfg.dtype)
+    return params
+
+
+# Host-side calls that put work on the card, as torch.profiler names the
+# CUDA API calls.
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaLaunchCooperativeKernel",
+                "cuLaunchKernel", "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                "cudaMemsetAsync")
+
+
 def device_times(fn):
-    """(device ms by kernel name, kernels launched) of one call of ``fn``
-    under torch.profiler: the sum of each kernel's durations (one stream,
-    so kernels do not overlap)."""
+    """(device ms by op name, device ops, kernels among them, host launch
+    calls) of one call of ``fn`` under torch.profiler: the sum of each
+    device op's durations (one stream, so they do not overlap; ops are
+    kernels and memory copies) and the runtime calls that enqueued work
+    (LAUNCH_CALLS)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
-    by_name, n_kernels = {}, 0
+    by_name, n_ops, n_kernels, n_calls = {}, 0, 0, 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
-            n_kernels += 1
-    return by_name, n_kernels
+            n_ops += 1
+            n_kernels += not ("Memcpy" in e.name or "Memset" in e.name)
+        elif e.name.split("_v")[0] in LAUNCH_CALLS:
+            n_calls += 1
+    return by_name, n_ops, n_kernels, n_calls
+
+
+def event_ms(torch, fn, iters=3):
+    """Device time of ``fn`` by CUDA events around it, mean of ``iters``."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def burst_both_ways(torch, runner, burst):
+    """The profile burst from the same pools and slot state, once eagerly
+    and once by graph replay: tokens, finite flags and every pool byte must
+    be bit-equal (the kernels are deterministic). Leaves the pools as the
+    burst wrote them."""
+    pools = [t for p in runner.k_cache + runner.v_cache
+             for t in (p.values() if isinstance(p, dict) else (p,))]
+    before = [t.clone() for t in pools]
+    outs = []
+    defaults = runner.args.cuda_graphs
+    for graphs in (False, True):
+        runner.args.cuda_graphs = graphs
+        for t, b in zip(pools, before):
+            t.copy_(b)
+        nb = runner.sync_all(*burst)
+        toks, finite = runner.decode_read(runner.decode_dispatch(nb))
+        if graphs:  # the first use of this width ran eagerly and captured: replay it
+            for t, b in zip(pools, before):
+                t.copy_(b)
+            runner.sync_all(*burst)
+            toks, finite = runner.decode_read(runner.decode_dispatch(nb))
+        torch.cuda.synchronize()
+        outs.append((toks, finite, [t.clone() for t in pools]))
+    runner.args.cuda_graphs = defaults
+    (t0, f0, p0), (t1, f1, p1) = outs
+    same_pools = all(torch.equal(a, b) for a, b in zip(p0, p1))
+    written = sum(int((a != b).sum()) for a, b in zip(p0, before))
+    del before, outs, p0, p1
+    return bool((t0 == t1).all()) and bool((f0 == f1).all()) and same_pools, written
 
 
 def profile_phase(torch, runner, smi, phase="profile", ctx_step=80, exact=None):
     """One 8-step decode burst of every slot (contexts 100, 100 + ctx_step,
-    ...) through the engine's runner: host wall time, device busy time (sum
-    of kernel durations under torch.profiler; one stream, so kernels do not
-    overlap), the idle share, the kernels that take the most device time,
-    and the shares of the fused layer, the int8 product and int8-pool
-    attention. ``exact``: launch counts the profiled burst must show."""
+    ...) through the engine's runner, eagerly and as a CUDA graph: the two
+    must be bit-equal (tokens, finite flags, pools). For each mode: host
+    wall (median of 5), device busy time (sum of kernel durations under
+    torch.profiler; one stream, so kernels do not overlap), the idle share,
+    kernels and host launch calls a step, the kernels that take the most
+    device time, and the shares of the fused layer, the int8 product and
+    int8-pool attention; one line a mode. ``exact``: launch counts each
+    mode's burst must show (under replay: the graph's capture deltas). A
+    ``{phase}_graphs`` line sets the modes side by side, with the graphs
+    the runner captured, their capture time and replays."""
     import numpy as np
 
     S, BS = runner.args.max_num_seqs, runner.args.block_size
+    K = runner.args.decode_steps
     pos = np.array([100 + ctx_step * i for i in range(S)], np.int32)
-    width = int(pos.max() + 2 * runner.args.decode_steps) // BS + 1
+    width = int(pos.max() + 2 * K) // BS + 1
     burst = (
         np.ones(S, np.int32), pos, np.ones(S, np.int32),
         np.arange(S * width, dtype=np.int32).reshape(S, width),
         np.zeros(S, np.float32), np.zeros(S, np.int32), np.ones(S, np.float32),
         np.arange(S, dtype=np.int32),
     )
-    runner.run_decode(*burst)  # run_decode reads its tokens back: synchronised
-    walls = []
-    for _ in range(5):  # host time varies run to run: keep the median
-        t0 = time.monotonic()
-        runner.run_decode(*burst)
-        walls.append(1e3 * (time.monotonic() - t0))
-    wall_ms = sorted(walls)[len(walls) // 2]
-    reset_counts()
-    by_name, n_kernels = device_times(lambda: runner.run_decode(*burst))
-    counts = read_counts()
-    reset_counts()
-    for name, want in (exact or {}).items():
-        if counts[name] != want:
-            fail(f"{phase}: {name} launched {counts[name]} times in one burst, expected {want}")
-    busy_ms = sum(by_name.values())
-    if busy_ms <= 0:
-        fail("the profiler saw no device time in a decode burst")
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    attn = sum(v for k, v in by_name.items() if "paged_attention" in k)
-    fused = sum(v for k, v in by_name.items() if "fused_layer" in k)
-    # the int8 product runs int8_stream.cuh's stream_kernel
-    matmul = sum(v for k, v in by_name.items() if "stream_kernel" in k)
-    attn8 = sum(v for k, v in by_name.items() if "paged_attention" in k and "Int8Pool" in k)
-    emit({"phase": phase, "what": "one decode burst", "model": runner.config.name,
-          "steps": runner.args.decode_steps, "rows": S, "contexts": [int(pos[0]), int(pos[-1])],
-          "wall_ms": wall_ms, "wall_ms_min": min(walls), "device_busy_ms": busy_ms,
-          "device_busy_ms_per_step": busy_ms / runner.args.decode_steps,
-          "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
-          "attention_ms": attn, "attention_share": attn / busy_ms,
-          "fused_layer_ms": fused, "fused_layer_share": fused / busy_ms,
-          "int8_matmul_ms": matmul, "int8_matmul_share": matmul / busy_ms,
-          "int8_attention_ms": attn8, "int8_attention_share": attn8 / busy_ms,
-          "device_ops_per_step": n_kernels / runner.args.decode_steps, "launches": counts,
-          "top_ms": [[k[:60], v] for k, v in top], "card": smi})
+    same, written = burst_both_ways(torch, runner, burst)
+    if not same:
+        fail(f"{phase}: the graph-replayed burst differs from the eager one")
+    modes = {}
+    defaults = runner.args.cuda_graphs
+    for mode, graphs in (("eager", False), ("graphs", True)):
+        runner.args.cuda_graphs = graphs
+        runner.run_decode(*burst)  # run_decode reads its tokens back: synchronised
+        walls = []
+        for _ in range(5):  # host time varies run to run: keep the median
+            t0 = time.monotonic()
+            runner.run_decode(*burst)
+            walls.append(1e3 * (time.monotonic() - t0))
+        wall_ms = sorted(walls)[len(walls) // 2]
+        reset_counts()
+        by_name, n_ops, n_kernels, n_calls = device_times(lambda: runner.run_decode(*burst))
+        counts = read_counts()
+        reset_counts()
+        for name, want in (exact or {}).items():
+            if counts[name] != want:
+                fail(f"{phase} ({mode}): {name} launched {counts[name]} times in one burst, "
+                     f"expected {want}")
+        busy_ms = sum(by_name.values())
+        if busy_ms <= 0:
+            fail(f"{phase} ({mode}): the profiler saw no device time in a decode burst")
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        attn = sum(v for k, v in by_name.items() if "paged_attention" in k)
+        fused = sum(v for k, v in by_name.items() if "fused_layer" in k)
+        # the int8 product runs int8_stream.cuh's stream_kernel
+        matmul = sum(v for k, v in by_name.items() if "stream_kernel" in k)
+        attn8 = sum(v for k, v in by_name.items() if "paged_attention" in k and "Int8Pool" in k)
+        line = {"phase": phase, "mode": mode, "what": "one decode burst",
+                "model": runner.config.name, "steps": K, "rows": S,
+                "contexts": [int(pos[0]), int(pos[-1])],
+                "wall_ms": wall_ms, "wall_ms_min": min(walls), "device_busy_ms": busy_ms,
+                "device_busy_ms_per_step": busy_ms / K,
+                "device_idle_share": max(0.0, 1 - busy_ms / wall_ms),
+                "attention_ms": attn, "attention_share": attn / busy_ms,
+                "fused_layer_ms": fused, "fused_layer_share": fused / busy_ms,
+                "int8_matmul_ms": matmul, "int8_matmul_share": matmul / busy_ms,
+                "int8_attention_ms": attn8, "int8_attention_share": attn8 / busy_ms,
+                "device_ops_per_step": n_ops / K, "kernels_per_step": n_kernels / K,
+                "host_launch_calls_per_step": n_calls / K,
+                "launches": counts, "top_ms": [[k[:60], v] for k, v in top], "card": smi}
+        emit(line)
+        modes[mode] = line
+    runner.args.cuda_graphs = defaults
+    eager, graph = modes["eager"], modes["graphs"]
+    # Device ops (a copy inside a graph may be reported as a kernel where
+    # eager reports a memcpy), within 1 %: the profiler's count of one
+    # eager burst itself moves by a few ops a step between runs.
+    seen = abs(graph["device_ops_per_step"] / eager["device_ops_per_step"] - 1) <= 0.01
+    # Where the profiler does not see the kernels inside a replay, the
+    # replay's device time comes from CUDA events around it instead.
+    nb = runner.sync_all(*burst)
+    replay = runner.graphs[nb]
+    replay_event_ms = event_ms(torch, replay.graph.replay)
+    torch.cuda.synchronize()
+    busy = graph["device_busy_ms"] if seen else replay_event_ms
+    emit({"phase": f"{phase}_graphs", "model": runner.config.name,
+          "eager_equals_replay": same, "pool_values_written": written,
+          "buckets_captured": sorted(runner.graphs), "capture_ms": runner.capture_ms,
+          "replays": sum(g.replays for g in runner.graphs.values()),
+          "kernel_launches_a_replay": replay.launches,
+          "wall_ms": {"eager": eager["wall_ms"], "graphs": graph["wall_ms"]},
+          "device_busy_ms_per_step": {"eager": eager["device_busy_ms_per_step"],
+                                      "graphs": busy / K},
+          "device_idle_share": {"eager": eager["device_idle_share"],
+                                "graphs": max(0.0, 1 - busy / graph["wall_ms"])},
+          "device_ops_per_step": {"eager": eager["device_ops_per_step"],
+                                  "graphs": graph["device_ops_per_step"]},
+          "kernels_per_step": {"eager": eager["kernels_per_step"],
+                               "graphs": graph["kernels_per_step"]},
+          "host_launches_per_step": {"eager": eager["host_launch_calls_per_step"],
+                                     "graphs": graph["host_launch_calls_per_step"]},
+          "profiler_sees_replay_kernels": seen, "replay_event_ms": replay_event_ms,
+          "card": smi})
+
+
+# Faults the probe can plant, in memory only, to see what the dense check
+# of an engine phase reads when the engine is wrong.
+FAULTS = {
+    "none": "no fault",
+    "pos": "the burst's carry does not advance pos (each burst rewrites the same positions)",
+    "window": "decode attention (C = 1) ignores the sliding window",
+    "kv_scale": "int8 KV scales stored 5 % high (K and V read back 5 % large)",
+}
+
+
+@contextlib.contextmanager
+def planted(fault):
+    """While on: the engine runs with ``fault`` (FAULTS). The dense
+    reference takes none of the patched functions (it attends densely and
+    quantizes through ops/kv_quant)."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.ops import attention
+
+    saved = [(llama, "decode_burst", llama.decode_burst),
+             (llama, "paged_attention", llama.paged_attention),
+             (attention, "quantize_kv_chunk", attention.quantize_kv_chunk)]
+    if fault == "pos":
+        burst = llama.decode_burst
+
+        def stuck(params, config, state, *a, num_steps, **kw):
+            burst(params, config, state, *a, num_steps=num_steps, **kw)
+            state["pos"].sub_(state["active"] * num_steps)
+        llama.decode_burst = stuck
+    elif fault == "window":
+        attend = llama.paged_attention
+        llama.paged_attention = lambda q, *a, window=0, **kw: attend(
+            q, *a, window=0 if q.shape[1] == 1 else window, **kw)
+    elif fault == "kv_scale":
+        quantize = attention.quantize_kv_chunk
+
+        def high(x):
+            q8, scale = quantize(x)
+            return q8, scale * 1.05
+        attention.quantize_kv_chunk = high
+    elif fault != "none":
+        raise ValueError(f"unknown fault {fault!r} (one of {sorted(FAULTS)})")
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def probe(torch, smi, specs) -> None:
+    """``python3 chip_smoke.py --probe qwen:0.03,0.1:none,pos gemma3:0.01``:
+    for each MODEL:SCALES[:FAULTS] (models qwen, gemma2, gemma3; faults of
+    FAULTS, default none), the model's engine phase (its request set, the
+    dense check without limits) at each embedding scale with each fault
+    planted: the measurement the scales and limits of the dense checks are
+    chosen from. Each *_reference line says whether attention decides the
+    stream (repeats_input_share) and how closely the engine follows the
+    reference (exact_argmax, median_rank, mean_logit_gap, max_logit_gap,
+    beside random_token_gap). Prints no result line."""
+    from dynamo_tpu_torch.models.config import (
+        gemma2_2b_config, gemma3_1b_config, qwen2_500m_config,
+    )
+
+    long = dict(max_model_len=8192, extra_lengths=(4600,))
+    paths = {
+        "qwen": (qwen2_500m_config, {}),
+        "gemma2": (gemma2_2b_config, long),
+        "gemma3": (gemma3_1b_config, dict(long, slots=32, n_short=29, max_tokens=256,
+                                          quantization="int8", kv_cache_dtype="int8")),
+    }
+    for spec in specs:
+        model, scales, *rest = spec.split(":")
+        make, kw = paths[model]
+        for scale in (float(x) for x in scales.split(",")):
+            for fault in (rest[0].split(",") if rest else ["none"]):
+                phase = f"probe_{model}_x{scale}_{fault}"
+                try:  # a check the fault trips ends this run, not the probe
+                    with planted(fault):
+                        engine_phase(torch, smi, make(), (), None, phase, embed_scale=scale,
+                                     **kw)
+                except SystemExit:
+                    emit({"phase": phase, "failed_a_check": True})
+                gc.collect()
+                torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1409,6 +1760,9 @@ def main() -> int:
         for line in b.ptxas:
             print(f"[ptxas {src}] {line.strip()}", flush=True)
     emit({"phase": "build", "sources": sources, "seconds": time.monotonic() - t0})
+    if sys.argv[1:2] == ["--probe"]:
+        probe(torch, smi, sys.argv[2:])
+        return 0
 
     worst, timed = kernel_phases(torch)
     worst8, timed8 = int8_kernel_phases(torch)
@@ -1426,9 +1780,11 @@ def main() -> int:
         gemma2_2b_config, gemma3_1b_config, llama3_8b_config, qwen2_500m_config,
     )
 
+    # The embedding is scaled by QWEN_EMBED_SCALE and the gap limit is
+    # QWEN_GAP_LIMIT (see there).
     counts, engine, _ = engine_phase(torch, smi, qwen2_500m_config(),
-                                  ("paged_attention_decode", "paged_attention_chunk"), 1.0,
-                                  "engine")
+                                  ("paged_attention_decode", "paged_attention_chunk"),
+                                  QWEN_GAP_LIMIT, "engine", embed_scale=QWEN_EMBED_SCALE)
     profile_phase(torch, engine.runner, smi)
     del engine
     gc.collect()
@@ -1454,8 +1810,8 @@ def main() -> int:
     # Llama-3-8B, int8 weights and int8 KV pools: the gate turns the fused
     # layer off, so every layer runs unfused — the int8-pool attention
     # kernels and seven int8 products a layer. The dense check's reference
-    # takes the first-chunk path over bf16 pools, so its gap includes the
-    # int8-KV error; the 8B limit stays 0.5.
+    # reads K and V through the int8 pools' round trip (int8_round_trip);
+    # the 8B limit stays 0.5.
     counts8kv, engine, steps8kv = engine_phase(
         torch, smi, llama3_8b_config(),
         ("paged_attention_decode_int8", "paged_attention_chunk_int8", "int8_matmul",
@@ -1478,14 +1834,14 @@ def main() -> int:
     # 4,600-token request is prefilled in 9 chunks of up to 512; from its
     # ninth chunk on, the 4,096-key window of the 13 local layers masks in
     # the chunk kernel and in every decode step, and the dense check holds
-    # that request against dense_chunk_attention's window. Gap limit 1.0, as
-    # for the Qwen bf16 phase: both paths round to bf16 at other points
-    # through 26 layers, and past the final softcap (30) a bf16 step of a
-    # logit is 0.125, so a near-tie may go the other way by a few steps.
+    # that request against dense_chunk_attention's window.
+    # The embedding is scaled by GEMMA2_EMBED_SCALE and the gap limit is
+    # GEMMA2_GAP_LIMIT (see there).
     cfg_g = gemma2_2b_config()
     counts_g, engine, steps_g = engine_phase(
-        torch, smi, cfg_g, ("paged_attention_decode", "paged_attention_chunk"), 1.0,
-        "engine_gemma2", max_model_len=8192, extra_lengths=(4600,))
+        torch, smi, cfg_g, ("paged_attention_decode", "paged_attention_chunk"),
+        GEMMA2_GAP_LIMIT, "engine_gemma2", max_model_len=8192, extra_lengths=(4600,),
+        embed_scale=GEMMA2_EMBED_SCALE)
     if counts_g["paged_attention_decode"] < cfg_g.n_layers * steps_g:
         fail(f"paged_attention_decode launched {counts_g['paged_attention_decode']} times, "
              f"fewer than {cfg_g.n_layers} layers x {steps_g} decode steps")
@@ -1511,24 +1867,17 @@ def main() -> int:
     # a layer at d 1,152, and the tied int8 head at V 262,144. The
     # 4,600-token request crosses the 512-key window of the local layers
     # in its second chunk and in every decode step, while the four global
-    # layers attend over its whole history. Gap limit 1.0: there is no
-    # final softcap, so logits spread as N(0, ~34^2) over 262,144 rows
-    # (the tied head's rows have std 1 against a unit-RMS normed state, d
-    # 1,152) and the top ones reach ~150, where the head's product, rounded
-    # to bf16 before its scale, moves in steps of up to 1.0 (2^-8 relative
-    # at 128-256): two paths whose hidden states differ in their last bits
-    # may choose tokens one such step apart. The dense reference runs over
-    # bf16 pools, so the gap also holds the int8-KV error (~0.4 % of a K or
-    # V value, averaged over the keys), far below that step at this scale.
-    # min_top2_margin on the reference line says how far the dense argmax
-    # leads: where it leads by far more than the limit, this check sees
-    # gross faults only, and the kernels' parity above holds attention to
-    # its plain version.
+    # layers attend over its whole history. The embedding is scaled by
+    # GEMMA3_EMBED_SCALE; the limits are GEMMA3_MEDIAN_RANK_LIMIT and
+    # GEMMA3_MEAN_GAP_SHARE (see there, with the planted faults they catch;
+    # no limit on a single token's gap).
     cfg_3 = gemma3_1b_config()
     counts_3, engine, steps_3 = engine_phase(
         torch, smi, cfg_3, ("paged_attention_decode_int8", "paged_attention_chunk_int8",
-                            "int8_matmul", "lm_head_int8"), 1.0, "engine_gemma3_int8kv",
-        slots=32, n_short=29, max_tokens=256, max_model_len=8192, extra_lengths=(4600,),
+                            "int8_matmul", "lm_head_int8"), None,
+        "engine_gemma3_int8kv", slots=32, n_short=29, max_tokens=256, max_model_len=8192,
+        extra_lengths=(4600,), embed_scale=GEMMA3_EMBED_SCALE,
+        median_rank_limit=GEMMA3_MEDIAN_RANK_LIMIT, mean_gap_share=GEMMA3_MEAN_GAP_SHARE,
         quantization="int8", kv_cache_dtype="int8")
     check_int8kv_path(engine, counts_3, steps_3)
     profile_phase(torch, engine.runner, smi, "profile_gemma3_int8kv", ctx_step=25,

@@ -1267,8 +1267,19 @@ extern "C" int fused_decoder_layer_bf16(FusedLayerParams p, void* stream) {
   if ((err = make_maps(p, plan, &maps)) != cudaSuccess) return err;
   void* args[] = {&p, &plan, &maps};
   void* fn = p.D == 128 ? kernel_for<128>() : kernel_for<256>();
-  err = cudaLaunchCooperativeKernel(fn, dim3(plan.grid), dim3(kThreads), args, size_t(plan.smem),
-                                    static_cast<cudaStream_t>(stream));
+  // A cooperative launch through the attribute form: the same launch, and
+  // one that CUDA graph stream capture records as a cooperative node.
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(plan.grid);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = size_t(plan.smem);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute coop;
+  coop.id = cudaLaunchAttributeCooperative;
+  coop.val.cooperative = 1;
+  cfg.attrs = &coop;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelExC(&cfg, fn, args);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }

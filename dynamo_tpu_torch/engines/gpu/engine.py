@@ -11,16 +11,28 @@ engines/tpu/admission.py (its Admitter), reduced to the scheduling core:
     after each burst, cancellation through ``Context``;
   - preemption-by-recompute when the pool runs dry.
 
-Pipeline depth 1: each burst is dispatched, read back and emitted before
-the next. The JAX engine's streams are bit-identical across depths
-(engine.py:141-151), and it reserves blocks two bursts ahead at every depth;
-this engine keeps that reservation so its preemption points are the same.
-It needs no shape buckets: eager PyTorch has no compile per shape.
+Pipelined decode, as the JAX engine's (engine.py:1443-1663): a tick tops
+the in-flight window up to ``pipeline_depth`` bursts (default 2), then
+reaps the oldest, so at depth 2 the card runs the next burst while the
+host reads back, reconciles stops and emits the previous one. Slot state
+lives on the device (engines/gpu/runner.py); the scheduler marks the slots
+and tables it changes dirty (install, finish, preempt, block append) and a
+dispatch syncs only those rows. Each burst's table width is a power-of-two
+bucket (``table_width_bucket``): on the card each bucket's burst is one
+captured CUDA graph (``cuda_graphs``). A reaped row whose sequence finished
+or was preempted while the burst was in flight is dropped; its overshoot
+writes landed in blocks reserved ``LOOKAHEAD_BURSTS`` ahead. Admission and
+preemption see reconciled state: the pipeline is drained before either.
+Streams are the same at every depth and with or without graphs (sampling
+noise is keyed by position, never by which burst draws it).
 
-Not ported yet (ROADMAP): pipeline depth 2, speculative decoding, logprobs
-and top-N, logits processors (a request that sets a penalty, min_p,
-logit_bias or logprobs is refused with FinishReason.ERROR), LoRA, MoE, the tick budget, sleep/wake, KV
-export/import/checkpoint, multimodal, metrics and the flight recorder.
+Not ported yet (ROADMAP): the JAX engine's retry with backoff after a
+failed tick and ``_abort_inflight``'s resync (here the first failed tick
+fails every stream and drops the bursts in flight), speculative decoding,
+logprobs and top-N, logits processors (a request that sets a penalty,
+min_p, logit_bias or logprobs is refused with FinishReason.ERROR), LoRA,
+MoE, the tick budget, sleep/wake, KV export/import/checkpoint, multimodal,
+prefill under CUDA graphs, metrics and the flight recorder.
 
 All device work runs on one executor thread so the asyncio loop never
 blocks on the card.
@@ -39,7 +51,7 @@ from typing import Any, AsyncIterator, Dict, List, Optional, Tuple
 import numpy as np
 
 from dynamo_tpu_torch.engines.gpu.block_pool import BlockPool
-from dynamo_tpu_torch.engines.gpu.runner import DeviceRunner
+from dynamo_tpu_torch.engines.gpu.runner import DeviceRunner, _DecodeHandles
 from dynamo_tpu_torch.llm.protocols.common import (
     BackendOutput,
     FinishReason,
@@ -61,6 +73,18 @@ PREFILL_BATCH = 8
 ADMIT_BATCHES_PER_TICK = 8
 WATERMARK = 0.01
 ADMIT_KV_HIGH_WATERMARK = 0.95
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, int(n) - 1).bit_length()
+
+
+def table_width_bucket(max_blocks: int, cap: int) -> int:
+    """Power-of-two bucket of a dispatched block-table width, clamped to
+    the per-sequence table capacity (engine.py:259-267): each bucket is one
+    captured decode graph, so contexts that grow add ~log2(cap) graphs, not
+    one a width."""
+    return min(_next_pow2(max(max_blocks, 1)), cap)
 
 
 @dataclass
@@ -88,6 +112,13 @@ class TorchEngineArgs:
     # scales (ops/kv_quant.py); "auto" = int8 at long max_model_len or under
     # pool pressure (resolved in place by DeviceRunner, as the JAX runner).
     kv_cache_dtype: Optional[str] = None
+    # Decode bursts in flight (JaxEngineArgs.pipeline_depth): 1 reads each
+    # burst back before dispatching the next; 2 keeps the next one queued.
+    pipeline_depth: int = 2
+    # Each decode width bucket's burst as one captured CUDA graph; needs
+    # the card (True with device="cpu" raises). False runs the same burst
+    # eagerly: the reference the graphs are held against.
+    cuda_graphs: bool = True
 
     @property
     def max_blocks_per_seq(self) -> int:
@@ -106,6 +137,14 @@ class _Sequence:
     block_hashes: List[int] = field(default_factory=list)  # committed prefix
     slot: int = -1
     salt: int = 0  # sampling salt (arrival order)
+
+
+@dataclass
+class _InflightBurst:
+    """A dispatched, not yet reaped decode burst (engine.py:_InflightBurst)."""
+
+    handles: _DecodeHandles
+    seqs: List[Tuple[int, "_Sequence"]]  # (slot, sequence) rows it decodes
 
 
 @dataclass
@@ -157,6 +196,11 @@ class TorchEngine:
         self._tok_mirror = np.zeros(S, dtype=np.int32)  # decode input token
         self._salts = np.zeros(S, dtype=np.int32)
         self._next_salt = 0
+        # Slots whose device state or table row differs from these mirrors,
+        # synced at the next dispatch (engine.py:404-410).
+        self._dirty_state: set = set(range(S))
+        self._dirty_tables: set = set(range(S))
+        self._inflight: "collections.deque[_InflightBurst]" = collections.deque()
         self._waiting: "collections.deque[_Sequence]" = collections.deque()
         self._loop_task: Optional[asyncio.Task] = None
         self._stopped = asyncio.Event()
@@ -201,7 +245,16 @@ class TorchEngine:
             "preemptions": self.preemptions,
             "nonfinite_logit_rows": self.runner.nonfinite_rows,
             "mk_fused_bursts": self.runner.mk_fused_bursts,
+            "pipeline_depth": self._pipeline_depth(),
+            "inflight_bursts": len(self._inflight),
+            "decode_graphs": len(self.runner.graphs),
+            "graph_replays": sum(g.replays for g in self.runner.graphs.values()),
+            "graph_capture_ms": self.runner.capture_ms,
+            "eager_bursts": self.runner.eager_bursts,
         }
+
+    def _pipeline_depth(self) -> int:
+        return max(1, int(self.args.pipeline_depth))
 
     # -- request entry -----------------------------------------------------
 
@@ -252,12 +305,17 @@ class TorchEngine:
     async def _scheduler_loop(self) -> None:
         while not self._stopped.is_set():
             try:
+                # Admission installs into slots and allocates blocks: it must
+                # see reconciled state, so the pipeline drains first, when a
+                # waiting request has a free slot (engine.py:995-1004).
+                if self._inflight and self._waiting and any(s is None for s in self._slots):
+                    await self._drain_inflight()
                 admitted = False
                 for _ in range(ADMIT_BATCHES_PER_TICK):
                     if await self._admit_batch() == 0:
                         break
                     admitted = True
-                if any(s is not None for s in self._slots):
+                if any(s is not None for s in self._slots) or self._inflight:
                     await self._decode_tick()
                 elif not admitted:
                     self._wake.clear()
@@ -271,6 +329,8 @@ class TorchEngine:
                 logger.exception("torch engine scheduler tick failed")
                 self._failure = f"{type(exc).__name__}: {exc}"
                 break
+        # Bursts in flight are dropped: every sequence is finished below.
+        self._inflight.clear()
         reason = FinishReason.ERROR if self._failure else FinishReason.CANCELLED
         err = f"engine failed: {self._failure}" if self._failure else None
         for seq in self._slots:
@@ -418,6 +478,8 @@ class TorchEngine:
         self._temp[slot], self._topk[slot], self._topp[slot] = prep.sp
         self._salts[slot] = seq.salt
         self._tok_mirror[slot] = first_token
+        self._dirty_state.add(slot)
+        self._dirty_tables.add(slot)
         self._emit_token(seq, first_token)
 
     def _requeue(self, seq: _Sequence) -> None:
@@ -452,28 +514,105 @@ class TorchEngine:
                     break
                 self._block_tables[slot, len(seq.block_ids)] = b
                 seq.block_ids.append(b)
+                self._dirty_tables.add(slot)
         return [s for s in self._slots if s is not None]
 
     async def _decode_tick(self) -> None:
+        """Top the in-flight window up to ``pipeline_depth`` bursts, then
+        reap the oldest (engine.py:1443-1455). At depth 1: dispatch, then
+        reap."""
+        while len(self._inflight) < self._pipeline_depth():
+            if not await self._dispatch_burst():
+                break
+        if self._inflight:
+            await self._reap_burst()
+
+    def _blocks_shortfall(self, lookahead: int) -> int:
+        """Blocks the next _prepare_decode would need beyond what the pool
+        can serve (engine.py:1457): a non-positive shortfall means it
+        allocates without preempting."""
+        args = self.args
+        need = 0
+        for slot, seq in enumerate(self._slots):
+            if seq is None:
+                continue
+            last_pos = min(int(self._pos[slot]) + lookahead - 1,
+                           args.max_blocks_per_seq * args.block_size - 1)
+            need += max(0, last_pos // args.block_size + 1 - len(seq.block_ids))
+        return need - self.pool.free_blocks
+
+    async def _dispatch_burst(self) -> bool:
+        """Prepare and enqueue one burst; False when nothing decodes. Only
+        dirty slot rows and table rows travel to the device."""
         args = self.args
         K = args.decode_steps
-        active = self._prepare_decode(K * LOOKAHEAD_BURSTS)
+        lookahead = K * LOOKAHEAD_BURSTS
+        # A preemption is decided on reconciled state only: reap while
+        # growing the tables could run the pool dry (engine.py:1480-1488).
+        while self._inflight and self._blocks_shortfall(lookahead) > 0:
+            await self._reap_burst()
+        active = self._prepare_decode(lookahead)
         if not active:
-            return
-        # Table width for this burst: enough pages for every position it
-        # writes (no pow2 bucket: eager PyTorch does not recompile).
-        width = max((int(self._pos[s.slot]) + K - 1) // args.block_size + 1 for s in active)
-        width = min(width, args.max_blocks_per_seq)
-        act = np.asarray([1 if s is not None else 0 for s in self._slots], dtype=np.int32)
-        toks = await self._device(
-            self.runner.run_decode, self._tok_mirror.copy(), self._pos.copy(), act,
-            self._block_tables[:, :width].copy(), self._temp.copy(), self._topk.copy(),
-            self._topp.copy(), self._salts.copy(),
-        )
+            return False
+        state_sync = self._build_state_sync()
+        table_sync = self._build_table_sync()
+        # Host pos lags the device carry by K a burst in flight, so this
+        # burst spans up to pos + (inflight + 1)·K: the bucket a depth-1
+        # engine takes for the same burst.
+        ctx_off = K * (len(self._inflight) + 1)
+        max_blocks = max((int(self._pos[s.slot]) + ctx_off - 1) // args.block_size + 1
+                         for s in active)
+        nb = table_width_bucket(max_blocks, args.max_blocks_per_seq)
+        handles = await self._device(self._dispatch_on_device, nb, state_sync, table_sync)
+        self._inflight.append(_InflightBurst(handles=handles, seqs=[(s.slot, s) for s in active]))
+        return True
+
+    def _dispatch_on_device(self, nb, state_sync, table_sync) -> _DecodeHandles:
+        """Device-thread half of a dispatch: sync the dirty rows, enqueue."""
+        if state_sync is not None:
+            self.runner.sync_slots(*state_sync)
+        if table_sync is not None:
+            self.runner.sync_tables(*table_sync)
+        return self.runner.decode_dispatch(nb)
+
+    def _build_state_sync(self):
+        """(slots, rows) of the dirty slots for DeviceRunner.sync_slots;
+        None when clean, the steady state (engine.py:1556-1583)."""
+        if not self._dirty_state:
+            return None
+        slots = sorted(self._dirty_state)
+        self._dirty_state.clear()
+        sl = np.asarray(slots, dtype=np.int64)
+        return slots, {
+            "tokens": self._tok_mirror[sl], "pos": self._pos[sl],
+            "active": np.asarray([int(self._slots[s] is not None) for s in slots], np.int32),
+            "temp": self._temp[sl], "topk": self._topk[sl], "topp": self._topp[sl],
+            "salts": self._salts[sl],
+        }
+
+    def _build_table_sync(self):
+        if not self._dirty_tables:
+            return None
+        slots = sorted(self._dirty_tables)
+        self._dirty_tables.clear()
+        return slots, self._block_tables[np.asarray(slots, np.int64)].copy()
+
+    async def _reap_burst(self) -> None:
+        """Read back and emit the oldest burst in flight. A row whose
+        sequence finished or was preempted while the burst was in flight is
+        dropped (engine.py:1592-1656)."""
+        rec = self._inflight.popleft()
+        toks, _ = await self._device(self.runner.decode_read, rec.handles)
         self.steps += 1
-        for seq in active:
-            if seq.slot >= 0 and self._slots[seq.slot] is seq:
-                self._emit_burst(seq, toks[seq.slot])
+        for slot, seq in rec.seqs:
+            if self._slots[slot] is not seq or seq.slot != slot:
+                continue
+            self._emit_burst(seq, toks[slot])
+
+    async def _drain_inflight(self) -> None:
+        """Reap every burst in flight: the barrier before admission."""
+        while self._inflight:
+            await self._reap_burst()
 
     def _emit_burst(self, seq: _Sequence, toks: np.ndarray) -> None:
         """Apply stop conditions to one burst of a sequence's tokens and
@@ -573,10 +712,13 @@ class TorchEngine:
         self._requeue(seq)
 
     def _clear_slot(self, seq: _Sequence) -> None:
+        """Free the slot; the next dispatch deactivates its device row, and
+        rows of it in a burst still in flight are dropped at reap."""
         if seq.slot >= 0:
             self._slots[seq.slot] = None
             self._pos[seq.slot] = 0
             self._tok_mirror[seq.slot] = 0
+            self._dirty_state.add(seq.slot)
             seq.slot = -1
 
     def _finish(self, seq: _Sequence, reason: FinishReason, emit: bool = True) -> None:

@@ -1,17 +1,37 @@
 """DeviceRunner — owner of the device state (weights, KV pools, sampling
-seed) and the two device programs the scheduler calls; counterpart of
-dynamo_tpu/engines/tpu/runner.py.
+seed, decode slot state) and the device programs the scheduler calls;
+counterpart of dynamo_tpu/engines/tpu/runner.py.
 
-The JAX runner keeps device-resident slot state, a donated carry and a
-cache of compiled programs per shape bucket. PyTorch runs eagerly, so this
-runner takes the scheduler's host arrays on every call: ``run_step`` for
-one prefill chunk round, ``run_decode`` for one burst of ``decode_steps``.
-Both run on the engine's single device thread.
+Prefill: ``run_step`` runs one chunk round from the scheduler's host
+arrays. Decode, as the JAX runner's hot path (runner.py:392-438,
+931-1130): the slot state every burst reads (``slot_state``: tokens, pos,
+active, sampling parameters, salts and block tables of all
+``max_num_seqs`` slots) lives on the device and changes only through
+``sync_slots`` / ``sync_tables``, which write the rows the scheduler marked
+dirty. ``decode_dispatch(nb)`` enqueues one burst (models/llama.
+decode_burst) over the first ``nb`` table pages and returns at once; the
+burst writes its carry (last token, advanced pos) back into the state, so
+a steady-state burst moves no host bytes in. On the card each width
+bucket's burst is one CUDA graph (``cuda_graphs``), captured at its first
+use right after that burst ran eagerly on the capture stream, and replayed
+after; the graphs share one memory pool. The outputs go to pinned host
+buffers by non-blocking copies, one buffer set per burst in flight, and
+``decode_read`` waits on the burst's event. ``run_decode`` is the
+synchronous form (sync every row, dispatch, read).
+
+Divergences from the JAX runner: no demotion machinery (a capture or
+launch that fails raises, and the engine fails its streams), and no
+logprobs or logits-processor variants (not ported).
+
+Everything runs on the engine's single device thread.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional
+import collections
+import time
+from dataclasses import dataclass
+from typing import Any, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +40,7 @@ from dynamo_tpu_torch import config as knobs
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.quantize import init_quantized_params, quantize_params
+from dynamo_tpu_torch.ops.cuda.graphs import CapturedCall
 from dynamo_tpu_torch.ops.fused_layer import supports_reason
 from dynamo_tpu_torch.ops.sampling import fold_row_keys, sample_tokens
 
@@ -57,6 +78,31 @@ class DeviceRunner:
         # Decode rows whose logits held a NaN/inf (active rows only); the
         # smoke run on the card asserts it stays 0.
         self.nonfinite_rows = 0
+        if args.cuda_graphs and self.device.type != "cuda":
+            raise ValueError(f"cuda_graphs=True needs a CUDA device, got {self.device}; "
+                             "pass cuda_graphs=False to run the decode burst eagerly")
+        S, K = args.max_num_seqs, args.decode_steps
+        dev = self.device
+        self.slot_state = {
+            name: torch.zeros((S, args.max_blocks_per_seq) if name == "tables" else (S,),
+                              dtype=dtype, device=dev)
+            for name, dtype in llama.SLOT_STATE.items()
+        }
+        self.slot_state["temp"].fill_(1.0)
+        self.slot_state["topp"].fill_(1.0)
+        self._active = np.zeros(S, np.int32)  # host mirror of slot_state["active"]
+        self._out_tokens = torch.zeros((S, K), dtype=torch.int64, device=dev)
+        self._out_finite = torch.ones(S, dtype=torch.bool, device=dev)
+        self._free_outputs: Deque[_HostOutputs] = collections.deque()
+        # width bucket -> its captured burst; one memory pool for all
+        self.graphs: Dict[int, CapturedCall] = {}
+        self._graph_pool = None
+        self._capture_stream: Optional[torch.cuda.Stream] = None
+        self.capture_ms = 0.0
+        self.eager_bursts = 0
+        # Host-to-device traffic of the decode path, as the JAX runner's
+        # transfer_log: ("slot_sync" | "table_sync", rows) and ("decode", nb).
+        self.transfer_log: Deque[Tuple[str, int]] = collections.deque(maxlen=4096)
 
     @staticmethod
     def _resolve_auto_kv_dtype(args: Any) -> Optional[str]:
@@ -117,22 +163,162 @@ class DeviceRunner:
         )
         return toks.cpu().numpy()
 
+    # -- decode: device-resident slot state (runner.py:931-1130) -----------
+
+    def _to_state(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+        """A host array on the way into the slot state: on the card from
+        pinned memory by a non-blocking copy, so a sync queues behind the
+        bursts in flight instead of waiting for them (the caching host
+        allocator keeps the pinned block until the copy has run)."""
+        t = torch.from_numpy(np.ascontiguousarray(a)).to(dtype)
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
     @torch.inference_mode()
+    def sync_slots(self, slots: List[int], rows: Dict[str, np.ndarray]) -> None:
+        """Write the scheduler's dirty slot rows into the device state:
+        ``rows[name][i]`` lands at ``slot_state[name][slots[i]]``, for every
+        field but the tables. The only host-to-device path for slot state
+        after start."""
+        if not slots:
+            return
+        fields = set(llama.SLOT_STATE) - {"tables"}
+        if set(rows) != fields:
+            raise ValueError(f"slot sync rows {sorted(rows)} != state fields {sorted(fields)}")
+        idx = self._to_state(np.asarray(slots, np.int64), torch.int64)
+        for name in sorted(fields):
+            self.slot_state[name].index_copy_(0, idx, self._to_state(rows[name], llama.SLOT_STATE[name]))
+        self._active[np.asarray(slots)] = np.asarray(rows["active"], np.int32)
+        self.transfer_log.append(("slot_sync", len(slots)))
+
+    @torch.inference_mode()
+    def sync_tables(self, slots: List[int], rows: np.ndarray) -> None:
+        """Write dirty block-table rows (the full table width) into the
+        device state; called only when a slot's table changed."""
+        if not slots:
+            return
+        idx = self._to_state(np.asarray(slots, np.int64), torch.int64)
+        self.slot_state["tables"].index_copy_(0, idx, self._to_state(rows, torch.int32))
+        self.transfer_log.append(("table_sync", len(slots)))
+
+    def _burst(self, nb: int) -> None:
+        llama.decode_burst(
+            self.params, self.config, self.slot_state, self.k_cache, self.v_cache, self.seed,
+            self._out_tokens, self._out_finite, num_steps=self.args.decode_steps, width=nb,
+            use_megakernel=self.use_megakernel,
+        )
+
+    def _replay_or_capture(self, nb: int) -> None:
+        """The burst at width bucket ``nb`` by its graph; at the bucket's
+        first use it runs eagerly on the capture stream (this burst's real
+        run, and the warm-up) and is captured right after."""
+        if self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, got {self.device}")
+        graph = self.graphs.get(nb)
+        if graph is not None:
+            graph.replay()
+            return
+        if self._capture_stream is None:
+            self._capture_stream = torch.cuda.Stream(self.device)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        stream = self._capture_stream
+        stream.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(stream):
+            self._burst(nb)
+        self.eager_bursts += 1
+        t0 = time.monotonic()
+        self.graphs[nb] = CapturedCall(lambda: self._burst(nb), pool=self._graph_pool,
+                                       stream=stream)
+        self.capture_ms += 1e3 * (time.monotonic() - t0)
+        torch.cuda.current_stream(self.device).wait_stream(stream)
+
+    @torch.inference_mode()
+    def decode_dispatch(self, nb: int) -> "_DecodeHandles":
+        """Enqueue one burst of ``decode_steps`` over the slot state at
+        table width ``nb`` and return without waiting: by graph replay when
+        ``args.cuda_graphs``, else eagerly. Its
+        outputs start their copies to a pinned buffer set, and an event
+        marks the burst's end. Pair with ``decode_read``."""
+        nb = int(nb)
+        if not 1 <= nb <= self.args.max_blocks_per_seq:
+            raise ValueError(f"table width {nb} outside 1..{self.args.max_blocks_per_seq}")
+        if self.args.cuda_graphs:
+            self._replay_or_capture(nb)
+        else:
+            self._burst(nb)
+            self.eager_bursts += 1
+        self.mk_fused_bursts += int(self.use_megakernel)
+        self.transfer_log.append(("decode", nb))
+        host = self._free_outputs.popleft() if self._free_outputs else _HostOutputs.make(
+            self._out_tokens, self._out_finite)
+        host.tokens.copy_(self._out_tokens, non_blocking=True)
+        host.finite.copy_(self._out_finite, non_blocking=True)
+        if host.event is not None:
+            host.event.record()
+        return _DecodeHandles(host=host, active=self._active.copy())
+
+    def decode_read(self, handles: "_DecodeHandles") -> Tuple[np.ndarray, np.ndarray]:
+        """Wait for a dispatched burst and return its ([S, K] tokens, [S]
+        finite flags) as numpy (rows not active repeat their input token);
+        counts the active rows whose logits were not finite."""
+        host = handles.host
+        if host.event is not None:
+            host.event.synchronize()
+        toks, finite = host.tokens.numpy().copy(), host.finite.numpy().copy()
+        self._free_outputs.append(host)
+        self.nonfinite_rows += int(np.count_nonzero(~finite & (handles.active > 0)))
+        return toks, finite
+
+    def sync_all(self, tokens, start_pos, active, block_tables, temp, topk, topp, salts) -> int:
+        """Write every slot's row of the decode state from host arrays
+        (tables zero-padded to the full width); returns the tables' width."""
+        S, P = self.args.max_num_seqs, self.args.max_blocks_per_seq
+        tables = np.asarray(block_tables, np.int32)
+        if len(tokens) != S or tables.shape[0] != S or tables.shape[1] > P:
+            raise ValueError(f"the decode state holds {S} slots of {P} pages, got "
+                             f"{len(tokens)} tokens and tables {tables.shape}")
+        self.sync_slots(list(range(S)), {
+            "tokens": np.asarray(tokens), "pos": np.asarray(start_pos),
+            "active": np.asarray(active), "temp": np.asarray(temp), "topk": np.asarray(topk),
+            "topp": np.asarray(topp), "salts": np.asarray(salts),
+        })
+        full = np.zeros((S, P), np.int32)
+        full[:, : tables.shape[1]] = tables
+        self.sync_tables(list(range(S)), full)
+        return tables.shape[1]
+
     def run_decode(
         self, tokens, start_pos, active, block_tables, temp, topk, topp, salts,
     ) -> np.ndarray:
-        """One burst of ``decode_steps`` fused decode steps. Returns [B, K]
-        sampled ids (rows with active = 0 repeat their input token)."""
-        d = self._dev
-        out = llama.decode_multi(
-            self.params, self.config, d(tokens, torch.int64), d(start_pos, torch.int32),
-            d(active, torch.int32), d(block_tables, torch.int32),
-            self.k_cache, self.v_cache, self.seed,
-            d(temp, torch.float32), d(topk, torch.int32), d(topp, torch.float32),
-            num_steps=self.args.decode_steps, salts=d(salts, torch.int64),
-            use_megakernel=self.use_megakernel,
-        )
-        self.mk_fused_bursts += int(self.use_megakernel)
-        finite = out.finite.cpu().numpy()
-        self.nonfinite_rows += int(np.count_nonzero(~finite & (np.asarray(active) > 0)))
-        return out.tokens.cpu().numpy()
+        """Synchronous form (tools, tests, chip_smoke.py's profile bursts):
+        ``sync_all``, one burst at the tables' width, read back. Returns
+        [S, K] sampled ids."""
+        nb = self.sync_all(tokens, start_pos, active, block_tables, temp, topk, topp, salts)
+        return self.decode_read(self.decode_dispatch(nb))[0]
+
+
+@dataclass
+class _HostOutputs:
+    """Host buffers of one burst's outputs (pinned on the card) and the
+    event recorded after their copies."""
+
+    tokens: torch.Tensor
+    finite: torch.Tensor
+    event: Optional[torch.cuda.Event]
+
+    @classmethod
+    def make(cls, tokens: torch.Tensor, finite: torch.Tensor) -> "_HostOutputs":
+        cuda = tokens.device.type == "cuda"
+        return cls(tokens=torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=cuda),
+                   finite=torch.empty(finite.shape, dtype=finite.dtype, pin_memory=cuda),
+                   event=torch.cuda.Event() if cuda else None)
+
+
+@dataclass
+class _DecodeHandles:
+    """One dispatched burst (runner.py:77-87): its output buffers and the
+    slots that were active when it was enqueued."""
+
+    host: _HostOutputs
+    active: np.ndarray

@@ -16,7 +16,9 @@ layered cache with ``first_chunk``, and ``decode_multi`` with per-sequence
 salts, int8 ``{"q8", "s"}`` weights (ops/quant.py), int8 KV pools on
 the unfused layer (ops/kv_quant.py), and the fused-layer
 decode branch of ``forward_paged`` (``use_megakernel``: one
-ops/fused_layer call a layer for C = 1). Not yet: MoE, LoRA, logits
+ops/fused_layer call a layer for C = 1), and ``decode_burst``: a burst of
+``decode_multi`` over the engine's device-resident slot state, the body
+the runner captures as a CUDA graph. Not yet: MoE, LoRA, logits
 processors, logprobs and top-N, multimodal splices.
 """
 
@@ -33,6 +35,7 @@ from dynamo_tpu_torch.ops.attention import (
     cache_write_index,
     dense_chunk_attention,
     paged_attention,
+    sink_pool_tensor,
     write_chunk_to_cache,
 )
 from dynamo_tpu_torch.ops.fused_layer import fused_decoder_layer, history_pcounts
@@ -111,7 +114,10 @@ def init_kv_cache(
     """Zeroed per-layer K and V pools (the JAX ``init_kv_cache(layered=True,
     kv_dtype=...)``): each [NB, BS, KH, D] in the model dtype, or with
     ``kv_dtype="int8"`` an int8 pool {"q8": int8 [NB, BS, KH, D], "s":
-    float32 [NB, KH, BS]} whose zero scales dequantize to exact zeros."""
+    float32 [NB, KH, BS]} whose zero scales dequantize to exact zeros.
+    Every tensor is an ops/attention.sink_pool_tensor: the first NB blocks
+    of NB + 1, the spare block the sink that dropped cache writes land in
+    (ops/attention.write_chunk_to_cache), outside every block table."""
     if kv_dtype not in (None, "int8"):
         raise ValueError(f"unsupported kv_dtype {kv_dtype!r} (None or 'int8')")
     dev = resolve_device(device)
@@ -119,10 +125,10 @@ def init_kv_cache(
 
     def one() -> KVPool:
         if kv_dtype == "int8":
-            return {"q8": torch.zeros(shape, dtype=torch.int8, device=dev),
-                    "s": torch.zeros((num_blocks, config.n_kv_heads, block_size),
-                                     dtype=torch.float32, device=dev)}
-        return torch.zeros(shape, dtype=config.dtype, device=dev)
+            return {"q8": sink_pool_tensor(shape, torch.int8, dev),
+                    "s": sink_pool_tensor((num_blocks, config.n_kv_heads, block_size),
+                                          torch.float32, dev)}
+        return sink_pool_tensor(shape, config.dtype, dev)
 
     k = [one() for _ in range(config.n_layers)]
     v = [one() for _ in range(config.n_layers)]
@@ -162,7 +168,7 @@ def decoder_layer(
     first_chunk: bool = False,
     cos_loc: Optional[torch.Tensor] = None,
     sin_loc: Optional[torch.Tensor] = None,
-    write_index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    write_index: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One decoder layer (attention + FFN). Writes the chunk's K/V into the
     pools, then attends: densely over the chunk itself when
@@ -222,8 +228,10 @@ def embed_tokens(params: Params, config: ModelConfig, tokens: torch.Tensor) -> t
     """Token embeddings with family scaling."""
     c = config
     x = embed_lookup(params["embed"], tokens, c.dtype)
-    if c.embed_scale:  # Gemma: embeddings scaled by sqrt(d_model)
-        x = x * torch.tensor(c.d_model**0.5, dtype=c.dtype, device=x.device)
+    if c.embed_scale:  # Gemma: embeddings scaled by sqrt(d_model), rounded to the dtype
+        # (torch.full fills on the device: no host copy, so a decode step
+        # that embeds can be captured in a CUDA graph)
+        x = x * torch.full((), c.d_model**0.5, dtype=c.dtype, device=x.device)
     return x
 
 
@@ -252,7 +260,7 @@ def _fused_layers(
     block_tables: torch.Tensor,
     start_pos: torch.Tensor,
     chunk_lens: torch.Tensor,
-    write_index: Tuple[torch.Tensor, torch.Tensor],
+    write_index: torch.Tensor,
 ) -> torch.Tensor:
     """The decode layers as fused_decoder_layer calls (JAX llama.py:481-560):
     the page counts are derived once a step, Gemma-3's local rope table
@@ -309,8 +317,8 @@ def forward_paged(
     cos_loc = sin_loc = None
     if c.rope_local_theta is not None:
         cos_loc, sin_loc = rope_table(pos, hd, c.rope_local_theta)
-    write_index = cache_write_index(block_tables, start_pos, chunk_lens, C,
-                                    pool_values(k_cache[0]).shape[1])
+    NB, BS = pool_values(k_cache[0]).shape[:2]
+    write_index = cache_write_index(block_tables, start_pos, chunk_lens, C, BS, NB)
     if use_megakernel and C == 1:
         x = _fused_layers(
             params, c, x[:, 0], cos[:, 0], sin[:, 0],
@@ -388,3 +396,49 @@ def decode_multi(
         finite=finite,
         logits=torch.stack(out_logits, dim=1) if want_logits else None,
     )
+
+
+# The device-resident decode slot state ``decode_burst`` reads, one row a
+# slot (counterpart of the JAX runner's ``slot_state`` / ``slot_tables``,
+# runner.py:392-438): name -> dtype; "tables" is [S, max_blocks_per_seq].
+SLOT_STATE = {
+    "tokens": torch.int64, "pos": torch.int32, "active": torch.int32,
+    "temp": torch.float32, "topk": torch.int32, "topp": torch.float32,
+    "salts": torch.int64, "tables": torch.int32,
+}
+
+
+def decode_burst(
+    params: Params,
+    config: ModelConfig,
+    state: Dict[str, torch.Tensor],  # SLOT_STATE tensors, carry updated IN PLACE
+    k_cache: List[KVPool],
+    v_cache: List[KVPool],
+    seed: int,
+    out_tokens: torch.Tensor,  # [S, num_steps] int64, written
+    out_finite: torch.Tensor,  # [S] bool, written
+    *,
+    num_steps: int,
+    width: int,
+    use_megakernel: bool = False,
+) -> None:
+    """One decode burst over the slot state (the body of the JAX runner's
+    ``_build_decode_fn``, runner.py:700-745): ``decode_multi`` over every
+    slot with the first ``width`` pages of each block table, its tokens and
+    finite flags copied into ``out_tokens`` / ``out_finite``, and the carry
+    (each slot's last sampled token, its position advanced by num_steps
+    when active) written back into ``state["tokens"]`` / ``state["pos"]``
+    where the JAX program donates and returns them. It reads nothing back
+    to the host and every tensor it keeps has a fixed address, so the same
+    function runs eagerly and under CUDA graph capture
+    (engines/gpu/runner.py)."""
+    tables = state["tables"][:, :width].contiguous()
+    out = decode_multi(
+        params, config, state["tokens"], state["pos"], state["active"], tables,
+        k_cache, v_cache, seed, state["temp"], state["topk"], state["topp"],
+        num_steps=num_steps, salts=state["salts"], use_megakernel=use_megakernel,
+    )
+    out_tokens.copy_(out.tokens)
+    out_finite.copy_(out.finite)
+    state["tokens"].copy_(out.tokens[:, -1])
+    state["pos"].add_(state["active"] * num_steps)

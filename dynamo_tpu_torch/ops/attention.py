@@ -519,53 +519,89 @@ def cache_write_index(
     chunk_lens: torch.Tensor,  # [B]
     chunk_len: int,  # C
     block_size: int,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Where a [B, C] chunk lands in the pool: (rows, dest) — the flat
-    indices b·C + c of the positions that are written, and their flat pool
-    slots block·BS + offset. Padding positions (c >= chunk_lens) and
-    positions past the table's capacity (decode overshoot past a stop) are
-    LEFT OUT, never clamped: the JAX package drops them with an
-    out-of-range index and ``mode="drop"`` (attention.py:250-257), and torch
-    indexing has no drop mode. One layer's index serves every layer of a
-    forward step, so the host sync of the selection is paid once a step."""
+    num_blocks: int,  # NB: the sink slot is NB·BS
+) -> torch.Tensor:
+    """Where a [B, C] chunk lands in the pool: [B·C] int64 flat pool slots
+    block·BS + offset, with a shape that follows from B and C alone and no
+    read back to the host. Padding positions (c >= chunk_lens) and
+    positions past the table's capacity (decode overshoot past a stop) go
+    to the sink slot NB·BS, never clamped onto a live slot: the JAX package
+    drops them with an out-of-range index and ``mode="drop"``
+    (attention.py:250-257), which torch indexing does not have. One index
+    serves every layer of a forward step."""
     B, P = block_tables.shape
     c_off = torch.arange(chunk_len, device=block_tables.device)[None, :]
     pos = start_pos.long()[:, None] + c_off  # [B, C]
-    valid = (c_off < chunk_lens.long()[:, None]) & (pos < P * block_size)
+    keep = (c_off < chunk_lens.long()[:, None]) & (pos < P * block_size)
     page = torch.clamp(pos // block_size, 0, P - 1)
     blk = torch.gather(block_tables.long(), 1, page)
-    dest = blk * block_size + pos % block_size
-    rows = torch.nonzero(valid.reshape(-1), as_tuple=True)[0]
-    return rows, dest.reshape(-1)[rows]
+    dest = torch.where(keep, blk * block_size + pos % block_size, num_blocks * block_size)
+    return dest.reshape(-1)
+
+
+def sink_pool_tensor(shape: Tuple[int, ...], dtype: torch.dtype,
+                     device: torch.device) -> torch.Tensor:
+    """Zeros of ``shape`` ([NB, ...]: a pool's values, or an int8 pool's
+    scales) as the first NB blocks of an allocation of NB + 1. The spare
+    block is the pool's sink: ``write_chunk_to_cache`` sends dropped rows
+    there, and no block table reaches it. The tensor holds the whole
+    allocation as ``.sink_full``; a tensor without it (a copy, a clone, a
+    view made elsewhere) is refused by ``write_chunk_to_cache``."""
+    full = torch.zeros((shape[0] + 1, *shape[1:]), dtype=dtype, device=device)
+    pool = full[:-1]
+    pool.sink_full = full
+    return pool
+
+
+def copy_to_sink_pool(pool: KVPool) -> KVPool:
+    """A copy of ``pool`` (a tensor, or an int8 pool's {"q8", "s"}) made of
+    ``sink_pool_tensor``s: how a pool made elsewhere gets its sink."""
+    def one(t: torch.Tensor) -> torch.Tensor:
+        out = sink_pool_tensor(tuple(t.shape), t.dtype, t.device)
+        out.copy_(t)
+        return out
+
+    return {k: one(v) for k, v in pool.items()} if isinstance(pool, dict) else one(pool)
+
+
+def _sink_full(t: torch.Tensor) -> torch.Tensor:
+    full = getattr(t, "sink_full", None)
+    if full is None:
+        raise ValueError("the KV pool has no sink block: make pools with "
+                         "models/llama.init_kv_cache or ops/attention.copy_to_sink_pool")
+    return full
 
 
 def write_chunk_to_cache(
-    cache: KVPool,  # [NB, BS, KH, D], or an int8 pool — updated IN PLACE
+    cache: KVPool,
     chunk: torch.Tensor,  # [B, C, KH, D]
     block_tables: torch.Tensor,
     start_pos: torch.Tensor,
     chunk_lens: torch.Tensor,
-    index: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    index: Optional[torch.Tensor] = None,
 ) -> KVPool:
     """Scatter a chunk of K or V into its pages, in place (the JAX function
     returns a new pool; the port updates the one it was given and returns
-    it). Padding positions and positions past the table capacity are
-    dropped (see ``cache_write_index``; pass a precomputed ``index`` to
-    share it across layers). An int8 pool takes the written tokens'
-    codes and scales (ops/kv_quant.quantize_kv_chunk): codes at the same
-    slots, scales at ``s[block, :, slot]`` (attention.py:258-263)."""
+    it), with a scatter of fixed shape, so a decode step can be captured in
+    a CUDA graph (pass a precomputed ``cache_write_index`` to share it
+    across layers). Padding positions and positions past the table
+    capacity are dropped into the pool's sink block (``sink_pool_tensor``;
+    a pool without one raises), so no byte of the NB blocks that a kept
+    row does not write changes, and only the sink's bytes depend on the
+    order of the writes. An int8 pool takes the written tokens' codes and
+    scales (ops/kv_quant.quantize_kv_chunk): codes at the same slots,
+    scales at ``s[block, :, slot]`` (attention.py:258-263)."""
     B, C = chunk.shape[:2]
     values = pool_values(cache)
     NB, BS = values.shape[:2]
     if index is None:
-        index = cache_write_index(block_tables, start_pos, chunk_lens, C, BS)
-    rows, dest = index
-    written = chunk.reshape(B * C, *chunk.shape[2:])[rows]
-    flat = values.view(NB * BS, *values.shape[2:])
+        index = cache_write_index(block_tables, start_pos, chunk_lens, C, BS, NB)
+    rows = chunk.reshape(B * C, *chunk.shape[2:])
+    flat = _sink_full(values).view((NB + 1) * BS, *values.shape[2:])
     if not is_quantized_pool(cache):
-        flat[dest] = written.to(cache.dtype)
+        flat.index_copy_(0, index, rows.to(values.dtype))
         return cache
-    q8, s = quantize_kv_chunk(written)  # [n, KH, D], [n, KH]
-    flat[dest] = q8
-    cache["s"][dest // BS, :, dest % BS] = s
+    q8, s = quantize_kv_chunk(rows)  # [n, KH, D], [n, KH]
+    flat.index_copy_(0, index, q8)
+    _sink_full(cache["s"])[index // BS, :, index % BS] = s
     return cache

@@ -26,9 +26,10 @@ SAMPLE_WIDTH = 64  # candidates considered by top-k/top-p filtering
 _M32 = 0xFFFFFFFF
 
 
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """32-bit avalanche hash of int64 tensors holding uint32 values (the
-    products stay below 2^59, so int64 arithmetic is exact)."""
+def _mix32(x):
+    """32-bit avalanche hash of int64 tensors (or Python ints) holding
+    uint32 values (the products stay below 2^59, so int64 arithmetic is
+    exact)."""
     x = x & _M32
     x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
     x = (((x >> 16) ^ x) * 0x45D9F3B) & _M32
@@ -37,8 +38,9 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
 
 def fold_row_keys(seed: int, salts: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     """Per-row keys [B] (int64 holding uint32): a function of (seed, salt,
-    position) only."""
-    base = _mix32(torch.tensor(seed & _M32, dtype=torch.int64, device=salts.device))
+    position) only. The seed's hash is taken on the host, so the keys need
+    no host-to-device copy (a decode step is captured in a CUDA graph)."""
+    base = _mix32(int(seed) & _M32)
     k = _mix32(base ^ (salts.to(torch.int64) & _M32))
     return _mix32(k ^ (((positions.to(torch.int64) & _M32) * 0x7FEB352D) & _M32))
 

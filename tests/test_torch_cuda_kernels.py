@@ -695,3 +695,83 @@ def test_ffn_int8_wrapper_refuses_what_the_kernel_does_not_take(kernels):
         kernel.ffn_int8(x, wg.cpu(), wu, wd, sg, su, sd)
     with pytest.raises(ValueError, match="split_k"):
         kernel.ffn_int8(x, wg, wu, wd, sg, su, sd, split_k=(128, 64))
+
+
+# -- CUDA graph capture of the decode-path wrappers ----------------------------
+
+
+def _replays_match_eager(fn, name, replays=3):
+    """``fn`` (a wrapper call) eagerly, then warmed up on a side stream,
+    captured with ops/cuda/graphs.CapturedCall and replayed: every replay's
+    outputs bit-equal to the eager call's; the capture itself counts no
+    launch, and each replay adds its one launch under ``name``."""
+    from dynamo_tpu_torch.ops.cuda.graphs import CapturedCall, counters
+
+    def total():
+        return sum(c.get(name, 0) for c in counters())
+
+    eager = fn()
+    eager = eager if isinstance(eager, tuple) else (eager,)
+    torch.cuda.synchronize()
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    box = {}
+    before = total()
+    call = CapturedCall(lambda: box.update(out=fn()), pool=None, stream=stream)
+    assert total() == before, "the capture counted launches"
+    assert call.launches == 1 and sum(d.get(name, 0) for d in call.deltas) == 1
+    for i in range(1, replays + 1):
+        for t in (box["out"] if isinstance(box["out"], tuple) else (box["out"],)):
+            t.zero_()
+        call.replay()
+        torch.cuda.synchronize()
+        outs = box["out"] if isinstance(box["out"], tuple) else (box["out"],)
+        assert all(torch.equal(a, b) for a, b in zip(outs, eager)), f"replay {i} differs"
+        assert total() == before + i and call.replays == i
+
+
+@pytest.mark.parametrize("splits", [1, None], ids=["one-pass", "split"])
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_decode_attention_replays_bit_equal(kernels, int8, splits):
+    B, C, H, KH, D, BS, starts, window, cap = SPLIT_CASES["D128 C1 G4 window 300 softcap 30"]
+    c = _case(B, C, H, KH, D, BS, starts, [C] * B, seed=7)
+    k, v = (quantize_pool(c["k"]), quantize_pool(c["v"])) if int8 else (c["k"], c["v"])
+    if splits is None:
+        assert kernels.split_count(c["q"], k) > 1
+    _replays_match_eager(
+        lambda: kernels.paged_attention_decode(c["q"], k, v, c["tables"], c["start"],
+                                               window=window, logit_cap=cap, splits=splits),
+        "paged_attention_decode_int8" if int8 else "paged_attention_decode")
+
+
+def test_int8_matmul_replays_bit_equal(kernels):
+    from dynamo_tpu_torch.ops.cuda import int8_matmul as kernel
+
+    c = matmul_case(32, 4096, 1024, device="cuda")
+    _replays_match_eager(lambda: kernel.int8_matmul(c["x"], c["q8"], c["s"]), "int8_matmul")
+
+
+@pytest.mark.parametrize("tied,M,K,V", [(False, 16, 4096, 128256), (True, 32, 1152, 262144)])
+def test_lm_head_replays_bit_equal(kernels, tied, M, K, V):
+    from dynamo_tpu_torch.ops.cuda import lm_head as kernel
+
+    g = torch.Generator(device="cuda").manual_seed(M + K)
+    w = q8_weight(g, V, K, "cuda") if tied else q8_weight(g, K, V, "cuda")
+    if tied:
+        w["s"] = (torch.rand(V, 1, generator=g, device="cuda") + 0.5) * (K**-0.5 / 73.3)
+    x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+    _replays_match_eager(lambda: kernel.lm_head_int8(x, w["q8"], w["s"], tied=tied),
+                         "lm_head_int8")
+
+
+def test_fused_layer_replays_bit_equal(kernels):
+    """The cooperative launch under capture: the workspace's counters are
+    zeroed by the kernel on every launch, so each replay is bit-equal."""
+    from dynamo_tpu_torch.ops.cuda import fused_layer as kernel
+
+    c, call = make_layer_case("llama3-8b B16", "cuda")
+    _replays_match_eager(lambda: run_layer(kernel.fused_decoder_layer, c, call),
+                         "fused_decoder_layer")

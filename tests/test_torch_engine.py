@@ -47,7 +47,7 @@ def _engines(weights, **over):
     tc = tconfig.tiny_config()
     args = {**ARGS, **over}
     je = JaxEngine(JaxEngineArgs(config=jc, pipeline_depth=1, **args), params=params)
-    te = TorchEngine(TorchEngineArgs(config=tc, device="cpu", **args),
+    te = TorchEngine(TorchEngineArgs(config=tc, device="cpu", cuda_graphs=False, **args),
                      params=params_from_jax(tree, tc, "cpu"))
     return (je, JAX_API), (te, TORCH_API)
 
@@ -134,7 +134,7 @@ async def test_preemption_by_recompute_keeps_streams(weights):
 def _torch_engine(weights, **over):
     _, _, tree = weights
     tc = tconfig.tiny_config()
-    return TorchEngine(TorchEngineArgs(config=tc, device="cpu", **{**ARGS, **over}),
+    return TorchEngine(TorchEngineArgs(config=tc, device="cpu", cuda_graphs=False, **{**ARGS, **over}),
                        params=params_from_jax(tree, tc, "cpu"))
 
 
@@ -222,7 +222,9 @@ async def test_a_failing_device_step_fails_streams_instead_of_falling_back(weigh
     def broken(*a, **k):
         raise RuntimeError("paged_attention_decode launch failed: cudaError 1")
 
-    setattr(engine.runner, step, broken)
+    # decode bursts reach the card through decode_dispatch (run_decode is
+    # its synchronous form)
+    setattr(engine.runner, "decode_dispatch" if step == "run_decode" else step, broken)
     try:
         outs = [out async for out in engine.generate(_req(TORCH_API, PROMPTS[0]), tcontext.Context())]
         assert bool(outs[0].token_ids) == (step == "run_decode")

@@ -165,7 +165,7 @@ async def _serve(engine, proto, context):
 async def test_greedy_streams_match_jax_engine_past_the_window(models):
     jc, tc, params, tree = models
     je = JaxEngine(JaxEngineArgs(config=jc, pipeline_depth=1, **ARGS), params=params)
-    te = TorchEngine(TorchEngineArgs(config=tc, device="cpu", **ARGS),
+    te = TorchEngine(TorchEngineArgs(config=tc, device="cpu", cuda_graphs=False, **ARGS),
                      params=params_from_jax(tree, tc, "cpu"))
     assert not te.runner.use_megakernel
     want = await _serve(je, jproto, jcontext)

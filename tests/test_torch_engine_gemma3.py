@@ -261,7 +261,7 @@ async def test_int8_weights_int8_kv_streams_match_jax_engine_past_the_window():
     q = jax.block_until_ready(q)
     je = JaxEngine(JaxEngineArgs(config=jc, pipeline_depth=1, quantization="int8",
                                  kv_cache_dtype="int8", use_megakernel=False, **ARGS), params=q)
-    te = TorchEngine(TorchEngineArgs(config=tc, device="cpu", quantization="int8",
+    te = TorchEngine(TorchEngineArgs(config=tc, device="cpu", cuda_graphs=False, quantization="int8",
                                      kv_cache_dtype="int8", **ARGS),
                      params=params_from_jax(jax.tree.map(np.asarray, q), tc, "cpu"))
     assert not te.runner.use_megakernel

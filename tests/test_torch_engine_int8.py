@@ -58,7 +58,7 @@ async def test_int8_fused_layer_streams_match_jax_engine():
     q, _ = quantize_params(jllama.init_params(jc, jax.random.PRNGKey(3)))
     je = JaxEngine(JaxEngineArgs(config=jc, pipeline_depth=1, quantization="int8",
                                  use_megakernel=False, **ARGS), params=q)
-    te = TorchEngine(TorchEngineArgs(config=tc, device="cpu", quantization="int8",
+    te = TorchEngine(TorchEngineArgs(config=tc, device="cpu", cuda_graphs=False, quantization="int8",
                                      use_megakernel=True, **ARGS),
                      params=params_from_jax(jax.tree.map(np.asarray, q), tc, "cpu"))
     assert te.runner.use_megakernel and not je.runner.use_megakernel
@@ -73,19 +73,19 @@ async def test_int8_fused_layer_streams_match_jax_engine():
 def test_megakernel_gate_raises_instead_of_running_another_path():
     tiny = tconfig.tiny_config(dtype=torch.bfloat16)  # head_dim 32: not taken
     with pytest.raises(ValueError, match="head_dim 32"):
-        TorchEngine(TorchEngineArgs(config=tiny, device="cpu", quantization="int8",
+        TorchEngine(TorchEngineArgs(config=tiny, device="cpu", cuda_graphs=False, quantization="int8",
                                     use_megakernel=True, **ARGS))
     with pytest.raises(ValueError, match="bf16 pools"):
         TorchEngine(TorchEngineArgs(config=tconfig.ModelConfig(**CFG, dtype=torch.float32),
-                                    device="cpu", quantization="int8", use_megakernel=True,
+                                    device="cpu", cuda_graphs=False, quantization="int8", use_megakernel=True,
                                     **ARGS))
     mini = tconfig.ModelConfig(**CFG)
     with pytest.raises(ValueError, match="int8"):  # bf16 weights
-        TorchEngine(TorchEngineArgs(config=mini, device="cpu", use_megakernel=True, **ARGS))
+        TorchEngine(TorchEngineArgs(config=mini, device="cpu", cuda_graphs=False, use_megakernel=True, **ARGS))
     with pytest.raises(ValueError, match="quantization"):
-        TorchEngine(TorchEngineArgs(config=mini, device="cpu", quantization="fp8", **ARGS))
+        TorchEngine(TorchEngineArgs(config=mini, device="cpu", cuda_graphs=False, quantization="fp8", **ARGS))
     # None: on when eligible and on the card, so off on the CPU; the int8
     # weights are made directly in int8.
-    e = TorchEngine(TorchEngineArgs(config=mini, device="cpu", quantization="int8", **ARGS))
+    e = TorchEngine(TorchEngineArgs(config=mini, device="cpu", cuda_graphs=False, quantization="int8", **ARGS))
     assert not e.runner.use_megakernel and e.stats()["mk_fused_bursts"] == 0
     assert e.runner.params["layers"][0]["wq"]["q8"].dtype == torch.int8

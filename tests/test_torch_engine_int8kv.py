@@ -143,7 +143,7 @@ async def test_int8_weights_int8_kv_streams_match_jax_engine():
     q, _ = quantize_params(jllama.init_params(jc, jax.random.PRNGKey(6)))
     je = JaxEngine(JaxEngineArgs(config=jc, pipeline_depth=1, quantization="int8",
                                  kv_cache_dtype="int8", use_megakernel=False, **ARGS), params=q)
-    te = TorchEngine(TorchEngineArgs(config=tc, device="cpu", quantization="int8",
+    te = TorchEngine(TorchEngineArgs(config=tc, device="cpu", cuda_graphs=False, quantization="int8",
                                      kv_cache_dtype="int8", **ARGS),
                      params=params_from_jax(jax.tree.map(np.asarray, q), tc, "cpu"))
     assert not te.runner.use_megakernel
@@ -158,10 +158,10 @@ async def test_int8_weights_int8_kv_streams_match_jax_engine():
 def test_megakernel_gate_refuses_int8_kv():
     tc = tconfig.ModelConfig(**CFG)
     with pytest.raises(ValueError, match="int8 KV pools; the fused layer reads bf16 pools"):
-        TorchEngine(TorchEngineArgs(config=tc, device="cpu", quantization="int8",
+        TorchEngine(TorchEngineArgs(config=tc, device="cpu", cuda_graphs=False, quantization="int8",
                                     kv_cache_dtype="int8", use_megakernel=True, **ARGS))
     # None: the gate says no under int8 KV (and on the CPU)
-    e = TorchEngine(TorchEngineArgs(config=tc, device="cpu", quantization="int8",
+    e = TorchEngine(TorchEngineArgs(config=tc, device="cpu", cuda_graphs=False, quantization="int8",
                                     kv_cache_dtype="int8", **ARGS))
     assert not e.runner.use_megakernel
     assert e.runner.k_cache[0]["q8"].dtype == torch.int8

@@ -32,7 +32,7 @@ async def _collect(engine, sampling):
 
 
 def _engine():
-    return TorchEngine(TorchEngineArgs(config=tconfig.tiny_config(), device="cpu", **ARGS))
+    return TorchEngine(TorchEngineArgs(config=tconfig.tiny_config(), device="cpu", cuda_graphs=False, **ARGS))
 
 
 @pytest.mark.parametrize("field,value", [

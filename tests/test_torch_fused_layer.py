@@ -30,6 +30,7 @@ from dynamo_tpu.ops.rope import rope_table as jrope_table
 from dynamo_tpu_torch.models import config as tconfig
 from dynamo_tpu_torch.models import llama as tllama
 from dynamo_tpu_torch.models.weights import params_from_jax
+from dynamo_tpu_torch.ops import attention as tattn
 from dynamo_tpu_torch.ops import fused_layer as tfused
 from dynamo_tpu_torch.tools.cases import bf16_steps
 
@@ -229,8 +230,8 @@ def test_decode_multi_through_the_fused_layer_matches_jax_int8():
     _, jk, jv = jllama.forward_paged(q, jc, jnp.asarray(prompt), jnp.zeros(B, jnp.int32),
                                      jnp.asarray(lens), jnp.asarray(tables), jk, jv,
                                      first_chunk=True)
-    tk = [torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16) for a in jk]
-    tv = [torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16) for a in jv]
+    tk, tv = ([tattn.copy_to_sink_pool(torch.from_numpy(np.asarray(a, np.float32))
+                                       .to(torch.bfloat16)) for a in pools] for pools in (jk, jv))
     pos, active = np.array([20, 0, 20], np.int32), np.array([1, 1, 0], np.int32)
     tok0, zeros = np.array([5, 9, 0], np.int32), np.zeros(B, np.float32)
     out = jax.block_until_ready(jllama.decode_multi(

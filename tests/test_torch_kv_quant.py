@@ -98,7 +98,7 @@ def _jpool(p):
 
 
 def _tpool(p):
-    return {k: T(v.copy()) for k, v in p.items()}
+    return tattn.copy_to_sink_pool({k: T(v) for k, v in p.items()})
 
 
 def test_write_chunk_to_cache_int8_drops_padding_and_overshoot():
@@ -124,7 +124,7 @@ def test_write_chunk_to_cache_int8_drops_padding_and_overshoot():
     want_slots = {(3, 0), (3, 1), (3, 2), (3, 3), (10, 1), (10, 2), (10, 3), (0, 2)}
     assert changed == want_slots and changed_s == want_slots
     # a shared write index gives the same pool
-    index = tattn.cache_write_index(T(tables), T(start), T(lens), C, BS)
+    index = tattn.cache_write_index(T(tables), T(start), T(lens), C, BS, NB)
     again = tattn.write_chunk_to_cache(_tpool(pool), T(chunk), T(tables), T(start), T(lens), index)
     assert torch.equal(again["q8"], got["q8"]) and torch.equal(again["s"], got["s"])
 
@@ -223,7 +223,7 @@ def test_int8_attention_after_writes_tracks_bf16_pools():
     k8, v8 = _tpool(_int8_pool(NB, BS, KH, D)), _tpool(_int8_pool(NB, BS, KH, D))
     for pool, scale in ((k8, 1.0), (v8, 0.5)):
         tattn.write_chunk_to_cache(pool, T(hist * scale), T(tables), T(zero), T(full))
-    kf, vf = T(kf), T(vf)
+    kf, vf = tattn.copy_to_sink_pool(T(kf)), tattn.copy_to_sink_pool(T(vf))
     tattn.write_chunk_to_cache(kf, T(hist), T(tables), T(zero), T(full))
     tattn.write_chunk_to_cache(vf, T(hist * 0.5), T(tables), T(zero), T(full))
     q = T(rng.standard_normal((B, C, H, D)).astype(np.float32))
@@ -359,7 +359,7 @@ def test_kv_cache_dtype_auto_policy_matches_jax():
                               kv_cache_dtype="auto", **kw)
         JaxRunner(jargs)
         targs = TorchEngineArgs(config=tconfig.tiny_config(), block_size=4, max_num_seqs=2,
-                                kv_cache_dtype="auto", device="cpu", **kw)
+                                kv_cache_dtype="auto", device="cpu", cuda_graphs=False, **kw)
         engine = TorchEngine(targs)
         assert targs.kv_cache_dtype == jargs.kv_cache_dtype
         return targs.kv_cache_dtype, engine.runner
@@ -380,9 +380,9 @@ def test_kv_quant_auto_ctx_knob_is_read_from_the_environment(monkeypatch):
     monkeypatch.setenv("DYN_TPU_KV_QUANT_AUTO_CTX", "2048")
     args = TorchEngineArgs(config=tconfig.tiny_config(), block_size=4, max_num_seqs=2,
                            max_model_len=1024, num_kv_blocks=1024, kv_cache_dtype="auto",
-                           device="cpu")
+                           device="cpu", cuda_graphs=False)
     TorchEngine(args)
     assert args.kv_cache_dtype is None  # 1024 < 2048 and no pressure
     with pytest.raises(ValueError, match="kv_cache_dtype"):
         TorchEngine(TorchEngineArgs(config=tconfig.tiny_config(), kv_cache_dtype="fp8",
-                                    device="cpu"))
+                                    device="cpu", cuda_graphs=False))

@@ -117,7 +117,8 @@ def test_write_chunk_to_cache_drops_padding_and_overshoot():
     want = jax.block_until_ready(jattn.write_chunk_to_cache(
         jnp.asarray(cache), jnp.asarray(chunk), jnp.asarray(tables), jnp.asarray(start),
         jnp.asarray(lens)))
-    got = tattn.write_chunk_to_cache(T(cache.copy()), T(chunk), T(tables), T(start), T(lens))
+    got = tattn.write_chunk_to_cache(tattn.copy_to_sink_pool(T(cache)), T(chunk), T(tables),
+                                     T(start), T(lens))
     np.testing.assert_array_equal(got.numpy(), _np(want))
     # Row 0 writes positions 0..3 (block 3); row 1 positions 5..7 (block 10
     # slots 1..3) — 8..10 lie past its capacity and are dropped, not clamped

@@ -35,6 +35,7 @@ from dynamo_tpu_torch.models import config as tconfig
 from dynamo_tpu_torch.models import llama as tllama
 from dynamo_tpu_torch.models.quantize import init_quantized_params
 from dynamo_tpu_torch.models.weights import params_from_jax
+from dynamo_tpu_torch.ops import attention as tattn
 from dynamo_tpu_torch.ops.attention import decode_attention_bf16_ref
 from dynamo_tpu_torch.tools import prof_8b
 from tests.test_torch_proto_attention import load_script
@@ -85,7 +86,7 @@ def test_decode_multi_through_the_prototype_matches_the_port(proto, monkeypatch,
     _, jk, jv = jax.block_until_ready(jllama.forward_paged(
         q, jc, jnp.asarray(prompt), jnp.zeros(B, jnp.int32), jnp.asarray(lens),
         jnp.asarray(tables), jk, jv, first_chunk=True))
-    tk, tv = [_t(a) for a in jk], [_t(a) for a in jv]
+    tk, tv = ([tattn.copy_to_sink_pool(_t(a)) for a in pools] for pools in (jk, jv))
     pos, active = np.array([prompt_len, 0, prompt_len], np.int32), np.array([1, 1, 0], np.int32)
     tok0, zeros = np.array([5, 9, 0], np.int32), np.zeros(B, np.float32)
 
