@@ -142,17 +142,52 @@ Phases, each printing one JSON line; any failure exits non-zero:
    cluster_probe line says whether the card takes a cooperative launch with
    a thread block cluster dimension.
 
+23. procs — logits processors and logprobs (ROADMAP A3) on phase 5's Qwen
+   weights, through generate() on a fresh engine (procs_phase): twelve
+   prompts served every row plain, then as a mixed batch (plain rows,
+   repetition, presence and frequency penalties, a logit_bias ban of a
+   row's own greedy tokens, a +100 forced token, min_p at temperature 0.8,
+   logprobs 0, 5 and 20), then the mixed batch at depth 1 eagerly: the same
+   tokens and logprobs at both, plain rows as in the all-plain run, no
+   banned token, only the forced one, the logprob entries a token, the
+   min_p filter, and the processed rows against a teacher-forced dense
+   reference with the processors applied (QWEN_GAP_LIMIT and
+   QWEN_PROCS_*). A procs_variants line: one burst in each graph variant
+   (plain, logprobs, processors with logprobs), device ops and busy time a
+   step, and the processors' cost a step.
+24. gemma3 fused layer — the fused layer at a full Gemma-3-1B layer (32 rows
+   at the engine's contexts and one at 4,600; a local layer with its
+   512-key window and a global one) against its plain version (within
+   tools/cases.MODEL_STEP_LIMIT bf16 steps, few values past one step),
+   timed beside its bound, and its µs a phase at the local layer (a
+   fused_layer_phases line).
+25. engine_gemma3_int8 — TorchEngine serving Gemma-3-1B with int8 weights
+   over bf16 pools (ROADMAP A1), the fused layer turned on by its gate: 26
+   launches a decode step at D 256, G 4, KH 1, the bf16 chunk kernel past
+   the first chunk and the tied int8 head at V 262,144, the int8-KV phase's
+   request set with the 4,600-token prompt, the embedding scaled by
+   GEMMA3_EMBED_SCALE, held to GEMMA3BF_*; no kernel of another path.
+26. profile_gemma3_int8 — one decode burst of that engine; its launches are
+   exactly 26 x 8 fused layers and 8 heads.
+27. procs_gemma3_int8 — phase 23 on those weights (the fused burst, V
+   262,144), held to GEMMA3BF_*, and its variants line.
+28. engine_gemma3_int8_unfused, profile_gemma3_int8_unfused — the same
+   request set and burst with use_megakernel=False (bf16-pool decode
+   attention and seven int8 products a layer): the fused layer's yardstick.
+
 (18-20 run right after the Llama-3-8B kernels of phases 3-4, 22 right after
-the fused layer's timing, 21 right after phase 11.)
+the fused layer's timing, 21 right after phase 11, 23 right after phase 6,
+24-28 after phase 17.)
 Then one JSON line {"kernels": [...]} for all ten kernels, nvidia-smi's
 name and power limit, and last {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result.
 
-    python3 chip_smoke.py --probe qwen:0.01,0.1:none,pos gemma3:0.01
+    python3 chip_smoke.py --probe qwen:0.01,0.1:none,pos gemma3bf+procs:0.01:none,counts
 
-runs only the named engine phases, at each embedding scale and with each
-fault planted (``probe``), without limits: the calibration of the dense
-checks. It prints no result line.
+runs only the named engine phases (qwen, gemma2, gemma3, gemma3bf,
+gemma3bf_unfused; with +procs the processors phase after them), at each
+embedding scale and with each fault of FAULTS planted (``probe``), without
+limits: the calibration of the dense checks. It prints no result line.
 """
 
 from __future__ import annotations
@@ -161,6 +196,7 @@ import asyncio
 import contextlib
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -225,6 +261,38 @@ GEMMA2_GAP_LIMIT = 0.03
 GEMMA3_EMBED_SCALE = 0.01
 GEMMA3_MEDIAN_RANK_LIMIT = 1600
 GEMMA3_MEAN_GAP_SHARE = 0.46
+# Gemma-3-1B with int8 weights over bf16 pools (the fused layer at D 256):
+# as chaotic as over int8 KV. `--probe gemma3bf:0.01:none,fused_window,
+# fused_rope gemma3bf_unfused:0.01:none` read, on the 226- / 4,600-token
+# streams (exact argmax, max and mean gap as a share of a random token's,
+# median rank): sound 94 / 13 of 256, max 0.79 / 1.37, 0.065 / 0.27, 2 /
+# 111; the same weights with the fused layer off 184 / 23, 0.22 / 1.22,
+# 0.011 / 0.24, 0 / 59; the window dropped in the fused layer (inside the
+# window on the short stream: unmoved there) 0.92, 92,840 on the long one;
+# the global rope table on the local layers 0.84 / 0.93, 59,425 / 93,040.
+# The sound runs' single tokens trail the argmax by up to 1.37, so no
+# per-token limit; the int8-KV phase's limits lie between the sound
+# readings and the faults' and hold here too: median rank at most 1,600,
+# mean gap at most 0.46 of a random token's.
+GEMMA3BF_GAP_LIMIT = None
+GEMMA3BF_MEDIAN_RANK_LIMIT = GEMMA3_MEDIAN_RANK_LIMIT
+GEMMA3BF_MEAN_GAP_SHARE = GEMMA3_MEAN_GAP_SHARE
+# The processors phase (procs_phase): its processed rows (9 x 64 tokens)
+# against the teacher-forced dense reference with the processors applied.
+# `--probe qwen+procs:0.01:none,counts gemma3bf+procs:0.01:none,counts`
+# read (sound / counts never recorded): Qwen max gap 0.0156 / 1.5, largest
+# logprob difference 0.0156 / 10.2, smallest top-N overlap 0.6 / 0.2;
+# Gemma-3 over bf16 pools max gap 0.375 / 20.9, mean gap 0.017 / 0.59 of
+# a random token's, median rank 0 / 0, logprob difference 0.41 / 10.98,
+# top-N overlap 0 / 0 (its top-5 past the first few lie within its logit
+# noise: not held). Qwen is held to QWEN_GAP_LIMIT, a logprob difference of
+# 0.1 and an overlap of 0.4; Gemma-3 to a gap of 2.0, a mean gap of 0.3 of
+# a random token's and a logprob difference of 2.0, each between the two.
+QWEN_PROCS_LOGPROB_LIMIT = 0.1
+QWEN_PROCS_TOP_OVERLAP = 0.4
+GEMMA3BF_PROCS_GAP_LIMIT = 2.0
+GEMMA3BF_PROCS_MEAN_GAP_SHARE = 0.3
+GEMMA3BF_PROCS_LOGPROB_LIMIT = 2.0
 
 
 def emit(obj) -> None:
@@ -595,24 +663,25 @@ def int8_kernel_phases(torch):
     return worst, timed
 
 
-def fused_layer_phases_line(torch, smi) -> None:
-    """The fused layer's µs a phase at the Llama-3-8B B 16 case
-    (tools/fused_layer_phases.py: a stamped copy of the kernel; the median
-    of three runs a phase), the grid barriers a layer passes, and whether
-    the card takes a cooperative launch with a thread block cluster
-    dimension (ops/cuda/fused_layer.cluster_probe). Timed launches of the
-    stamped copy do not count."""
+def fused_layer_phases_line(torch, smi, case="llama3-8b B16", cluster_probe=True) -> None:
+    """The fused layer's µs a phase at a layer case (the Llama-3-8B B 16 one
+    by default; tools/fused_layer_phases.py: a stamped copy of the kernel;
+    the median of three runs a phase), the grid barriers a layer passes,
+    and whether the card takes a cooperative launch with a thread block
+    cluster dimension (ops/cuda/fused_layer.cluster_probe). Timed launches
+    of the stamped copy do not count."""
     import statistics
 
     from dynamo_tpu_torch.ops.cuda import fused_layer as fk
     from dynamo_tpu_torch.tools import fused_layer_phases
 
-    runs = fused_layer_phases.run("llama3-8b B16", 3)
+    runs = fused_layer_phases.run(case, 3)
     us = {name: statistics.median(r["us"][name] for r in runs) for name in runs[0]["us"]}
-    emit({"phase": "fused_layer_phases", "case": "llama3-8b B16", "us": us,
+    emit({"phase": "fused_layer_phases", "case": case, "us": us,
           "total_us": statistics.median(r["total_us"] for r in runs),
           "barriers": runs[0]["barriers"], "card": smi})
-    emit({"phase": "cluster_probe", **fk.cluster_probe(DEV), "card": smi})
+    if cluster_probe:
+        emit({"phase": "cluster_probe", **fk.cluster_probe(DEV), "card": smi})
     reset_counts()
 
 
@@ -886,6 +955,59 @@ def gemma3_int8_kernel_phases(torch):
     del cases, head
     gc.collect()
     torch.cuda.empty_cache()
+    return worst
+
+
+def gemma3_fused_layer_phase(torch, smi) -> float:
+    """The fused layer at a full Gemma-3-1B layer (tools/cases.py
+    MODEL_LAYER_CASES: 32 rows at the engine phase's contexts, one at
+    4,600; a local layer with its 512-key window and a global one) against
+    its plain version (within MODEL_STEP_LIMIT bf16 steps, and at most
+    MODEL_PAST_ONE_SHARE of x_out past one step), two runs bit-equal,
+    finite; then its time beside the plain version's and its bound, and
+    its µs a phase at the local layer. Returns the largest error."""
+    from dynamo_tpu_torch.ops.cuda import fused_layer as fk
+    from dynamo_tpu_torch.ops.fused_layer import fused_decoder_layer_ref
+    from dynamo_tpu_torch.tools.cases import (
+        MODEL_LAYER_CASES, MODEL_PAST_ONE_SHARE, MODEL_STEP_LIMIT, bf16_steps, make_layer_case,
+        run_layer,
+    )
+
+    worst = 0.0
+    for label in MODEL_LAYER_CASES:
+        c, call = make_layer_case(label, DEV)
+        got = run_layer(fk.fused_decoder_layer, c, call)
+        again = run_layer(fk.fused_decoder_layer, c, call)
+        ref = run_layer(fused_decoder_layer_ref, c, call)
+        torch.cuda.synchronize()
+        names = ("x_out", "k_new", "v_new")
+        st = {n: bf16_steps(a, r) for n, a, r in zip(names, got, ref)}
+        unit = 2.0**-7 * (ref[0].float().abs() + ref[0].float().pow(2).mean().sqrt())
+        past_one = int(((got[0].float() - ref[0].float()).abs() > unit).sum())
+        err = max(float((a.float() - r.float()).abs().max()) for a, r in zip(got, ref))
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        finite = all(bool(torch.isfinite(a.float()).all()) for a in got)
+        ok = (same and finite and max(st.values()) <= MODEL_STEP_LIMIT
+              and past_one <= MODEL_PAST_ONE_SHARE * got[0].numel())
+        emit({"phase": "parity", "kernel": "fused_decoder_layer", "case": label,
+              "max_abs_err": err, "bf16_steps": st, "x_out_past_one_step": past_one,
+              "outputs": got[0].numel(), "repeatable": same,
+              "tol": f"{MODEL_STEP_LIMIT} bf16 steps, {MODEL_PAST_ONE_SHARE} of x_out past one",
+              "ok": ok})
+        if not ok:
+            fail(f"fused_decoder_layer ({label}) disagrees with its plain version: {st}, "
+                 f"{past_one} values past one step, repeatable={same}, finite={finite}")
+        worst = max(worst, err)
+        reset_counts()  # parity launches do not count
+        ms = time_ms(torch, lambda: run_layer(fk.fused_decoder_layer, c, call), 50)
+        plain_ms = time_ms(torch, lambda: run_layer(fused_decoder_layer_ref, c, call), 5)
+        bound_ms, bound_by = layer_bound(c, call)
+        emit({"phase": "timing", "kernel": "fused_decoder_layer", "case": label, "ms": ms,
+              "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+              "library_ms": None, "library": "none: no one PyTorch call computes a layer",
+              "card": smi})
+        del c, got, again, ref
+    fused_layer_phases_line(torch, smi, "gemma3-1b B32 local", cluster_probe=False)
     return worst
 
 
@@ -1233,7 +1355,6 @@ def engine_phase(torch, smi, cfg, expect, gap_limit, phase, *, slots=16, n_short
     from dynamo_tpu_torch.engines.gpu.engine import (
         TorchEngine, TorchEngineArgs, table_width_bucket,
     )
-    from dynamo_tpu_torch.models import llama
 
     args = TorchEngineArgs(
         config=cfg, block_size=16, num_kv_blocks=2048, max_num_seqs=slots,
@@ -1315,22 +1436,8 @@ def engine_phase(torch, smi, cfg, expect, gap_limit, phase, *, slots=16, n_short
             fail(f"fused_decoder_layer launched {counts['fused_decoder_layer']} times, "
                  f"expected {want} (one a layer a decode step)")
 
-    # Teacher-forced dense check: every emitted token of a stream must be
-    # the (near-)argmax of a dense forward of the same model over
-    # prompt + emitted tokens (no paged attention and no fused layer on that
-    # path).
     def dense_logits(prompt, tokens):
-        seq = prompt + tokens
-        with torch.inference_mode(), int8_round_trip(llama, args.kv_cache_dtype == "int8"):
-            kc, vc = llama.init_kv_cache(cfg, (len(seq) + 15) // 16, 16, DEV)
-            logits, _, _ = llama.forward_paged(
-                engine.runner.params, cfg, torch.tensor([seq], device=DEV),
-                torch.zeros(1, dtype=torch.int32, device=DEV),
-                torch.tensor([len(seq)], dtype=torch.int32, device=DEV),
-                torch.arange(len(kc[0]), dtype=torch.int32, device=DEV)[None],
-                kc, vc, all_logits=True, first_chunk=True,
-            )
-        return logits[0, len(prompt) - 1 : len(seq) - 1].float()
+        return dense_reference_logits(torch, engine, prompt, tokens)
 
     # The repeated request against its run inside the batch: prefill there
     # ran at other shapes, so a near-tie may go the other way; where the
@@ -1399,6 +1506,27 @@ def engine_phase(torch, smi, cfg, expect, gap_limit, phase, *, slots=16, n_short
     return counts, engine, decode_steps
 
 
+def dense_reference_logits(torch, engine, prompt, tokens):
+    """Teacher-forced dense check's reference: the logits [len(tokens), V]
+    (float32) of a dense forward of the engine's model over prompt +
+    emitted tokens, each row predicting the token at its place (no paged
+    attention and no fused layer on that path; over int8 KV pools K and V
+    pass through the int8 round trip)."""
+    from dynamo_tpu_torch.models import llama
+
+    cfg, seq = engine.config, prompt + tokens
+    with torch.inference_mode(), int8_round_trip(llama, engine.args.kv_cache_dtype == "int8"):
+        kc, vc = llama.init_kv_cache(cfg, (len(seq) + 15) // 16, 16, DEV)
+        logits, _, _ = llama.forward_paged(
+            engine.runner.params, cfg, torch.tensor([seq], device=DEV),
+            torch.zeros(1, dtype=torch.int32, device=DEV),
+            torch.tensor([len(seq)], dtype=torch.int32, device=DEV),
+            torch.arange(len(kc[0]), dtype=torch.int32, device=DEV)[None],
+            kc, vc, all_logits=True, first_chunk=True,
+        )
+    return logits[0, len(prompt) - 1 : len(seq) - 1].float()
+
+
 def check_int8kv_path(engine, counts, decode_steps) -> None:
     """The launches of an int8-weight, int8-KV path (the fused layer off by
     its gate): int8-pool decode attention at least once a layer a decode
@@ -1417,6 +1545,15 @@ def check_int8kv_path(engine, counts, decode_steps) -> None:
     if counts["int8_matmul"] < 7 * n_layers * decode_steps:
         fail(f"int8_matmul launched {counts['int8_matmul']} times, fewer than 7 x "
              f"{n_layers} layers x {decode_steps} decode steps")
+
+
+def fused_burst_launches(engine) -> dict:
+    """The exact launches of one decode burst through the fused layer: one a
+    layer a step, one head a step, no other kernel."""
+    layers, steps = engine.config.n_layers, engine.args.decode_steps
+    return {"fused_decoder_layer": layers * steps, "lm_head_int8": steps, "int8_matmul": 0,
+            "paged_attention_decode": 0, "paged_attention_chunk": 0,
+            "paged_attention_decode_int8": 0, "paged_attention_chunk_int8": 0}
 
 
 def int8kv_burst_launches(engine) -> dict:
@@ -1525,12 +1662,12 @@ def burst_both_ways(torch, runner, burst):
         for t, b in zip(pools, before):
             t.copy_(b)
         nb = runner.sync_all(*burst)
-        toks, finite = runner.decode_read(runner.decode_dispatch(nb))
+        toks, finite = runner.decode_read(runner.decode_dispatch(nb))[:2]
         if graphs:  # the first use of this width ran eagerly and captured: replay it
             for t, b in zip(pools, before):
                 t.copy_(b)
             runner.sync_all(*burst)
-            toks, finite = runner.decode_read(runner.decode_dispatch(nb))
+            toks, finite = runner.decode_read(runner.decode_dispatch(nb))[:2]
         torch.cuda.synchronize()
         outs.append((toks, finite, [t.clone() for t in pools]))
     runner.args.cuda_graphs = defaults
@@ -1620,7 +1757,7 @@ def profile_phase(torch, runner, smi, phase="profile", ctx_step=80, exact=None):
     # Where the profiler does not see the kernels inside a replay, the
     # replay's device time comes from CUDA events around it instead.
     nb = runner.sync_all(*burst)
-    replay = runner.graphs[nb]
+    replay = runner.graphs[(nb, False, False)]
     replay_event_ms = event_ms(torch, replay.graph.replay)
     torch.cuda.synchronize()
     busy = graph["device_busy_ms"] if seen else replay_event_ms
@@ -1644,6 +1781,299 @@ def profile_phase(torch, runner, smi, phase="profile", ctx_step=80, exact=None):
           "card": smi})
 
 
+# -- logits processors and logprobs (ROADMAP A3) -----------------------------
+
+PROCS_MAX_TOKENS = 64
+PROCS_FORCED = 1000  # the token the forcing row's logit_bias sets to +100
+PROCS_MIN_P = dict(temperature=0.8, min_p=0.1)
+
+
+def procs_rows(plain):
+    """The processors phase's mixed batch, (name, sampling) a row, given
+    each row's stream when every row is plain: three plain rows; the
+    repetition, presence and frequency penalties (the last < 0, so that it
+    moves a stream that seldom repeats a token); a row whose logit_bias bans
+    the first 8 tokens its plain stream takes; a row forcing one token with
+    +100; min_p at temperature 0.8; and logprobs 0, 5 and 20 (the penalty
+    and bias rows ask for 5)."""
+    greedy = dict(temperature=0.0)
+    return [
+        ("plain", greedy), ("plain", greedy), ("plain", greedy),
+        ("repetition", dict(greedy, repetition_penalty=1.3, logprobs=5)),
+        ("presence", dict(greedy, presence_penalty=1.5, logprobs=5)),
+        ("frequency", dict(greedy, frequency_penalty=-1.0, logprobs=5)),
+        ("ban", dict(greedy, logit_bias={t: -100 for t in plain[6][:8]}, logprobs=5)),
+        ("force", dict(greedy, logit_bias={PROCS_FORCED: 100}, logprobs=0)),
+        ("min_p", dict(PROCS_MIN_P, logprobs=20)),
+        ("logprobs0", dict(greedy, logprobs=0)),
+        ("logprobs5", dict(greedy, logprobs=5)),
+        ("logprobs20", dict(greedy, logprobs=20)),
+    ]
+
+
+async def serve_rows(engine, prompts, samplings, max_tokens):
+    """Each prompt with its sampling options through generate(), all at
+    once: a dict a row with its tokens, logprob entries ((id, logprob), the
+    sampled token's first) and finish reason."""
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.context import Context
+
+    async def one(prompt, sampling):
+        req = PreprocessedRequest(token_ids=prompt, sampling=SamplingOptions(**sampling),
+                                  stop=StopConditions(max_tokens=max_tokens))
+        toks, logprobs, reason = [], [], None
+        async for out in engine.generate(req, Context()):
+            if out.error:
+                raise RuntimeError(out.error)
+            toks += out.token_ids
+            logprobs += [[(e.token_id, e.logprob) for e in entry] for entry in out.logprobs or []]
+            reason = out.finish_reason
+        return dict(tokens=toks, logprobs=logprobs, reason=reason)
+
+    return await asyncio.gather(*(one(p, s) for p, s in zip(prompts, samplings)))
+
+
+def processed_reference(torch, engine, prompt, tokens, sampling):
+    """The dense reference's logits for a row (dense_reference_logits) with
+    the row's processors applied as the engine applies them, teacher-forced:
+    the penalties at each token see the prompt and the tokens emitted
+    before it (ops/logits_process, the plain torch the CPU tests hold
+    against JAX). Returns the logits [T, V] (float32) before and after."""
+    from dynamo_tpu_torch.ops import logits_process as lp
+
+    ref = dense_reference_logits(torch, engine, prompt, tokens)
+    T, V = ref.shape
+    ids, vals = lp.pack_bias(sampling.get("logit_bias"), V)
+    t = torch.tensor(tokens, device=DEV)
+    onehot = torch.zeros(T, V, dtype=torch.int32, device=DEV)
+    onehot[torch.arange(T, device=DEV), t] = 1
+    counts = torch.cumsum(onehot, 0) - onehot  # tokens before each place
+    mask = torch.zeros(T, V, dtype=torch.bool, device=DEV)
+    mask[:, torch.tensor(prompt, device=DEV)] = True
+    full = lambda v: torch.full((T,), float(v), device=DEV)  # noqa: E731
+    params = lp.ProcParams(
+        rep=full(sampling.get("repetition_penalty") or 1.0),
+        pres=full(sampling.get("presence_penalty") or 0.0),
+        freq=full(sampling.get("frequency_penalty") or 0.0),
+        bias_ids=torch.from_numpy(ids).to(DEV).long()[None].expand(T, -1),
+        bias_vals=torch.from_numpy(vals).to(DEV)[None].expand(T, -1))
+    return ref, lp.apply(ref, params, lp.ProcState(counts, mask))
+
+
+def procs_phase(torch, smi, args, params, phase, *, gap_limit=None, median_rank_limit=None,
+                mean_gap_share=None, logprob_limit=None, top_overlap_limit=None):
+    """Logits processors, min_p and logprobs served through generate() on a
+    fresh engine with the given args and weights, at the defaults (depth 2,
+    graphs). The same 12 prompts served four times: every row plain (to
+    fill the prefix cache), every row plain again; the mixed batch of
+    procs_rows; the mixed batch again at depth 1 with eager bursts.
+    Holds: the mixed batch at depth 2 with graphs gives the same
+    tokens as at depth 1 eagerly, and the same logprobs (the same kernels
+    on the same inputs: within 1e-6); each plain row streams what it
+    streams in the all-plain run (the processor variant leaves neutral rows
+    as they were); no banned token appears and the forced row emits only
+    its token (logprob ~0); each logprobs row carries 1 + min(n, 20)
+    entries a token, the first token's included; every min_p token lies in
+    the set the filter keeps (by its own logprobs); and each greedy row that
+    sets a processor or asks for logprobs against the processed dense
+    reference (processed_reference): each token's gap below the reference's
+    best and its rank among the reference's logits (``gap_limit``,
+    ``median_rank_limit``, ``mean_gap_share`` as engine_phase holds them,
+    over all those rows' tokens), its logprob against the reference's
+    (``logprob_limit``, the largest difference) and the share of the top-N
+    ids the two share (``top_overlap_limit``, the smallest over tokens). A
+    limit of None is read and printed, not held. Returns the engine."""
+    from dynamo_tpu_torch.engines.gpu.engine import TorchEngine
+
+    engine = TorchEngine(args, params)
+    cfg = engine.config
+    g = torch.Generator().manual_seed(23)
+    prompts = [torch.randint(10, cfg.vocab_size, (n,), generator=g).tolist()
+               for n in (110, 150, 190, 230, 270, 130, 170, 210, 250, 120, 160, 200)]
+    greedy = [dict(temperature=0.0)] * len(prompts)
+
+    async def run():
+        try:
+            # every run after the first hits the same cached prompt blocks,
+            # so its prefill runs at the same shapes (the first's, over the
+            # whole prompts, rounds otherwise: this model is chaotic)
+            await serve_rows(engine, prompts, greedy, PROCS_MAX_TOKENS)
+            plain = await serve_rows(engine, prompts, greedy, PROCS_MAX_TOKENS)
+            rows = procs_rows([r["tokens"] for r in plain])
+            samplings = [sp for _, sp in rows]
+            reset_counts()
+            salt = engine._next_salt
+            t0 = time.monotonic()
+            mixed = await serve_rows(engine, prompts, samplings, PROCS_MAX_TOKENS)
+            wall = time.monotonic() - t0
+            counts = read_counts()
+            defaults = args.pipeline_depth, args.cuda_graphs
+            args.pipeline_depth, args.cuda_graphs = 1, False
+            # the same salts (arrival order) as the run above: the min_p row
+            # draws the same noise
+            engine._next_salt = salt
+            eager = await serve_rows(engine, prompts, samplings, PROCS_MAX_TOKENS)
+            args.pipeline_depth, args.cuda_graphs = defaults
+            return plain, rows, mixed, eager, counts, wall
+        finally:
+            await engine.stop()
+
+    plain, rows, mixed, eager, counts, wall = asyncio.run(run())
+    names = [name for name, _ in rows]
+    for (name, _), m, e in zip(rows, mixed, eager):
+        if len(m["tokens"]) != PROCS_MAX_TOKENS or m["reason"].value != "length":
+            fail(f"{phase}: the {name} row ended with {len(m['tokens'])} tokens ({m['reason']})")
+        if m["tokens"] != e["tokens"]:
+            fail(f"{phase}: the {name} row's tokens at depth 2 with CUDA graphs differ from "
+                 "depth 1 eager")
+    eager_diff = max((abs(a[0][1] - b[0][1]) for m, e in zip(mixed, eager)
+                      for a, b in zip(m["logprobs"], e["logprobs"])), default=0.0)
+    if eager_diff > 1e-6:
+        fail(f"{phase}: logprobs at depth 2 with CUDA graphs differ from depth 1 eager by "
+             f"{eager_diff}")
+    for i, name in enumerate(names):
+        if name == "plain" and mixed[i]["tokens"] != plain[i]["tokens"]:
+            fail(f"{phase}: plain row {i} streams other tokens beside processor rows")
+    ban = mixed[names.index("ban")]
+    banned = set(rows[names.index("ban")][1]["logit_bias"])
+    if banned & set(ban["tokens"]) or ban["tokens"] == plain[names.index("ban")]["tokens"]:
+        fail(f"{phase}: the ban row emitted a banned token or its plain stream")
+    force = mixed[names.index("force")]
+    if set(force["tokens"]) != {PROCS_FORCED} or min(e[0][1] for e in force["logprobs"]) < -1e-3:
+        fail(f"{phase}: the forcing row emitted {sorted(set(force['tokens']))[:5]}")
+    for (name, sp), m in zip(rows, mixed):
+        n = sp.get("logprobs")
+        want = [] if n is None else [1 + min(n, 20)] * PROCS_MAX_TOKENS
+        if [len(e) for e in m["logprobs"]] != want:
+            fail(f"{phase}: the {name} row carries {len(m['logprobs'])} logprob entries")
+    margin = PROCS_MIN_P["temperature"] * math.log(1 / PROCS_MIN_P["min_p"])
+    mp = mixed[names.index("min_p")]
+    outside = [k for k, e in enumerate(mp["logprobs"]) if e[1][1] - e[0][1] > margin + 1e-4]
+    if outside:
+        fail(f"{phase}: min_p tokens outside the filter's set at {outside[:5]}")
+
+    # the processed dense reference, over the greedy rows that set a
+    # processor or ask for logprobs
+    gaps, ranks, randoms, lp_diffs, overlaps = [], [], [], [], []
+    for i, (name, sp) in enumerate(rows):
+        if name in ("plain", "min_p"):
+            continue
+        toks = mixed[i]["tokens"]
+        raw, ref = processed_reference(torch, engine, prompts[i], toks, sp)
+        at = torch.arange(len(toks), device=DEV)
+        picked = ref[at, torch.tensor(toks, device=DEV)]
+        gaps.append(ref.max(dim=-1).values - picked)
+        ranks.append((ref > picked[:, None]).sum(-1))
+        # a random token's gap, on the model's own logits (a ban's -1e9
+        # would swamp a mean of the processed ones)
+        randoms.append(raw.max(dim=-1).values - raw.mean(dim=-1))
+        logp = torch.log_softmax(ref, dim=-1)
+        got = torch.tensor([e[0][1] for e in mixed[i]["logprobs"]], device=DEV)
+        lp_diffs.append((got - logp[at, torch.tensor(toks, device=DEV)]).abs())
+        n = min(sp.get("logprobs") or 0, 20)
+        if n:
+            top = logp.topk(n, dim=-1).indices.tolist()
+            overlaps += [len(set(top[k]) & {t for t, _ in e[1:]}) / n
+                         for k, e in enumerate(mixed[i]["logprobs"])]
+        del raw, ref, logp
+    gap, rank = torch.cat(gaps), torch.cat(ranks)
+    random_gap = float(torch.cat(randoms).mean())
+    reading = {"max_logit_gap": float(gap.max()), "mean_logit_gap": float(gap.mean()),
+               "random_token_gap": random_gap, "median_rank": int(rank.median()),
+               "max_rank": int(rank.max()), "exact_argmax": int((gap == 0).sum()),
+               "tokens": int(gap.numel()),
+               "max_logprob_diff": float(torch.cat(lp_diffs).max()),
+               "min_top_overlap": min(overlaps), "mean_top_overlap": sum(overlaps) / len(overlaps)}
+    moved = [name for i, name in enumerate(names)
+             if name in ("repetition", "presence", "frequency")
+             and mixed[i]["tokens"] != plain[i]["tokens"]]
+    emit({"phase": phase, "model": cfg.name, "rows": names, "max_tokens": PROCS_MAX_TOKENS,
+          "wall_s": wall, "penalties_moved_streams": moved,
+          "eager_logprob_diff": eager_diff, "launches": counts,
+          "limits": {"gap": gap_limit, "median_rank": median_rank_limit,
+                     "mean_gap_share": mean_gap_share, "logprob": logprob_limit,
+                     "top_overlap": top_overlap_limit},
+          **reading, "card": smi})
+    checks = (
+        (gap_limit, reading["max_logit_gap"] > (gap_limit or 0), "a token's gap below the best"),
+        (median_rank_limit, reading["median_rank"] > (median_rank_limit or 0), "median rank"),
+        (mean_gap_share, reading["mean_logit_gap"] > (mean_gap_share or 0) * random_gap,
+         "mean gap"),
+        (logprob_limit, reading["max_logprob_diff"] > (logprob_limit or 0), "logprob"),
+        (top_overlap_limit, reading["min_top_overlap"] < (top_overlap_limit or 0),
+         "top-N overlap"),
+    )
+    for limit, over, what in checks:
+        if limit is not None and over:
+            fail(f"{phase}: the processed dense reference's {what} is past its limit "
+                 f"{limit}: {reading}")
+    return engine
+
+
+def variant_costs(torch, runner, smi, phase, ctx_step=25):
+    """One decode burst of every slot (profile_phase's) in each variant the
+    runner keys a graph by: plain, logprobs, and processors with logprobs
+    (half the slots with penalties and a bias, the other half neutral):
+    host wall (median of 5, graph replays), device busy a step and device
+    ops a step under torch.profiler (which sees the kernels inside a replay:
+    the profile phases check it), a replay timed by CUDA events, and the
+    processors' and logprobs' cost a step: their busy time beyond the plain
+    variant's."""
+    import numpy as np
+
+    from dynamo_tpu_torch.ops.logits_process import MAX_BIAS_SLOTS
+
+    S, BS, K = runner.args.max_num_seqs, runner.args.block_size, runner.args.decode_steps
+    pos = np.array([100 + ctx_step * i for i in range(S)], np.int32)
+    width = int(pos.max() + 2 * K) // BS + 1
+    burst = (np.ones(S, np.int32), pos, np.ones(S, np.int32),
+             np.arange(S * width, dtype=np.int32).reshape(S, width),
+             np.zeros(S, np.float32), np.zeros(S, np.int32), np.ones(S, np.float32),
+             np.arange(S, dtype=np.int32))
+    half = np.arange(S) % 2 == 0
+    bias_ids = np.full((S, MAX_BIAS_SLOTS), -1, np.int32)
+    bias_ids[half, :4] = np.arange(4) + 7
+    procs = {"minp": np.where(half, 0.05, 0.0).astype(np.float32),
+             "rep": np.where(half, 1.2, 1.0).astype(np.float32),
+             "pres": np.where(half, 0.5, 0.0).astype(np.float32),
+             "freq": np.where(half, 0.3, 0.0).astype(np.float32),
+             "bias_ids": bias_ids,
+             "bias_vals": np.where(bias_ids >= 0, -2.0, 0.0).astype(np.float32)}
+    defaults = runner.args.cuda_graphs
+    runner.args.cuda_graphs = True
+    out = {}
+    for label, want_lp, use_procs in (("plain", False, False), ("logprobs", True, False),
+                                      ("procs_logprobs", True, True)):
+        def call():
+            nb = runner.sync_all(*burst, procs=procs)
+            return runner.decode_read(runner.decode_dispatch(nb, want_lp, use_procs))
+
+        call()  # the first use of this key captures its graph
+        walls = []
+        for _ in range(5):
+            t0 = time.monotonic()
+            call()
+            walls.append(1e3 * (time.monotonic() - t0))
+        by_name, n_ops, _, _ = device_times(call)
+        busy = sum(by_name.values())
+        nb = runner.sync_all(*burst, procs=procs)
+        replay_ms = event_ms(torch, runner.graphs[(nb, want_lp, use_procs)].graph.replay)
+        out[label] = {"wall_ms": sorted(walls)[2], "device_busy_ms_per_step": busy / K,
+                      "replay_event_ms": replay_ms, "device_ops_per_step": n_ops / K}
+    runner.args.cuda_graphs = defaults
+    torch.cuda.synchronize()
+    plain = out["plain"]
+    emit({"phase": f"{phase}_variants", "model": runner.config.name, "rows": S, "steps": K,
+          "contexts": [int(pos[0]), int(pos[-1])], **out,
+          "procs_logprobs_cost_ms_per_step": (out["procs_logprobs"]["device_busy_ms_per_step"]
+                                              - plain["device_busy_ms_per_step"]),
+          "logprobs_cost_ms_per_step": (out["logprobs"]["device_busy_ms_per_step"]
+                                        - plain["device_busy_ms_per_step"]),
+          "card": smi})
+
+
 # Faults the probe can plant, in memory only, to see what the dense check
 # of an engine phase reads when the engine is wrong.
 FAULTS = {
@@ -1651,6 +2081,11 @@ FAULTS = {
     "pos": "the burst's carry does not advance pos (each burst rewrites the same positions)",
     "window": "decode attention (C = 1) ignores the sliding window",
     "kv_scale": "int8 KV scales stored 5 % high (K and V read back 5 % large)",
+    # the fused decode never calls llama.paged_attention: these reach it
+    "fused_window": "the fused layer ignores the sliding window (every layer global)",
+    "fused_rope": "the fused decode takes the global rope table on the local layers",
+    # the processors: the output counts stay as reset at install
+    "counts": "a burst never records its tokens into the penalty counts",
 }
 
 
@@ -1660,11 +2095,14 @@ def planted(fault):
     reference takes none of the patched functions (it attends densely and
     quantizes through ops/kv_quant)."""
     from dynamo_tpu_torch.models import llama
-    from dynamo_tpu_torch.ops import attention
+    from dynamo_tpu_torch.ops import attention, logits_process
 
     saved = [(llama, "decode_burst", llama.decode_burst),
              (llama, "paged_attention", llama.paged_attention),
-             (attention, "quantize_kv_chunk", attention.quantize_kv_chunk)]
+             (attention, "quantize_kv_chunk", attention.quantize_kv_chunk),
+             (llama, "fused_decoder_layer", llama.fused_decoder_layer),
+             (llama, "_fused_layers", llama._fused_layers),
+             (logits_process, "record_tokens", logits_process.record_tokens)]
     if fault == "pos":
         burst = llama.decode_burst
 
@@ -1683,6 +2121,17 @@ def planted(fault):
             q8, scale = quantize(x)
             return q8, scale * 1.05
         attention.quantize_kv_chunk = high
+    elif fault == "fused_window":
+        layer = llama.fused_decoder_layer
+        llama.fused_decoder_layer = lambda *a, window=0, **kw: layer(*a, window=0, **kw)
+    elif fault == "fused_rope":
+        layers = llama._fused_layers
+
+        def global_rope(params, c, x, cos, sin, cos_loc, sin_loc, *a):
+            return layers(params, c, x, cos, sin, cos, sin, *a)
+        llama._fused_layers = global_rope
+    elif fault == "counts":
+        logits_process.record_tokens = lambda state, tokens, active: state
     elif fault != "none":
         raise ValueError(f"unknown fault {fault!r} (one of {sorted(FAULTS)})")
     try:
@@ -1694,37 +2143,49 @@ def planted(fault):
 
 def probe(torch, smi, specs) -> None:
     """``python3 chip_smoke.py --probe qwen:0.03,0.1:none,pos gemma3:0.01``:
-    for each MODEL:SCALES[:FAULTS] (models qwen, gemma2, gemma3; faults of
-    FAULTS, default none), the model's engine phase (its request set, the
-    dense check without limits) at each embedding scale with each fault
-    planted: the measurement the scales and limits of the dense checks are
-    chosen from. Each *_reference line says whether attention decides the
-    stream (repeats_input_share) and how closely the engine follows the
-    reference (exact_argmax, median_rank, mean_logit_gap, max_logit_gap,
-    beside random_token_gap). Prints no result line."""
+    for each MODEL:SCALES[:FAULTS] (models qwen, gemma2, gemma3 — int8
+    weights and KV —, gemma3bf — int8 weights over bf16 pools, the fused
+    layer — and gemma3bf_unfused; faults of FAULTS, default none), the
+    model's engine phase (its request set, the dense check without limits)
+    at each embedding scale with each fault planted: the measurement the
+    scales and limits of the dense checks are chosen from. MODEL+procs
+    (qwen+procs, gemma3bf+procs) runs the processors phase on the same
+    weights after it, also without limits. Each *_reference line says
+    whether attention decides the stream (repeats_input_share) and how
+    closely the engine follows the reference (exact_argmax, median_rank,
+    mean_logit_gap, max_logit_gap, beside random_token_gap). Prints no
+    result line."""
     from dynamo_tpu_torch.models.config import (
         gemma2_2b_config, gemma3_1b_config, qwen2_500m_config,
     )
 
     long = dict(max_model_len=8192, extra_lengths=(4600,))
+    gemma3 = dict(long, slots=32, n_short=29, max_tokens=256, quantization="int8")
     paths = {
         "qwen": (qwen2_500m_config, {}),
         "gemma2": (gemma2_2b_config, long),
-        "gemma3": (gemma3_1b_config, dict(long, slots=32, n_short=29, max_tokens=256,
-                                          quantization="int8", kv_cache_dtype="int8")),
+        "gemma3": (gemma3_1b_config, dict(gemma3, kv_cache_dtype="int8")),
+        "gemma3bf": (gemma3_1b_config, gemma3),
+        "gemma3bf_unfused": (gemma3_1b_config, dict(gemma3, use_megakernel=False)),
     }
     for spec in specs:
         model, scales, *rest = spec.split(":")
+        model, procs = model.split("+")[0], model.endswith("+procs")
         make, kw = paths[model]
         for scale in (float(x) for x in scales.split(",")):
             for fault in (rest[0].split(",") if rest else ["none"]):
                 phase = f"probe_{model}_x{scale}_{fault}"
                 try:  # a check the fault trips ends this run, not the probe
                     with planted(fault):
-                        engine_phase(torch, smi, make(), (), None, phase, embed_scale=scale,
-                                     **kw)
+                        _, engine, _ = engine_phase(torch, smi, make(), (), None, phase,
+                                                    embed_scale=scale, **kw)
+                        if procs:
+                            args, params = engine.args, engine.runner.params
+                            del engine
+                            procs_phase(torch, smi, args, params, f"{phase}_procs")
                 except SystemExit:
                     emit({"phase": phase, "failed_a_check": True})
+                engine = args = params = None
                 gc.collect()
                 torch.cuda.empty_cache()
 
@@ -1786,7 +2247,14 @@ def main() -> int:
                                   ("paged_attention_decode", "paged_attention_chunk"),
                                   QWEN_GAP_LIMIT, "engine", embed_scale=QWEN_EMBED_SCALE)
     profile_phase(torch, engine.runner, smi)
+    # The processors and logprobs on the same weights (the unfused burst).
+    args, params = engine.args, engine.runner.params
     del engine
+    engine = procs_phase(torch, smi, args, params, "procs", gap_limit=QWEN_GAP_LIMIT,
+                         logprob_limit=QWEN_PROCS_LOGPROB_LIMIT,
+                         top_overlap_limit=QWEN_PROCS_TOP_OVERLAP)
+    variant_costs(torch, engine.runner, smi, "procs", ctx_step=80)
+    del engine, params
     gc.collect()
     torch.cuda.empty_cache()
     # Llama-3-8B, random int8 weights: the fused layer's gate turns it on.
@@ -1882,6 +2350,63 @@ def main() -> int:
     check_int8kv_path(engine, counts_3, steps_3)
     profile_phase(torch, engine.runner, smi, "profile_gemma3_int8kv", ctx_step=25,
                   exact=int8kv_burst_launches(engine))
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    worst["fused_decoder_layer"] = max(worst["fused_decoder_layer"],
+                                       gemma3_fused_layer_phase(torch, smi))
+    # Gemma-3-1B at full width, random int8 weights over bf16 pools: the
+    # fused layer's gate turns it on (ROADMAP A1), so every decode step is
+    # 26 fused-layer launches at D 256, G 4, KH 1 (a 512-key window with the
+    # local rope table on 5 of every 6 layers) and the tied int8 head at V
+    # 262,144; prefill past the first chunk runs the bf16 chunk kernel at D
+    # 256. The int8-KV phase's request set, the embedding scaled by
+    # GEMMA3_EMBED_SCALE, limits GEMMA3BF_* (see there).
+    counts_3bf, engine, steps_3bf = engine_phase(
+        torch, smi, cfg_3, ("fused_decoder_layer", "paged_attention_chunk", "lm_head_int8"),
+        GEMMA3BF_GAP_LIMIT, "engine_gemma3_int8", slots=32, n_short=29, max_tokens=256,
+        max_model_len=8192, extra_lengths=(4600,), embed_scale=GEMMA3_EMBED_SCALE,
+        median_rank_limit=GEMMA3BF_MEDIAN_RANK_LIMIT, mean_gap_share=GEMMA3BF_MEAN_GAP_SHARE,
+        quantization="int8")
+    if not engine.runner.use_megakernel:
+        fail("the fused layer's gate did not turn it on for Gemma-3-1B int8 over bf16 pools")
+    # (the int8 product may run in prefill, where a product has <= 64 rows)
+    others = {n: counts_3bf[n] for n in ("paged_attention_decode", "paged_attention_decode_int8",
+                                         "paged_attention_chunk_int8") if counts_3bf[n]}
+    if others:
+        fail(f"kernels of other paths launched on the fused Gemma-3-1B path: {others}")
+    profile_phase(torch, engine.runner, smi, "profile_gemma3_int8", ctx_step=25,
+                  exact=fused_burst_launches(engine))
+    args, params = engine.args, engine.runner.params
+    del engine
+    # The processors and logprobs on the fused burst, at V 262,144.
+    engine = procs_phase(torch, smi, args, params, "procs_gemma3_int8",
+                         gap_limit=GEMMA3BF_PROCS_GAP_LIMIT,
+                         median_rank_limit=GEMMA3BF_MEDIAN_RANK_LIMIT,
+                         mean_gap_share=GEMMA3BF_PROCS_MEAN_GAP_SHARE,
+                         logprob_limit=GEMMA3BF_PROCS_LOGPROB_LIMIT)
+    variant_costs(torch, engine.runner, smi, "procs_gemma3_int8")
+    del engine, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The same request set with the fused layer off (use_megakernel=False):
+    # the unfused bf16-pool path on the same weights, the fused layer's
+    # yardstick end to end (its ITL and its burst's device time a step).
+    counts_3u, engine, _ = engine_phase(
+        torch, smi, cfg_3, ("paged_attention_decode", "paged_attention_chunk", "int8_matmul",
+                            "lm_head_int8"), GEMMA3BF_GAP_LIMIT, "engine_gemma3_int8_unfused",
+        slots=32, n_short=29, max_tokens=256, max_model_len=8192, extra_lengths=(4600,),
+        embed_scale=GEMMA3_EMBED_SCALE, median_rank_limit=GEMMA3BF_MEDIAN_RANK_LIMIT,
+        mean_gap_share=GEMMA3BF_MEAN_GAP_SHARE, quantization="int8", use_megakernel=False)
+    layers, steps = cfg_3.n_layers, engine.args.decode_steps
+    profile_phase(torch, engine.runner, smi, "profile_gemma3_int8_unfused", ctx_step=25, exact={
+        "paged_attention_decode": layers * steps, "int8_matmul": 7 * layers * steps,
+        "lm_head_int8": steps, "fused_decoder_layer": 0, "paged_attention_chunk": 0,
+        "paged_attention_decode_int8": 0, "paged_attention_chunk_int8": 0})
+    del engine
+    gc.collect()
+    torch.cuda.empty_cache()
 
     # every chunk case of the run beside SDPA
     emit({"phase": "chunk_cases", "cases": CHUNK_TIMES, "card": smi})
@@ -1905,13 +2430,15 @@ def main() -> int:
         "decode_bf16": "_prof_attn.py:312",
         "ffn_int8": "_prof_fused_ffn.py:116",
     }
-    # launches: the five engine paths (Qwen2.5-0.5B bf16, Llama-3-8B int8,
+    # launches: the six engine paths (Qwen2.5-0.5B bf16, Llama-3-8B int8,
     # Llama-3-8B int8 with int8 KV, Gemma-2-2B bf16, Gemma-3-1B int8 with
-    # int8 KV) and the three profiling paths (prof_attn, prof_fused_ffn,
+    # int8 KV, Gemma-3-1B int8 over bf16 pools, and the latter with the fused
+    # layer off) and the three profiling paths (prof_attn, prof_fused_ffn,
     # prof_8b's four modes); times of the D 64 (bf16 pools) and D 128 (int8
     # pools) cases, the D 256 and block-size-128 ones above, #5-#7 at their
     # main cases
-    paths = (counts, counts8, counts8kv, counts_g, counts_3, counts_attn, counts_ffn, counts_8b)
+    paths = (counts, counts8, counts8kv, counts_g, counts_3, counts_3bf, counts_3u, counts_attn,
+             counts_ffn, counts_8b)
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{sources[n]}",
          "replaces": replaces[n], "launches": sum(c.get(n, 0) for c in paths),

@@ -26,13 +26,23 @@ preemption see reconciled state: the pipeline is drained before either.
 Streams are the same at every depth and with or without graphs (sampling
 noise is keyed by position, never by which burst draws it).
 
+Logprobs, top logprobs and the logits processors (repetition, presence and
+frequency penalties, min_p, logit_bias), as the JAX engine and admission
+serve them (admission.py:381-385, 554-589; engine.py:1509-1512,
+1772-1792, 1843-1879, 2298-2331): a request that sets a processor marks
+its slot (``_uses_procs``), whose penalty bookkeeping is reset at install
+(the prompt, and after a preemption the tokens generated so far); a burst
+runs the processor variant when a slot it decodes uses one and the
+logprobs variant when a request asks for logprobs; every emitted token
+carries its TokenLogprob entry, the first token's included, with the top
+``min(logprobs, top_logprobs_cap)`` after it.
+
 Not ported yet (ROADMAP): the JAX engine's retry with backoff after a
 failed tick and ``_abort_inflight``'s resync (here the first failed tick
-fails every stream and drops the bursts in flight), speculative decoding,
-logprobs and top-N, logits processors (a request that sets a penalty,
-min_p, logit_bias or logprobs is refused with FinishReason.ERROR), LoRA,
-MoE, the tick budget, sleep/wake, KV export/import/checkpoint, multimodal,
-prefill under CUDA graphs, metrics and the flight recorder.
+fails every stream and drops the bursts in flight), speculative decoding
+(and so logprobs under it), LoRA, MoE, the tick budget, sleep/wake, KV
+export/import/checkpoint, multimodal, prefill under CUDA graphs, metrics
+and the flight recorder.
 
 All device work runs on one executor thread so the asyncio loop never
 blocks on the card.
@@ -56,8 +66,10 @@ from dynamo_tpu_torch.llm.protocols.common import (
     BackendOutput,
     FinishReason,
     PreprocessedRequest,
+    TokenLogprob,
 )
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.ops.logits_process import MAX_BIAS_SLOTS, pack_bias, prompt_hot
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.tokens.blocks import compute_block_hashes
 
@@ -119,6 +131,10 @@ class TorchEngineArgs:
     # the card (True with device="cpu" raises). False runs the same burst
     # eagerly: the reference the graphs are held against.
     cuda_graphs: bool = True
+    # Top logprobs a token carries at most (JaxEngineArgs.top_logprobs_cap):
+    # a logprobs burst computes this many a step, and each request gets the
+    # first min(logprobs, cap).
+    top_logprobs_cap: int = 20
 
     @property
     def max_blocks_per_seq(self) -> int:
@@ -148,34 +164,33 @@ class _InflightBurst:
 
 
 @dataclass
+class _ProcPrep:
+    """A request's logits-processor parameters (engine.py:_ProcPrep)."""
+
+    minp: float
+    rep: float
+    pres: float
+    freq: float
+    bias_ids: np.ndarray  # [MAX_BIAS_SLOTS] int32, -1 = empty
+    bias_vals: np.ndarray  # [MAX_BIAS_SLOTS] float32
+
+
+@dataclass
 class _Prep:
     ids: List[int]
     hashes: List[int]
     matched: int
     matched_tokens: int
     sp: Tuple[float, int, float]
+    procs: Optional[_ProcPrep] = None
 
 
-def _unported_sampling(s: Any) -> Optional[str]:
-    """The refusal of a request whose sampling sets a logits processor or
-    asks for logprobs, which the port does not compute yet: without it the
-    request would stream other tokens than the JAX engine's, or no
-    logprobs, and say nothing. Neutral values are served, as the JAX
-    admission treats them as off (admission.py:568-574)."""
-    set_fields = [
-        name for name, on in (
-            ("repetition_penalty", s.repetition_penalty not in (None, 0, 1.0)),
-            ("presence_penalty", bool(s.presence_penalty)),
-            ("frequency_penalty", bool(s.frequency_penalty)),
-            ("min_p", s.min_p is not None and s.min_p > 0),
-            ("logit_bias", bool(s.logit_bias)),
-            ("logprobs", s.logprobs is not None),
-        ) if on
-    ]
-    if not set_fields:
-        return None
-    return (f"sampling field(s) {', '.join(set_fields)} not supported: logits processors "
-            "and logprobs are not ported yet")
+def _logprob_entry(token: int, logprob: float, top, n_top: int) -> List[TokenLogprob]:
+    """One token's logprobs: the sampled token first, then the request's
+    top ``n_top`` ((id, logprob) pairs, best first; they may repeat the
+    sampled token, as OpenAI's top_logprobs do)."""
+    return [TokenLogprob(token_id=int(token), logprob=float(logprob))] + [
+        TokenLogprob(token_id=int(t), logprob=float(v)) for t, v in list(top or [])[:n_top]]
 
 
 class TorchEngine:
@@ -195,6 +210,17 @@ class TorchEngine:
         self._topp = np.ones(S, dtype=np.float32)
         self._tok_mirror = np.zeros(S, dtype=np.int32)  # decode input token
         self._salts = np.zeros(S, dtype=np.int32)
+        # Logits-processor mirrors of each slot (neutral when unused).
+        self._uses_procs = np.zeros(S, dtype=bool)
+        self._minp = np.zeros(S, dtype=np.float32)
+        self._rep = np.ones(S, dtype=np.float32)
+        self._pres = np.zeros(S, dtype=np.float32)
+        self._freq = np.zeros(S, dtype=np.float32)
+        self._bias_ids = np.full((S, MAX_BIAS_SLOTS), -1, dtype=np.int32)
+        self._bias_vals = np.zeros((S, MAX_BIAS_SLOTS), dtype=np.float32)
+        # Penalty bookkeeping resets of installed slots, applied on the device
+        # thread before the next dispatch: (slot, prompt, generated, first).
+        self._proc_resets: List[Tuple[int, List[int], List[int], int]] = []
         self._next_salt = 0
         # Slots whose device state or table row differs from these mirrors,
         # synced at the next dispatch (engine.py:404-410).
@@ -280,8 +306,6 @@ class TorchEngine:
             error = f"engine failed: {self._failure}"
         elif request.lora_name:
             error = f"unknown LoRA adapter {request.lora_name!r} (LoRA is not ported yet)"
-        else:
-            error = _unported_sampling(request.sampling)
         if error is not None:
             yield BackendOutput(error=error, finish_reason=FinishReason.ERROR)
             return
@@ -378,8 +402,8 @@ class TorchEngine:
                 self._requeue(seq)
             raise
         free_iter = (i for i, s in enumerate(self._slots) if s is None)
-        for (seq, prep), tok in zip(batch, firsts):
-            self._install(seq, prep, next(free_iter), tok)
+        for (seq, prep), first in zip(batch, firsts):
+            self._install(seq, prep, next(free_iter), *first)
         return len(batch)
 
     def _prepare_admission(self, seq: _Sequence) -> Optional[_Prep]:
@@ -416,17 +440,37 @@ class TorchEngine:
             float(s.top_p if s.top_p is not None else 1.0),
         )
         return _Prep(ids=ids, hashes=hashes, matched=matched,
-                     matched_tokens=matched_tokens, sp=sp)
+                     matched_tokens=matched_tokens, sp=sp, procs=self._procs_of(seq.request))
 
-    async def _prefill(self, batch: List[Tuple[_Sequence, _Prep]]) -> List[int]:
+    def _procs_of(self, req: PreprocessedRequest) -> Optional[_ProcPrep]:
+        """The request's processor parameters, or None when it uses none
+        (admission.py:568-589): None keeps its bursts on the plain
+        variant."""
+        s = req.sampling
+        rep = float(s.repetition_penalty) if s.repetition_penalty else 1.0
+        pres = float(s.presence_penalty) if s.presence_penalty else 0.0
+        freq = float(s.frequency_penalty) if s.frequency_penalty else 0.0
+        minp = float(s.min_p) if s.min_p else 0.0
+        bias = s.logit_bias
+        if rep == 1.0 and pres == 0.0 and freq == 0.0 and minp <= 0.0 and not bias:
+            return None
+        ids, vals = pack_bias(bias, self.config.vocab_size)
+        return _ProcPrep(minp=minp, rep=rep, pres=pres, freq=freq, bias_ids=ids, bias_vals=vals)
+
+    async def _prefill(self, batch: List[Tuple[_Sequence, _Prep]]) -> List[Tuple[int, float, Any]]:
         """Joint chunked prefill to completion: one device step per chunk
         round, with per-row start and length. Returns each row's first
-        sampled token."""
+        sampled token, its logprob (0.0 unless a row asked for logprobs)
+        and its top (id, logprob) pairs (None unless a row asked for
+        top logprobs; admission.py:381-385)."""
         args = self.args
         rows = len(batch)
         prompts = [seq.all_tokens for seq, _ in batch]
         pos = [prep.matched_tokens for _, prep in batch]
-        first: List[Optional[int]] = [None] * rows
+        first: List[Optional[Tuple[int, float, Any]]] = [None] * rows
+        sampling = [seq.request.sampling for seq, _ in batch]
+        want_logprobs = any(s.logprobs is not None for s in sampling)
+        want_top = any((s.logprobs or 0) > 0 for s in sampling)
         tables = np.zeros((rows, max(len(p.ids) for _, p in batch)), dtype=np.int32)
         temp = np.ones(rows, dtype=np.float32)
         topk = np.zeros(rows, dtype=np.int32)
@@ -436,6 +480,7 @@ class TorchEngine:
             tables[r, : len(prep.ids)] = prep.ids
             temp[r], topk[r], topp[r] = prep.sp
             salts[r] = seq.salt
+        procs = self._prefill_procs(batch)
         while any(pos[r] < len(prompts[r]) for r in range(rows)):
             chunks = [prompts[r][pos[r] : pos[r] + args.prefill_chunk] for r in range(rows)]
             C = max(len(ch) for ch in chunks)
@@ -448,9 +493,10 @@ class TorchEngine:
             # Fresh prefills (first round, no prefix hit) attend densely
             # over the chunk itself: no paged reads.
             first_chunk = bool(np.all(start == 0))
-            toks = await self._device(
+            out = await self._device(
                 self.runner.run_step, tok, start, lens, tables, temp, topk, topp, salts,
-                first_chunk=first_chunk,
+                first_chunk=first_chunk, procs=procs, want_logprobs=want_logprobs,
+                want_top=want_top,
             )
             for r in range(rows):
                 n = int(lens[r])
@@ -459,10 +505,40 @@ class TorchEngine:
                 self.prefill_tokens += n
                 pos[r] += n
                 if pos[r] >= len(prompts[r]):
-                    first[r] = int(toks[r])
-        return [int(f) for f in first]
+                    top = None
+                    if out.top_vals is not None:
+                        top = list(zip(out.top_ids[r].tolist(), out.top_vals[r].tolist()))
+                    logp = float(out.logprobs[r]) if out.logprobs is not None else 0.0
+                    first[r] = (int(out.tokens[r]), logp, top)
+        return first
 
-    def _install(self, seq: _Sequence, prep: _Prep, slot: int, first_token: int) -> None:
+    def _prefill_procs(
+        self, batch: List[Tuple[_Sequence, _Prep]],
+    ) -> Optional[Dict[str, np.ndarray]]:
+        """The prefill step's processor rows (admission.py:403-428), or None
+        when no row uses a processor. Each row's mask holds all its tokens
+        so far: after a preemption the repetition penalty keeps covering
+        what it generated (presence and frequency count zero at this one
+        sample; the output counts come back at install)."""
+        if all(prep.procs is None for _, prep in batch):
+            return None
+        rows, V = len(batch), self.config.vocab_size
+        procs = {"minp": np.zeros(rows, np.float32), "rep": np.ones(rows, np.float32),
+                 "pres": np.zeros(rows, np.float32), "freq": np.zeros(rows, np.float32),
+                 "bias_ids": np.full((rows, MAX_BIAS_SLOTS), -1, np.int32),
+                 "bias_vals": np.zeros((rows, MAX_BIAS_SLOTS), np.float32),
+                 "pmask": np.zeros((rows, V), np.bool_)}
+        for r, (seq, prep) in enumerate(batch):
+            p = prep.procs
+            if p is None:
+                continue
+            for name in ("minp", "rep", "pres", "freq", "bias_ids", "bias_vals"):
+                procs[name][r] = getattr(p, name)
+            procs["pmask"][r] = prompt_hot(seq.all_tokens, V)
+        return procs
+
+    def _install(self, seq: _Sequence, prep: _Prep, slot: int, first_token: int,
+                 first_logprob: float = 0.0, first_top=None) -> None:
         """Commit fresh prompt blocks and join the decode batch."""
         args = self.args
         prompt = seq.all_tokens
@@ -480,7 +556,29 @@ class TorchEngine:
         self._tok_mirror[slot] = first_token
         self._dirty_state.add(slot)
         self._dirty_tables.add(slot)
-        self._emit_token(seq, first_token)
+        self._set_slot_procs(seq, slot, prep.procs, first_token)
+        self._emit_token(seq, first_token, first_logprob, first_top)
+
+    def _set_slot_procs(self, seq: _Sequence, slot: int, procs: Optional[_ProcPrep],
+                        first_token: int) -> None:
+        """A slot's processor mirrors (engine.py:2295-2318): neutral when its
+        occupant uses none (a previous occupant's counts are then harmless);
+        else its parameters, and a reset of its bookkeeping queued for the
+        device thread: the request's prompt in the mask, the tokens generated
+        so far (those of a preempted sequence re-admitted) and the first
+        token (not in seq.generated yet) in the counts."""
+        self._uses_procs[slot] = procs is not None
+        if procs is None:
+            self._minp[slot], self._rep[slot], self._pres[slot], self._freq[slot] = 0, 1, 0, 0
+            self._bias_ids[slot] = -1
+            self._bias_vals[slot] = 0.0
+            return
+        self._minp[slot], self._rep[slot] = procs.minp, procs.rep
+        self._pres[slot], self._freq[slot] = procs.pres, procs.freq
+        self._bias_ids[slot] = procs.bias_ids
+        self._bias_vals[slot] = procs.bias_vals
+        self._proc_resets.append((slot, list(seq.request.token_ids), list(seq.generated),
+                                  int(first_token)))
 
     def _requeue(self, seq: _Sequence) -> None:
         seq.block_ids = []
@@ -556,6 +654,7 @@ class TorchEngine:
             return False
         state_sync = self._build_state_sync()
         table_sync = self._build_table_sync()
+        resets, self._proc_resets = self._proc_resets, []
         # Host pos lags the device carry by K a burst in flight, so this
         # burst spans up to pos + (inflight + 1)·K: the bucket a depth-1
         # engine takes for the same burst.
@@ -563,17 +662,26 @@ class TorchEngine:
         max_blocks = max((int(self._pos[s.slot]) + ctx_off - 1) // args.block_size + 1
                          for s in active)
         nb = table_width_bucket(max_blocks, args.max_blocks_per_seq)
-        handles = await self._device(self._dispatch_on_device, nb, state_sync, table_sync)
+        # the burst's variant (engine.py:1509-1512)
+        want_logprobs = any(s.request.sampling.logprobs is not None for s in active)
+        use_procs = any(self._uses_procs[s.slot] for s in active)
+        handles = await self._device(self._dispatch_on_device, nb, state_sync, table_sync,
+                                     want_logprobs, use_procs, resets)
         self._inflight.append(_InflightBurst(handles=handles, seqs=[(s.slot, s) for s in active]))
         return True
 
-    def _dispatch_on_device(self, nb, state_sync, table_sync) -> _DecodeHandles:
-        """Device-thread half of a dispatch: sync the dirty rows, enqueue."""
+    def _dispatch_on_device(self, nb, state_sync, table_sync, want_logprobs=False,
+                            use_procs=False, resets=()) -> _DecodeHandles:
+        """Device-thread half of a dispatch: reset the penalty bookkeeping of
+        newly installed slots, sync the dirty rows, enqueue."""
+        for slot, prompt, generated, first in resets:
+            self.runner.proc_reset_slot(slot, prompt, generated)
+            self.runner.proc_count(slot, first)
         if state_sync is not None:
             self.runner.sync_slots(*state_sync)
         if table_sync is not None:
             self.runner.sync_tables(*table_sync)
-        return self.runner.decode_dispatch(nb)
+        return self.runner.decode_dispatch(nb, want_logprobs, use_procs)
 
     def _build_state_sync(self):
         """(slots, rows) of the dirty slots for DeviceRunner.sync_slots;
@@ -587,7 +695,9 @@ class TorchEngine:
             "tokens": self._tok_mirror[sl], "pos": self._pos[sl],
             "active": np.asarray([int(self._slots[s] is not None) for s in slots], np.int32),
             "temp": self._temp[sl], "topk": self._topk[sl], "topp": self._topp[sl],
-            "salts": self._salts[sl],
+            "salts": self._salts[sl], "minp": self._minp[sl], "rep": self._rep[sl],
+            "pres": self._pres[sl], "freq": self._freq[sl], "bias_ids": self._bias_ids[sl],
+            "bias_vals": self._bias_vals[sl],
         }
 
     def _build_table_sync(self):
@@ -602,21 +712,25 @@ class TorchEngine:
         sequence finished or was preempted while the burst was in flight is
         dropped (engine.py:1592-1656)."""
         rec = self._inflight.popleft()
-        toks, _ = await self._device(self.runner.decode_read, rec.handles)
+        out = await self._device(self.runner.decode_read, rec.handles)
         self.steps += 1
         for slot, seq in rec.seqs:
             if self._slots[slot] is not seq or seq.slot != slot:
                 continue
-            self._emit_burst(seq, toks[slot])
+            self._emit_burst(seq, out.tokens[slot],
+                             *(None if a is None else a[slot]
+                               for a in (out.logprobs, out.top_vals, out.top_ids)))
 
     async def _drain_inflight(self) -> None:
         """Reap every burst in flight: the barrier before admission."""
         while self._inflight:
             await self._reap_burst()
 
-    def _emit_burst(self, seq: _Sequence, toks: np.ndarray) -> None:
+    def _emit_burst(self, seq: _Sequence, toks: np.ndarray, logps: Optional[np.ndarray] = None,
+                    topv: Optional[np.ndarray] = None, topi: Optional[np.ndarray] = None) -> None:
         """Apply stop conditions to one burst of a sequence's tokens and
-        stream them as ONE BackendOutput (engine.py::_emit_burst)."""
+        stream them as ONE BackendOutput, with each emitted token's
+        logprobs when the request asked (engine.py::_emit_burst)."""
         slot = seq.slot
         req = seq.request
         stop = req.stop
@@ -656,15 +770,29 @@ class TorchEngine:
         self.generated_tokens += n_take
         self._pos[slot] += n_take  # these tokens' KV is now resident
         self._commit_complete_blocks(seq, slot)
+        logprobs = None
+        if req.sampling.logprobs is not None:
+            n_top = self._n_top(req)
+            logprobs = [
+                _logprob_entry(t, logps[k],
+                               None if topi is None else zip(topi[k].tolist(), topv[k].tolist()),
+                               n_top)
+                for k, t in enumerate(emitted)
+            ]
         seq.queue.put_nowait(
             BackendOutput(token_ids=emitted, finish_reason=reason,
-                          cumulative_tokens=len(seq.generated))
+                          cumulative_tokens=len(seq.generated), logprobs=logprobs)
         )
         if reason is not None:
             self._finish(seq, reason, emit=False)
 
-    def _emit_token(self, seq: _Sequence, token: int) -> None:
-        """The prefill's first token: append, check stops, stream."""
+    def _n_top(self, req: PreprocessedRequest) -> int:
+        return min(int(req.sampling.logprobs or 0), int(self.args.top_logprobs_cap))
+
+    def _emit_token(self, seq: _Sequence, token: int, logprob: float = 0.0,
+                    top=None) -> None:
+        """The prefill's first token: append, check stops, stream (with its
+        logprobs when the request asked)."""
         seq.generated.append(token)
         seq.all_tokens.append(token)
         self.generated_tokens += 1
@@ -681,8 +809,12 @@ class TorchEngine:
             reason = FinishReason.LENGTH
         elif len(seq.all_tokens) >= self.args.max_model_len:
             reason = FinishReason.LENGTH
+        logprobs = None
+        if req.sampling.logprobs is not None:
+            logprobs = [_logprob_entry(token, logprob, top, self._n_top(req))]
         seq.queue.put_nowait(
-            BackendOutput(token_ids=[token], finish_reason=reason, cumulative_tokens=n)
+            BackendOutput(token_ids=[token], finish_reason=reason, cumulative_tokens=n,
+                          logprobs=logprobs)
         )
         if reason is not None:
             self._finish(seq, reason, emit=False)

@@ -19,9 +19,20 @@ buffers by non-blocking copies, one buffer set per burst in flight, and
 ``decode_read`` waits on the burst's event. ``run_decode`` is the
 synchronous form (sync every row, dispatch, read).
 
+Logprobs and logits processors (runner.py:443-460, 650-700, 818-845): a
+burst is keyed (width bucket, want_logprobs, use_procs), as the JAX
+programs are, and each variant is its own graph, captured the first time a
+burst needs it. A burst with neither keeps the plain graph: no [S, V] pass
+is added. The processor parameters of each slot are slot state too
+(llama.PROC_SLOT_STATE, synced with the rest), and the penalty bookkeeping
+(``proc_state``: output counts and prompt masks, [S, V]) lives on the
+device from the first request that uses a processor, advanced in place by
+the processor bursts and reset a slot at a time (``proc_reset_slot``,
+``proc_count``). The prefill step has the same variants
+(``run_step(procs=..., want_logprobs=..., want_top=...)``).
+
 Divergences from the JAX runner: no demotion machinery (a capture or
-launch that fails raises, and the engine fails its streams), and no
-logprobs or logits-processor variants (not ported).
+launch that fails raises, and the engine fails its streams).
 
 Everything runs on the engine's single device thread.
 """
@@ -31,7 +42,7 @@ from __future__ import annotations
 import collections
 import time
 from dataclasses import dataclass
-from typing import Any, Deque, Dict, List, Optional, Tuple
+from typing import Any, Deque, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,9 +51,20 @@ from dynamo_tpu_torch import config as knobs
 from dynamo_tpu_torch.device import resolve_device
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.quantize import init_quantized_params, quantize_params
+from dynamo_tpu_torch.ops import logits_process
 from dynamo_tpu_torch.ops.cuda.graphs import CapturedCall
 from dynamo_tpu_torch.ops.fused_layer import supports_reason
-from dynamo_tpu_torch.ops.sampling import fold_row_keys, sample_tokens
+from dynamo_tpu_torch.ops.sampling import (
+    fold_row_keys,
+    log_softmax_f32,
+    pick_logprobs,
+    sample_tokens,
+    top_of,
+)
+
+# A decode graph's key: (width bucket, want_logprobs, use_procs), as the
+# JAX runner keys its programs (runner.py:1008).
+GraphKey = Tuple[int, bool, bool]
 
 
 class DeviceRunner:
@@ -90,12 +112,25 @@ class DeviceRunner:
         }
         self.slot_state["temp"].fill_(1.0)
         self.slot_state["topp"].fill_(1.0)
+        # the processor parameters, neutral (rep 1, empty bias slots)
+        nbias = logits_process.MAX_BIAS_SLOTS
+        for name, dtype in llama.PROC_SLOT_STATE.items():
+            shape = (S, nbias) if name.startswith("bias") else (S,)
+            self.slot_state[name] = torch.zeros(shape, dtype=dtype, device=dev)
+        self.slot_state["rep"].fill_(1.0)
+        self.slot_state["bias_ids"].fill_(-1)
+        # [S, V] penalty bookkeeping, made at the first processor request
+        self.proc_state: Optional[logits_process.ProcState] = None
         self._active = np.zeros(S, np.int32)  # host mirror of slot_state["active"]
         self._out_tokens = torch.zeros((S, K), dtype=torch.int64, device=dev)
         self._out_finite = torch.ones(S, dtype=torch.bool, device=dev)
+        # logprobs [S, K] and top-N values and ids [S, K, cap], made at the
+        # first logprobs burst
+        self._out_logprobs: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
         self._free_outputs: Deque[_HostOutputs] = collections.deque()
-        # width bucket -> its captured burst; one memory pool for all
-        self.graphs: Dict[int, CapturedCall] = {}
+        # (width bucket, want_logprobs, use_procs) -> its captured burst;
+        # one memory pool for all
+        self.graphs: Dict[GraphKey, CapturedCall] = {}
         self._graph_pool = None
         self._capture_stream: Optional[torch.cuda.Stream] = None
         self.capture_ms = 0.0
@@ -144,10 +179,17 @@ class DeviceRunner:
     @torch.inference_mode()
     def run_step(
         self, tokens, start_pos, chunk_lens, block_tables, temp, topk, topp, salts,
-        *, first_chunk: bool = False,
-    ) -> np.ndarray:
+        *, first_chunk: bool = False, procs: Optional[Dict[str, np.ndarray]] = None,
+        want_logprobs: bool = False, want_top: bool = False,
+    ) -> "StepResult":
         """One prefill chunk round over [B, C] rows + the sample of each
-        row's next token, keyed at index start + len. Returns [B] ids."""
+        row's next token, keyed at index start + len. With ``procs``
+        (PROC_SLOT_STATE rows plus ``pmask`` [B, V], each row's tokens so
+        far) the repetition penalty over those tokens and the bias apply
+        first, and min_p in the sample (JAX runner.py:650-698); then the
+        chosen tokens' logprobs (``want_logprobs``) and the top
+        ``top_logprobs_cap`` (``want_top``) from the processed logits.
+        Returns the [B] ids and those, as numpy."""
         d = self._dev
         start = d(start_pos, torch.int32)
         lens = d(chunk_lens, torch.int32)
@@ -157,11 +199,46 @@ class DeviceRunner:
             first_chunk=first_chunk,
         )
         keys = fold_row_keys(self.seed, d(salts, torch.int64), start + lens)
+        min_p = None
+        if procs is not None:
+            params = logits_process.ProcParams(
+                rep=d(procs["rep"], torch.float32), pres=d(procs["pres"], torch.float32),
+                freq=d(procs["freq"], torch.float32),
+                bias_ids=d(procs["bias_ids"], torch.int64),
+                bias_vals=d(procs["bias_vals"], torch.float32))
+            logits = logits_process.apply_prompt_only(logits, d(procs["pmask"], torch.bool),
+                                                      params)
+            min_p = d(procs["minp"], torch.float32)
         toks = sample_tokens(
             logits, d(temp, torch.float32), d(topk, torch.int32), d(topp, torch.float32),
-            row_keys=keys,
+            min_p, row_keys=keys,
         )
-        return toks.cpu().numpy()
+        logp = top = None
+        if want_logprobs or want_top:
+            logp_all = log_softmax_f32(logits)
+            logp = pick_logprobs(logp_all, toks).cpu().numpy()
+            if want_top:
+                top = [t.cpu().numpy() for t in top_of(logp_all, self.args.top_logprobs_cap)]
+        return StepResult(toks.cpu().numpy(), logp, *(top or (None, None)))
+
+    # -- logits-processor device state (runner.py:818-845) ---------------
+
+    def ensure_proc_state(self) -> logits_process.ProcState:
+        if self.proc_state is None:
+            self.proc_state = logits_process.init_state(
+                self.args.max_num_seqs, self.config.vocab_size, self.device)
+        return self.proc_state
+
+    @torch.inference_mode()
+    def proc_reset_slot(self, slot: int, prompt_ids, generated) -> None:
+        """(Re)set one slot's penalty bookkeeping: its prompt's mask and the
+        counts of the tokens it generated so far."""
+        logits_process.reset_slot(self.ensure_proc_state(), slot, prompt_ids, generated)
+
+    @torch.inference_mode()
+    def proc_count(self, slot: int, token: int) -> None:
+        """Count one generated token of a slot (the prefill's)."""
+        logits_process.count_token(self.ensure_proc_state(), slot, int(token))
 
     # -- decode: device-resident slot state (runner.py:931-1130) -----------
 
@@ -179,16 +256,19 @@ class DeviceRunner:
     def sync_slots(self, slots: List[int], rows: Dict[str, np.ndarray]) -> None:
         """Write the scheduler's dirty slot rows into the device state:
         ``rows[name][i]`` lands at ``slot_state[name][slots[i]]``, for every
-        field but the tables. The only host-to-device path for slot state
+        field of SLOT_STATE but the tables, and for the PROC_SLOT_STATE
+        fields when given. The only host-to-device path for slot state
         after start."""
         if not slots:
             return
         fields = set(llama.SLOT_STATE) - {"tables"}
-        if set(rows) != fields:
-            raise ValueError(f"slot sync rows {sorted(rows)} != state fields {sorted(fields)}")
+        if set(rows) not in (fields, fields | set(llama.PROC_SLOT_STATE)):
+            raise ValueError(f"slot sync rows {sorted(rows)} != state fields {sorted(fields)} "
+                             f"(with or without {sorted(llama.PROC_SLOT_STATE)})")
+        dtypes = {**llama.SLOT_STATE, **llama.PROC_SLOT_STATE}
         idx = self._to_state(np.asarray(slots, np.int64), torch.int64)
-        for name in sorted(fields):
-            self.slot_state[name].index_copy_(0, idx, self._to_state(rows[name], llama.SLOT_STATE[name]))
+        for name in sorted(rows):
+            self.slot_state[name].index_copy_(0, idx, self._to_state(rows[name], dtypes[name]))
         self._active[np.asarray(slots)] = np.asarray(rows["active"], np.int32)
         self.transfer_log.append(("slot_sync", len(slots)))
 
@@ -202,20 +282,33 @@ class DeviceRunner:
         self.slot_state["tables"].index_copy_(0, idx, self._to_state(rows, torch.int32))
         self.transfer_log.append(("table_sync", len(slots)))
 
-    def _burst(self, nb: int) -> None:
+    def _logprob_buffers(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        if self._out_logprobs is None:
+            S, K, N = self.args.max_num_seqs, self.args.decode_steps, self.args.top_logprobs_cap
+            dev = self.device
+            self._out_logprobs = (torch.zeros((S, K), dtype=torch.float32, device=dev),
+                                  torch.zeros((S, K, N), dtype=torch.float32, device=dev),
+                                  torch.zeros((S, K, N), dtype=torch.int64, device=dev))
+        return self._out_logprobs
+
+    def _burst(self, key: GraphKey) -> None:
+        nb, want_logprobs, use_procs = key
         llama.decode_burst(
             self.params, self.config, self.slot_state, self.k_cache, self.v_cache, self.seed,
             self._out_tokens, self._out_finite, num_steps=self.args.decode_steps, width=nb,
             use_megakernel=self.use_megakernel,
+            proc_state=self.ensure_proc_state() if use_procs else None,
+            logprob_outputs=self._logprob_buffers() if want_logprobs else None,
         )
 
-    def _replay_or_capture(self, nb: int) -> None:
-        """The burst at width bucket ``nb`` by its graph; at the bucket's
-        first use it runs eagerly on the capture stream (this burst's real
-        run, and the warm-up) and is captured right after."""
+    def _replay_or_capture(self, key: GraphKey) -> None:
+        """The burst of ``key`` (width bucket, want_logprobs, use_procs) by
+        its graph; at the key's first use it runs eagerly on the capture
+        stream (this burst's real run, and the warm-up) and is captured
+        right after."""
         if self.device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, got {self.device}")
-        graph = self.graphs.get(nb)
+        graph = self.graphs.get(key)
         if graph is not None:
             graph.replay()
             return
@@ -225,28 +318,32 @@ class DeviceRunner:
         stream = self._capture_stream
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
-            self._burst(nb)
+            self._burst(key)
         self.eager_bursts += 1
         t0 = time.monotonic()
-        self.graphs[nb] = CapturedCall(lambda: self._burst(nb), pool=self._graph_pool,
-                                       stream=stream)
+        self.graphs[key] = CapturedCall(lambda: self._burst(key), pool=self._graph_pool,
+                                        stream=stream)
         self.capture_ms += 1e3 * (time.monotonic() - t0)
         torch.cuda.current_stream(self.device).wait_stream(stream)
 
     @torch.inference_mode()
-    def decode_dispatch(self, nb: int) -> "_DecodeHandles":
+    def decode_dispatch(self, nb: int, want_logprobs: bool = False,
+                        use_procs: bool = False) -> "_DecodeHandles":
         """Enqueue one burst of ``decode_steps`` over the slot state at
         table width ``nb`` and return without waiting: by graph replay when
-        ``args.cuda_graphs``, else eagerly. Its
-        outputs start their copies to a pinned buffer set, and an event
+        ``args.cuda_graphs``, else eagerly. ``use_procs`` applies the slots'
+        processors and min_p (and counts the tokens); ``want_logprobs``
+        adds the chosen tokens' logprobs and the top ``top_logprobs_cap``.
+        Its outputs start their copies to a pinned buffer set, and an event
         marks the burst's end. Pair with ``decode_read``."""
         nb = int(nb)
         if not 1 <= nb <= self.args.max_blocks_per_seq:
             raise ValueError(f"table width {nb} outside 1..{self.args.max_blocks_per_seq}")
+        key = (nb, bool(want_logprobs), bool(use_procs))
         if self.args.cuda_graphs:
-            self._replay_or_capture(nb)
+            self._replay_or_capture(key)
         else:
-            self._burst(nb)
+            self._burst(key)
             self.eager_bursts += 1
         self.mk_fused_bursts += int(self.use_megakernel)
         self.transfer_log.append(("decode", nb))
@@ -254,25 +351,37 @@ class DeviceRunner:
             self._out_tokens, self._out_finite)
         host.tokens.copy_(self._out_tokens, non_blocking=True)
         host.finite.copy_(self._out_finite, non_blocking=True)
+        if want_logprobs:
+            bufs = self._logprob_buffers()
+            for dst, src in zip(host.logprob_buffers(bufs), bufs):
+                dst.copy_(src, non_blocking=True)
         if host.event is not None:
             host.event.record()
-        return _DecodeHandles(host=host, active=self._active.copy())
+        return _DecodeHandles(host=host, active=self._active.copy(),
+                              want_logprobs=bool(want_logprobs))
 
-    def decode_read(self, handles: "_DecodeHandles") -> Tuple[np.ndarray, np.ndarray]:
-        """Wait for a dispatched burst and return its ([S, K] tokens, [S]
-        finite flags) as numpy (rows not active repeat their input token);
-        counts the active rows whose logits were not finite."""
+    def decode_read(self, handles: "_DecodeHandles") -> "DecodeResult":
+        """Wait for a dispatched burst and return its [S, K] tokens, [S]
+        finite flags and (with want_logprobs, else None) [S, K] logprobs
+        and [S, K, cap] top values and ids, as numpy (rows not active
+        repeat their input token); counts the active rows whose logits were
+        not finite."""
         host = handles.host
         if host.event is not None:
             host.event.synchronize()
         toks, finite = host.tokens.numpy().copy(), host.finite.numpy().copy()
+        logprobs = (None, None, None)
+        if handles.want_logprobs:
+            logprobs = tuple(t.numpy().copy() for t in host.logprobs)
         self._free_outputs.append(host)
         self.nonfinite_rows += int(np.count_nonzero(~finite & (handles.active > 0)))
-        return toks, finite
+        return DecodeResult(toks, finite, *logprobs)
 
-    def sync_all(self, tokens, start_pos, active, block_tables, temp, topk, topp, salts) -> int:
+    def sync_all(self, tokens, start_pos, active, block_tables, temp, topk, topp, salts,
+                 procs: Optional[Dict[str, np.ndarray]] = None) -> int:
         """Write every slot's row of the decode state from host arrays
-        (tables zero-padded to the full width); returns the tables' width."""
+        (tables zero-padded to the full width; with ``procs``, the
+        PROC_SLOT_STATE rows too); returns the tables' width."""
         S, P = self.args.max_num_seqs, self.args.max_blocks_per_seq
         tables = np.asarray(block_tables, np.int32)
         if len(tokens) != S or tables.shape[0] != S or tables.shape[1] > P:
@@ -281,7 +390,7 @@ class DeviceRunner:
         self.sync_slots(list(range(S)), {
             "tokens": np.asarray(tokens), "pos": np.asarray(start_pos),
             "active": np.asarray(active), "temp": np.asarray(temp), "topk": np.asarray(topk),
-            "topp": np.asarray(topp), "salts": np.asarray(salts),
+            "topp": np.asarray(topp), "salts": np.asarray(salts), **(procs or {}),
         })
         full = np.zeros((S, P), np.int32)
         full[:, : tables.shape[1]] = tables
@@ -295,7 +404,29 @@ class DeviceRunner:
         ``sync_all``, one burst at the tables' width, read back. Returns
         [S, K] sampled ids."""
         nb = self.sync_all(tokens, start_pos, active, block_tables, temp, topk, topp, salts)
-        return self.decode_read(self.decode_dispatch(nb))[0]
+        return self.decode_read(self.decode_dispatch(nb)).tokens
+
+
+class StepResult(NamedTuple):
+    """A prefill step's outputs as numpy: [B] ids, and (else None) [B]
+    logprobs and [B, cap] top values and ids."""
+
+    tokens: np.ndarray
+    logprobs: Optional[np.ndarray] = None
+    top_vals: Optional[np.ndarray] = None
+    top_ids: Optional[np.ndarray] = None
+
+
+class DecodeResult(NamedTuple):
+    """A decode burst's outputs as numpy: [S, K] ids, [S] finite flags,
+    and (with want_logprobs, else None) [S, K] logprobs and [S, K, cap] top
+    values and ids."""
+
+    tokens: np.ndarray
+    finite: np.ndarray
+    logprobs: Optional[np.ndarray] = None
+    top_vals: Optional[np.ndarray] = None
+    top_ids: Optional[np.ndarray] = None
 
 
 @dataclass
@@ -306,13 +437,21 @@ class _HostOutputs:
     tokens: torch.Tensor
     finite: torch.Tensor
     event: Optional[torch.cuda.Event]
+    logprobs: Optional[Tuple[torch.Tensor, ...]] = None  # made at the first logprobs burst
+
+    @staticmethod
+    def _like(t: torch.Tensor) -> torch.Tensor:
+        return torch.empty(t.shape, dtype=t.dtype, pin_memory=t.device.type == "cuda")
 
     @classmethod
     def make(cls, tokens: torch.Tensor, finite: torch.Tensor) -> "_HostOutputs":
-        cuda = tokens.device.type == "cuda"
-        return cls(tokens=torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=cuda),
-                   finite=torch.empty(finite.shape, dtype=finite.dtype, pin_memory=cuda),
-                   event=torch.cuda.Event() if cuda else None)
+        return cls(tokens=cls._like(tokens), finite=cls._like(finite),
+                   event=torch.cuda.Event() if tokens.device.type == "cuda" else None)
+
+    def logprob_buffers(self, like: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
+        if self.logprobs is None:
+            self.logprobs = tuple(self._like(t) for t in like)
+        return self.logprobs
 
 
 @dataclass
@@ -322,3 +461,4 @@ class _DecodeHandles:
 
     host: _HostOutputs
     active: np.ndarray
+    want_logprobs: bool = False

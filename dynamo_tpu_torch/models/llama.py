@@ -18,8 +18,9 @@ the unfused layer (ops/kv_quant.py), and the fused-layer
 decode branch of ``forward_paged`` (``use_megakernel``: one
 ops/fused_layer call a layer for C = 1), and ``decode_burst``: a burst of
 ``decode_multi`` over the engine's device-resident slot state, the body
-the runner captures as a CUDA graph. Not yet: MoE, LoRA, logits
-processors, logprobs and top-N, multimodal splices.
+the runner captures as a CUDA graph, with the logits processors
+(ops/logits_process.py), min_p, logprobs and top-N inside it when a burst
+asks for them. Not yet: MoE, LoRA, multimodal splices.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch.device import DeviceLike, resolve_device
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.ops import logits_process
 from dynamo_tpu_torch.ops.attention import (
     cache_write_index,
     dense_chunk_attention,
@@ -42,7 +44,13 @@ from dynamo_tpu_torch.ops.fused_layer import fused_decoder_layer, history_pcount
 from dynamo_tpu_torch.ops.kv_quant import KVPool, is_quantized_pool, pool_values
 from dynamo_tpu_torch.ops.quant import embed_lookup, lm_head as q_lm_head, qeinsum
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_table
-from dynamo_tpu_torch.ops.sampling import fold_row_keys, sample_tokens
+from dynamo_tpu_torch.ops.sampling import (
+    fold_row_keys,
+    log_softmax_f32,
+    pick_logprobs,
+    sample_tokens,
+    top_of,
+)
 
 Params = Dict[str, Any]
 
@@ -344,6 +352,9 @@ class DecodeOut(NamedTuple):
     tokens: torch.Tensor  # [B, num_steps] sampled ids
     finite: torch.Tensor  # [B] bool: every step's logits were finite
     logits: Optional[torch.Tensor]  # [B, num_steps, V] with want_logits
+    logprobs: Optional[torch.Tensor] = None  # [B, num_steps] with want_logprobs
+    top_vals: Optional[torch.Tensor] = None  # [B, num_steps, N] with num_top_logprobs
+    top_ids: Optional[torch.Tensor] = None  # [B, num_steps, N] int64
 
 
 def decode_multi(
@@ -364,6 +375,11 @@ def decode_multi(
     salts: torch.Tensor,  # [B] per-sequence sampling salt
     want_logits: bool = False,
     use_megakernel: bool = False,
+    want_logprobs: bool = False,
+    num_top_logprobs: int = 0,
+    min_p: Optional[torch.Tensor] = None,  # [B]
+    proc_params: Optional[logits_process.ProcParams] = None,
+    proc_state: Optional[logits_process.ProcState] = None,  # updated IN PLACE
 ) -> DecodeOut:
     """``num_steps`` single-token forward + sample steps (the JAX
     ``lax.scan`` as a Python loop). Inactive rows keep their token and
@@ -372,29 +388,51 @@ def decode_multi(
     (seed, salts[b], pos + 1) — the index the prefill step uses for the
     first generated token, so a recompute redraws the same noise. Host
     stop conditions are applied afterwards; overshoot writes past the table
-    capacity are dropped by write_chunk_to_cache."""
+    capacity are dropped by write_chunk_to_cache.
+
+    A step, as the JAX one (llama.py:765-806): forward; the processors
+    (``proc_params``, with the counts of ``proc_state``) on the logits;
+    sample (with ``min_p``); inactive rows held at their token; the
+    chosen token's log-probability from the processed, unscaled logits
+    (``want_logprobs``) and the ``num_top_logprobs`` best (no [B, V] pass
+    when neither is asked for); the token counted into ``proc_state``."""
     toks = tokens.long()
     pos = start_pos.to(torch.int32)
     act = active.to(torch.int32)
     finite = torch.ones(tokens.shape[0], dtype=torch.bool, device=tokens.device)
-    out_toks, out_logits = [], []
+    out_toks, out_logits, out_logp, out_tv, out_ti = [], [], [], [], []
     for _ in range(num_steps):
         logits, k_cache, v_cache = forward_paged(
             params, config, toks[:, None], pos, act, block_tables, k_cache, v_cache,
             use_megakernel=use_megakernel,
         )
         finite &= torch.isfinite(logits).all(dim=-1)
-        keys = fold_row_keys(seed, salts, pos + 1)
-        nxt = sample_tokens(logits, temperature, top_k, top_p, row_keys=keys)
-        toks = torch.where(act > 0, nxt, toks)
-        pos = pos + act
-        out_toks.append(toks)
         if want_logits:
             out_logits.append(logits)
+        if proc_params is not None:
+            logits = logits_process.apply(logits, proc_params, proc_state)
+        keys = fold_row_keys(seed, salts, pos + 1)
+        nxt = sample_tokens(logits, temperature, top_k, top_p, min_p, row_keys=keys)
+        toks = torch.where(act > 0, nxt, toks)
+        if want_logprobs or num_top_logprobs > 0:
+            logp = log_softmax_f32(logits)
+            if want_logprobs:
+                out_logp.append(pick_logprobs(logp, toks))
+            if num_top_logprobs > 0:
+                tv, ti = top_of(logp, num_top_logprobs)
+                out_tv.append(tv)
+                out_ti.append(ti)
+        if proc_state is not None:
+            logits_process.record_tokens(proc_state, toks, act)
+        pos = pos + act
+        out_toks.append(toks)
     return DecodeOut(
         tokens=torch.stack(out_toks, dim=1),
         finite=finite,
         logits=torch.stack(out_logits, dim=1) if want_logits else None,
+        logprobs=torch.stack(out_logp, dim=1) if want_logprobs else None,
+        top_vals=torch.stack(out_tv, dim=1) if num_top_logprobs > 0 else None,
+        top_ids=torch.stack(out_ti, dim=1) if num_top_logprobs > 0 else None,
     )
 
 
@@ -405,6 +443,13 @@ SLOT_STATE = {
     "tokens": torch.int64, "pos": torch.int32, "active": torch.int32,
     "temp": torch.float32, "topk": torch.int32, "topp": torch.float32,
     "salts": torch.int64, "tables": torch.int32,
+}
+# The processor parameters of each slot (the JAX runner's slot_state minp,
+# rep, pres, freq, bias_ids, bias_vals): name -> dtype; the bias fields are
+# [S, MAX_BIAS_SLOTS]. Read only by a burst with ``use_procs``.
+PROC_SLOT_STATE = {
+    "minp": torch.float32, "rep": torch.float32, "pres": torch.float32,
+    "freq": torch.float32, "bias_ids": torch.int64, "bias_vals": torch.float32,
 }
 
 
@@ -421,24 +466,41 @@ def decode_burst(
     num_steps: int,
     width: int,
     use_megakernel: bool = False,
+    proc_state: Optional[logits_process.ProcState] = None,  # with PROC_SLOT_STATE in state
+    logprob_outputs: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> None:
     """One decode burst over the slot state (the body of the JAX runner's
-    ``_build_decode_fn``, runner.py:700-745): ``decode_multi`` over every
+    ``_build_decode_fn``, runner.py:700-780): ``decode_multi`` over every
     slot with the first ``width`` pages of each block table, its tokens and
     finite flags copied into ``out_tokens`` / ``out_finite``, and the carry
     (each slot's last sampled token, its position advanced by num_steps
     when active) written back into ``state["tokens"]`` / ``state["pos"]``
-    where the JAX program donates and returns them. It reads nothing back
-    to the host and every tensor it keeps has a fixed address, so the same
-    function runs eagerly and under CUDA graph capture
-    (engines/gpu/runner.py)."""
+    where the JAX program donates and returns them. With ``proc_state``
+    the processors and min_p of the state's PROC_SLOT_STATE rows apply and
+    the counts advance in place; with ``logprob_outputs`` (logprobs [S, K],
+    top values and ids [S, K, N]) the chosen tokens' logprobs and the top N
+    are written there. It reads nothing back to the host and every tensor
+    it keeps has a fixed address, so the same function runs eagerly and
+    under CUDA graph capture (engines/gpu/runner.py)."""
     tables = state["tables"][:, :width].contiguous()
+    procs = {}
+    if proc_state is not None:
+        proc_params = logits_process.ProcParams(
+            rep=state["rep"], pres=state["pres"], freq=state["freq"],
+            bias_ids=state["bias_ids"], bias_vals=state["bias_vals"])
+        procs = dict(min_p=state["minp"], proc_state=proc_state, proc_params=proc_params)
     out = decode_multi(
         params, config, state["tokens"], state["pos"], state["active"], tables,
         k_cache, v_cache, seed, state["temp"], state["topk"], state["topp"],
         num_steps=num_steps, salts=state["salts"], use_megakernel=use_megakernel,
+        want_logprobs=logprob_outputs is not None,
+        num_top_logprobs=logprob_outputs[1].shape[-1] if logprob_outputs is not None else 0,
+        **procs,
     )
     out_tokens.copy_(out.tokens)
     out_finite.copy_(out.finite)
+    if logprob_outputs is not None:
+        for buf, val in zip(logprob_outputs, (out.logprobs, out.top_vals, out.top_ids)):
+            buf.copy_(val)
     state["tokens"].copy_(out.tokens[:, -1])
     state["pos"].add_(state["active"] * num_steps)

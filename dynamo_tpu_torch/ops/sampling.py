@@ -85,3 +85,37 @@ def sample_tokens(
     # Greedy: the FIRST maximal logit, as lax.top_k's stable order picks.
     greedy = torch.argmax(logits, dim=-1)
     return torch.where(temperature <= 0.0, greedy, sampled)
+
+
+def log_softmax_f32(logits: torch.Tensor) -> torch.Tensor:
+    """[B, V] float32 log-probabilities."""
+    return torch.log_softmax(logits.to(torch.float32), dim=-1)
+
+
+def pick_logprobs(logp: torch.Tensor, token_ids: torch.Tensor) -> torch.Tensor:
+    """[B] entries of ``logp`` [B, V] at ``token_ids`` [B]."""
+    return torch.gather(logp, 1, token_ids.to(torch.int64)[:, None])[:, 0]
+
+
+def top_of(logp: torch.Tensor, n: int):
+    """([B, n] values, [B, n] int64 ids) of ``logp``'s n largest entries,
+    descending, ties to the lower id (``lax.top_k``'s order). The order is
+    exact: each float32 is mapped to an order-preserving int32 and paired
+    with its reversed id in one int64 key, so ``torch.topk`` (whose order
+    among equal values is unspecified) meets no tie."""
+    bits = logp.contiguous().view(torch.int32)
+    ordered = torch.where(bits >= 0, bits, bits ^ 0x7FFFFFFF).to(torch.int64)
+    V = logp.shape[-1]
+    rev = (V - 1) - torch.arange(V, dtype=torch.int64, device=logp.device)
+    _, ids = torch.topk(ordered * (1 << 32) + rev, n, dim=-1)
+    return torch.gather(logp, 1, ids), ids
+
+
+def compute_logprobs(logits: torch.Tensor, token_ids: torch.Tensor) -> torch.Tensor:
+    """Log-probability [B] (float32) of the chosen tokens."""
+    return pick_logprobs(log_softmax_f32(logits), token_ids)
+
+
+def top_logprobs(logits: torch.Tensor, n: int):
+    """Top-n (logprobs [B, n] float32, ids [B, n] int64) a row, descending."""
+    return top_of(log_softmax_f32(logits), n)

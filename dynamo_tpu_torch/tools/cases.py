@@ -109,9 +109,39 @@ LAYER_CASES = {
 }
 
 
+# Full-width layers of served models, on the card only (the CPU tests
+# emulate every LAYER_CASES entry): Gemma-3-1B's layer at the decode of its
+# engine phase — 32 rows at contexts 100-850 and one at 4,600 — on a local
+# layer (512-key window, its first key inside a page) and a global one.
+_GEMMA3_STARTS = [100 + 25 * i for i in range(31)] + [4600]
+# The kernel against its plain version at these layers: x_out within four
+# bf16 steps, and at most MODEL_PAST_ONE_SHARE of its values past one step
+# (LAYER_CASES: one step everywhere). The kernel's attention sums in other
+# orders (256-key items, 16-key groups, q and P in three bf16 terms), so an
+# attention output may round to its bf16 neighbour, which the o-proj
+# carries into x_out. The CPU emulation of that arithmetic
+# (ops/fused_layer.fused_decoder_layer_mma_ref) against the plain version
+# at these cases (tests/test_torch_fused_attention_mma.py): 2.41 steps at
+# the local layer, 8 of 36,864 values past one step; 1.16 and 2 at the
+# global one. On the card (chip_smoke.py): 1.28 at both, 4 and 9 values
+# past one step, k_new bit-equal. A wrong scale, window or rope table
+# moves most values by many steps.
+MODEL_STEP_LIMIT = 4.0
+MODEL_PAST_ONE_SHARE = 0.001
+_GEMMA3_CALL = dict(eps=1e-6, sm_scale=256.0**-0.5, act_fn="gelu_tanh", unit_offset=True)
+MODEL_LAYER_CASES = {
+    "gemma3-1b B32 local": (32, 1152, 4, 1, 256, 6912, _GEMMA3_STARTS,
+                            dict(qk_norm=True, post=True, unit=True),
+                            dict(_GEMMA3_CALL, window=512)),
+    "gemma3-1b B32 global": (32, 1152, 4, 1, 256, 6912, _GEMMA3_STARTS,
+                             dict(qk_norm=True, post=True, unit=True), dict(_GEMMA3_CALL)),
+}
+
+
 def make_layer_case(label: str, device: Any):
-    """(case, call knobs) of LAYER_CASES[label], seeded by the label."""
-    B, d, H, KH, D, F, starts, knobs, call = LAYER_CASES[label]
+    """(case, call knobs) of LAYER_CASES[label] or MODEL_LAYER_CASES[label],
+    seeded by the label."""
+    B, d, H, KH, D, F, starts, knobs, call = {**LAYER_CASES, **MODEL_LAYER_CASES}[label]
     return layer_case(B, d, H, KH, D, F, starts, device=device, seed=len(label), **knobs), call
 
 

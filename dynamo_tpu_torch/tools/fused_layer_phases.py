@@ -134,10 +134,11 @@ def run(case_label: str = "llama3-8b B16", runs: int = 4) -> List[Dict[str, Any]
 
 
 def main() -> None:
-    from dynamo_tpu_torch.tools.cases import LAYER_CASES
+    from dynamo_tpu_torch.tools.cases import LAYER_CASES, MODEL_LAYER_CASES
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--case", default="llama3-8b B16", choices=list(LAYER_CASES))
+    ap.add_argument("--case", default="llama3-8b B16",
+                    choices=list(LAYER_CASES) + list(MODEL_LAYER_CASES))
     ap.add_argument("--runs", type=int, default=4)
     args = ap.parse_args()
     for record in run(args.case, args.runs):

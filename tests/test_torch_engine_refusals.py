@@ -1,13 +1,10 @@
-"""``TorchEngine.generate()`` refuses a request whose sampling sets a logits
-processor or asks for logprobs — which the port does not compute yet — with
-``FinishReason.ERROR`` and a message naming the field, instead of streaming
-other tokens than the JAX engine would. Neutral values (the ones the JAX
-admission treats as off) are served, and give the plain request's stream.
+"""``TorchEngine.generate()`` serves neutral processor values (the ones the
+JAX admission treats as off) as the plain request: the same stream, and the
+request stays on the plain decode variant. (The processors themselves are
+held against JaxEngine in tests/test_torch_engine_procs.py.)
 """
 
 import asyncio
-
-import pytest
 
 from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
 from dynamo_tpu_torch.llm.protocols.common import (
@@ -35,28 +32,6 @@ def _engine():
     return TorchEngine(TorchEngineArgs(config=tconfig.tiny_config(), device="cpu", cuda_graphs=False, **ARGS))
 
 
-@pytest.mark.parametrize("field,value", [
-    ("repetition_penalty", 1.2),
-    ("presence_penalty", 0.5),
-    ("frequency_penalty", -0.3),
-    ("min_p", 0.05),
-    ("logit_bias", {7: 2.0}),
-    ("logprobs", 0),
-])
-def test_request_setting_a_processor_or_logprobs_is_refused(field, value):
-    async def run():
-        engine = _engine()
-        try:
-            return await _collect(engine, SamplingOptions(temperature=0.0, **{field: value}))
-        finally:
-            await engine.stop()
-
-    outs = asyncio.run(run())
-    assert len(outs) == 1
-    assert outs[0].finish_reason is FinishReason.ERROR
-    assert field in outs[0].error and not outs[0].token_ids
-
-
 def test_neutral_values_are_served_as_the_plain_request():
     neutral = SamplingOptions(temperature=0.0, repetition_penalty=1.0, presence_penalty=0.0,
                               frequency_penalty=0.0, min_p=0.0, logit_bias={}, logprobs=None)
@@ -66,12 +41,13 @@ def test_neutral_values_are_served_as_the_plain_request():
         try:
             plain = await _collect(engine, SamplingOptions(temperature=0.0))
             served = await _collect(engine, neutral)
-            return plain, served
+            return plain, served, engine.runner.proc_state
         finally:
             await engine.stop()
 
-    plain, served = asyncio.run(run())
+    plain, served, proc_state = asyncio.run(run())
+    assert proc_state is None  # no processor burst ran
     tokens = [[t for o in outs for t in o.token_ids] for outs in (plain, served)]
-    assert all(o.error is None for o in plain + served)
+    assert all(o.error is None and o.logprobs is None for o in plain + served)
     assert tokens[0] == tokens[1] and len(tokens[0]) == 6
     assert served[-1].finish_reason is FinishReason.LENGTH
