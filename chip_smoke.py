@@ -175,9 +175,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
    request set and burst with use_megakernel=False (bf16-pool decode
    attention and seven int8 products a layer): the fused layer's yardstick.
 
+29. pipeline — Qwen2.5-0.5B text in, text out through the OpenAI pipeline
+   (build_local_pipeline: OpenAIPreprocessor with the default ChatML and the
+   pure-Python byte-level BPE of tiny_tokenizer(), Backend's incremental
+   detokenize and stop strings) over TorchEngine at the engine's defaults
+   and its own random init (at init scale the tied head repeats its input
+   token, so the streams stay inside the tokenizer's 383 ids): eight
+   completions and chats of 100-300 tokens and one of ~1,200, 64 greedy
+   tokens each, one with a stop string its stream reaches, one with
+   logprobs, served at once. Each request's streamed ids must be what
+   TorchEngine.generate() gives for the same PreprocessedRequest, its text
+   tokenizer.decode(ids) (the stop request's cut before its stop string,
+   finish_reason stop), its _prompt_tokens annotation its prompt's length,
+   and both paged-attention kernels must have launched. The line: TTFT and
+   ITL at the pipeline beside the engine's own for the same set (runs in
+   the order engine, pipeline, pipeline, engine; ITL over the seven requests
+   that run to 64 tokens at both), host ms to preprocess the set, host µs a
+   token in the detokenize, ms to encode the ~1,200-token prompt.
+30. cli_batch — `python -m dynamo_tpu_torch.cli run --input batch:FILE
+   --model qwen2.5-0.5b --max-tokens 32` as a subprocess on a 4-line JSONL
+   file: exit code 0, four JSONL lines (prompt, text, tokens, latency_s) and
+   the `batch done:` summary.
+
 (18-20 run right after the Llama-3-8B kernels of phases 3-4, 22 right after
 the fused layer's timing, 21 right after phase 11, 23 right after phase 6,
-24-28 after phase 17.)
+24-28 after phase 17, 29-30 right after phase 23.)
 Then one JSON line {"kernels": [...]} for all ten kernels, nvidia-smi's
 name and power limit, and last {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result.
@@ -2074,6 +2096,325 @@ def variant_costs(torch, runner, smi, phase, ctx_step=25):
           "card": smi})
 
 
+# The words of the tiny tokenizer's training corpus: prompts made of them
+# encode to ids inside its 383, so the streams (at init scale Qwen's tied
+# head repeats its input token) decode to text.
+PIPELINE_WORDS = ("the quick brown fox jumps over the lazy dog hello world this is a test of "
+                  "the tokenizer paged attention continuous batching on tpu hardware 0123456789 "
+                  "!@#$%^&*() streaming tokens one at a time over the wire").split()
+PIPELINE_MAX_TOKENS = 64
+
+
+def pipeline_text(tok, rng, n_tokens):
+    """Corpus words drawn with ``rng`` until the text encodes to about
+    ``n_tokens`` tokens (a word after the first is its own pre-token)."""
+    words, n = [], 0
+    while n < n_tokens:
+        w = PIPELINE_WORDS[int(rng.integers(len(PIPELINE_WORDS)))]
+        n += len(tok.encode(w if not words else " " + w))
+        words.append(w)
+    return " ".join(words)
+
+
+def pipeline_bodies(tok, stop):
+    """The pipeline phase's eight OpenAI bodies: completions and chats of
+    100-300 tokens and one completion of about 1,200, greedy, 64 tokens
+    each; the second stops at ``stop``, the third asks for logprobs."""
+    import numpy as np
+
+    rng = np.random.default_rng(3)
+    greedy = dict(model="qwen2.5-0.5b", temperature=0.0, max_tokens=PIPELINE_MAX_TOKENS)
+    out = []
+    for i, n in enumerate((100, 150, 200, 1200, 120, 180, 250, 300)):
+        text = pipeline_text(tok, rng, n)
+        body = dict(greedy, prompt=text) if i < 4 or i == 7 else dict(
+            greedy, messages=[{"role": "system", "content": "answer briefly"},
+                              {"role": "user", "content": text}])
+        out.append(body)
+    out[1]["stop"] = [stop]
+    out[2]["logprobs"] = 3
+    return out
+
+
+async def serve_pipeline(pipeline, bodies):
+    """Each body through the pipeline, all at once: per request its items,
+    the time it was sent, and (time, tokens) of each item with tokens."""
+    from dynamo_tpu_torch.runtime.context import Context
+
+    async def one(body):
+        t0, items, stamps = time.monotonic(), [], []
+        async for item in pipeline.generate(body, Context()):
+            items.append(item)
+            if not isinstance(item, dict) and item.token_ids:
+                stamps.append((time.monotonic(), len(item.token_ids)))
+        return dict(t0=t0, items=items, stamps=stamps)
+
+    return await asyncio.gather(*(one(b) for b in bodies))
+
+
+async def serve_engine(engine, pres):
+    """Each PreprocessedRequest through TorchEngine.generate(), all at once:
+    per request its ids, the time it was sent and its (time, tokens)."""
+    from dynamo_tpu_torch.runtime.context import Context
+
+    async def one(pre):
+        t0, ids, stamps = time.monotonic(), [], []
+        async for out in engine.generate(pre, Context()):
+            if out.error:
+                raise RuntimeError(out.error)
+            if out.token_ids:
+                stamps.append((time.monotonic(), len(out.token_ids)))
+                ids += out.token_ids
+        return dict(t0=t0, ids=ids, stamps=stamps)
+
+    return await asyncio.gather(*(one(p) for p in pres))
+
+
+async def idle_cleared(engine):
+    """Wait until the engine has nothing running, waiting or in flight (its
+    scheduler reaps the last bursts), then drop its prefix cache, so the
+    next run prefills as the first did."""
+    def busy():
+        st = engine.stats()
+        return st["active_seqs"] or st["waiting"] or st["inflight_bursts"]
+
+    while busy():
+        await asyncio.sleep(0.005)
+    engine.pool.clear()
+
+
+def latency_ms(runs, itl_rows):
+    """In ms over runs with t0 and stamps: TTFT mean and max, ITL mean over
+    the runs ``itl_rows`` names, and from the first request's send: the
+    last request's send, the first and the last first token."""
+    ttft = [r["stamps"][0][0] - r["t0"] for r in runs]
+    itl = [(r["stamps"][-1][0] - r["stamps"][0][0]) / max(sum(n for _, n in r["stamps"]) - 1, 1)
+           for r in (runs[i] for i in itl_rows)]
+    sent = min(r["t0"] for r in runs)
+    first = [r["stamps"][0][0] - sent for r in runs]
+    return [1e3 * x for x in (sum(ttft) / len(ttft), max(ttft), sum(itl) / len(itl),
+                              max(r["t0"] for r in runs) - sent, min(first), max(first))]
+
+
+@contextlib.contextmanager
+def timed_detokenize():
+    """Host time spent in DecodeStream.step / flush (the Backend's
+    detokenize) while the block runs, and the tokens fed: {"s", "tokens"}."""
+    from dynamo_tpu_torch.llm.tokenizer import DecodeStream
+
+    acc = {"s": 0.0, "tokens": 0}
+    step, flush = DecodeStream.step, DecodeStream.flush
+
+    def timed_step(self, token_ids):
+        t0 = time.perf_counter()
+        try:
+            return step(self, token_ids)
+        finally:
+            acc["s"] += time.perf_counter() - t0
+            acc["tokens"] += len(token_ids)
+
+    def timed_flush(self):
+        t0 = time.perf_counter()
+        try:
+            return flush(self)
+        finally:
+            acc["s"] += time.perf_counter() - t0
+
+    DecodeStream.step, DecodeStream.flush = timed_step, timed_flush
+    try:
+        yield acc
+    finally:
+        DecodeStream.step, DecodeStream.flush = step, flush
+
+
+def pipeline_phase(torch, smi) -> dict:
+    """Qwen2.5-0.5B text in, text out: build_local_pipeline(card,
+    TorchEngine, tiny_tokenizer()) at the engine's defaults (depth 2, CUDA
+    graphs; 16 slots, 2,048 blocks as the engine phases) and its own random
+    init (what ``cli run --model qwen2.5-0.5b`` serves). The request set is
+    served five times, each from an empty prefix cache: once through
+    TorchEngine.generate() to capture every graph it reaches (and to give
+    the stop request its stop string), then engine, pipeline, pipeline,
+    engine (the engine's own TTFT and ITL beside the pipeline's, twice
+    each), launch counts zeroed just before the first pipeline run and read
+    just after. Fails unless (a) each
+    request's streamed ids are the reference's (the stop request's a
+    prefix of them), (b) its text is tokenizer.decode(ids) (the stop
+    request's cut before its stop string, finish_reason stop), (c) its
+    _prompt_tokens annotation is its prompt's length, (d) both
+    paged-attention kernels launched. Returns the launch counts."""
+    t_phase = time.monotonic()
+    from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
+    from dynamo_tpu_torch.llm import ModelDeploymentCard, OpenAIPreprocessor, tiny_tokenizer
+    from dynamo_tpu_torch.llm.entrypoint import build_local_pipeline, resolve_chat_template
+    from dynamo_tpu_torch.llm.tokenizer import TINY_TOKENIZER_PATH, HFTokenizer
+    from dynamo_tpu_torch.models.config import qwen2_500m_config
+
+    cfg = qwen2_500m_config()
+    args = TorchEngineArgs(config=cfg, block_size=16, num_kv_blocks=2048, max_num_seqs=16,
+                           max_model_len=2048, prefill_chunk=512, seed=0, device=DEV)
+    engine = TorchEngine(args)
+    tok = tiny_tokenizer()
+    card = ModelDeploymentCard(name=cfg.name, context_length=args.max_model_len,
+                               kv_block_size=args.block_size,
+                               eos_token_ids=list(cfg.eos_token_ids))
+    pipeline = build_local_pipeline(card, engine, tokenizer=tok)
+    pre = OpenAIPreprocessor(card, tok, resolve_chat_template(card))
+    bodies = pipeline_bodies(tok, stop="unset")
+    # encoding the ~1,200-token prompt: a fresh tokenizer (empty word cache),
+    # then warm (median of 5)
+    long_text = bodies[3]["prompt"]
+    cold_tok = HFTokenizer.from_file(TINY_TOKENIZER_PATH)
+    t0 = time.perf_counter()
+    long_ids = cold_tok.encode(long_text)
+    encode_cold_ms = 1e3 * (time.perf_counter() - t0)
+    warm = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        cold_tok.encode(long_text)
+        warm.append(1e3 * (time.perf_counter() - t0))
+
+    async def run():
+        try:
+            first = await serve_engine(engine, [pre.preprocess(b) for b in bodies])
+            await idle_cleared(engine)
+            ids = first[1]["ids"]
+            text = tok.decode(ids)
+            # two characters the stop request's stream reaches, past its start
+            stop = next(text[i:i + 2] for i in range(8, len(text) - 1) if text[i:i + 2].strip())
+            measured = pipeline_bodies(tok, stop)
+            t0 = time.perf_counter()
+            pres = [pre.preprocess(b) for b in measured]
+            preprocess_ms = 1e3 * (time.perf_counter() - t0)
+            # engine, pipeline, pipeline, engine: each from an empty prefix
+            # cache, launches counted over the first pipeline run
+            ref = await serve_engine(engine, pres)
+            await idle_cleared(engine)
+            reset_counts()
+            with timed_detokenize() as detok:
+                got = await serve_pipeline(pipeline, measured)
+            counts = read_counts()
+            await idle_cleared(engine)
+            got2 = await serve_pipeline(pipeline, measured)
+            await idle_cleared(engine)
+            ref2 = await serve_engine(engine, pres)
+            return stop, measured, pres, preprocess_ms, (ref, ref2), (got, got2), counts, detok
+        finally:
+            await engine.stop()
+
+    stop, measured, pres, preprocess_ms, refs, gots, counts, detok = asyncio.run(run())
+    ref = refs[0]
+    if any(a["ids"] != b["ids"] for a, b in zip(*refs)):
+        fail("the engine's two runs of the pipeline set gave different ids")
+    for got in gots:
+        for i, (body, p, r, g) in enumerate(zip(measured, pres, ref, got)):
+            ann = [x for x in g["items"] if isinstance(x, dict)]
+            outs = [x for x in g["items"] if not isinstance(x, dict)]
+            if any(o.error for o in outs):
+                fail(f"pipeline request {i} failed: {[o.error for o in outs if o.error]}")
+            ids = [t for o in outs for t in o.token_ids]
+            text = "".join(o.text for o in outs)
+            full = tok.decode(ids)
+            reason = outs[-1].finish_reason.value if outs and outs[-1].finish_reason else None
+            if ann[:1] != [{"annotation": "_prompt_tokens", "value": len(p.token_ids)}]:
+                fail(f"pipeline request {i}: _prompt_tokens annotation {ann[:1]}, expected "
+                     f"{len(p.token_ids)}")
+            if "stop" in body:
+                if ids != r["ids"][:len(ids)] or stop not in full or reason != "stop":
+                    fail(f"the stop request's stream ({len(ids)} ids, {reason}) is not a "
+                         f"prefix of the engine's ending at its stop string {stop!r}")
+                if text != full[:full.index(stop)]:
+                    fail(f"the stop request's text {text!r} is not its decoded ids cut "
+                         f"before {stop!r}")
+                continue
+            if ids != r["ids"]:
+                at = next((k for k, (a, b) in enumerate(zip(ids, r["ids"])) if a != b), None)
+                fail(f"pipeline request {i}: streamed ids part from the engine's generate() "
+                     f"at token {at} ({len(ids)} against {len(r['ids'])} ids)")
+            if text != full:
+                fail(f"pipeline request {i}: text {text!r} is not tokenizer.decode(ids) "
+                     f"{full!r}")
+            if reason != "length" or len(ids) != PIPELINE_MAX_TOKENS:
+                fail(f"pipeline request {i} ended with {len(ids)} tokens ({reason})")
+            if body.get("logprobs"):
+                entries = [e for o in outs for step in o.logprobs or [] for e in step]
+                if len(entries) != 4 * len(ids) or any(
+                        e.decoded != tok.decode([e.token_id]) for e in entries):
+                    fail("the logprobs request's entries are not 1 + 3 a token with decoded "
+                         "strings")
+    for name in ("paged_attention_decode", "paged_attention_chunk"):
+        if counts[name] <= 0:
+            fail(f"{name} never launched on the pipeline path")
+    # each run's latency_ms, in the order they ran; ITL over the requests
+    # that run to max_tokens at both (the stop request ends early only at
+    # the pipeline)
+    rows = [i for i, b in enumerate(measured) if "stop" not in b]
+    runs = {"engine": latency_ms(refs[0], rows), "pipeline": latency_ms(gots[0], rows),
+            "pipeline_2": latency_ms(gots[1], rows), "engine_2": latency_ms(refs[1], rows)}
+
+    def mean(kind, j):
+        return (runs[kind][j] + runs[kind + "_2"][j]) / 2
+
+    emit({"phase": "pipeline", "model": cfg.name, "requests": len(measured),
+          "max_tokens": PIPELINE_MAX_TOKENS, "prompt_tokens": [len(p.token_ids) for p in pres],
+          "stop": stop, "ttft_ms_mean": mean("pipeline", 0), "itl_ms_mean": mean("pipeline", 2),
+          "engine_ttft_ms_mean": mean("engine", 0), "engine_itl_ms_mean": mean("engine", 2),
+          "runs_ttft_mean_max_itl_sent_first_ms": runs, "preprocess_ms_set": preprocess_ms,
+          "detokenize_us_per_token": 1e6 * detok["s"] / max(detok["tokens"], 1),
+          "detokenized_tokens": detok["tokens"],
+          # at init scale each stream repeats one token (1s here): the
+          # detokenize cost above is read on such streams
+          "stream_distinct_ids": [len({t for o in g["items"] if not isinstance(o, dict)
+                                       for t in o.token_ids}) for g in gots[0]],
+          "encode_ms_long_prompt": encode_cold_ms, "encode_ms_long_prompt_warm": sorted(warm)[2],
+          "long_prompt_tokens": len(long_ids), "launches": counts,
+          "seconds": time.monotonic() - t_phase, "card": smi})
+    return counts
+
+
+def cli_batch_phase(smi) -> None:
+    """``python -m dynamo_tpu_torch.cli run --input batch:FILE --model
+    qwen2.5-0.5b --max-tokens 32`` as a subprocess on a 4-line JSONL file:
+    exit code 0, four JSONL lines with prompt, text, tokens and latency_s,
+    and the ``batch done:`` summary on stderr."""
+    import tempfile
+
+    import numpy as np
+
+    from dynamo_tpu_torch.llm import tiny_tokenizer
+
+    t_phase = time.monotonic()
+    tok, rng = tiny_tokenizer(), np.random.default_rng(4)
+    prompts = [pipeline_text(tok, rng, n) for n in (40, 80, 120, 160)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as d:
+        src = os.path.join(d, "in.jsonl")
+        with open(src, "w") as f:
+            f.writelines(json.dumps({"prompt": p}) + "\n" for p in prompts)
+        t0 = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dynamo_tpu_torch.cli", "run", "--input", f"batch:{src}",
+             "--model", "qwen2.5-0.5b", "--max-tokens", "32"],
+            capture_output=True, text=True, timeout=300, cwd=root)
+        wall = time.monotonic() - t0
+    if proc.returncode != 0:
+        fail(f"cli run exited {proc.returncode}: {proc.stderr[-2000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    summary = [x for x in proc.stderr.splitlines() if x.startswith("batch done:")]
+    if len(lines) != 4 or any(set(x) != {"prompt", "text", "tokens", "latency_s"}
+                              for x in lines) or [x["prompt"] for x in lines] != prompts:
+        fail(f"cli run printed {len(lines)} JSONL lines, expected 4 with prompt, text, tokens "
+             f"and latency_s: {proc.stdout[-2000:]}")
+    if not summary:
+        fail(f"cli run printed no 'batch done:' summary: {proc.stderr[-2000:]}")
+    if any(not 0 < x["tokens"] <= 32 for x in lines):
+        fail(f"cli run token counts {[x['tokens'] for x in lines]} outside 1-32")
+    emit({"phase": "cli_batch", "model": "qwen2.5-0.5b", "lines": len(lines),
+          "tokens": [x["tokens"] for x in lines], "latency_s": [x["latency_s"] for x in lines],
+          "text_chars": [len(x["text"]) for x in lines], "summary": summary[-1],
+          "wall_s": wall, "seconds": time.monotonic() - t_phase, "card": smi})
+
+
 # Faults the probe can plant, in memory only, to see what the dense check
 # of an engine phase reads when the engine is wrong.
 FAULTS = {
@@ -2257,6 +2598,11 @@ def main() -> int:
     del engine, params
     gc.collect()
     torch.cuda.empty_cache()
+    # Text in, text out: the OpenAI pipeline over the engine, and cli run.
+    counts_pipe = pipeline_phase(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_batch_phase(smi)
     # Llama-3-8B, random int8 weights: the fused layer's gate turns it on.
     # Random weights give logits ~ N(0, 1); the dense check's layers round
     # q/k/v to bf16 where the fused layer keeps f32, which moves logits by a
@@ -2433,12 +2779,13 @@ def main() -> int:
     # launches: the six engine paths (Qwen2.5-0.5B bf16, Llama-3-8B int8,
     # Llama-3-8B int8 with int8 KV, Gemma-2-2B bf16, Gemma-3-1B int8 with
     # int8 KV, Gemma-3-1B int8 over bf16 pools, and the latter with the fused
-    # layer off) and the three profiling paths (prof_attn, prof_fused_ffn,
+    # layer off), the OpenAI pipeline over Qwen2.5-0.5B and the three
+    # profiling paths (prof_attn, prof_fused_ffn,
     # prof_8b's four modes); times of the D 64 (bf16 pools) and D 128 (int8
     # pools) cases, the D 256 and block-size-128 ones above, #5-#7 at their
     # main cases
-    paths = (counts, counts8, counts8kv, counts_g, counts_3, counts_3bf, counts_3u, counts_attn,
-             counts_ffn, counts_8b)
+    paths = (counts, counts8, counts8kv, counts_g, counts_3, counts_3bf, counts_3u, counts_pipe,
+             counts_attn, counts_ffn, counts_8b)
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{sources[n]}",
          "replaces": replaces[n], "launches": sum(c.get(n, 0) for c in paths),

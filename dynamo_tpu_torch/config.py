@@ -27,8 +27,25 @@ class EnvVar:
             return self.default
 
 
+def _parse_bool(raw: str) -> bool:
+    return raw.strip().lower() in ("1", "true", "yes", "on")
+
+
 KV_QUANT_AUTO_CTX = EnvVar(
     "DYN_TPU_KV_QUANT_AUTO_CTX", 512, int,
     "kv_cache_dtype='auto': quantize the KV cache to int8 when max_model_len "
     "reaches this (dynamo_tpu/config.py:153)",
+)
+KV_BLOCK_SIZE = EnvVar(
+    "DYN_TPU_KV_BLOCK_SIZE", 16, int,
+    "KV cache block size in tokens (`cli run --block-size` default; "
+    "dynamo_tpu/config.py:170)",
+)
+LOG_LEVEL = EnvVar(
+    "DYN_TPU_LOG", "info", str,
+    "Log level (trace|debug|info|warn|error) (dynamo_tpu/config.py:184)",
+)
+LOG_JSON = EnvVar(
+    "DYN_TPU_LOG_JSON", False, _parse_bool,
+    "Emit JSONL structured logs (dynamo_tpu/config.py:188)",
 )

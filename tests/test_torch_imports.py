@@ -1,7 +1,10 @@
 """Import hygiene of the port: dynamo_tpu_torch and chip_smoke.py import
-neither jax nor anything of dynamo_tpu, every module imports with both
-blocked, and an entry point left on its default device (cuda) raises when
-there is no card instead of carrying on on the CPU."""
+neither jax nor anything of dynamo_tpu, nor a package the card's machine
+lacks (tokenizers, regex, aiohttp, msgpack, zmq; jinja2 only inside a
+function); every module imports with all of those and xxhash blocked, and
+the text path (tokenizer, default chat template) runs so; an entry point
+left on its default device (cuda) raises when there is no card instead of
+carrying on on the CPU."""
 
 import ast
 import os
@@ -25,6 +28,45 @@ def _port_files():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+# Packages the card's machine does not have. The port imports none of the
+# first five; jinja2 only inside a function (a custom chat template);
+# xxhash only where it falls back without it (tokens/blocks.py).
+ABSENT_ON_CARD = ("tokenizers", "regex", "aiohttp", "msgpack", "zmq")
+BLOCKED = ("jax", "jaxlib", "dynamo_tpu") + ABSENT_ON_CARD + ("jinja2", "xxhash")
+
+
+def _imports(path):
+    """(line, module name, inside a function body) of every import."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    out = []
+
+    def visit(node, in_function):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                out.extend((child.lineno, a.name, in_function) for a in child.names)
+            elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
+                out.append((child.lineno, child.module, in_function))
+            visit(child, in_function or isinstance(child, (ast.FunctionDef,
+                                                           ast.AsyncFunctionDef)))
+
+    visit(tree, False)
+    return out
+
+
+def test_no_file_of_the_port_imports_a_package_the_card_lacks():
+    bad = []
+    for path in _port_files():
+        for line, name, in_function in _imports(path):
+            top = name.split(".")[0]
+            if top in ABSENT_ON_CARD or (top == "jinja2" and not in_function):
+                bad.append(f"{path.relative_to(ROOT)}:{line} {name}")
+    assert bad == []
+    # the scan sees the one import of jinja2, inside a function
+    chat = PKG / "llm" / "chat_template.py"
+    assert [n for _, n, f in _imports(chat) if n == "jinja2"] == ["jinja2"]
+    assert all(f for _, n, f in _imports(chat) if n == "jinja2")
+
+
 def test_no_file_of_the_port_imports_jax_or_dynamo_tpu():
     bad = []
     for path in _port_files():
@@ -45,14 +87,16 @@ _BLOCKED_IMPORT = r"""
 import importlib, importlib.abc, importlib.util, pkgutil, sys
 sys.path.insert(0, {root!r})
 
+BLOCKED = {blocked!r}
+
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):
-        if name.split(".")[0] in ("jax", "jaxlib", "dynamo_tpu"):
+        if name.split(".")[0] in BLOCKED:
             raise ImportError("blocked: " + name)
         return None
 
 for mod in list(sys.modules):
-    if mod.split(".")[0] in ("jax", "jaxlib", "dynamo_tpu"):
+    if mod.split(".")[0] in BLOCKED:
         del sys.modules[mod]
 sys.meta_path.insert(0, Block())
 import dynamo_tpu_torch
@@ -62,17 +106,34 @@ for name in names:
 # the profiling entry points and the kernels of the last three TPU kernels
 wanted = set("dynamo_tpu_torch." + n for n in (
     "tools.prof_attn", "tools.prof_fused_ffn", "tools.prof_8b", "ops.ffn_int8",
-    "ops.cuda.decode_attention_proto", "ops.cuda.ffn_int8"))
+    "ops.cuda.decode_attention_proto", "ops.cuda.ffn_int8",
+    "llm.bpe", "llm.tokenizer", "llm.chat_template", "llm.preprocessor", "llm.backend",
+    "llm.entrypoint", "llm.protocols.openai", "runtime.pipeline",
+    "cli.run", "cli.__main__"))
 assert wanted <= set(names), sorted(wanted - set(names))
 spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
-assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "dynamo_tpu")]
+# the text path runs without tokenizers, regex and jinja2
+from dynamo_tpu_torch.llm import ChatTemplate, OpenAIPreprocessor, ModelDeploymentCard
+from dynamo_tpu_torch.llm import tiny_tokenizer
+tok = tiny_tokenizer()
+pre = OpenAIPreprocessor(ModelDeploymentCard(name="m"), tok).preprocess(
+    {{"model": "m", "messages": [{{"role": "user", "content": "hello world"}}]}})
+assert tok.decode(pre.token_ids, skip_special_tokens=False) == ChatTemplate().render(
+    [{{"role": "user", "content": "hello world"}}])
+try:
+    ChatTemplate("{{{{ messages }}}}")
+    raise SystemExit("a custom template rendered without jinja2")
+except ImportError as exc:
+    assert "jinja2" in str(exc)
+assert not [m for m in sys.modules if m.split(".")[0] in BLOCKED]
 print(len(names))
 """
 
 
 def test_every_module_imports_with_jax_and_dynamo_tpu_blocked():
-    code = _BLOCKED_IMPORT.format(root=str(ROOT), smoke=str(ROOT / "chip_smoke.py"))
+    code = _BLOCKED_IMPORT.format(root=str(ROOT), smoke=str(ROOT / "chip_smoke.py"),
+                                  blocked=BLOCKED)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120, env=env, cwd=str(ROOT))
