@@ -196,10 +196,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
    --model qwen2.5-0.5b --max-tokens 32` as a subprocess on a 4-line JSONL
    file: exit code 0, four JSONL lines (prompt, text, tokens, latency_s) and
    the `batch done:` summary.
+31. http — the OpenAI HTTP frontend (HttpService on the standard-library
+   server of http/web.py, 127.0.0.1) over phase 29's pipeline, requests
+   sent by tools/sse_client.py from a process of its own: phase 29's set
+   streamed with usage (runs in the order pipeline, http, http, pipeline,
+   each from an empty prefix cache), then unary, n 2 and /v1/responses
+   (unary and streamed) beside the pipeline on the same engine requests,
+   the error cases (404, 400 x 3, 501), a stream the client leaves after
+   three frames, /metrics. Each text is the pipeline's (a completion's
+   frame for frame, the logprobs request's tokens its decoded ids), each
+   stream ends in [DONE] with usage equal to the prompt's and the
+   pipeline's token counts, the departed stream's slot frees before its
+   max_tokens with 499 counted, /metrics parses, both paged-attention
+   kernels launched. The line: TTFT and ITL over HTTP beside the
+   pipeline's, host µs a frame in the service's SSE send (while serving,
+   and alone with the engine idle), seconds a step of the phase.
+32. cli_http — `python -m dynamo_tpu_torch.cli run --input http --model
+   qwen2.5-0.5b --http-port 0` as a subprocess: its `http server on :PORT`
+   line, a streamed chat and a unary completion, then SIGINT, after which
+   it must end within 15 s.
 
 (18-20 run right after the Llama-3-8B kernels of phases 3-4, 22 right after
 the fused layer's timing, 21 right after phase 11, 23 right after phase 6,
-24-28 after phase 17, 29-30 right after phase 23.)
+24-28 after phase 17, 29-32 right after phase 23.)
 Then one JSON line {"kernels": [...]} for all ten kernels, nvidia-smi's
 name and power limit, and last {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result.
@@ -210,6 +229,12 @@ runs only the named engine phases (qwen, gemma2, gemma3, gemma3bf,
 gemma3bf_unfused; with +procs the processors phase after them), at each
 embedding scale and with each fault of FAULTS planted (``probe``), without
 limits: the calibration of the dense checks. It prints no result line.
+
+    python3 chip_smoke.py --frame-probe
+
+runs only the frame probe (``frame_probe``): the http phase's per-frame
+host cost while serving, alone with the scheduler thread parked, and alone
+with it dispatching, under two switch intervals. No result line either.
 """
 
 from __future__ import annotations
@@ -220,6 +245,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2227,27 +2253,15 @@ def timed_detokenize():
         DecodeStream.step, DecodeStream.flush = step, flush
 
 
-def pipeline_phase(torch, smi) -> dict:
-    """Qwen2.5-0.5B text in, text out: build_local_pipeline(card,
-    TorchEngine, tiny_tokenizer()) at the engine's defaults (depth 2, CUDA
-    graphs; 16 slots, 2,048 blocks as the engine phases) and its own random
-    init (what ``cli run --model qwen2.5-0.5b`` serves). The request set is
-    served five times, each from an empty prefix cache: once through
-    TorchEngine.generate() to capture every graph it reaches (and to give
-    the stop request its stop string), then engine, pipeline, pipeline,
-    engine (the engine's own TTFT and ITL beside the pipeline's, twice
-    each), launch counts zeroed just before the first pipeline run and read
-    just after. Fails unless (a) each
-    request's streamed ids are the reference's (the stop request's a
-    prefix of them), (b) its text is tokenizer.decode(ids) (the stop
-    request's cut before its stop string, finish_reason stop), (c) its
-    _prompt_tokens annotation is its prompt's length, (d) both
-    paged-attention kernels launched. Returns the launch counts."""
-    t_phase = time.monotonic()
+def qwen_pipeline():
+    """(config, engine, tokenizer, card, pipeline, preprocessor) of the
+    pipeline phases: build_local_pipeline(card, TorchEngine,
+    tiny_tokenizer()) over Qwen2.5-0.5B at the engine's defaults (depth 2,
+    CUDA graphs; 16 slots, 2,048 blocks as the engine phases) and its own
+    random init (what ``cli run --model qwen2.5-0.5b`` serves)."""
     from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
     from dynamo_tpu_torch.llm import ModelDeploymentCard, OpenAIPreprocessor, tiny_tokenizer
     from dynamo_tpu_torch.llm.entrypoint import build_local_pipeline, resolve_chat_template
-    from dynamo_tpu_torch.llm.tokenizer import TINY_TOKENIZER_PATH, HFTokenizer
     from dynamo_tpu_torch.models.config import qwen2_500m_config
 
     cfg = qwen2_500m_config()
@@ -2259,7 +2273,34 @@ def pipeline_phase(torch, smi) -> dict:
                                kv_block_size=args.block_size,
                                eos_token_ids=list(cfg.eos_token_ids))
     pipeline = build_local_pipeline(card, engine, tokenizer=tok)
-    pre = OpenAIPreprocessor(card, tok, resolve_chat_template(card))
+    return cfg, engine, tok, card, pipeline, OpenAIPreprocessor(card, tok,
+                                                                resolve_chat_template(card))
+
+
+def stop_string(tok, ids):
+    """Two characters that the stop request's stream reaches, past its
+    start."""
+    text = tok.decode(ids)
+    return next(text[i:i + 2] for i in range(8, len(text) - 1) if text[i:i + 2].strip())
+
+
+def pipeline_phase(torch, smi) -> dict:
+    """Qwen2.5-0.5B text in, text out through ``qwen_pipeline()``. The
+    request set is served five times, each from an empty prefix cache: once
+    through TorchEngine.generate() to capture every graph it reaches (and
+    to give the stop request its stop string), then engine, pipeline,
+    pipeline, engine (the engine's own TTFT and ITL beside the pipeline's,
+    twice each), launch counts zeroed just before the first pipeline run
+    and read just after. Fails unless (a) each
+    request's streamed ids are the reference's (the stop request's a
+    prefix of them), (b) its text is tokenizer.decode(ids) (the stop
+    request's cut before its stop string, finish_reason stop), (c) its
+    _prompt_tokens annotation is its prompt's length, (d) both
+    paged-attention kernels launched. Returns the launch counts."""
+    t_phase = time.monotonic()
+    from dynamo_tpu_torch.llm.tokenizer import TINY_TOKENIZER_PATH, HFTokenizer
+
+    cfg, engine, tok, card, pipeline, pre = qwen_pipeline()
     bodies = pipeline_bodies(tok, stop="unset")
     # encoding the ~1,200-token prompt: a fresh tokenizer (empty word cache),
     # then warm (median of 5)
@@ -2278,10 +2319,7 @@ def pipeline_phase(torch, smi) -> dict:
         try:
             first = await serve_engine(engine, [pre.preprocess(b) for b in bodies])
             await idle_cleared(engine)
-            ids = first[1]["ids"]
-            text = tok.decode(ids)
-            # two characters the stop request's stream reaches, past its start
-            stop = next(text[i:i + 2] for i in range(8, len(text) - 1) if text[i:i + 2].strip())
+            stop = stop_string(tok, first[1]["ids"])
             measured = pipeline_bodies(tok, stop)
             t0 = time.perf_counter()
             pres = [pre.preprocess(b) for b in measured]
@@ -2413,6 +2451,564 @@ def cli_batch_phase(smi) -> None:
           "tokens": [x["tokens"] for x in lines], "latency_s": [x["latency_s"] for x in lines],
           "text_chars": [len(x["text"]) for x in lines], "summary": summary[-1],
           "wall_s": wall, "seconds": time.monotonic() - t_phase, "card": smi})
+
+
+HTTP_CLIENT = os.path.join("dynamo_tpu_torch", "tools", "sse_client.py")
+HTTP_DISCONNECT_TOKENS = 1024  # the stream the client leaves after 3 frames
+# A sample line of the text exposition format 0.0.4.
+METRIC_LINE = r'[a-zA-Z_:][a-zA-Z0-9_:]*(\{[a-zA-Z0-9_]+="[^"]*"(,[a-zA-Z0-9_]+="[^"]*")*\})? \S+'
+
+
+async def http_requests(port, reqs):
+    """``reqs`` (tools/sse_client.py's input) sent all at once by that
+    client in a process of its own; its records."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = await asyncio.create_subprocess_exec(
+        sys.executable, os.path.join(root, HTTP_CLIENT), str(port),
+        stdin=asyncio.subprocess.PIPE, stdout=asyncio.subprocess.PIPE,
+        stderr=asyncio.subprocess.PIPE)
+    out, err = await asyncio.wait_for(proc.communicate(json.dumps(reqs).encode()), 600)
+    if proc.returncode != 0:
+        fail(f"the HTTP client exited {proc.returncode}: {err.decode()[-2000:]}")
+    return json.loads(out)
+
+
+def openai_path(body):
+    return "/v1/chat/completions" if "messages" in body else "/v1/completions"
+
+
+def sse_chunks(record):
+    """(time, payload) of a streamed response's data frames with choices
+    (one a pipeline item), its usage frame's usage, and whether it ended in
+    [DONE]."""
+    data = [(t, json.loads(f[6:])) for t, f in record["frames"] if f.startswith("data: {")]
+    usage = [c["usage"] for _, c in data if not c["choices"]]
+    return ([(t, c) for t, c in data if c["choices"]], usage[-1] if usage else None,
+            [f for _, f in record["frames"]][-1:] == ["data: [DONE]"])
+
+
+def choice_text(choice):
+    return choice.get("text") or (choice.get("delta") or choice.get("message") or {}).get(
+        "content") or ""
+
+
+def http_latency_ms(records, rows):
+    """latency_ms over HTTP streams: TTFT from the request's write to its
+    first frame, ITL over the tokens its usage frame counts."""
+    runs = []
+    for r in records:
+        chunks, usage, _ = sse_chunks(r)
+        runs.append(dict(t0=r["t0"], stamps=[(chunks[0][0], 1),
+                                             (chunks[-1][0], usage["completion_tokens"] - 1)]))
+    return latency_ms(runs, rows)
+
+
+@contextlib.contextmanager
+def timed_frames(service_module):
+    """Host time spent in the service's ``_sse_send`` (a frame's JSON, its
+    chunk and the socket write) while the block runs: {"s", "frames",
+    "each"} (``each`` the seconds of every frame).
+    (Not the thread's CPU time: ``time.thread_time()`` on the card's
+    machine moves in steps of milliseconds.)"""
+    acc = {"s": 0.0, "frames": 0, "each": []}
+    send = service_module._sse_send
+
+    async def timed(response, payload):
+        t0 = time.perf_counter()
+        try:
+            await send(response, payload)
+        finally:
+            dt = time.perf_counter() - t0
+            acc["s"] += dt
+            acc["frames"] += 1
+            acc["each"].append(dt)
+
+    service_module._sse_send = timed
+    try:
+        yield acc
+    finally:
+        service_module._sse_send = send
+
+
+# A reader of idle_frame_us's stream in a process of its own.
+FRAME_READER = """import socket, sys
+s = socket.create_connection(("127.0.0.1", int(sys.argv[1])))
+s.sendall(b"POST /frames HTTP/1.1\\r\\nHost: x\\r\\nContent-Length: 0\\r\\n\\r\\n")
+tail = b""
+while not tail.endswith(b"\\r\\n0\\r\\n\\r\\n"):
+    data = s.recv(1 << 16)
+    if not data:
+        sys.exit(1)
+    tail = (tail + data)[-16:]
+"""
+
+
+async def idle_frame_us(frames=2000, batch=50, reader_process=False):
+    """µs a frame of the service's ``_sse_send`` with nothing else running:
+    one completion chunk sent ``frames`` times on a chunked SSE response
+    to a reader on the same loop, which reads between batches of
+    ``batch`` frames (untimed): on the card's machine a reader that falls
+    a few hundred KB behind stalls the transfer for tens of seconds. With
+    ``reader_process`` the reader is FRAME_READER in a process of its own,
+    as a served stream's client is."""
+    from dynamo_tpu_torch.http import service as http_service
+    from dynamo_tpu_torch.http import web
+    from dynamo_tpu_torch.llm.protocols.openai import completion_chunk
+
+    out = {}
+
+    async def handler(request):
+        resp = web.StreamResponse(headers={"Content-Type": "text/event-stream"})
+        await resp.prepare(request)
+        chunk = completion_chunk("cmpl-" + "0" * 24, "qwen2.5-0.5b", text="the quick",
+                                 finish_reason=None)
+        spent = 0.0
+        for _ in range(frames // batch):
+            t0 = time.perf_counter()
+            for _ in range(batch):
+                await http_service._sse_send(resp, chunk)
+            spent += time.perf_counter() - t0
+            await asyncio.sleep(0)
+        out["us"] = 1e6 * spent / (frames // batch * batch)
+        await resp.write_eof()
+        return resp
+
+    app = web.Application()
+    app.router.add_post("/frames", handler)
+    server = web.Server(app)
+    port = await server.start("127.0.0.1", 0)
+    if reader_process:
+        try:
+            proc = await asyncio.create_subprocess_exec(sys.executable, "-c", FRAME_READER,
+                                                        str(port))
+            if await asyncio.wait_for(proc.wait(), 120):
+                fail("the idle frame reader process failed")
+        finally:
+            await server.stop()
+        return out
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    try:
+        writer.write(b"POST /frames HTTP/1.1\r\nHost: x\r\nContent-Length: 0\r\n\r\n")
+        tail = b""
+        while not tail.endswith(b"\r\n0\r\n\r\n"):
+            data = await asyncio.wait_for(reader.read(1 << 16), 60)
+            if not data:
+                fail("the idle frame stream ended before its last chunk")
+            tail = (tail + data)[-16:]
+    finally:
+        writer.close()
+        await server.stop()
+    return out
+
+
+def http_phase(torch, smi) -> dict:
+    """The OpenAI HTTP frontend over ``qwen_pipeline()``: HttpService on
+    127.0.0.1 (the standard-library server of http/web.py), requests sent
+    by tools/sse_client.py from a process of its own. The pipeline phase's
+    request set is served streamed (usage on) in the order pipeline, http,
+    http, pipeline, each from an empty prefix cache, launch counts zeroed
+    just before the first HTTP run and read just after; then unary; then n
+    2 and /v1/responses (unary and streamed) beside the pipeline serving
+    the same engine requests at once; then the error cases, a stream the
+    client leaves after three frames, and /metrics. Fails unless every
+    text equals the pipeline's for the same body (a completion's frame for
+    frame, the logprobs request's tokens the decoded ids), every SSE
+    stream ends in [DONE] with usage equal to the prompt's and the
+    pipeline's token counts, the error cases get their status codes, the
+    departed stream's slot frees before its max_tokens with status 499
+    counted, /metrics parses, and both paged-attention kernels launched.
+    Returns the launch counts."""
+    t_phase = time.monotonic()
+    from dynamo_tpu_torch.http import HttpService, ModelManager
+    from dynamo_tpu_torch.http import service as http_service
+
+    cfg, engine, tok, card, pipeline, pre = qwen_pipeline()
+    steps, last = {}, [t_phase]
+
+    def step(name):
+        """Seconds since the previous step, under ``name``."""
+        now = time.monotonic()
+        steps[name], last[0] = now - last[0], now
+
+    step("engine")
+
+    class Stamped:
+        """The pipeline, noting when the service hands it each request."""
+        times = []
+
+        def generate(self, request, context):
+            self.times.append(time.monotonic())
+            return pipeline.generate(request, context)
+
+    manager = ModelManager()
+    manager.register(cfg.name, Stamped(), card)
+    service = HttpService(manager, host="127.0.0.1", port=0)
+    bodies = pipeline_bodies(tok, stop="unset")
+    arrivals = []  # ms from each HTTP run's first send to each hand-over
+
+    async def streamed_run(port, reqs):
+        Stamped.times = []
+        records = await http_requests(port, reqs)
+        sent = min(r["t0"] for r in records)
+        arrivals.append([1e3 * (t - sent) for t in Stamped.times])
+        return records
+
+    async def run():
+        port = await service.start()
+        try:
+            first = await serve_engine(engine, [pre.preprocess(b) for b in bodies])
+            await idle_cleared(engine)
+            step("capture")
+            measured = pipeline_bodies(tok, stop_string(tok, first[1]["ids"]))
+            streamed = [{"path": openai_path(b), "body": dict(
+                b, stream=True, stream_options={"include_usage": True})} for b in measured]
+            # pipeline, http, http, pipeline: each from an empty prefix cache
+            got = [await serve_pipeline(pipeline, measured)]
+            await idle_cleared(engine)
+            reset_counts()
+            with timed_frames(http_service) as frames:
+                http = [await streamed_run(port, streamed)]
+                counts = read_counts()
+                await idle_cleared(engine)
+                http.append(await streamed_run(port, streamed))
+            await idle_cleared(engine)
+            got.append(await serve_pipeline(pipeline, measured))
+            await idle_cleared(engine)
+            step("streamed")
+            unary = await http_requests(port, [{"path": openai_path(b), "body": b}
+                                               for b in measured])
+            await idle_cleared(engine)
+            step("unary")
+            # n 2 and the Responses API (its chat body, as the service makes
+            # it), beside the pipeline serving the same four engine requests
+            n2 = dict(measured[0], max_tokens=16)
+            said = measured[4]["messages"][1]["content"]
+            chat = {"model": cfg.name, "messages": [{"role": "user", "content": said}],
+                    "stream": False, "max_tokens": 16, "temperature": 0.0}
+            want_x = await serve_pipeline(pipeline, [n2, n2, chat, chat])
+            await idle_cleared(engine)
+            responses = {"model": cfg.name, "input": said, "max_output_tokens": 16,
+                         "temperature": 0.0}
+            extras = await http_requests(port, [
+                {"path": "/v1/completions", "body": dict(n2, n=2)},
+                {"path": "/v1/responses", "body": responses},
+                {"path": "/v1/responses", "body": dict(responses, stream=True)}])
+            await idle_cleared(engine)
+            step("extras")
+            errors = await http_requests(port, [
+                {"path": "/v1/completions", "body": dict(measured[0], model="nope")},
+                {"path": "/v1/completions", "body": dict(measured[0], n=2, stream=True)},
+                {"path": "/v1/completions", "raw": "{not json"},
+                {"path": "/v1/completions", "body": dict(measured[0], max_tokens=-1,
+                                                         stream=True)},
+                {"path": "/v1/responses", "body": dict(responses, tools=[{"type": "x"}])}])
+            step("errors")
+            # a client that leaves after three frames
+            before = engine.stats()["generated_tokens"]
+            await http_requests(port, [{"path": "/v1/completions", "close_after": 3, "body": dict(
+                measured[0], max_tokens=HTTP_DISCONNECT_TOKENS, stream=True)}])
+            t0 = time.monotonic()
+            while time.monotonic() - t0 < 60:
+                st = engine.stats()
+                if not (st["active_seqs"] or st["waiting"] or st["inflight_bursts"]):
+                    break
+                await asyncio.sleep(0.01)
+            freed_s = time.monotonic() - t0
+            left = engine.stats()
+            step("disconnect")
+            metrics = (await http_requests(port, [{"method": "GET", "path": "/metrics"}]))[0]
+            step("metrics")
+            frames["idle"] = await idle_frame_us()
+            step("idle_frames")
+            return (measured, got, http, unary, n2, want_x, extras, errors, counts, frames,
+                    left, left["generated_tokens"] - before, freed_s, metrics)
+        finally:
+            await service.stop(grace_period=5)
+            await engine.stop()
+            step("stop")
+
+    (measured, got, http, unary, n2, want_x, extras, errors, counts, frames, left, generated,
+     freed_s, metrics) = asyncio.run(run())
+    pres = [pre.preprocess(b) for b in measured]
+
+    def outs(run):
+        return [x for x in run["items"] if not isinstance(x, dict)]
+
+    def ids(run):
+        return [t for o in outs(run) for t in o.token_ids]
+
+    if any(ids(a) != ids(b) for a, b in zip(*got)):
+        fail("the pipeline's two runs of the HTTP set gave different ids")
+    for i, (body, p, g) in enumerate(zip(measured, pres, got[0])):
+        text, n = "".join(o.text for o in outs(g)), len(ids(g))
+        reason = "stop" if "stop" in body else "length"
+        want_usage = {"prompt_tokens": len(p.token_ids), "completion_tokens": n,
+                      "total_tokens": len(p.token_ids) + n}
+        decoded = [tok.decode([t]) for t in ids(g)]
+        for run in http:
+            r = run[i]
+            chunks, usage, done = sse_chunks(r)
+            if r["status"] != 200 or not done or usage != want_usage:
+                fail(f"HTTP stream {i}: status {r['status']}, [DONE] {done}, usage {usage} "
+                     f"(expected {want_usage})")
+            texts = [choice_text(c["choices"][0]) for _, c in chunks]
+            if "".join(texts) != text or chunks[-1][1]["choices"][0]["finish_reason"] != reason:
+                fail(f"HTTP stream {i}: text {''.join(texts)!r} ({chunks[-1][1]['choices']}) "
+                     f"is not the pipeline's {text!r} ({reason})")
+            if "prompt" in body and texts != [o.text for o in outs(g)]:
+                fail(f"HTTP stream {i}: frames {texts} are not the pipeline's items")
+            if body.get("logprobs") and [t for _, c in chunks for t in
+                                         c["choices"][0]["logprobs"]["tokens"]] != decoded:
+                fail(f"HTTP stream {i}: logprob tokens are not the decoded ids")
+        r = unary[i]
+        doc = json.loads(r["body"])
+        if r["status"] != 200 or choice_text(doc["choices"][0]) != text or \
+                doc["usage"] != want_usage or doc["choices"][0]["finish_reason"] != reason:
+            fail(f"HTTP unary {i}: {r['status']} {r['body'][:500]} is not the pipeline's "
+                 f"{text!r} ({want_usage}, {reason})")
+        if body.get("logprobs") and doc["choices"][0]["logprobs"]["tokens"] != decoded:
+            fail(f"HTTP unary {i}: logprob tokens are not the decoded ids")
+    # n 2, /v1/responses unary and streamed
+    n2_texts = ["".join(o.text for o in outs(g)) for g in want_x[:2]]
+    said_text = "".join(o.text for o in outs(want_x[2]))
+    doc = json.loads(extras[0]["body"])
+    if [c["text"] for c in doc["choices"]] != n2_texts or doc["usage"]["completion_tokens"] != \
+            sum(len(ids(g)) for g in want_x[:2]):
+        fail(f"n 2: {extras[0]['body'][:500]} is not the pipeline's {n2_texts}")
+    doc = json.loads(extras[1]["body"])
+    if doc["status"] != "completed" or doc["output"][0]["content"][0]["text"] != said_text or \
+            doc["usage"]["output_tokens"] != len(ids(want_x[2])):
+        fail(f"/v1/responses: {extras[1]['body'][:500]} is not the pipeline's {said_text!r}")
+    events = [(f.split("\n")[0][len("event: "):], json.loads(f.split("\n")[1][6:]))
+              for _, f in extras[2]["frames"]]
+    deltas = "".join(e["delta"] for k, e in events if k == "response.output_text.delta")
+    if [k for k, _ in events[:1] + events[-2:]] != [
+            "response.created", "response.output_text.done", "response.completed"] or \
+            deltas != said_text or events[-1][1]["response"]["usage"]["output_tokens"] != \
+            len(ids(want_x[3])):
+        fail(f"/v1/responses streamed: {[k for k, _ in events]} {deltas!r} is not the "
+             f"pipeline's {said_text!r}")
+    statuses = [r["status"] for r in errors]
+    if statuses != [404, 400, 400, 400, 501]:
+        fail(f"error cases answered {statuses}, expected [404, 400, 400, 400, 501]")
+    # the departed client, /metrics
+    samples = {}
+    for line in metrics["body"].splitlines():
+        if line and not line.startswith("#"):
+            if not re.fullmatch(METRIC_LINE, line):
+                fail(f"/metrics line does not parse: {line!r}")
+            name, value = line.rsplit(" ", 1)
+            samples[name] = float(value)
+    gone = samples.get('dynamo_tpu_frontend_requests_total{model="qwen2.5-0.5b",'
+                       'endpoint="completions",status="499"}')
+    if left["active_seqs"] or left["waiting"] or generated >= HTTP_DISCONNECT_TOKENS or gone != 1:
+        fail(f"the stream the client left did not free its slot: {left['active_seqs']} active, "
+             f"{generated} tokens generated (max_tokens {HTTP_DISCONNECT_TOKENS}), "
+             f"499 counted {gone}")
+    for name in ("paged_attention_decode", "paged_attention_chunk"):
+        if counts[name] <= 0:
+            fail(f"{name} never launched on the HTTP path")
+    rows = [i for i, b in enumerate(measured) if "stop" not in b]
+    runs = {"pipeline": latency_ms(got[0], rows), "http": http_latency_ms(http[0], rows),
+            "http_2": http_latency_ms(http[1], rows), "pipeline_2": latency_ms(got[1], rows)}
+
+    def mean(kind, j):
+        return (runs[kind][j] + runs[kind + "_2"][j]) / 2
+
+    emit({"phase": "http", "model": cfg.name, "requests": len(measured),
+          "max_tokens": PIPELINE_MAX_TOKENS, "ttft_ms_mean": mean("http", 0),
+          "itl_ms_mean": mean("http", 2), "pipeline_ttft_ms_mean": mean("pipeline", 0),
+          "pipeline_itl_ms_mean": mean("pipeline", 2),
+          "runs_ttft_mean_max_itl_sent_first_ms": runs,
+          "sse_send_us_per_frame": 1e6 * frames["s"] / max(frames["frames"], 1),
+          "sse_send_idle_us_per_frame": frames["idle"]["us"],
+          "sse_frames": frames["frames"],
+          # when the service handed each request to the pipeline, from the
+          # run's first send (the pipeline phase hands all of them over at
+          # once)
+          "handover_ms_first_last": [[min(a), max(a)] for a in arrivals],
+          "disconnect_freed_s": freed_s,
+          "disconnect_tokens": generated, "launches": counts, "step_seconds": steps,
+          "seconds": time.monotonic() - t_phase, "card": smi})
+    return counts
+
+
+def frame_probe(torch, smi) -> None:
+    """``python3 chip_smoke.py --frame-probe``: why a frame of the service's
+    ``_sse_send`` costs several times more while the engine serves than
+    alone. HttpService over ``qwen_pipeline()`` on 127.0.0.1, in four
+    rounds under the interpreter's switch interval (``sys.setswitchinterval``)
+    at its default 5 ms and at 0.1 ms, in the order default, short, short,
+    default. Each round: the http phase's streamed set from the client
+    process (µs a frame of ``_sse_send`` while serving, TTFT, ITL), then
+    ``idle_frame_us`` with the engine idle (its scheduler thread parked)
+    and again while the pipeline serves the same set in-process (the
+    scheduler thread dispatching; no HTTP request is open), each in
+    batches of 50 frames and one frame a loop turn (as a served stream
+    sends them, with other work between), and parked once more to a
+    reader in a process of its own (a served stream's reader is the
+    client's process, which each send may have to wake). The served
+    frames' quantiles and the share of their time in frames over 1 ms tell
+    a few long waits (for the GIL, which a thread waiting for it asks for
+    after one switch interval) from every frame costing more; the served
+    frames' ``json.dumps`` is timed apart from the rest. Fails unless
+    every stream ends in [DONE] with status 200. One line a round; no
+    result line."""
+    from dynamo_tpu_torch.http import HttpService, ModelManager
+    from dynamo_tpu_torch.http import service as http_service
+
+    cfg, engine, tok, card, pipeline, pre = qwen_pipeline()
+    manager = ModelManager()
+    manager.register(cfg.name, pipeline, card)
+    service = HttpService(manager, host="127.0.0.1", port=0)
+    default = sys.getswitchinterval()
+
+    class TimedJson:
+        """The service module's ``json``, timing ``dumps`` (a frame's
+        payload; a streamed run calls nothing else of it)."""
+        acc = {"s": 0.0, "calls": 0, "bytes": 0}
+
+        def __getattr__(self, name):
+            return getattr(json, name)
+
+        def dumps(self, *a, **k):
+            t0 = time.perf_counter()
+            out = json.dumps(*a, **k)
+            self.acc["s"] += time.perf_counter() - t0
+            self.acc["calls"] += 1
+            self.acc["bytes"] += len(out)
+            return out
+
+    async def run():
+        port = await service.start()
+        try:
+            first = await serve_engine(engine, [pre.preprocess(b) for b in
+                                                pipeline_bodies(tok, stop="unset")])
+            await idle_cleared(engine)
+            measured = pipeline_bodies(tok, stop_string(tok, first[1]["ids"]))
+            streamed = [{"path": openai_path(b), "body": dict(
+                b, stream=True, stream_options={"include_usage": True})} for b in measured]
+            rows = [i for i, b in enumerate(measured) if "stop" not in b]
+            for interval in (default, 1e-4, 1e-4, default):
+                sys.setswitchinterval(interval)
+                TimedJson.acc = {"s": 0.0, "calls": 0, "bytes": 0}
+                http_service.json = TimedJson()
+                try:
+                    with timed_frames(http_service) as frames:
+                        records = await http_requests(port, streamed)
+                finally:
+                    http_service.json = json
+                dumps = TimedJson.acc
+                await idle_cleared(engine)
+                bad = [r["status"] for r in records if r["status"] != 200 or not sse_chunks(r)[2]]
+                if bad:
+                    fail(f"frame probe: streams answered {bad} or ended without [DONE]")
+                parked = await idle_frame_us()
+                parked_1 = await idle_frame_us(frames=500, batch=1)
+                parked_p = await idle_frame_us(reader_process=True)
+                serving = asyncio.ensure_future(serve_pipeline(pipeline, measured))
+                while not engine.stats()["active_seqs"]:
+                    await asyncio.sleep(0.001)
+                t0 = time.monotonic()
+                dispatching = await idle_frame_us()
+                dispatching_1 = await idle_frame_us(frames=500, batch=1)
+                overlapped = engine.stats()["active_seqs"] > 0
+                took = time.monotonic() - t0
+                await serving
+                await idle_cleared(engine)
+                lat = http_latency_ms(records, rows)
+                each = sorted(frames["each"])
+                slow = [t for t in each if t > 1e-3]
+                emit({"phase": "frame_probe", "switch_interval_s": interval,
+                      "sse_send_us_per_frame_serving": 1e6 * frames["s"] / max(frames["frames"], 1),
+                      "sse_frames": frames["frames"],
+                      "sse_send_us_p50_p90_p99_max": [
+                          1e6 * each[min(int(q * len(each)), len(each) - 1)]
+                          for q in (0.5, 0.9, 0.99, 1.0)],
+                      "sse_frames_over_1ms": len(slow),
+                      "json_dumps_us_per_call_serving": 1e6 * dumps["s"] / max(dumps["calls"], 1),
+                      "json_dumps_calls": dumps["calls"],
+                      "json_bytes_per_call": dumps["bytes"] / max(dumps["calls"], 1),
+                      "sse_send_share_in_frames_over_1ms": sum(slow) / max(frames["s"], 1e-12),
+                      "ttft_ms_mean": lat[0],
+                      "itl_ms_mean": lat[2], "idle_us_per_frame_parked": parked["us"],
+                      "idle_us_per_frame_dispatching": dispatching["us"],
+                      "idle_us_per_frame_parked_one_a_turn": parked_1["us"],
+                      "idle_us_per_frame_dispatching_one_a_turn": dispatching_1["us"],
+                      "idle_us_per_frame_parked_reader_process": parked_p["us"],
+                      "dispatching_read_s": took,
+                      "engine_still_serving_at_its_end": overlapped, "card": smi})
+        finally:
+            sys.setswitchinterval(default)
+            await service.stop(grace_period=5)
+            await engine.stop()
+
+    asyncio.run(run())
+
+
+def cli_http_phase(smi) -> None:
+    """``python -m dynamo_tpu_torch.cli run --input http --model
+    qwen2.5-0.5b --http-port 0`` as a subprocess: its ``http server on
+    :PORT`` line, one streamed chat (SSE ending in [DONE]) and one unary
+    completion, then SIGINT, after which it must end within 15 s."""
+    import http.client
+    import select
+    import signal
+    import tempfile
+
+    t_phase = time.monotonic()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryFile("w+") as errf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "dynamo_tpu_torch.cli", "run", "--input", "http", "--model",
+             "qwen2.5-0.5b", "--http-port", "0"],
+            stdout=subprocess.PIPE, stderr=errf, text=True, cwd=root)
+        try:
+            line = ""
+            if select.select([proc.stdout], [], [], 300)[0]:
+                line = proc.stdout.readline()
+            m = re.fullmatch(r"http server on :(\d+) serving qwen2\.5-0\.5b\n", line)
+            if not m:
+                errf.seek(0)
+                fail(f"cli run --input http printed {line!r}: {errf.read()[-2000:]}")
+            startup_s = time.monotonic() - t_phase
+
+            def post(body):
+                conn = http.client.HTTPConnection("127.0.0.1", int(m.group(1)), timeout=120)
+                conn.request("POST", openai_path(body), json.dumps(body),
+                             {"Content-Type": "application/json"})
+                r = conn.getresponse()
+                out = r.status, r.read().decode()
+                conn.close()
+                return out
+
+            base = {"model": "qwen2.5-0.5b", "max_tokens": 32, "temperature": 0.0}
+            t0 = time.monotonic()
+            status, sse = post(dict(base, messages=[{"role": "user", "content": "hello world"}],
+                                    stream=True))
+            chat_s = time.monotonic() - t0
+            frames = [f for f in sse.split("\n\n") if f]
+            if status != 200 or frames[-1] != "data: [DONE]" or len(frames) < 3:
+                fail(f"cli run --input http: streamed chat {status} {sse[-1000:]!r}")
+            status, raw = post(dict(base, prompt="the quick brown fox jumps"))
+            doc = json.loads(raw)
+            if status != 200 or not 0 < doc["usage"]["completion_tokens"] <= 32:
+                fail(f"cli run --input http: completion {status} {raw[-1000:]!r}")
+            proc.send_signal(signal.SIGINT)
+            t0 = time.monotonic()
+            try:
+                proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                fail("cli run --input http did not end within 15 s of SIGINT")
+            stop_s = time.monotonic() - t0
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    emit({"phase": "cli_http", "model": "qwen2.5-0.5b", "startup_s": startup_s,
+          "chat_frames": len(frames), "chat_s": chat_s,
+          "completion_tokens": doc["usage"]["completion_tokens"], "sigint_exit_s": stop_s,
+          "returncode": proc.returncode, "seconds": time.monotonic() - t_phase, "card": smi})
 
 
 # Faults the probe can plant, in memory only, to see what the dense check
@@ -2565,6 +3161,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--probe"]:
         probe(torch, smi, sys.argv[2:])
         return 0
+    if sys.argv[1:2] == ["--frame-probe"]:
+        frame_probe(torch, smi)
+        return 0
 
     worst, timed = kernel_phases(torch)
     worst8, timed8 = int8_kernel_phases(torch)
@@ -2603,6 +3202,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cli_batch_phase(smi)
+    # The same over HTTP: the OpenAI frontend in-process, and cli run --input http.
+    counts_http = http_phase(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cli_http_phase(smi)
     # Llama-3-8B, random int8 weights: the fused layer's gate turns it on.
     # Random weights give logits ~ N(0, 1); the dense check's layers round
     # q/k/v to bf16 where the fused layer keeps f32, which moves logits by a
@@ -2779,13 +3383,13 @@ def main() -> int:
     # launches: the six engine paths (Qwen2.5-0.5B bf16, Llama-3-8B int8,
     # Llama-3-8B int8 with int8 KV, Gemma-2-2B bf16, Gemma-3-1B int8 with
     # int8 KV, Gemma-3-1B int8 over bf16 pools, and the latter with the fused
-    # layer off), the OpenAI pipeline over Qwen2.5-0.5B and the three
+    # layer off), the OpenAI pipeline and the HTTP frontend over Qwen2.5-0.5B and the three
     # profiling paths (prof_attn, prof_fused_ffn,
     # prof_8b's four modes); times of the D 64 (bf16 pools) and D 128 (int8
     # pools) cases, the D 256 and block-size-128 ones above, #5-#7 at their
     # main cases
     paths = (counts, counts8, counts8kv, counts_g, counts_3, counts_3bf, counts_3u, counts_pipe,
-             counts_attn, counts_ffn, counts_8b)
+             counts_http, counts_attn, counts_ffn, counts_8b)
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{sources[n]}",
          "replaces": replaces[n], "launches": sum(c.get(n, 0) for c in paths),

@@ -1,6 +1,7 @@
 """``python -m dynamo_tpu_torch.cli`` — the port's counterpart of
 ``python -m dynamo_tpu.cli`` (dynamo_tpu/cli/__main__.py:54-72). Only the
-``run`` subcommand is ported; the service launchers (worker, frontend, ...)
+``run`` subcommand is ported (text, stdin, batch and an OpenAI HTTP server
+over the local pipeline); the service launchers (worker, frontend, ...)
 come with the distributed runtime (ROADMAP A4c).
 """
 
@@ -20,7 +21,7 @@ def main(argv=None) -> None:
         description="the PyTorch/CUDA port's CLI: run an engine locally",
     )
     sub = parser.add_subparsers(dest="command", required=True)
-    run_p = sub.add_parser("run", help="drive a local engine (text/stdin/batch)")
+    run_p = sub.add_parser("run", help="drive a local engine (text/stdin/batch/http)")
     add_run_args(run_p)
     args = parser.parse_args(argv)
     if args.command == "run":

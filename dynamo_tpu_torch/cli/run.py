@@ -3,15 +3,15 @@ cluster — the counterpart of ``dynamo_tpu.cli run`` (dynamo_tpu/cli/run.py).
 
 Reference parity: lib/llm/src/entrypoint/input.rs (Input::Text :31 —
 interactive REPL; Input::Stdin — one prompt per line; Input::Batch — JSONL
-file in, JSONL out with latency stats). The engine is an in-process
-``TorchEngine`` over a builtin random-init config, served through the local
-OpenAI pipeline (preprocess → detokenize → engine). It runs on the card;
-``--device cpu`` runs the plain versions on the CPU (the tests use it).
+file in, JSONL out with latency stats; Input::Http — OpenAI server over the
+local pipeline). The engine is an in-process ``TorchEngine`` over a builtin
+random-init config, served through the local OpenAI pipeline (preprocess →
+detokenize → engine). It runs on the card; ``--device cpu`` runs the plain
+versions on the CPU (the tests use it).
 
-Refused, each naming the ROADMAP item that brings it: ``--input http`` (the
-HTTP frontend, A4b), ``--model mock`` (the mock engine, A4d), a model
-directory (weight loading, A9) and a preset whose layers the port does not
-have (MoE, A7).
+Refused, each naming the ROADMAP item that brings it: ``--model mock`` (the
+mock engine, A4d), a model directory (weight loading, A9) and a preset
+whose layers the port does not have (MoE, A7).
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ def add_run_args(parser: argparse.ArgumentParser) -> None:
 
     parser.add_argument(
         "--input", default="text",
-        help="text (REPL) | stdin | batch:FILE.jsonl (http: not ported yet)",
+        help="text (REPL) | stdin | batch:FILE.jsonl | http",
     )
     parser.add_argument(
         "--model", default="mock",
@@ -64,6 +64,7 @@ def add_run_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument("--served-model-name", default=None)
     parser.add_argument("--max-tokens", type=int, default=64)
     parser.add_argument("--temperature", type=float, default=0.0)
+    parser.add_argument("--http-port", type=int, default=8080)
     parser.add_argument(
         "--block-size", type=int, default=config.KV_BLOCK_SIZE.get()
     )
@@ -211,18 +212,28 @@ async def run_batch(pipeline, model: str, args, batch_path: str) -> None:
     )
 
 
+async def run_http(pipeline, card: ModelDeploymentCard, args) -> None:
+    """Single-process OpenAI server over the local pipeline (in=http)."""
+    from dynamo_tpu_torch.http import HttpService, ModelManager
+
+    manager = ModelManager()
+    manager.register(card.name, pipeline, card)
+    service = HttpService(manager, host="0.0.0.0", port=args.http_port)
+    port = await service.start()
+    print(f"http server on :{port} serving {card.name}", flush=True)
+    try:
+        await asyncio.Event().wait()
+    finally:
+        await service.stop(grace_period=5)
+
+
 async def main_run(args) -> None:
     configure_logging()
     from dynamo_tpu_torch.llm.entrypoint import build_local_pipeline
 
     mode = args.input
-    if mode == "http":
-        raise SystemExit(
-            "--input http: the OpenAI HTTP frontend is not ported yet (ROADMAP A4b; the "
-            "card's machine has no aiohttp)"
-        )
-    if not (mode in ("text", "stdin") or mode.startswith("batch:")):
-        raise SystemExit(f"unknown --input {mode!r} (text | stdin | batch:FILE)")
+    if not (mode in ("text", "stdin", "http") or mode.startswith("batch:")):
+        raise SystemExit(f"unknown --input {mode!r} (text | stdin | batch:FILE | http)")
     engine, card, tokenizer = build_engine_and_card(args)
     pipeline = build_local_pipeline(card, engine, tokenizer=tokenizer)
     try:
@@ -230,6 +241,8 @@ async def main_run(args) -> None:
             await run_text(pipeline, card.name, args)
         elif mode == "stdin":
             await run_stdin(pipeline, card.name, args)
+        elif mode == "http":
+            await run_http(pipeline, card, args)
         else:
             await run_batch(pipeline, card.name, args, mode.split(":", 1)[1])
     finally:

@@ -49,3 +49,14 @@ LOG_JSON = EnvVar(
     "DYN_TPU_LOG_JSON", False, _parse_bool,
     "Emit JSONL structured logs (dynamo_tpu/config.py:188)",
 )
+TOOL_JAIL_CAP_CHARS = EnvVar(
+    "DYN_TPU_TOOL_JAIL_CAP_CHARS", 262144, int,
+    "Tool-call jail unresolved-buffer cap (chars): generous for real calls, "
+    "small enough that a marker bomb cannot balloon host RSS "
+    "(dynamo_tpu/config.py:225)",
+)
+AUDIT_POLICY = EnvVar(
+    "DYN_TPU_AUDIT", "off", str,
+    "Request auditing: off | stderr | file:<path> (JSONL records) "
+    "(dynamo_tpu/config.py:468)",
+)

@@ -14,13 +14,6 @@ import re
 from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, List, Optional
 
-# The names the card validates against: copies of the key set of
-# dynamo_tpu/parsers/reasoning.py KNOWN_MARKERS and of
-# dynamo_tpu/parsers/incremental.py DIALECTS, kept here until the parsers
-# are ported (tests/test_torch_llm_layer.py holds them equal to JAX's).
-REASONING_STYLES = frozenset({"think", "reasoning", "seed", "granite"})
-TOOL_CALL_DIALECTS = ("json", "hermes", "mistral", "pythonic", "harmony", "dsml", "xml")
-
 
 def slugify(name: str) -> str:
     return re.sub(r"[^a-zA-Z0-9_.-]+", "-", name).strip("-").lower()
@@ -52,10 +45,10 @@ class ModelDeploymentCard:
     migration_limit: int = 3
     eos_token_ids: List[int] = field(default_factory=list)
     chat_template_source: Optional[str] = None  # inline template override
-    # Reasoning-content marker style (REASONING_STYLES):
+    # Reasoning-content marker style (parsers/reasoning.py KNOWN_MARKERS):
     # think | reasoning | seed | granite.
     reasoning_style: str = "think"
-    # Tool-call dialect pin (TOOL_CALL_DIALECTS): json |
+    # Tool-call dialect pin (parsers/incremental.py DIALECTS): json |
     # hermes | mistral | pythonic | harmony | dsml | xml. None =
     # auto-detect by opening marker — required for the marker-less
     # dialects (json, pythonic) to stream incrementally.
@@ -64,18 +57,21 @@ class ModelDeploymentCard:
     user_data: Dict[str, Any] = field(default_factory=dict)
 
     def __post_init__(self) -> None:
-        if self.reasoning_style not in REASONING_STYLES:
+        from dynamo_tpu_torch.parsers.incremental import DIALECTS
+        from dynamo_tpu_torch.parsers.reasoning import KNOWN_MARKERS
+
+        if self.reasoning_style not in KNOWN_MARKERS:
             raise ValueError(
                 f"unknown reasoning_style {self.reasoning_style!r}; "
-                f"known: {sorted(REASONING_STYLES)}"
+                f"known: {sorted(KNOWN_MARKERS)}"
             )
         if (
             self.tool_call_dialect is not None
-            and self.tool_call_dialect not in TOOL_CALL_DIALECTS
+            and self.tool_call_dialect not in DIALECTS
         ):
             raise ValueError(
                 f"unknown tool_call_dialect {self.tool_call_dialect!r}; "
-                f"known: {sorted(TOOL_CALL_DIALECTS)}"
+                f"known: {sorted(DIALECTS)}"
             )
 
     @property

@@ -1,9 +1,10 @@
 """Import hygiene of the port: dynamo_tpu_torch and chip_smoke.py import
 neither jax nor anything of dynamo_tpu, nor a package the card's machine
-lacks (tokenizers, regex, aiohttp, msgpack, zmq; jinja2 only inside a
-function); every module imports with all of those and xxhash blocked, and
-the text path (tokenizer, default chat template) runs so; an entry point
-left on its default device (cuda) raises when there is no card instead of
+lacks (tokenizers, regex, aiohttp, msgpack, zmq, prometheus_client; jinja2
+only inside a function); every module (the HTTP frontend and the parsers
+among them) imports with all of those and xxhash blocked, and the text
+path (tokenizer, default chat template) runs so; an entry point left on
+its default device (cuda) raises when there is no card instead of
 carrying on on the CPU."""
 
 import ast
@@ -28,10 +29,11 @@ def _port_files():
     return sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
-# Packages the card's machine does not have. The port imports none of the
-# first five; jinja2 only inside a function (a custom chat template);
-# xxhash only where it falls back without it (tokens/blocks.py).
-ABSENT_ON_CARD = ("tokenizers", "regex", "aiohttp", "msgpack", "zmq")
+# Packages the card's machine does not have (or is not known to have:
+# prometheus_client). The port imports none of the first six; jinja2 only
+# inside a function (a custom chat template); xxhash only where it falls
+# back without it (tokens/blocks.py).
+ABSENT_ON_CARD = ("tokenizers", "regex", "aiohttp", "msgpack", "zmq", "prometheus_client")
 BLOCKED = ("jax", "jaxlib", "dynamo_tpu") + ABSENT_ON_CARD + ("jinja2", "xxhash")
 
 
@@ -109,7 +111,10 @@ wanted = set("dynamo_tpu_torch." + n for n in (
     "ops.cuda.decode_attention_proto", "ops.cuda.ffn_int8",
     "llm.bpe", "llm.tokenizer", "llm.chat_template", "llm.preprocessor", "llm.backend",
     "llm.entrypoint", "llm.protocols.openai", "runtime.pipeline",
-    "cli.run", "cli.__main__"))
+    "cli.run", "cli.__main__", "http.web", "http.service", "http.metrics",
+    "http.model_manager", "http.worker_monitor", "http.audit", "parsers.incremental",
+    "parsers.jail", "parsers.observe", "parsers.reasoning", "parsers.tool_calling",
+    "runtime.metrics_core", "runtime.faults", "runtime.tasks", "disagg.errors"))
 assert wanted <= set(names), sorted(wanted - set(names))
 spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))

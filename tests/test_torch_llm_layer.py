@@ -35,6 +35,8 @@ from dynamo_tpu_torch.llm import tokenizer as ttok
 from dynamo_tpu_torch.llm.chat_template import ChatTemplate as TChatTemplate
 from dynamo_tpu_torch.llm.protocols import common as tproto
 from dynamo_tpu_torch.llm.protocols import openai as topenai
+from dynamo_tpu_torch.parsers import incremental as tincremental
+from dynamo_tpu_torch.parsers import reasoning as treasoning
 from dynamo_tpu_torch.runtime import context as tcontext
 from dynamo_tpu_torch.runtime import pipeline as tpipeline
 
@@ -295,9 +297,23 @@ async def test_backend_matches_jax_on_a_scripted_stream(case):
         assert outs[-1]["finish_reason"] == "cancelled"
 
 
-def test_model_card_name_sets_equal_jax():
-    assert tcard.REASONING_STYLES == set(KNOWN_MARKERS)
-    assert tuple(tcard.TOOL_CALL_DIALECTS) == tuple(DIALECTS)
+def test_model_card_name_sets_equal_jax(monkeypatch):
+    """The card validates against the port's parsers (their name sets equal
+    JAX's), refuses an unknown name with JAX's message, and takes a name
+    the parsers gain."""
+    assert tincremental.DIALECTS == DIALECTS
+    assert set(treasoning.KNOWN_MARKERS) == set(KNOWN_MARKERS)
+    for kw in ({"reasoning_style": "nope"}, {"tool_call_dialect": "yaml"}):
+        with pytest.raises(ValueError) as got:
+            tcard.ModelDeploymentCard(name="m", **kw)
+        with pytest.raises(ValueError) as want:
+            jcard.ModelDeploymentCard(name="m", **kw)
+        assert str(got.value) == str(want.value)
+    monkeypatch.setitem(treasoning.KNOWN_MARKERS, "extra", (("<x>",), ("</x>",)))
+    monkeypatch.setattr(tincremental, "DIALECTS", DIALECTS + ("extra",))
+    card = tcard.ModelDeploymentCard(name="m", reasoning_style="extra",
+                                     tool_call_dialect="extra")
+    assert (card.reasoning_style, card.tool_call_dialect) == ("extra", "extra")
 
 
 @pytest.mark.parametrize("kw", [

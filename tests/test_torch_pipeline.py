@@ -23,7 +23,8 @@ engine sizes and tokenizer that each ``build_engine_and_card`` builds;
 ``python -m dynamo_tpu_torch.cli run --input batch:FILE --model tiny
 --device cpu`` in-process, whose JSONL texts equal what the port's pipeline
 gives for the same prompts on the same engine; and its refusals, each
-naming the ROADMAP item that brings what it refuses."""
+naming the ROADMAP item that brings what it refuses (``--input http`` is
+served: tests/test_torch_http_service.py)."""
 
 import argparse
 import asyncio
@@ -297,7 +298,7 @@ async def test_cli_batch_texts_equal_the_pipelines(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--input", "http", "--model", "tiny"], "A4b"),
+    (["--input", "http", "--model", "mock"], "A4d"),
     (["--input", "text", "--model", "mock"], "A4d"),
     (["--input", "stdin", "--model", "MODEL_DIR"], "A9"),
     (["--input", "stdin", "--model", "mixtral-8x7b"], "A7"),
@@ -309,13 +310,17 @@ async def test_cli_refusals_name_the_roadmap_item(tmp_path, argv, item):
 
 
 def test_cli_module_refuses_http_and_needs_the_card_by_default(tmp_path):
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    proc = subprocess.run([sys.executable, "-m", "dynamo_tpu_torch.cli", "run", "--input", "http",
-                           "--model", "tiny"], capture_output=True, text=True, timeout=120,
-                          cwd=ROOT, env=env)
-    assert proc.returncode == 1 and "ROADMAP A4b" in proc.stderr
+    """On its default device `run` needs the card: without one, `--input
+    http` exits naming cuda before it binds a port, and batch mode raises
+    (serving over HTTP on the CPU: tests/test_torch_http_service.py)."""
     if torch.cuda.is_available():
         return
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-m", "dynamo_tpu_torch.cli", "run", "--input", "http",
+                           "--model", "tiny", "--http-port", "0"], capture_output=True, text=True,
+                          timeout=120, cwd=ROOT, env=env)
+    assert proc.returncode == 1 and "cuda" in proc.stderr
+    assert "http server on" not in proc.stdout
     src = tmp_path / "in.jsonl"
     src.write_text('{"prompt": "hi"}\n')
     with pytest.raises(RuntimeError, match="cuda"):
