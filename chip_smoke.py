@@ -215,10 +215,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
    qwen2.5-0.5b --http-port 0` as a subprocess: its `http server on :PORT`
    line, a streamed chat and a unary completion, then SIGINT, after which
    it must end within 15 s.
+33. runtime_tcp — the distributed runtime's planes across processes:
+   `python -m dynamo_tpu_torch.discd` on free ports (discovery, the event
+   broker with a durable log and replay), and this script again as a
+   worker process (`--runtime-worker`, a test harness, not the worker
+   main) that builds TorchEngine for Qwen2.5-0.5B at the engine's defaults
+   and serves it on dynamo/backend/generate, with a control endpoint, through
+   DistributedRuntime.from_settings() (discd, tcp, zmq). This process is the
+   client: it resolves the worker through discd and streams phase 29's
+   preprocessed set over TCP in the order in-process, tcp, tcp, in-process
+   (the worker's engine itself, each run from an empty prefix cache, launch
+   counts zeroed in the worker just before the first TCP run and read just
+   after). Fails unless the TCP streams' ids are the in-process ones
+   exactly, both paged-attention kernels launched in the worker, a cancel
+   mid-stream frees the worker's slot (cold: the graphs of the lone
+   stream's width buckets are captured inside it; then warm), the
+   worker's run of events on one topic arrives in order and replays from
+   the broker's log, and a killed worker surfaces StreamDisconnectedError. The line: TTFT and
+   ITL over TCP beside the in-process figures, host µs a frame on each side
+   (FrameWriter.send in the worker, FrameReader.recv's read and unpack
+   here), events published to received in µs (p50, p99).
 
 (18-20 run right after the Llama-3-8B kernels of phases 3-4, 22 right after
 the fused layer's timing, 21 right after phase 11, 23 right after phase 6,
-24-28 after phase 17, 29-32 right after phase 23.)
+24-28 after phase 17, 29-33 right after phase 23.)
 Then one JSON line {"kernels": [...]} for all ten kernels, nvidia-smi's
 name and power limit, and last {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result.
@@ -3011,6 +3031,411 @@ def cli_http_phase(smi) -> None:
           "returncode": proc.returncode, "seconds": time.monotonic() - t_phase, "card": smi})
 
 
+# -- the distributed runtime's planes across processes ----------------------
+
+RUNTIME_EVENTS = 2000  # events the worker publishes at once on one topic
+RUNTIME_PACED_EVENTS = 200  # then one a RUNTIME_EVENT_GAP_S: the unloaded latency
+RUNTIME_EVENT_GAP_S = 0.001
+RUNTIME_EVENT_TOPIC = "dynamo.backend.kv_events"
+RUNTIME_LONG_TOKENS = 1500  # the cancelled and the killed streams' max_tokens
+RUNTIME_START_S = 300.0  # the worker's start, its engine built
+
+
+@contextlib.contextmanager
+def timed_codec():
+    """Host time of the request plane's frames in this process while the
+    block runs: FrameWriter.send's whole call (pack, write, and its drain,
+    which waits only while the socket's buffer is past its high-water mark)
+    and FrameReader.recv's read and unpack, from its length prefix's
+    arrival. The codec's own methods run unchanged: the clock is read
+    around send, and, in recv, where it unpacks the prefix (codec._LEN) and
+    where it returns."""
+    import contextvars
+
+    from dynamo_tpu_torch.runtime.network import codec
+
+    acc = {"send_s": 0.0, "send_n": 0, "recv_s": 0.0, "recv_n": 0}
+    arrived = contextvars.ContextVar("frame_prefix_arrived")  # one a task
+    length, send, recv = codec._LEN, codec.FrameWriter.send, codec.FrameReader.recv
+
+    class Prefix:  # codec._LEN, reading the clock as recv unpacks a prefix
+        size, pack = length.size, length.pack
+
+        @staticmethod
+        def unpack(data):
+            arrived.set(time.perf_counter())
+            return length.unpack(data)
+
+    async def timed_send(self, header, payload=None):
+        t0 = time.perf_counter()
+        await send(self, header, payload)
+        acc["send_s"] += time.perf_counter() - t0
+        acc["send_n"] += 1
+
+    async def timed_recv(self):
+        got = await recv(self)
+        if got is not None:
+            acc["recv_s"] += time.perf_counter() - arrived.get()
+            acc["recv_n"] += 1
+        return got
+
+    codec._LEN, codec.FrameWriter.send, codec.FrameReader.recv = Prefix, timed_send, timed_recv
+    try:
+        yield acc
+    finally:
+        codec._LEN, codec.FrameWriter.send, codec.FrameReader.recv = length, send, recv
+
+
+def runtime_worker() -> int:
+    """The worker role of the runtime_tcp phase (``--runtime-worker``): a
+    test harness, not the worker main (ROADMAP A4c-3). TorchEngine for
+    Qwen2.5-0.5B as qwen_pipeline() builds it, served on
+    dynamo/backend/generate through DistributedRuntime.from_settings(), and
+    a control endpoint: stats (engine.stats(), the kernel launch counts and
+    the frames' host time), reset (counts and frame times to 0), clear (wait
+    until idle, drop the prefix cache), engine_run (the given requests
+    through engine.generate() in-process, then clear) and publish (a run of
+    events on one topic through the runtime's event plane). Ends on
+    SIGTERM."""
+    import signal
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke --runtime-worker: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    async def run():
+        _, engine, _, _, _, _ = qwen_pipeline()
+        runtime = DistributedRuntime.from_settings()
+        stop = asyncio.Event()
+        asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, stop.set)
+        with timed_codec() as frames:
+            async def control(request, context):
+                op = request.get("op")
+                if op == "stats":
+                    yield dict(engine.stats(), launches=read_counts(), frames=dict(frames))
+                elif op == "reset":
+                    reset_counts()
+                    frames.update(send_s=0.0, send_n=0, recv_s=0.0, recv_n=0)
+                    yield {"ok": True}
+                elif op == "clear":
+                    await idle_cleared(engine)
+                    yield {"ok": True}
+                elif op == "engine_run":
+                    runs = await serve_engine(engine, request["requests"])
+                    await idle_cleared(engine)
+                    yield {"runs": runs}
+                elif op == "publish":
+                    for i in range(request["start"], request["start"] + request["n"]):
+                        await runtime.event_plane.publish(request["topic"], runtime_event(i))
+                        if request["gap_s"]:
+                            await asyncio.sleep(request["gap_s"])
+                    yield {"published": request["n"]}
+                else:
+                    yield {"error": f"unknown control op {op!r}"}
+
+            component = runtime.namespace("dynamo").component("backend")
+            await component.endpoint("generate").serve_endpoint(engine.generate,
+                                                                instance_id=1)
+            await component.endpoint("control").serve_endpoint(control, instance_id=1)
+            try:
+                await stop.wait()
+            finally:
+                await runtime.shutdown(grace_period=1)
+                await runtime.event_plane.close()
+                await engine.stop()
+
+    asyncio.run(run())
+    return 0
+
+
+def runtime_event(i):
+    """The i-th event of the worker's run: a KV-event-like record with
+    64-bit block hashes and the publish time on the host's monotonic clock
+    (one clock for both processes of one machine)."""
+    return {"event_id": i, "t_ns": time.monotonic_ns(),
+            "block_hashes": [(i * 4 + k) * 0x9E3779B97F4A7C15 % 2 ** 64 for k in range(4)],
+            "parent_hash": None if i == 0 else (i * 4 - 1) * 0x9E3779B97F4A7C15 % 2 ** 64}
+
+
+async def serve_tcp(client, pres):
+    """Each PreprocessedRequest through the runtime's Client (over TCP), all
+    at once: per request its ids, the time it was sent and its (time,
+    tokens), as serve_engine gives them in-process."""
+    from dynamo_tpu_torch.runtime.context import Context
+
+    async def one(pre):
+        t0, ids, stamps = time.monotonic(), [], []
+        async for out in client.generate(pre, Context()):
+            if out["error"]:
+                raise RuntimeError(out["error"])
+            if out["token_ids"]:
+                stamps.append((time.monotonic(), len(out["token_ids"])))
+                ids += out["token_ids"]
+        return dict(t0=t0, ids=ids, stamps=stamps)
+
+    return await asyncio.gather(*(one(p) for p in pres))
+
+
+def runtime_tcp_phase(smi) -> dict:
+    """Phase 33 (see the module's docstring). Returns the worker's launch
+    counts over the first TCP run."""
+    import select
+    import tempfile
+
+    t_phase = time.monotonic()
+    root = os.path.dirname(os.path.abspath(__file__))
+    from dynamo_tpu_torch.llm import ModelDeploymentCard, OpenAIPreprocessor, tiny_tokenizer
+    from dynamo_tpu_torch.llm.entrypoint import resolve_chat_template
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.events.zmq_plane import replay_events
+    from dynamo_tpu_torch.runtime.network.tcp import StreamDisconnectedError
+
+    tok = tiny_tokenizer()
+    card = ModelDeploymentCard(name="qwen2.5-0.5b", context_length=2048, kv_block_size=16)
+    pre = OpenAIPreprocessor(card, tok, resolve_chat_template(card))
+    steps, last = {}, [t_phase]
+
+    def step(name):
+        now = time.monotonic()
+        steps[name], last[0] = now - last[0], now
+
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp, \
+            open(os.path.join(tmp, "discd.err"), "w+") as discd_err, \
+            open(os.path.join(tmp, "worker.log"), "w+") as worker_log:
+        try:
+            discd = subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch.discd", "--port", "0", "--xsub", "0",
+                 "--xpub", "0", "--events-log", os.path.join(tmp, "events.log"),
+                 "--replay-port", "0"],
+                stdout=subprocess.PIPE, stderr=discd_err, text=True, cwd=root)
+            procs.append(discd)
+            line = discd.stdout.readline() if select.select([discd.stdout], [], [], 60)[0] else ""
+            m = re.fullmatch(r"discd ready: discovery (\S+), events (\S+), replay :(\d+)\n", line)
+            if not m:
+                discd_err.seek(0)
+                fail(f"discd printed {line!r}: {discd_err.read()[-2000:]}")
+            env = {"DYN_TPU_DISCOVERY": "discd", "DYN_TPU_DISCOVERY_ADDR": m.group(1),
+                   "DYN_TPU_REQUEST_PLANE": "tcp", "DYN_TPU_EVENT_PLANE": "zmq",
+                   "DYN_TPU_EVENT_PLANE_ADDR": m.group(2)}
+            replay_host, replay_port = m.group(2).split(":")[0], int(m.group(3))
+            worker = subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--runtime-worker"],
+                stdout=worker_log, stderr=subprocess.STDOUT, cwd=root, env={**os.environ, **env})
+            procs.append(worker)
+            step("discd_worker_spawn")
+
+            def worker_tail():
+                worker_log.seek(0)
+                return worker_log.read()[-3000:]
+
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            try:
+                result = asyncio.run(runtime_client(
+                    DistributedRuntime, Context, StreamDisconnectedError, replay_events,
+                    pre, tok, worker, worker_tail, replay_host, replay_port, step))
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.terminate()
+                    try:
+                        proc.wait(timeout=15)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        proc.wait()
+            if procs:
+                procs[0].stdout.close()
+    measured, refs, tcps, counts, worker_frames, recv_frames, lat_us, cancel, killed = result
+    rows = [i for i, b in enumerate(measured) if "stop" not in b]
+    runs = {"engine": latency_ms(refs[0], rows), "tcp": latency_ms(tcps[0], rows),
+            "tcp_2": latency_ms(tcps[1], rows), "engine_2": latency_ms(refs[1], rows)}
+
+    def mean(kind, j):
+        return (runs[kind][j] + runs[kind + "_2"][j]) / 2
+
+    burst, paced = sorted(lat_us["burst"]), sorted(lat_us["paced"])
+    emit({"phase": "runtime_tcp", "model": "qwen2.5-0.5b", "requests": len(measured),
+          "planes": {"discovery": "discd", "request": "tcp", "events": "zmq (ZMTP)"},
+          "ttft_ms_mean": mean("tcp", 0), "itl_ms_mean": mean("tcp", 2),
+          "engine_ttft_ms_mean": mean("engine", 0), "engine_itl_ms_mean": mean("engine", 2),
+          "runs_ttft_mean_max_itl_sent_first_ms": runs,
+          "worker_send_us_per_frame": 1e6 * worker_frames["send_s"] / max(worker_frames["send_n"], 1),
+          "worker_frames_sent": worker_frames["send_n"],
+          "client_recv_us_per_frame": 1e6 * recv_frames["recv_s"] / max(recv_frames["recv_n"], 1),
+          "client_frames_read": recv_frames["recv_n"],
+          "events_burst": RUNTIME_EVENTS, "events_burst_s": lat_us["burst_s"],
+          "event_us_p50": burst[len(burst) // 2],
+          "event_us_p99": burst[int(0.99 * (len(burst) - 1))],
+          "events_paced": RUNTIME_PACED_EVENTS, "event_gap_s": RUNTIME_EVENT_GAP_S,
+          "event_us_p50_paced": paced[len(paced) // 2],
+          "event_us_p99_paced": paced[int(0.99 * (len(paced) - 1))],
+          "cancel": cancel, "killed_worker": killed, "launches": counts, "steps_s": steps,
+          "seconds": time.monotonic() - t_phase, "card": smi})
+    return counts
+
+
+async def runtime_client(DistributedRuntime, Context, StreamDisconnectedError, replay_events,
+                         pre, tok, worker, worker_tail, replay_host, replay_port, step):
+    """The client side of runtime_tcp_phase, in this process's own loop."""
+    runtime = DistributedRuntime.from_settings()
+    ns = runtime.namespace("dynamo").component("backend")
+    gen = await ns.endpoint("generate").client()
+    ctl = await ns.endpoint("control").client()
+    try:
+        deadline = time.monotonic() + RUNTIME_START_S
+        while not (gen.instance_ids and ctl.instance_ids):
+            if worker.poll() is not None:
+                fail(f"the runtime worker exited {worker.returncode}: {worker_tail()}")
+            if time.monotonic() > deadline:
+                fail(f"no worker instance in discd after {RUNTIME_START_S} s: {worker_tail()}")
+            await asyncio.sleep(0.1)
+        step("worker_registered")
+
+        async def control(op, **kw):
+            items = [x async for x in ctl.generate({"op": op, **kw}, Context())]
+            if len(items) != 1 or "error" in items[0]:
+                fail(f"control {op}: {items}")
+            return items[0]
+
+        bodies = pipeline_bodies(tok, stop="unset")
+        first = (await control("engine_run", requests=[pre.preprocess(b).to_dict()
+                                                       for b in bodies]))["runs"]
+        step("capture")
+        measured = pipeline_bodies(tok, stop_string(tok, first[1]["ids"]))
+        pres = [pre.preprocess(b).to_dict() for b in measured]
+        # in-process, tcp, tcp, in-process: each from an empty prefix cache
+        refs = [(await control("engine_run", requests=pres))["runs"]]
+        await control("reset")
+        with timed_codec() as recv_frames:
+            tcps = [await serve_tcp(gen, pres)]
+            stats = await control("stats")
+            await control("clear")
+            tcps.append(await serve_tcp(gen, pres))
+        await control("clear")
+        refs.append((await control("engine_run", requests=pres))["runs"])
+        step("runs")
+        counts, worker_frames = stats["launches"], stats["frames"]
+        for r in refs[1:] + tcps:
+            for i, (a, b) in enumerate(zip(refs[0], r)):
+                if a["ids"] != b["ids"]:
+                    at = next((k for k, (x, y) in enumerate(zip(a["ids"], b["ids"])) if x != y),
+                              None)
+                    fail(f"runtime_tcp request {i}: ids part from the in-process run's at "
+                         f"token {at} ({len(b['ids'])} against {len(a['ids'])})")
+        if any(len(r["ids"]) != PIPELINE_MAX_TOKENS for r in refs[0]):
+            fail(f"runtime_tcp: streams of {[len(r['ids']) for r in refs[0]]} ids")
+        for name in ("paged_attention_decode", "paged_attention_chunk"):
+            if counts[name] <= 0:
+                fail(f"{name} never launched in the worker on the runtime_tcp path")
+
+        # events: a burst and then a paced run on one topic through the
+        # broker, in order, and again from the broker's log
+        sub = runtime.event_plane.subscribe(RUNTIME_EVENT_TOPIC)
+        await asyncio.sleep(0.5)  # the subscription reaches the broker
+        got, lat_us = [], {}
+        for leg, n, gap in (("burst", RUNTIME_EVENTS, 0.0),
+                            ("paced", RUNTIME_PACED_EVENTS, RUNTIME_EVENT_GAP_S)):
+            t0 = time.monotonic()
+            pub_task = asyncio.ensure_future(control(
+                "publish", topic=RUNTIME_EVENT_TOPIC, start=len(got), n=n, gap_s=gap))
+            lat_us[leg] = []
+            for _ in range(n):
+                topic, payload = await sub.get(timeout=30)
+                lat_us[leg].append((time.monotonic_ns() - payload["t_ns"]) / 1e3)
+                got.append(payload)
+            await pub_task
+            lat_us[leg + "_s"] = time.monotonic() - t0
+        await sub.aclose()
+        if [p["event_id"] for p in got] != list(range(len(got))) or any(
+                p["block_hashes"] != runtime_event(p["event_id"])["block_hashes"] for p in got):
+            fail("runtime_tcp: the events arrived out of order or changed")
+        replayed = await replay_events(replay_host, replay_port, timeout_s=30)
+        if [(s, t, p) for s, t, p in replayed] != [
+                (i + 1, RUNTIME_EVENT_TOPIC, p) for i, p in enumerate(got)]:
+            fail(f"runtime_tcp: the broker's log replays {len(replayed)} events, not the "
+                 f"{len(got)} received")
+        step("events")
+
+        # a cancel mid-stream frees the worker's slot: cold, when the
+        # graphs of the width buckets (table widths) that no earlier run met
+        # are captured inside the cancelled stream's bursts, then warm
+        long = dict(pres[0], stop=dict(pres[0]["stop"], max_tokens=RUNTIME_LONG_TOKENS))
+
+        async def cancel_one():
+            await control("clear")
+            st0 = await control("stats")
+            ctx, n_items = Context(), 0
+            async for out in gen.generate(long, ctx):
+                n_items += 1
+                if n_items == 3:
+                    ctx.stop_generating()
+                    break
+            t0, polls = time.monotonic(), []
+            while True:
+                t1 = time.monotonic()
+                st = await control("stats")
+                # (ms since the cancel, ms the stats call took, slots held, tokens)
+                polls.append((1e3 * (t1 - t0), 1e3 * (time.monotonic() - t1),
+                              st["active_seqs"], st["generated_tokens"] - st0["generated_tokens"]))
+                if not (st["active_seqs"] or st["waiting"]):
+                    break
+                if time.monotonic() - t0 > 30:
+                    fail(f"runtime_tcp: the cancelled stream's slot is still held: {st}")
+                await asyncio.sleep(0.01)
+            one = {"items_read": n_items,
+                   "tokens_generated": st["generated_tokens"] - st0["generated_tokens"],
+                   "slot_freed_s": time.monotonic() - t0, "polls": len(polls),
+                   "first_polls": polls[:4], "last_poll": polls[-1],
+                   "graphs_captured": st["decode_graphs"] - st0["decode_graphs"],
+                   "graph_capture_ms": st["graph_capture_ms"] - st0["graph_capture_ms"]}
+            if one["tokens_generated"] >= RUNTIME_LONG_TOKENS:
+                fail(f"runtime_tcp: the cancelled stream ran to its end: {one}")
+            return one
+
+        cancel = {"cold": await cancel_one()}
+        cancel["warm"] = await cancel_one()
+        step("cancel")
+
+        # a killed worker surfaces StreamDisconnectedError
+        n_items, err, t0 = 0, None, time.monotonic()
+        try:
+            async for out in gen.generate(long, Context()):
+                n_items += 1
+                if n_items == 3:
+                    worker.kill()
+                    t0 = time.monotonic()
+        except StreamDisconnectedError as exc:
+            err = exc
+        if err is None:
+            fail(f"runtime_tcp: the killed worker's stream ended without "
+                 f"StreamDisconnectedError after {n_items} items")
+        killed = {"items_read": n_items, "disconnect_s": time.monotonic() - t0,
+                  "error": repr(err)}
+        worker.wait(timeout=30)
+        killed["reaped_s"] = time.monotonic() - t0  # the worker's exit seen here
+        step("kill")
+        return (measured, refs, tcps, counts, worker_frames, recv_frames, lat_us, cancel,
+                killed)
+    finally:
+        await gen.close()
+        await ctl.close()
+        await runtime.shutdown(grace_period=1)
+        await runtime.event_plane.close()
+
+
 # Faults the probe can plant, in memory only, to see what the dense check
 # of an engine phase reads when the engine is wrong.
 FAULTS = {
@@ -3128,6 +3553,8 @@ def probe(torch, smi, specs) -> None:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--runtime-worker"]:
+        return runtime_worker()
     import torch
 
     if not torch.cuda.is_available():
@@ -3207,6 +3634,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cli_http_phase(smi)
+    # The same engine as a worker process behind the runtime's planes (discd,
+    # TCP, the event broker), this process its client.
+    counts_tcp = runtime_tcp_phase(smi)
     # Llama-3-8B, random int8 weights: the fused layer's gate turns it on.
     # Random weights give logits ~ N(0, 1); the dense check's layers round
     # q/k/v to bf16 where the fused layer keeps f32, which moves logits by a
@@ -3383,13 +3813,14 @@ def main() -> int:
     # launches: the six engine paths (Qwen2.5-0.5B bf16, Llama-3-8B int8,
     # Llama-3-8B int8 with int8 KV, Gemma-2-2B bf16, Gemma-3-1B int8 with
     # int8 KV, Gemma-3-1B int8 over bf16 pools, and the latter with the fused
-    # layer off), the OpenAI pipeline and the HTTP frontend over Qwen2.5-0.5B and the three
+    # layer off), the OpenAI pipeline, the HTTP frontend and the worker
+    # process behind the runtime's planes over Qwen2.5-0.5B and the three
     # profiling paths (prof_attn, prof_fused_ffn,
     # prof_8b's four modes); times of the D 64 (bf16 pools) and D 128 (int8
     # pools) cases, the D 256 and block-size-128 ones above, #5-#7 at their
     # main cases
     paths = (counts, counts8, counts8kv, counts_g, counts_3, counts_3bf, counts_3u, counts_pipe,
-             counts_http, counts_attn, counts_ffn, counts_8b)
+             counts_http, counts_tcp, counts_attn, counts_ffn, counts_8b)
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{sources[n]}",
          "replaces": replaces[n], "launches": sum(c.get(n, 0) for c in paths),

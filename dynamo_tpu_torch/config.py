@@ -60,3 +60,34 @@ AUDIT_POLICY = EnvVar(
     "Request auditing: off | stderr | file:<path> (JSONL records) "
     "(dynamo_tpu/config.py:468)",
 )
+REQUEST_PLANE = EnvVar(
+    "DYN_TPU_REQUEST_PLANE", "tcp", str,
+    "Request plane for cross-process serving: tcp|http|local; the port has "
+    "no http plane yet and raises for it (dynamo_tpu/config.py:122)",
+)
+DISCOVERY = EnvVar(
+    "DYN_TPU_DISCOVERY", "memory", str,
+    "Discovery backend: memory|file|discd (addr via DYN_TPU_DISCOVERY_ADDR) "
+    "(dynamo_tpu/config.py:127)",
+)
+DISCOVERY_ADDR = EnvVar(
+    "DYN_TPU_DISCOVERY_ADDR", "127.0.0.1:6180", str,
+    "discd service address or file-backend directory (dynamo_tpu/config.py:132)",
+)
+EVENT_PLANE = EnvVar(
+    "DYN_TPU_EVENT_PLANE", "zmq", str,
+    "Event plane: memory|zmq; zmq names the wire (ZMTP), which the port "
+    "speaks without pyzmq (dynamo_tpu/config.py:137)",
+)
+EVENT_PLANE_ADDR = EnvVar(
+    "DYN_TPU_EVENT_PLANE_ADDR", "127.0.0.1:6181:6182", str,
+    "Event broker address host:xsub_port:xpub_port (dynamo_tpu/config.py:141)",
+)
+TCP_HOST = EnvVar(
+    "DYN_TPU_TCP_HOST", "127.0.0.1", str,
+    "Advertised host for the TCP request plane (dynamo_tpu/config.py:147)",
+)
+LEASE_TTL = EnvVar(
+    "DYN_TPU_LEASE_TTL", 10.0, float,
+    "Discovery lease TTL seconds (dynamo_tpu/config.py:152)",
+)

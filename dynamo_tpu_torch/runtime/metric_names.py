@@ -1,6 +1,6 @@
 """Canonical metric names — the port's copy of the entries of
-dynamo_tpu/runtime/metric_names.py that the port emits (the frontend's and
-the parser plane's families), letter for letter, so that dashboards and
+dynamo_tpu/runtime/metric_names.py that the port emits (the frontend's, the
+parser plane's and the crash plane's families), letter for letter, so that dashboards and
 scrapers read the port as they read the JAX package.
 
 Reference parity: lib/runtime/src/metrics/prometheus_names.rs — emitters
@@ -48,3 +48,17 @@ PARSER_STREAMS_TOTAL = f"{PARSER_PREFIX}_streams_total"
 PARSER_JAIL_BUFFERED_PEAK_CHARS = (
     f"{PARSER_PREFIX}_jail_buffered_peak_chars"
 )
+
+# -- crash plane (runtime/liveness.py) ----------------------------------------
+LIVENESS_PREFIX = "dynamo_tpu_liveness"
+# Per-worker liveness state gauge: 0 alive, 1 suspect, 2 dead.
+LIVENESS_WORKER_STATE = f"{LIVENESS_PREFIX}_worker_state"
+# Last-report-to-declared-dead latency (bounded by dead_after x interval).
+LIVENESS_DETECTION_SECONDS = f"{LIVENESS_PREFIX}_detection_seconds"
+# Packets from a prior worker incarnation dropped (never applied), by seam.
+LIVENESS_STALE_DROPS_TOTAL = (
+    f"{LIVENESS_PREFIX}_stale_incarnation_drops_total"
+)
+# Warm-restart KV checkpoint restore duration and outcomes.
+LIVENESS_RESTORE_SECONDS = f"{LIVENESS_PREFIX}_restore_seconds"
+LIVENESS_RESTORE_OUTCOME_TOTAL = f"{LIVENESS_PREFIX}_restore_outcome_total"

@@ -99,6 +99,9 @@ class Counter(_Metric):
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
 
+    def value(self, **labels: object) -> float:
+        return self._values.get(self._key(labels), 0.0)
+
     def set_total(self, value: float, **labels: object) -> None:
         """Mirror an externally maintained monotonic total (e.g. TierStats
         counters owned by the storage tier) — used from on_render hooks so
@@ -139,6 +142,12 @@ class Gauge(_Metric):
         key = self._key(labels)
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
+
+    def remove(self, **labels: object) -> None:
+        """Drop one series (a departed worker must not freeze at its last
+        value)."""
+        with self._lock:
+            self._values.pop(self._key(labels), None)
 
     def render(self, openmetrics: bool = False) -> List[str]:
         lines = [f"# HELP {self.name} {self.help}", f"# TYPE {self.name} gauge"]

@@ -1,8 +1,9 @@
 """Import hygiene of the port: dynamo_tpu_torch and chip_smoke.py import
 neither jax nor anything of dynamo_tpu, nor a package the card's machine
 lacks (tokenizers, regex, aiohttp, msgpack, zmq, prometheus_client; jinja2
-only inside a function); every module (the HTTP frontend and the parsers
-among them) imports with all of those and xxhash blocked, and the text
+only inside a function); every module (the HTTP frontend, the parsers and
+the runtime's planes with their msgpack and ZMTP wire modules among them)
+imports with all of those and xxhash blocked, and the text
 path (tokenizer, default chat template) runs so; an entry point left on
 its default device (cuda) raises when there is no card instead of
 carrying on on the CPU."""
@@ -114,7 +115,12 @@ wanted = set("dynamo_tpu_torch." + n for n in (
     "cli.run", "cli.__main__", "http.web", "http.service", "http.metrics",
     "http.model_manager", "http.worker_monitor", "http.audit", "parsers.incremental",
     "parsers.jail", "parsers.observe", "parsers.reasoning", "parsers.tool_calling",
-    "runtime.metrics_core", "runtime.faults", "runtime.tasks", "disagg.errors"))
+    "runtime.metrics_core", "runtime.faults", "runtime.tasks", "disagg.errors",
+    "runtime.network.msgpack_lite", "runtime.network.codec", "runtime.network.errors",
+    "runtime.network.tcp", "runtime.drain", "runtime.liveness", "runtime.discovery",
+    "runtime.discovery.file", "runtime.discovery.discd", "runtime.component",
+    "runtime.distributed", "runtime.events", "runtime.events.zmtp",
+    "runtime.events.zmq_plane", "runtime.health", "discd", "discd.__main__"))
 assert wanted <= set(names), sorted(wanted - set(names))
 spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
