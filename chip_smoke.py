@@ -235,10 +235,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ITL over TCP beside the in-process figures, host µs a frame on each side
    (FrameWriter.send in the worker, FrameReader.recv's read and unpack
    here), events published to received in µs (p50, p99).
+34. kv_router — KV-aware routing across two worker processes on the one
+   card: discd with its broker, and phase 33's worker role twice
+   (instances 1 and 2, `--kv-publish`: a KvEventPublisher on the engine's
+   KV events, answering snapshot requests from pool.committed_view(), and a
+   LoadPublisher on engine.stats() every KV_LOAD_INTERVAL_S). This process
+   is the frontend: a RouterMode.KV client with KvRouter(runtime, "dynamo",
+   "backend", block_size=16) started and attached. First the port's block
+   hashes of a fixed 256-token list (block sizes 16 and 64, salt 0 and
+   adapter_salt("lora-a")) must be HASH_CONSTANTS, xxh3-64's numbers. The
+   traffic: KV_GROUPS groups of KV_GROUP_SIZE greedy requests of
+   KV_MAX_TOKENS tokens, a group's requests sharing a 1,024-token prefix
+   (64 blocks) and each adding a suffix of 32-200 tokens. A group's first
+   request is sent alone among its group; once the router has applied the
+   worker's KV events (wait_for_events) and sees that worker idle, the rest
+   of the group is sent at once, and beside them the next group's first
+   request. Launch counts are zeroed in both workers just before the
+   KV-routed run and read just after. Fails unless every follower goes to
+   its group's first worker with a predicted overlap of 64 blocks, the cold
+   first requests land on both workers, each worker prefilled exactly the
+   tokens the router predicted it would (prompt less 16 x overlap), the
+   index holds exactly each worker's committed blocks (a `committed`
+   control op), the scheduler's load view holds both workers, a fresh
+   KvRouter rebuilds the same index from the workers' snapshots with no
+   request, every stream equals the same request run in-process on worker
+   1 (engine_run), and both paged-attention kernels launched in both
+   workers. The same requests then go through a ROUND_ROBIN client from
+   empty caches. The line: prefix-hit blocks, TTFT and ITL for each mode,
+   host µs a 64-byte block hash and a find_best_match, events emitted to
+   applied (µs p50, p99), events applied, the router's decisions by reason,
+   both workers' launches.
 
 (18-20 run right after the Llama-3-8B kernels of phases 3-4, 22 right after
 the fused layer's timing, 21 right after phase 11, 23 right after phase 6,
-24-28 after phase 17, 29-33 right after phase 23.)
+24-28 after phase 17, 29-34 right after phase 23.)
 Then one JSON line {"kernels": [...]} for all ten kernels, nvidia-smi's
 name and power limit, and last {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result.
@@ -262,6 +292,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import gc
+import itertools
 import json
 import math
 import os
@@ -2273,12 +2304,13 @@ def timed_detokenize():
         DecodeStream.step, DecodeStream.flush = step, flush
 
 
-def qwen_pipeline():
+def qwen_pipeline(on_kv_event=None):
     """(config, engine, tokenizer, card, pipeline, preprocessor) of the
     pipeline phases: build_local_pipeline(card, TorchEngine,
     tiny_tokenizer()) over Qwen2.5-0.5B at the engine's defaults (depth 2,
     CUDA graphs; 16 slots, 2,048 blocks as the engine phases) and its own
-    random init (what ``cli run --model qwen2.5-0.5b`` serves)."""
+    random init (what ``cli run --model qwen2.5-0.5b`` serves); the engine's
+    KV events go to ``on_kv_event``."""
     from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
     from dynamo_tpu_torch.llm import ModelDeploymentCard, OpenAIPreprocessor, tiny_tokenizer
     from dynamo_tpu_torch.llm.entrypoint import build_local_pipeline, resolve_chat_template
@@ -2287,7 +2319,7 @@ def qwen_pipeline():
     cfg = qwen2_500m_config()
     args = TorchEngineArgs(config=cfg, block_size=16, num_kv_blocks=2048, max_num_seqs=16,
                            max_model_len=2048, prefill_chunk=512, seed=0, device=DEV)
-    engine = TorchEngine(args)
+    engine = TorchEngine(args, on_kv_event=on_kv_event)
     tok = tiny_tokenizer()
     card = ModelDeploymentCard(name=cfg.name, context_length=args.max_model_len,
                                kv_block_size=args.block_size,
@@ -3087,16 +3119,21 @@ def timed_codec():
 
 
 def runtime_worker() -> int:
-    """The worker role of the runtime_tcp phase (``--runtime-worker``): a
-    test harness, not the worker main (ROADMAP A4c-3). TorchEngine for
-    Qwen2.5-0.5B as qwen_pipeline() builds it, served on
-    dynamo/backend/generate through DistributedRuntime.from_settings(), and
-    a control endpoint: stats (engine.stats(), the kernel launch counts and
-    the frames' host time), reset (counts and frame times to 0), clear (wait
-    until idle, drop the prefix cache), engine_run (the given requests
-    through engine.generate() in-process, then clear) and publish (a run of
-    events on one topic through the runtime's event plane). Ends on
-    SIGTERM."""
+    """The worker role of the runtime_tcp and kv_router phases
+    (``--runtime-worker [--instance-id N] [--kv-publish]``): a test harness,
+    not the worker main (ROADMAP A4c-3). TorchEngine for Qwen2.5-0.5B as
+    qwen_pipeline() builds it, served on dynamo/backend/generate through
+    DistributedRuntime.from_settings() under instance N (default 1), and a
+    control endpoint: stats (engine.stats(), the kernel launch counts and
+    the frames' host time), reset (counts, frame times and event times to
+    0), clear (wait until idle, drop the prefix cache), engine_run (the
+    given requests through engine.generate() in-process, then clear),
+    publish (a run of events on one topic through the runtime's event
+    plane), committed (pool.committed_view()) and kv_events (the KV events
+    published so far, and when each was emitted). With --kv-publish a
+    router.publisher.KvEventPublisher takes the engine's KV events
+    (on_kv_event) and answers snapshot requests (committed_view), and a
+    LoadPublisher reports engine.stats(). Ends on SIGTERM."""
     import signal
 
     import torch
@@ -3106,11 +3143,30 @@ def runtime_worker() -> int:
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     torch.backends.cuda.matmul.allow_tf32 = False
+    from dynamo_tpu_torch.router import KvEventPublisher, LoadPublisher
     from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 
+    argv = sys.argv[2:]
+    instance_id = int(argv[argv.index("--instance-id") + 1]) if "--instance-id" in argv else 1
+    kv_publish = "--kv-publish" in argv
+
     async def run():
-        _, engine, _, _, _, _ = qwen_pipeline()
         runtime = DistributedRuntime.from_settings()
+        publisher, load, emitted = None, None, {}  # event id -> monotonic ns at emission
+        on_kv_event = None
+        if kv_publish:
+            publisher = KvEventPublisher(runtime.event_plane, "dynamo", "backend", instance_id)
+
+            def on_kv_event(event):
+                publisher.on_kv_event(event)
+                emitted[publisher._event_id] = time.monotonic_ns()
+
+        _, engine, _, _, _, _ = qwen_pipeline(on_kv_event=on_kv_event)
+        if kv_publish:
+            publisher.set_snapshot_fn(engine.pool.committed_view)
+            load = LoadPublisher(runtime.event_plane, "dynamo", "backend", instance_id,
+                                 engine.stats)
+            load.start()
         stop = asyncio.Event()
         asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, stop.set)
         with timed_codec() as frames:
@@ -3121,6 +3177,7 @@ def runtime_worker() -> int:
                 elif op == "reset":
                     reset_counts()
                     frames.update(send_s=0.0, send_n=0, recv_s=0.0, recv_n=0)
+                    emitted.clear()
                     yield {"ok": True}
                 elif op == "clear":
                     await idle_cleared(engine)
@@ -3135,16 +3192,25 @@ def runtime_worker() -> int:
                         if request["gap_s"]:
                             await asyncio.sleep(request["gap_s"])
                     yield {"published": request["n"]}
+                elif op == "committed":
+                    yield {"committed": [list(e) for e in engine.pool.committed_view()]}
+                elif op == "kv_events":
+                    yield {"published": publisher._event_id if publisher else 0,
+                           "emitted_ns": sorted(emitted.items())}
                 else:
                     yield {"error": f"unknown control op {op!r}"}
 
             component = runtime.namespace("dynamo").component("backend")
             await component.endpoint("generate").serve_endpoint(engine.generate,
-                                                                instance_id=1)
-            await component.endpoint("control").serve_endpoint(control, instance_id=1)
+                                                                instance_id=instance_id)
+            await component.endpoint("control").serve_endpoint(control,
+                                                               instance_id=instance_id)
             try:
                 await stop.wait()
             finally:
+                if kv_publish:
+                    await load.close()
+                    await publisher.close()
                 await runtime.shutdown(grace_period=1)
                 await runtime.event_plane.close()
                 await engine.stop()
@@ -3436,6 +3502,391 @@ async def runtime_client(DistributedRuntime, Context, StreamDisconnectedError, r
         await runtime.event_plane.close()
 
 
+KV_GROUPS = 6  # prefix groups of the kv_router phase
+KV_GROUP_SIZE = 4  # requests a group: the first alone, then the rest at once
+KV_PREFIX_TOKENS = 1024  # a group's shared prefix: 64 blocks of 16
+KV_SUFFIX_TOKENS = (32, 200)  # each request's own suffix, drawn in this range
+KV_MAX_TOKENS = 64
+KV_BLOCK = 16
+KV_LOAD_INTERVAL_S = 0.2  # the workers' load reports (DYN_TPU_LOAD_REPORT_INTERVAL_S)
+KV_WAIT_S = 30.0
+KV_RUNS = itertools.count()  # kv_router_phase calls in this process
+# compute_block_hashes over HASH_TOKENS at block sizes 16 and 64, salt 0 and
+# adapter_salt("lora-a"): the numbers the xxhash library gives (the JAX
+# package's hashes; tests/test_torch_xxh3.py checks them against xxhash).
+HASH_TOKENS = [(i * 7919 + 13) % 151_936 for i in range(256)]
+HASH_CONSTANTS = {
+    (16, None): [
+        0x6457135A0E1D3D32, 0xBDBF74D598907BCA, 0x84C869D9DB18DB9F, 0xD393573E4B83E7A9,
+        0xD9BED3636D25265C, 0xF85F8C8574B3DBB1, 0xBB4F3C9044BDF1CB, 0x37438E800081189D,
+        0x8CBF6C747E78E6A0, 0x50D22281D92EB2CF, 0x61762EE5C756D9FF, 0x5E250D22BABF0707,
+        0xE0BD1A6F121A5395, 0xDC26FB50077D8BAA, 0x8CC157CBE8474BD2, 0xB9EB20D0530C2279],
+    (16, "lora-a"): [
+        0x10A829C66ADF5EF6, 0xED420B1929DA3491, 0x2C33CEFF2D6B86AB, 0xD14DDDC11B7E072E,
+        0x4BD0481A1E91EEA0, 0x79C4BA0DD7A43B7A, 0x6FE1CCDAA8ADA107, 0x01F7AAB55CAFDC3A,
+        0xA3B72D7178FE7A14, 0x9709C625F7A0B7C0, 0xEA2CE97BAEC68606, 0xE377C1E17875F361,
+        0x5AADA9309219EDD7, 0x9AAE6EF4781EDD5A, 0x567C0F3DB5A89AE6, 0x45C44CB00A2A2082],
+    (64, None): [0xFE157634774E2DB6, 0xB885957BA37A1210, 0x12DE7FD69306119A,
+                 0x1918360F98A60918],
+    (64, "lora-a"): [0x1479FBB0674BB281, 0x595730FA2361C836, 0x8A9ED8AD43B0F75D,
+                     0x3492C153A05537D3],
+}
+
+
+def kv_requests(run: int):
+    """The kv_router phase's request set: KV_GROUPS groups of KV_GROUP_SIZE
+    preprocessed greedy requests; a group's requests share a
+    KV_PREFIX_TOKENS-token prefix and each adds its own suffix. The ids
+    name the phase's run: the router's lifecycle ring, which tells where
+    each request went, outlives a run."""
+    import numpy as np
+
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+
+    rng = np.random.default_rng(2024)
+    groups = []
+    for g in range(KV_GROUPS):
+        prefix = rng.integers(3, 150_000, KV_PREFIX_TOKENS).tolist()
+        groups.append([PreprocessedRequest(
+            token_ids=prefix + rng.integers(3, 150_000, int(rng.integers(
+                KV_SUFFIX_TOKENS[0], KV_SUFFIX_TOKENS[1] + 1))).tolist(),
+            request_id=f"kv{run}-{g}-{i}", sampling=SamplingOptions(temperature=0.0),
+            stop=StopConditions(max_tokens=KV_MAX_TOKENS, ignore_eos=True),
+        ).to_dict() for i in range(KV_GROUP_SIZE)])
+    return groups
+
+
+def check_hash_constants() -> float:
+    """The port's block hashes against HASH_CONSTANTS; returns host µs a
+    64-byte block (16 tokens) over a 1,024-token list."""
+    from dynamo_tpu_torch.tokens.blocks import adapter_salt, compute_block_hashes
+
+    for (block, lora), want in HASH_CONSTANTS.items():
+        got = compute_block_hashes(HASH_TOKENS, block, salt=adapter_salt(lora))
+        if got != want:
+            fail(f"kv_router: compute_block_hashes at block size {block}, adapter {lora!r} "
+                 f"is not xxh3-64's: {[hex(h) for h in got[:2]]}")
+    tokens = list(range(1000, 1000 + KV_PREFIX_TOKENS))
+    t0 = time.perf_counter()
+    for _ in range(10):
+        compute_block_hashes(tokens, KV_BLOCK)
+    return 1e6 * (time.perf_counter() - t0) / (10 * KV_PREFIX_TOKENS // KV_BLOCK)
+
+
+def kv_router_phase(smi) -> dict:
+    """Phase 34 (see the module's docstring). Returns the launch counts of
+    both workers over the KV-routed run, summed."""
+    import select
+    import tempfile
+
+    t_phase = time.monotonic()
+    root = os.path.dirname(os.path.abspath(__file__))
+    hash_us = check_hash_constants()
+    procs = []
+    with tempfile.TemporaryDirectory() as tmp, \
+            open(os.path.join(tmp, "discd.err"), "w+") as discd_err:
+        logs = [open(os.path.join(tmp, f"worker{i}.log"), "w+") for i in (1, 2)]
+        try:
+            discd = subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch.discd", "--port", "0", "--xsub", "0",
+                 "--xpub", "0"], stdout=subprocess.PIPE, stderr=discd_err, text=True, cwd=root)
+            procs.append(discd)
+            line = discd.stdout.readline() if select.select([discd.stdout], [], [], 60)[0] else ""
+            m = re.fullmatch(r"discd ready: discovery (\S+), events (\S+)(, replay :\d+)?\n", line)
+            if not m:
+                discd_err.seek(0)
+                fail(f"discd printed {line!r}: {discd_err.read()[-2000:]}")
+            env = {"DYN_TPU_DISCOVERY": "discd", "DYN_TPU_DISCOVERY_ADDR": m.group(1),
+                   "DYN_TPU_REQUEST_PLANE": "tcp", "DYN_TPU_EVENT_PLANE": "zmq",
+                   "DYN_TPU_EVENT_PLANE_ADDR": m.group(2),
+                   "DYN_TPU_LOAD_REPORT_INTERVAL_S": str(KV_LOAD_INTERVAL_S)}
+            workers = []
+            for i, log in zip((1, 2), logs):
+                workers.append(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--runtime-worker",
+                     "--instance-id", str(i), "--kv-publish"],
+                    stdout=log, stderr=subprocess.STDOUT, cwd=root, env={**os.environ, **env}))
+            procs += workers
+
+            def worker_tail(i):
+                logs[i - 1].seek(0)
+                return logs[i - 1].read()[-3000:]
+
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            try:
+                result = asyncio.run(kv_router_client(workers, worker_tail))
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+        finally:
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.terminate()
+                    try:
+                        proc.wait(timeout=15)
+                    except subprocess.TimeoutExpired:
+                        proc.kill()
+                        proc.wait()
+            if procs:
+                procs[0].stdout.close()
+            for log in logs:
+                log.close()
+    counts = result.pop("launches")
+    summed = {n: sum(c.get(n, 0) for c in counts.values()) for n in counts[1]}
+    emit({"phase": "kv_router", "model": "qwen2.5-0.5b", "workers": 2,
+          "requests": KV_GROUPS * KV_GROUP_SIZE, "prefix_tokens": KV_PREFIX_TOKENS,
+          "block_size": KV_BLOCK, "hash_us_per_64B_block": hash_us, **result,
+          "launches": {str(w): {n: c[n] for n in ("paged_attention_decode",
+                                                   "paged_attention_chunk")}
+                       for w, c in counts.items()},
+          "seconds": time.monotonic() - t_phase, "card": smi})
+    return summed
+
+
+async def kv_router_client(workers, worker_tail):
+    """The frontend side of kv_router_phase, in this process's own loop: a
+    RouterMode.KV client with a KvRouter attached, a ROUND_ROBIN client
+    beside it, and the workers' control endpoints."""
+    from dynamo_tpu_torch.router import KvRouter
+    from dynamo_tpu_torch.runtime import lifecycle
+    from dynamo_tpu_torch.runtime.component import RouterMode
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    t_start = time.monotonic()
+    runtime = DistributedRuntime.from_settings()
+    comp = runtime.namespace("dynamo").component("backend")
+    kv = await comp.endpoint("generate").client(RouterMode.KV)
+    rr = await comp.endpoint("generate").client(RouterMode.ROUND_ROBIN)
+    ctl = await comp.endpoint("control").client()
+    routers = []
+    try:
+        deadline = time.monotonic() + RUNTIME_START_S
+        while not all(set(c.instance_ids) == {1, 2} for c in (kv, rr, ctl)):
+            for i, w in enumerate(workers, 1):
+                if w.poll() is not None:
+                    fail(f"kv_router: worker {i} exited {w.returncode}: {worker_tail(i)}")
+            if time.monotonic() > deadline:
+                fail(f"kv_router: the workers did not register in {RUNTIME_START_S} s: "
+                     f"{worker_tail(1)} {worker_tail(2)}")
+            await asyncio.sleep(0.1)
+        t_up = time.monotonic()
+
+        async def control(op, wid, **kw):
+            items = [x async for x in ctl.direct({"op": op, **kw}, wid, Context())]
+            if len(items) != 1 or "error" in items[0]:
+                fail(f"kv_router: control {op} on worker {wid}: {items}")
+            return items[0]
+
+        router = KvRouter(runtime, "dynamo", "backend", block_size=KV_BLOCK)
+        applied_ns = {}  # (worker, event id) -> monotonic ns when the index took it
+        apply = router.indexer.apply
+
+        def timed_apply(event):
+            apply(event)
+            applied_ns[(event.worker_id, event.event_id)] = time.monotonic_ns()
+
+        router.indexer.apply = timed_apply
+        await router.start()
+        routers.append(router)
+        router.attach(kv)
+        await asyncio.sleep(0.5)  # the router's subscriptions reach the publishers
+
+        async def published():
+            return {w: (await control("kv_events", w))["published"] for w in (1, 2)}
+
+        # Quiesce: the index has every event the workers published so far;
+        # from here each later event is applied once, so counts add up.
+        async def quiesce():
+            pub = await published()
+            for _ in range(int(KV_WAIT_S / 0.01)):
+                if all(router.indexer._last_event_id.get((w, 0), 0) >= n
+                       for w, n in pub.items()):
+                    return router.indexer.events_applied - sum(pub.values())
+                await asyncio.sleep(0.01)
+            fail(f"kv_router: the router's index lags the workers' events: {pub}, "
+                 f"{router.indexer._last_event_id}")
+
+        async def all_applied(base):
+            await router.wait_for_events(base + sum((await published()).values()), KV_WAIT_S)
+
+        async def idle_at(worker):
+            for _ in range(int(KV_WAIT_S / 0.01)):
+                if router.scheduler.load_view().get(worker, (1,))[0] == 0:
+                    return
+                await asyncio.sleep(0.01)
+            fail(f"kv_router: the router never saw {worker} idle: "
+                 f"{router.scheduler.load_view()}")
+
+        groups = kv_requests(next(KV_RUNS))
+        flat = [r for g in groups for r in g]
+        # Graph capture at the phase's width bucket in both workers, then
+        # empty caches and zeroed counts.
+        for w in (1, 2):
+            await control("engine_run", w, requests=[groups[0][0]])
+            await control("reset", w)
+
+        async def one(client, req):
+            t0, ids, stamps = time.monotonic(), [], []
+            async for out in client.generate(dict(req), Context()):
+                if out["error"]:
+                    raise RuntimeError(out["error"])
+                if out["token_ids"]:
+                    stamps.append((time.monotonic(), len(out["token_ids"])))
+                    ids += out["token_ids"]
+            return dict(t0=t0, ids=ids, stamps=stamps)
+
+        def routed(req):
+            tl = lifecycle.global_lifecycle().get(req["request_id"])
+            ev = [e for e in tl.events if e.name == "routed"] if tl else []
+            return (ev[-1].attrs["worker"], ev[-1].attrs["overlap_blocks"]) if ev else None
+
+        async def run_groups(client, base):
+            """Each group's first request alone among its group; once its KV
+            events are in the index and the router sees its worker idle,
+            the rest of the group at once, and beside them the next group's
+            first request. Returns each request's run, in request order."""
+            runs, pending = {}, []
+
+            async def keep(req):
+                runs[req["request_id"]] = await one(client, req)
+
+            for g, group in enumerate(groups):
+                await keep(group[0])
+                if client is kv:
+                    await all_applied(base)
+                    await idle_at((routed(group[0])[0], 0))
+                pending += [asyncio.ensure_future(keep(r)) for r in group[1:]]
+                if client is kv:  # the followers are routed before the next first
+                    while any(routed(r) is None for r in group[1:]):
+                        await asyncio.sleep(0.001)
+                else:
+                    await asyncio.sleep(0.01)
+            await asyncio.gather(*pending)
+            return [runs[r["request_id"]] for r in flat]
+
+        modes = {}
+        for name, client in (("kv", kv), ("round_robin", rr)):
+            for w in (1, 2):
+                await control("clear", w)
+            base = await quiesce()
+            st0 = {w: await control("stats", w) for w in (1, 2)}
+            t0 = time.monotonic()
+            runs = await run_groups(client, base)
+            wall = time.monotonic() - t0
+            st1 = {w: await control("stats", w) for w in (1, 2)}
+            prefill = {w: st1[w]["prefill_tokens"] - st0[w]["prefill_tokens"] for w in (1, 2)}
+            ttft = [1e3 * (r["stamps"][0][0] - r["t0"]) for r in runs]
+            itl = [1e3 * (r["stamps"][-1][0] - r["stamps"][0][0]) / (len(r["ids"]) - 1)
+                   for r in runs]
+            modes[name] = dict(
+                runs=runs, prefill=prefill, launches=st1, wall_s=wall,
+                line={"prefix_hit_blocks": (sum(len(r["token_ids"]) for r in flat)
+                                            - sum(prefill.values())) / KV_BLOCK,
+                      "prefill_tokens": prefill, "ttft_ms_mean": sum(ttft) / len(ttft),
+                      "ttft_ms_max": max(ttft), "itl_ms_mean": sum(itl) / len(itl),
+                      "first_requests_ttft_ms_mean": sum(ttft[::KV_GROUP_SIZE]) / KV_GROUPS,
+                      "followers_ttft_ms_mean": (sum(ttft) - sum(ttft[::KV_GROUP_SIZE]))
+                      / (len(ttft) - KV_GROUPS), "wall_s": wall})
+            if name == "kv":
+                await all_applied(base)
+                first_workers = {}
+                # the router's predictions against the workers' own matches
+                expect = {1: 0, 2: 0}
+                for g, group in enumerate(groups):
+                    first_w, first_overlap = routed(group[0])
+                    if first_overlap != 0:
+                        fail(f"kv_router: group {g}'s first request predicted {first_overlap} "
+                             f"blocks of overlap")
+                    for r in group[1:]:
+                        if routed(r) != (first_w, KV_PREFIX_TOKENS // KV_BLOCK):
+                            fail(f"kv_router: {r['request_id']} went to {routed(r)}, not to "
+                                 f"worker {first_w} with {KV_PREFIX_TOKENS // KV_BLOCK} blocks")
+                    for r in group:
+                        w, overlap = routed(r)
+                        expect[w] += len(r["token_ids"]) - KV_BLOCK * overlap
+                    first_workers[group[0]["request_id"]] = first_w
+                if set(first_workers.values()) != {1, 2}:
+                    fail(f"kv_router: the cold first requests all went to one worker: "
+                         f"{first_workers}")
+                if prefill != expect:
+                    fail(f"kv_router: the workers prefilled {prefill} tokens, the router "
+                         f"predicted {expect}")
+                # the index holds exactly each worker's committed blocks
+                held = {}
+                for w in (1, 2):
+                    committed = {h for h, _ in (await control("committed", w))["committed"]}
+                    held[w] = set(router.indexer.tree._worker_blocks.get((w, 0), ()))
+                    if held[w] != committed or not committed:
+                        fail(f"kv_router: the index holds {len(held[w])} blocks of worker {w}, "
+                             f"which has {len(committed)} committed "
+                             f"({len(held[w] ^ committed)} differ)")
+                if set(router.scheduler.load_view()) != {(1, 0), (2, 0)}:
+                    fail(f"kv_router: the scheduler's load view is "
+                         f"{router.scheduler.load_view()}")
+                # a fresh router rebuilds the index from the snapshots alone
+                fresh = KvRouter(runtime, "dynamo", "backend", block_size=KV_BLOCK)
+                t_fresh = time.monotonic()
+                await fresh.start()
+                routers.append(fresh)
+                await fresh.wait_for_events(2, KV_WAIT_S)
+                resync_s = time.monotonic() - t_fresh
+                for w in (1, 2):
+                    got = set(fresh.indexer.tree._worker_blocks.get((w, 0), ()))
+                    if got != held[w]:
+                        fail(f"kv_router: the fresh router's index holds {len(got)} blocks of "
+                             f"worker {w}, not {len(held[w])}")
+                # host time a decision, on the fresh router's index
+                t0 = time.perf_counter()
+                for r in flat:
+                    fresh.find_best_match(r["token_ids"], [(1, 0), (2, 0)])
+                match_us = 1e6 * (time.perf_counter() - t0) / len(flat)
+                await fresh.stop()
+                routers.remove(fresh)
+                ev = await asyncio.gather(*(control("kv_events", w) for w in (1, 2)))
+                lat = sorted((applied_ns[(w, i)] - t) / 1e3 for w, e in zip((1, 2), ev)
+                             for i, t in e["emitted_ns"] if (w, i) in applied_ns)
+                kv_stats = dict(
+                    index_blocks={str(w): len(held[w]) for w in (1, 2)},
+                    resync_s=resync_s, find_best_match_us=match_us,
+                    event_us_p50=lat[len(lat) // 2], event_us_p99=lat[int(0.99 * (len(lat) - 1))],
+                    events_timed=len(lat), events_applied=router.indexer.events_applied,
+                    decisions={r: router.metrics.decisions.value(reason=r) for r in (
+                        "kv_overlap", "load_only", "pinned", "fallback", "no_worker")},
+                    first_request_workers=first_workers)
+
+        # every stream against the same requests in-process on worker 1
+        ref = (await control("engine_run", 1, requests=flat))["runs"]
+        for name, mode in modes.items():
+            for r, a, b in zip(flat, ref, mode["runs"]):
+                if a["ids"] != b["ids"] or len(a["ids"]) != KV_MAX_TOKENS:
+                    at = next((k for k, (x, y) in enumerate(zip(a["ids"], b["ids"])) if x != y),
+                              None)
+                    fail(f"kv_router ({name}): {r['request_id']}'s ids part from the "
+                         f"in-process run's at token {at} ({len(b['ids'])} against "
+                         f"{len(a['ids'])})")
+        launches = {w: modes["kv"]["launches"][w]["launches"] for w in (1, 2)}
+        for w in (1, 2):
+            for n in ("paged_attention_decode", "paged_attention_chunk"):
+                if launches[w][n] <= 0:
+                    fail(f"kv_router: {n} never launched in worker {w} on the KV-routed run")
+        return {"kv": modes["kv"]["line"], "round_robin": modes["round_robin"]["line"],
+                **kv_stats, "workers_up_s": t_up - t_start, "launches": launches}
+    finally:
+        for r in routers:
+            await r.stop()
+        for c in (kv, rr, ctl):
+            await c.close()
+        await runtime.shutdown(grace_period=1)
+        await runtime.event_plane.close()
+
+
 # Faults the probe can plant, in memory only, to see what the dense check
 # of an engine phase reads when the engine is wrong.
 FAULTS = {
@@ -3637,6 +4088,9 @@ def main() -> int:
     # The same engine as a worker process behind the runtime's planes (discd,
     # TCP, the event broker), this process its client.
     counts_tcp = runtime_tcp_phase(smi)
+    # Two such worker processes publishing KV events and load, this process
+    # their frontend with the KV router: prefix groups follow the cache.
+    counts_kv = kv_router_phase(smi)
     # Llama-3-8B, random int8 weights: the fused layer's gate turns it on.
     # Random weights give logits ~ N(0, 1); the dense check's layers round
     # q/k/v to bf16 where the fused layer keeps f32, which moves logits by a
@@ -3814,13 +4268,14 @@ def main() -> int:
     # Llama-3-8B int8 with int8 KV, Gemma-2-2B bf16, Gemma-3-1B int8 with
     # int8 KV, Gemma-3-1B int8 over bf16 pools, and the latter with the fused
     # layer off), the OpenAI pipeline, the HTTP frontend and the worker
-    # process behind the runtime's planes over Qwen2.5-0.5B and the three
+    # process behind the runtime's planes and the two KV-routed worker
+    # processes over Qwen2.5-0.5B and the three
     # profiling paths (prof_attn, prof_fused_ffn,
     # prof_8b's four modes); times of the D 64 (bf16 pools) and D 128 (int8
     # pools) cases, the D 256 and block-size-128 ones above, #5-#7 at their
     # main cases
     paths = (counts, counts8, counts8kv, counts_g, counts_3, counts_3bf, counts_3u, counts_pipe,
-             counts_http, counts_tcp, counts_attn, counts_ffn, counts_8b)
+             counts_http, counts_tcp, counts_kv, counts_attn, counts_ffn, counts_8b)
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{sources[n]}",
          "replaces": replaces[n], "launches": sum(c.get(n, 0) for c in paths),

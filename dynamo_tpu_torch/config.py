@@ -91,3 +91,48 @@ LEASE_TTL = EnvVar(
     "DYN_TPU_LEASE_TTL", 10.0, float,
     "Discovery lease TTL seconds (dynamo_tpu/config.py:152)",
 )
+LOAD_REPORT_INTERVAL_S = EnvVar(
+    "DYN_TPU_LOAD_REPORT_INTERVAL_S", 1.0, float,
+    "Worker load-report publish cadence (router/publisher.py LoadPublisher); "
+    "the liveness detection budget is denominated in these intervals "
+    "(dynamo_tpu/config.py:348)",
+)
+SLOW_REQUEST_S = EnvVar(
+    "DYN_TPU_SLOW_REQUEST_S", 30.0, float,
+    "Requests slower than this (seconds, received to done) are retained in "
+    "the slow-request capture ring (dynamo_tpu/config.py:437)",
+)
+LIFECYCLE_RECENT = EnvVar(
+    "DYN_TPU_LIFECYCLE_RECENT", 256, int,
+    "Recent-request timelines retained (dynamo_tpu/config.py:443)",
+)
+LIFECYCLE_SLOW = EnvVar(
+    "DYN_TPU_LIFECYCLE_SLOW", 64, int,
+    "Slow-request timelines retained past recent-ring eviction "
+    "(dynamo_tpu/config.py:448)",
+)
+KV_SKETCH_CAPACITY = EnvVar(
+    "DYN_TPU_KV_SKETCH_CAPACITY", 4096, int,
+    "Prefix-popularity sketch capacity in tracked prefixes "
+    "(dynamo_tpu/config.py:454)",
+)
+KV_SKETCH_HALF_LIFE_S = EnvVar(
+    "DYN_TPU_KV_SKETCH_HALF_LIFE_S", 600.0, float,
+    "Popularity decay half-life in seconds; 0 disables decay "
+    "(dynamo_tpu/config.py:461)",
+)
+TRACE_FILE = EnvVar(
+    "DYN_TPU_TRACE_FILE", "", str,
+    "Append finished spans as JSONL to this path ('' disables file export) "
+    "(dynamo_tpu/config.py:478)",
+)
+OTLP_ENDPOINT = EnvVar(
+    "DYN_TPU_OTLP_ENDPOINT", "", str,
+    "OTLP/HTTP traces endpoint; '' disables the wire exporter "
+    "(dynamo_tpu/config.py:484)",
+)
+OTLP_SERVICE = EnvVar(
+    "DYN_TPU_OTLP_SERVICE", "dynamo-tpu", str,
+    "service.name resource attribute on exported spans "
+    "(dynamo_tpu/config.py:490)",
+)

@@ -45,7 +45,9 @@ export/import/checkpoint, multimodal, prefill under CUDA graphs, metrics
 and the flight recorder.
 
 All device work runs on one executor thread so the asyncio loop never
-blocks on the card.
+blocks on the card. Every block-pool call runs on the loop's thread, so the
+pool's KV events (``on_kv_event``, as JaxEngine takes it) reach a
+``router.publisher.KvEventPublisher`` there: its queue is an asyncio one.
 """
 
 from __future__ import annotations
@@ -56,11 +58,11 @@ import logging
 import math
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Any, AsyncIterator, Dict, List, Optional, Tuple
+from typing import Any, AsyncIterator, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from dynamo_tpu_torch.engines.gpu.block_pool import BlockPool
+from dynamo_tpu_torch.engines.gpu.block_pool import BlockPool, KvEvent
 from dynamo_tpu_torch.engines.gpu.runner import DeviceRunner, _DecodeHandles
 from dynamo_tpu_torch.llm.protocols.common import (
     BackendOutput,
@@ -196,10 +198,16 @@ def _logprob_entry(token: int, logprob: float, top, n_top: int) -> List[TokenLog
 class TorchEngine:
     """AsyncEngine over the port's model: ``generate(request, context)``."""
 
-    def __init__(self, args: TorchEngineArgs, params: Optional[Any] = None) -> None:
+    def __init__(
+        self,
+        args: TorchEngineArgs,
+        params: Optional[Any] = None,
+        *,
+        on_kv_event: Optional[Callable[[KvEvent], None]] = None,
+    ) -> None:
         self.args = args
         self.config = args.config
-        self.pool = BlockPool(args.num_kv_blocks, args.block_size)
+        self.pool = BlockPool(args.num_kv_blocks, args.block_size, on_event=on_kv_event)
         self.runner = DeviceRunner(args, params)
         S = args.max_num_seqs
         self._slots: List[Optional[_Sequence]] = [None] * S
@@ -265,6 +273,7 @@ class TorchEngine:
             "kv_usage": self.pool.usage,
             "free_blocks": self.pool.free_blocks,
             "cached_blocks": self.pool.cached_blocks,
+            "total_blocks": self.args.num_kv_blocks,
             "decode_steps": self.steps,
             "prefill_tokens": self.prefill_tokens,
             "generated_tokens": self.generated_tokens,
@@ -277,6 +286,12 @@ class TorchEngine:
             "graph_replays": sum(g.replays for g in self.runner.graphs.values()),
             "graph_capture_ms": self.runner.capture_ms,
             "eager_bursts": self.runner.eager_bursts,
+            # Load-report inputs (router/publisher.py LoadPublisher), with the
+            # JAX engine's meanings: the admission queue, the pool occupancy
+            # past which admission waits, and the drain bit (no drain yet).
+            "queue_depth": len(self._waiting),
+            "kv_high_watermark": ADMIT_KV_HIGH_WATERMARK,
+            "draining": 0,
         }
 
     def _pipeline_depth(self) -> int:

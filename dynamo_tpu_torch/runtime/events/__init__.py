@@ -38,13 +38,16 @@ _SUB_CLOSED = object()
 
 
 class Subscription:
-    """Async iterator of (topic, payload) pairs."""
+    """Async iterator of (topic, payload) pairs. ``ready`` is set once the
+    subscription can receive (at once on the memory plane; on the ZMQ plane
+    when its SUBSCRIBE has been sent to the broker, or its pump ended)."""
 
     def __init__(self, pattern: str, queue: "asyncio.Queue", on_close=None) -> None:
         self.pattern = pattern
         self._queue = queue
         self._closed = False
         self._on_close = on_close
+        self.ready = asyncio.Event()
 
     def __aiter__(self) -> "Subscription":
         return self
@@ -115,7 +118,9 @@ class MemoryEventPlane:
             except RuntimeError:
                 pass
 
-        return Subscription(topic, queue, on_close=_close)
+        sub = Subscription(topic, queue, on_close=_close)
+        sub.ready.set()
+        return sub
 
     async def close(self) -> None:
         for _, queue, loop in list(self._subs):

@@ -302,6 +302,7 @@ class ZmqEventPlane:
             try:
                 await sock.connect(self._host, self._xpub_port)
                 await sock.subscribe(prefix.encode())
+                sub.ready.set()
                 while True:
                     raw_topic, raw_payload = await sock.recv_multipart()
                     fault_point(fault_names.NET_ZMQ_RECV, topic=topic)
@@ -316,6 +317,7 @@ class ZmqEventPlane:
                 logger.exception("zmq subscription pump died (%s)", topic)
                 queue.put_nowait(_SUB_CLOSED)
             finally:
+                sub.ready.set()
                 sock.close()
 
         task = asyncio.get_running_loop().create_task(pump(), name=f"zmq-sub:{topic}")

@@ -31,6 +31,8 @@ DEFAULT_BUCKETS = (
     0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
     10.0, 30.0, 60.0,
 )
+# Buckets for count-valued histograms (batch sizes, overlap blocks).
+COUNT_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 4096, 16384)
 
 
 def _fmt(v: float) -> str:
@@ -142,6 +144,10 @@ class Gauge(_Metric):
         key = self._key(labels)
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
+
+    def value(self, **labels: object) -> float:
+        with self._lock:
+            return self._values.get(self._key(labels), 0.0)
 
     def remove(self, **labels: object) -> None:
         """Drop one series (a departed worker must not freeze at its last

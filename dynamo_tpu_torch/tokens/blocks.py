@@ -2,40 +2,27 @@
 dynamo_tpu/tokens/blocks.py.
 
 Each complete block's hash chains over (parent hash, token bytes), so equal
-prefixes give equal hash chains and the prefix cache can match them. The
-JAX package chains xxh3_64; this copy does too when ``xxhash`` can be
-imported. Where it cannot (the machine with the card does not list it), it
-chains an 8-byte BLAKE2b digest over the same structure. The hashes are then
-different numbers from the JAX package's — harmless while they only key
-this engine's own prefix cache, but they must agree once the port publishes
-KV events to the router.
+prefixes give equal hash chains and the prefix cache can match them. Like
+the JAX package it chains XXH3-64, computed by the pure-Python
+``tokens/xxh3.py`` (the machine with the card has no ``xxhash``), so its
+hashes are the JAX package's numbers: a router of either package can look
+a prompt's blocks up among the KV events of a worker of the other.
 """
 
 from __future__ import annotations
 
-import hashlib
 from typing import List, Optional, Sequence
 
-try:
-    import xxhash
-except ImportError:  # the stdlib digest below takes its place
-    xxhash = None
+from dynamo_tpu_torch.tokens.xxh3 import xxh3_64
 
 BLOCK_HASH_SEED = 0xD1A0_0000_0000_0001
 _M64 = 0xFFFF_FFFF_FFFF_FFFF
 
 
-def _digest(seed: int, data: bytes) -> int:
-    if xxhash is not None:
-        return xxhash.xxh3_64(data, seed=seed).intdigest()
-    h = hashlib.blake2b(data, digest_size=8, key=seed.to_bytes(8, "little"))
-    return int.from_bytes(h.digest(), "little")
-
-
 def _hash_block(parent_hash: int, tokens: Sequence[int], extra_salt: int = 0) -> int:
     # Fixed-width little-endian encoding; tokens are < 2^32 for any real vocab.
     data = b"".join(int(t).to_bytes(4, "little", signed=False) for t in tokens)
-    return _digest((parent_hash ^ extra_salt) & _M64, data)
+    return xxh3_64(data, (parent_hash ^ extra_salt) & _M64)
 
 
 def compute_block_hashes(
@@ -60,10 +47,17 @@ def compute_block_hashes(
     return out
 
 
+def compute_block_hash_for_seq(
+    tokens: Sequence[int], block_size: int, *, salt: int = 0
+) -> List[int]:
+    """Reference-named alias (kv_router.rs:50) for compute_block_hashes."""
+    return compute_block_hashes(tokens, block_size, salt=salt)
+
+
 def adapter_salt(lora_name: Optional[str]) -> int:
     """Hash-space salt for LoRA requests: K/V computed under an adapter are
     not interchangeable with base-model K/V, so the block chain is salted
     per adapter (no adapter, salt 0)."""
     if not lora_name:
         return 0
-    return _digest(0x10A, lora_name.encode())
+    return xxh3_64(lora_name.encode(), 0x10A)

@@ -2,8 +2,9 @@
 neither jax nor anything of dynamo_tpu, nor a package the card's machine
 lacks (tokenizers, regex, aiohttp, msgpack, zmq, prometheus_client; jinja2
 only inside a function); every module (the HTTP frontend, the parsers and
-the runtime's planes with their msgpack and ZMTP wire modules among them)
-imports with all of those and xxhash blocked, and the text
+the runtime's planes with their msgpack and ZMTP wire modules, and the KV
+router with its pure-Python xxh3, among them) imports with all of those and
+xxhash blocked, and the text
 path (tokenizer, default chat template) runs so; an entry point left on
 its default device (cuda) raises when there is no card instead of
 carrying on on the CPU."""
@@ -32,8 +33,8 @@ def _port_files():
 
 # Packages the card's machine does not have (or is not known to have:
 # prometheus_client). The port imports none of the first six; jinja2 only
-# inside a function (a custom chat template); xxhash only where it falls
-# back without it (tokens/blocks.py).
+# inside a function (a custom chat template); xxhash nowhere (tokens/xxh3.py
+# computes the block hashes).
 ABSENT_ON_CARD = ("tokenizers", "regex", "aiohttp", "msgpack", "zmq", "prometheus_client")
 BLOCKED = ("jax", "jaxlib", "dynamo_tpu") + ABSENT_ON_CARD + ("jinja2", "xxhash")
 
@@ -120,7 +121,10 @@ wanted = set("dynamo_tpu_torch." + n for n in (
     "runtime.network.tcp", "runtime.drain", "runtime.liveness", "runtime.discovery",
     "runtime.discovery.file", "runtime.discovery.discd", "runtime.component",
     "runtime.distributed", "runtime.events", "runtime.events.zmtp",
-    "runtime.events.zmq_plane", "runtime.health", "discd", "discd.__main__"))
+    "runtime.events.zmq_plane", "runtime.health", "discd", "discd.__main__",
+    "tokens.xxh3", "tokens.blocks", "tokens.radix", "router", "router.protocols",
+    "router.indexer", "router.approx", "router.scheduler", "router.publisher",
+    "router.router", "runtime.kv_reuse_observe", "runtime.lifecycle", "utils.tracing"))
 assert wanted <= set(names), sorted(wanted - set(names))
 spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
