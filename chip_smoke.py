@@ -265,10 +265,57 @@ Phases, each printing one JSON line; any failure exits non-zero:
    host µs a 64-byte block hash and a find_best_match, events emitted to
    applied (µs p50, p99), events applied, the router's decisions by reason,
    both workers' launches.
+35. mains — the deployment: discd, two `python -m dynamo_tpu_torch.worker
+   --model qwen2.5-0.5b` processes (DYN_TPU_WORKER_ID 0x101 and 0x202, the
+   JAX worker's defaults: the engine and weights of phase 29's pipeline;
+   each through this script's `--mains-worker` role, which runs the
+   worker's main() unchanged and writes its launch counts to a file) and
+   `python -m dynamo_tpu_torch.frontend`, with the cluster env of
+   tests/test_e2e_processes.py, load reports and liveness every
+   MAINS_INTERVAL_S, dead after MAINS_DEAD_AFTER. This process is an HTTP
+   client of the frontend and reads the workers' `stats` through their
+   `control` endpoint. Fails unless: the model is on /v1/models after both
+   workers print `worker serving`; phase 31's streamed set through the
+   frontend gives phase 31's texts and finish reasons (a warm-up run
+   pinned to each worker, then two runs from empty caches); a request pinned by `x-dynamo-worker` runs
+   on that worker, the same text on each, and a client's `_pinned_worker`
+   key steers nothing; each of MAINS_GROUPS groups' followers (sharing a
+   1,024-token prefix) prefill on their leader's worker and hit the
+   prefix's blocks; /clear_kv_blocks clears the workers' cached blocks,
+   exactly; a 1,500-token greedy stream whose worker is SIGKILLed after
+   MAINS_KILL_AFTER tokens ends with finish_reason length and no error
+   frame, its tokens and their logprobs exactly those of the same request
+   run unbroken on the survivor up to the tokens Migration carried, and
+   after them exactly those of its witness, the request Migration built
+   (the prompt with the carried tokens) run on the survivor (each sent to
+   the survivor's generate endpoint from an empty cache), the frontend's
+   /metrics counting 1 to the card's migration_limit migrations, liveness
+   declaring the worker dead within MAINS_INTERVAL_S x (MAINS_DEAD_AFTER +
+   1) and a new request running on the survivor; SIGTERM ends the survivor with exit 0 within
+   its grace period, its instance leaves discd, the model leaves
+   /v1/models (when the killed worker's lease lapses) and a request then
+   gets a JSON error; SIGTERM ends the frontend with exit 0; both
+   paged-attention kernels launched in each worker. The line: seconds to
+   registration, latency_ms of the frontend's runs beside phase 31's, with
+   the decode graphs the workers captured inside each measured run, the
+   groups' hit blocks, kill to the next token (and the graphs the survivor
+   captured during the long stream), detection, the tokens carried, where
+   the unbroken run parts from the migrated stream and its logprob drift
+   by span (printed, not held: its KV for the carried tokens was decoded,
+   not re-prefilled, and rounds apart in bf16), SIGTERM exit, both
+   workers' launches.
+36. tick_retry — the engine's tick retry on the card: Qwen2.5-0.5B in
+   this process (CUDA graphs, depth 2, embedding x QWEN_EMBED_SCALE) serves
+   a greedy and a penalised stream (each after a run that captures its
+   graphs), then each under a fault plan poisoning hit 2 of
+   engine.tick.dispatch, then of engine.tick.reap, then with the runner's
+   2nd decode_dispatch failing after its syncs and after its replay was
+   enqueued: each must equal its unpoisoned stream. The line times all
+   ten streams.
 
 (18-20 run right after the Llama-3-8B kernels of phases 3-4, 22 right after
 the fused layer's timing, 21 right after phase 11, 23 right after phase 6,
-24-28 after phase 17, 29-34 right after phase 23.)
+24-28 after phase 17, 29-36 right after phase 23.)
 Then one JSON line {"kernels": [...]} for all ten kernels, nvidia-smi's
 name and power limit, and last {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result.
@@ -2262,15 +2309,21 @@ async def idle_cleared(engine):
 
 def latency_ms(runs, itl_rows):
     """In ms over runs with t0 and stamps: TTFT mean and max, ITL mean over
-    the runs ``itl_rows`` names, and from the first request's send: the
-    last request's send, the first and the last first token."""
+    the runs ``itl_rows`` names, from the first request's send: the last
+    request's send, the first and the last first token; then TTFT p50 and
+    p99 and ITL p50 and p99 (the value at rank int(q * (n - 1)) sorted)."""
     ttft = [r["stamps"][0][0] - r["t0"] for r in runs]
     itl = [(r["stamps"][-1][0] - r["stamps"][0][0]) / max(sum(n for _, n in r["stamps"]) - 1, 1)
            for r in (runs[i] for i in itl_rows)]
     sent = min(r["t0"] for r in runs)
     first = [r["stamps"][0][0] - sent for r in runs]
+
+    def q(values, p):
+        return sorted(values)[int(p * (len(values) - 1))]
+
     return [1e3 * x for x in (sum(ttft) / len(ttft), max(ttft), sum(itl) / len(itl),
-                              max(r["t0"] for r in runs) - sent, min(first), max(first))]
+                              max(r["t0"] for r in runs) - sent, min(first), max(first),
+                              q(ttft, 0.5), q(ttft, 0.99), q(itl, 0.5), q(itl, 0.99))]
 
 
 @contextlib.contextmanager
@@ -2653,7 +2706,7 @@ async def idle_frame_us(frames=2000, batch=50, reader_process=False):
     return out
 
 
-def http_phase(torch, smi) -> dict:
+def http_phase(torch, smi) -> tuple:
     """The OpenAI HTTP frontend over ``qwen_pipeline()``: HttpService on
     127.0.0.1 (the standard-library server of http/web.py), requests sent
     by tools/sse_client.py from a process of its own. The pipeline phase's
@@ -2669,7 +2722,9 @@ def http_phase(torch, smi) -> dict:
     pipeline's token counts, the error cases get their status codes, the
     departed stream's slot frees before its max_tokens with status 499
     counted, /metrics parses, and both paged-attention kernels launched.
-    Returns the launch counts."""
+    Returns the launch counts and the streamed set (its requests, each
+    one's text and finish reason, the two HTTP runs' records and the rows
+    their latencies count), which the mains phase sends again."""
     t_phase = time.monotonic()
     from dynamo_tpu_torch.http import HttpService, ModelManager
     from dynamo_tpu_torch.http import service as http_service
@@ -2791,9 +2846,11 @@ def http_phase(torch, smi) -> dict:
 
     if any(ids(a) != ids(b) for a, b in zip(*got)):
         fail("the pipeline's two runs of the HTTP set gave different ids")
+    finished = []  # (text, finish reason) of each request
     for i, (body, p, g) in enumerate(zip(measured, pres, got[0])):
         text, n = "".join(o.text for o in outs(g)), len(ids(g))
         reason = "stop" if "stop" in body else "length"
+        finished.append((text, reason))
         want_usage = {"prompt_tokens": len(p.token_ids), "completion_tokens": n,
                       "total_tokens": len(p.token_ids) + n}
         decoded = [tok.decode([t]) for t in ids(g)]
@@ -2882,7 +2939,9 @@ def http_phase(torch, smi) -> dict:
           "disconnect_freed_s": freed_s,
           "disconnect_tokens": generated, "launches": counts, "step_seconds": steps,
           "seconds": time.monotonic() - t_phase, "card": smi})
-    return counts
+    streamed = [{"path": openai_path(b), "body": dict(b, stream=True, stream_options={
+        "include_usage": True})} for b in measured]
+    return counts, {"requests": streamed, "texts": finished, "records": http, "rows": rows}
 
 
 def frame_probe(torch, smi) -> None:
@@ -3887,6 +3946,685 @@ async def kv_router_client(workers, worker_tail):
         await runtime.event_plane.close()
 
 
+# -- the worker and frontend mains across processes --------------------------
+
+MAINS_WORKERS = (0x101, 0x202)  # the two workers' DYN_TPU_WORKER_ID
+MAINS_MODEL = "qwen2.5-0.5b"
+MAINS_GROUPS = 3  # prefix groups: a leader alone, then its followers at once
+MAINS_GROUP_SIZE = 3
+MAINS_PREFIX_TOKENS = 1024  # a group's shared prefix: 64 blocks of 16
+MAINS_MAX_TOKENS = 16  # each pin and prefix-group request's tokens
+MAINS_LONG_TOKENS = 1500  # the migrated stream's max_tokens
+MAINS_KILL_AFTER = 100  # tokens the client has read when its worker is killed
+MAINS_INTERVAL_S = 0.2  # load reports, and the interval liveness judges them by
+MAINS_DEAD_AFTER = 4  # missed intervals before liveness declares a worker dead
+MAINS_GRACE_S = 10.0  # every process's DYN_TPU_GRACE_PERIOD
+MAINS_WAIT_S = 30.0  # the longest any one step of the phase may wait
+# The migrated stream is held token for token: up to the failure against
+# the same request run unbroken on the survivor, and after it against its
+# witness, the request Migration built (the prompt with the carried tokens,
+# max_tokens less those) run on the survivor from an empty cache, as the
+# migrated request ran there: both re-prefill the carried tokens in one
+# chunk and decode from that KV. The unbroken run decoded those tokens
+# instead, so past the failure its KV rounds apart in bf16 and its stream
+# may part from the migrated one (on an H100, 1,104 tokens after the
+# kill, PERF.md section 6): that parting is printed, not held.
+
+
+def mains_worker() -> int:
+    """The worker role of the mains phase (``--mains-worker COUNTS_FILE
+    ARGS...``): ``dynamo_tpu_torch.worker.__main__.main()`` unchanged, on
+    ARGS, with the kernel launch counts (zeroed as the process starts)
+    written to COUNTS_FILE every 0.25 s and when main() returns — a
+    SIGKILLed worker leaves its last write. It adds no endpoint and no
+    control op."""
+    import threading
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    out = sys.argv[2]
+    sys.argv = [sys.argv[0]] + sys.argv[3:]
+    from dynamo_tpu_torch.worker import __main__ as worker
+
+    reset_counts()
+    done = threading.Event()
+
+    def dump():
+        with open(out + ".tmp", "w") as f:
+            json.dump(read_counts(), f)
+        os.replace(out + ".tmp", out)
+
+    def every_quarter_second():
+        while not done.wait(0.25):
+            dump()
+
+    writer = threading.Thread(target=every_quarter_second, daemon=True)
+    writer.start()
+    try:
+        asyncio.run(worker.main())
+    finally:
+        done.set()
+        writer.join()  # one writer of the file at a time
+        dump()
+    return 0
+
+
+class ProcLines:
+    """A child process's merged output, read by a thread: each line with
+    the monotonic time it arrived."""
+
+    def __init__(self, proc):
+        import threading
+
+        self.proc, self.lines = proc, []
+        threading.Thread(target=self._read, daemon=True).start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append((time.monotonic(), line))
+
+    def find(self, pattern):
+        """(arrival time, match) of the first line matching, or None."""
+        for t, line in list(self.lines):
+            m = re.search(pattern, line)
+            if m:
+                return t, m
+        return None
+
+    def tail(self, n=3000):
+        return "".join(line for _, line in list(self.lines))[-n:]
+
+    def alarms(self, n=12):
+        """The last ``n`` WARNING, ERROR and CRITICAL log lines."""
+        return [line.strip() for _, line in list(self.lines)
+                if re.search(r" (WARNING|ERROR|CRITICAL) ", line)][-n:]
+
+
+async def until(what, fn, timeout=MAINS_WAIT_S, procs=()):
+    """Poll ``fn()`` (sync or async) until it is truthy; fail after
+    ``timeout`` or when a process of ``procs`` has exited."""
+    t0 = time.monotonic()
+    while True:
+        got = fn()
+        if asyncio.iscoroutine(got):
+            got = await got
+        if got:
+            return got
+        for name, p in procs:
+            if p.proc.poll() is not None:
+                fail(f"mains: {name} exited {p.proc.returncode} while waiting for {what}: "
+                     f"{p.tail()}")
+        if time.monotonic() - t0 > timeout:
+            fail(f"mains: {what} not within {timeout} s: "
+                 + " | ".join(f"{n}: {p.tail(1500)}" for n, p in procs))
+        await asyncio.sleep(0.02)
+
+
+def mains_phase(smi, http_set) -> dict:
+    """Phase 35 (see the module's docstring). Returns the two workers'
+    launch counts, summed."""
+    import tempfile
+
+    t_phase = time.monotonic()
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            procs["discd"] = ProcLines(subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch.discd", "--port", "0", "--xsub", "0",
+                 "--xpub", "0"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                cwd=root))
+            t0 = time.monotonic()
+            while not procs["discd"].find(r"discd ready"):
+                if procs["discd"].proc.poll() is not None or time.monotonic() - t0 > 60:
+                    fail(f"mains: discd did not start: {procs['discd'].tail()}")
+                time.sleep(0.02)
+            m = procs["discd"].find(r"discd ready: discovery (\S+), events (\S+)")[1]
+            # tests/test_e2e_processes.py's cluster env, with the crash plane's
+            # intervals short; the lease TTL stays at its default (10 s) so
+            # that the killed worker's card leaves discd within the phase
+            env = {**os.environ, "PYTHONUNBUFFERED": "1", "DYN_TPU_DISCOVERY": "discd",
+                   "DYN_TPU_DISCOVERY_ADDR": m.group(1), "DYN_TPU_EVENT_PLANE": "zmq",
+                   "DYN_TPU_EVENT_PLANE_ADDR": m.group(2), "DYN_TPU_REQUEST_PLANE": "tcp",
+                   "DYN_TPU_LOAD_REPORT_INTERVAL_S": str(MAINS_INTERVAL_S),
+                   "DYN_TPU_LIVENESS_INTERVAL_S": str(MAINS_INTERVAL_S),
+                   "DYN_TPU_LIVENESS_DEAD_AFTER": str(MAINS_DEAD_AFTER),
+                   "DYN_TPU_GRACE_PERIOD": str(MAINS_GRACE_S)}
+            env.pop("DYN_TPU_LEASE_TTL", None)
+            t_spawn = time.monotonic()
+            counts_files = {}
+            for wid in MAINS_WORKERS:
+                counts_files[wid] = os.path.join(tmp, f"counts-{wid:x}.json")
+                procs[f"worker {wid:#x}"] = ProcLines(subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--mains-worker",
+                     counts_files[wid], "--model", MAINS_MODEL],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=root,
+                    env={**env, "DYN_TPU_WORKER_ID": str(wid)}))
+            procs["frontend"] = ProcLines(subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--host", "127.0.0.1",
+                 "--http-port", "0"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, cwd=root, env=env))
+            saved = {k: os.environ.get(k) for k in env if k.startswith("DYN_TPU_")}
+            os.environ.update({k: env[k] for k in saved})
+            try:
+                result = asyncio.run(mains_client(procs, t_spawn, http_set))
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+        finally:
+            for p in reversed(list(procs.values())):
+                if p.proc.poll() is None:
+                    p.proc.terminate()
+                    try:
+                        p.proc.wait(timeout=15)
+                    except subprocess.TimeoutExpired:
+                        p.proc.kill()
+                        p.proc.wait()
+        counts = {}
+        for wid, path in counts_files.items():
+            with open(path) as f:
+                counts[wid] = json.load(f)
+    for wid, c in counts.items():
+        for n in ("paged_attention_decode", "paged_attention_chunk"):
+            if c[n] <= 0:
+                fail(f"mains: {n} never launched in worker {wid:#x}")
+    emit({"phase": "mains", "model": MAINS_MODEL, "workers": [hex(w) for w in MAINS_WORKERS],
+          **result, "launches": {hex(w): {n: c[n] for n in (
+              "paged_attention_decode", "paged_attention_chunk")} for w, c in counts.items()},
+          "seconds": time.monotonic() - t_phase, "card": smi})
+    return {n: sum(c.get(n, 0) for c in counts.values()) for n in counts[MAINS_WORKERS[0]]}
+
+
+async def mains_client(procs, t_spawn, http_set) -> dict:
+    """The client side of mains_phase: HTTP to the frontend process, and
+    the workers' ``control`` endpoints (stats, clear_kv_blocks) through
+    the runtime's planes."""
+    import signal
+
+    import numpy as np
+
+    from dynamo_tpu_torch.llm import tiny_tokenizer
+    from dynamo_tpu_torch.llm.entrypoint import resolve_chat_template, resolve_tokenizer
+    from dynamo_tpu_torch.llm.migration import _carry_tokens
+    from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
+    from dynamo_tpu_torch.llm.preprocessor import OpenAIPreprocessor
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.discovery import instance_prefix
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.tools import sse_client
+
+    steps, last = {}, [time.monotonic()]
+
+    def step(name):
+        now = time.monotonic()
+        steps[name], last[0] = now - last[0], now
+
+    workers = {wid: procs[f"worker {wid:#x}"] for wid in MAINS_WORKERS}
+    frontend = procs["frontend"]
+    everyone = list(procs.items())  # the processes that must stay up
+    port = int((await until("the frontend's listening line", lambda: frontend.find(
+        r"frontend listening on \S+:(\d+)"), procs=everyone))[1].group(1))
+
+    async def http(req, on_frame=None):
+        return await asyncio.wait_for(sse_client.one(port, req, on_frame), MAINS_WAIT_S * 4)
+
+    async def get(path):
+        return await http({"method": "GET", "path": path})
+
+    async def post(path, body, pin=None):
+        return await http({"path": path, "body": body,
+                           "headers": {} if pin is None else {"x-dynamo-worker": str(pin)}})
+
+    # -- discovery --------------------------------------------------------
+    served = []
+    for wid, w in workers.items():
+        served.append((await until(f"worker {wid:#x}'s serving line", lambda w=w, wid=wid: w.find(
+            rf"worker serving {MAINS_MODEL} as dynamo/backend/generate instance {wid:#x} "
+            r"incarnation 0x[0-9a-f]+"), timeout=300, procs=everyone))[0])
+
+    async def listed():
+        return [m["id"] for m in json.loads((await get("/v1/models"))["body"])["data"]]
+
+    await until("the model on /v1/models", lambda: _is(listed(), [MAINS_MODEL]),
+                procs=everyone)
+    t_listed = time.monotonic()
+    step("registration")
+
+    runtime = DistributedRuntime.from_settings()
+    backend = runtime.namespace("dynamo").component("backend")
+    ctl = await backend.endpoint("control").client()
+    gen = await backend.endpoint("generate").client()
+    try:
+        await until("both workers' control endpoints",
+                    lambda: set(ctl.instance_ids) == set(MAINS_WORKERS))
+
+        async def stats(wid):
+            items = [x async for x in ctl.direct({"op": "stats"}, wid, Context())]
+            if len(items) != 1 or "error" in items[0]:
+                fail(f"mains: stats of worker {wid:#x}: {items}")
+            return items[0]
+
+        async def all_stats(alive=MAINS_WORKERS):
+            return {w: await stats(w) for w in alive}
+
+        async def idle(alive=MAINS_WORKERS):
+            s = await all_stats(alive)
+            return all(not (x["active_seqs"] or x["waiting"] or x["inflight_bursts"])
+                       for x in s.values())
+
+        async def clear():
+            await until("idle workers", lambda: idle(live), procs=everyone)
+            r = await post("/clear_kv_blocks", {})
+            if r["status"] != 200:
+                fail(f"mains: /clear_kv_blocks answered {r['status']} {r['body']}")
+            return json.loads(r["body"])
+
+        live = list(MAINS_WORKERS)
+
+        # -- the http phase's set through the frontend ------------------------
+        reqs = http_set["requests"]
+        # warm-up: the set pinned to each worker, then routed, so that each
+        # captures the decode graphs (width bucket, variant) the set reaches
+        for pin in (*MAINS_WORKERS, None):
+            await sse_client.main(port, [r if pin is None else dict(
+                r, headers={"x-dynamo-worker": str(pin)}) for r in reqs])
+            await clear()
+
+        async def graphs():
+            return sum(s["decode_graphs"] for s in (await all_stats(live)).values())
+
+        runs, captured = [], []
+        for _ in range(2):
+            before = await graphs()
+            runs.append(await sse_client.main(port, reqs))
+            captured.append(await graphs() - before)
+            await clear()
+        for run in runs:
+            for i, (r, (text, reason)) in enumerate(zip(run, http_set["texts"])):
+                chunks, usage, done = sse_chunks(r)
+                got = "".join(choice_text(c["choices"][0]) for _, c in chunks)
+                finish = chunks[-1][1]["choices"][0]["finish_reason"] if chunks else None
+                if r["status"] != 200 or not done or got != text or finish != reason:
+                    fail(f"mains: request {i} through the frontend gave {r['status']} "
+                         f"{got!r} ({finish}), the http phase {text!r} ({reason})")
+        rows = http_set["rows"]
+        latency = {"frontend": [http_latency_ms(run, rows) for run in runs],
+                   "http_phase": [http_latency_ms(run, rows) for run in http_set["records"]],
+                   "graphs_captured_in_frontend_runs": captured}
+        step("parity")
+
+        # -- the pin ---------------------------------------------------------
+        tok = tiny_tokenizer()
+        rng = np.random.default_rng(35)
+        body = {"model": MAINS_MODEL, "prompt": pipeline_text(tok, rng, 200),
+                "max_tokens": MAINS_MAX_TOKENS, "temperature": 0.0}
+
+        async def served_on(coro):
+            """(the response, the worker whose engine generated it)."""
+            before = await all_stats(live)
+            r = await coro
+            after = await all_stats(live)
+            moved = [w for w in live
+                     if after[w]["generated_tokens"] != before[w]["generated_tokens"]]
+            if r["status"] != 200 or len(moved) != 1:
+                fail(f"mains: a request answered {r['status']} {r['body'][:300]} and moved "
+                     f"the tokens of workers {moved}")
+            return json.loads(r["body"]), moved[0], {w: after[w]["prefill_tokens"] -
+                                                     before[w]["prefill_tokens"] for w in live}
+
+        pinned = {}
+        for wid in MAINS_WORKERS:
+            doc, ran_on, _ = await served_on(post("/v1/completions", body, pin=wid))
+            if ran_on != wid:
+                fail(f"mains: pinned to {wid:#x}, the request ran on {ran_on:#x}")
+            pinned[wid] = doc["choices"][0]["text"]
+        if len(set(pinned.values())) != 1:
+            fail(f"mains: the same request pinned to each worker gave {pinned}")
+        # the prompt is cached on both now: drop it, cache it on the first
+        # worker alone, then ask for the second by the JSON key only
+        await clear()
+        await served_on(post("/v1/completions", body, pin=MAINS_WORKERS[0]))
+        await asyncio.sleep(5 * MAINS_INTERVAL_S)  # the KV events reach the router
+        _, ran_on, _ = await served_on(post("/v1/completions", dict(
+            body, _pinned_worker=MAINS_WORKERS[1])))
+        if ran_on != MAINS_WORKERS[0]:
+            fail(f"mains: a client's _pinned_worker key steered the request to {ran_on:#x}")
+        step("pin")
+
+        # -- KV routing through the mains -----------------------------------
+        await clear()
+        groups, hits = [], 0
+        for g in range(MAINS_GROUPS):
+            prefix = pipeline_text(tok, rng, MAINS_PREFIX_TOKENS)
+            group = [dict(body, prompt=prefix + " " + pipeline_text(tok, rng, int(
+                rng.integers(32, 201)))) for _ in range(MAINS_GROUP_SIZE)]
+            _, leader, _ = await served_on(post("/v1/completions", group[0]))
+            await asyncio.sleep(5 * MAINS_INTERVAL_S)  # events and a load report
+            await until("idle workers", lambda: idle(live))
+            before = await all_stats(live)
+            docs = await asyncio.gather(*(post("/v1/completions", b) for b in group[1:]))
+            after = await all_stats(live)
+            prefilled = {w: after[w]["prefill_tokens"] - before[w]["prefill_tokens"] for w in live}
+            prompts = sum(json.loads(d["body"])["usage"]["prompt_tokens"] for d in docs)
+            on = [w for w in live if prefilled[w]]
+            if on != [leader]:
+                fail(f"mains: group {g}'s followers prefilled on {on}, its leader ran on "
+                     f"{leader:#x}")
+            hit = (prompts - prefilled[leader]) // KV_BLOCK
+            if hit < (MAINS_GROUP_SIZE - 1) * (MAINS_PREFIX_TOKENS // KV_BLOCK):
+                fail(f"mains: group {g}'s followers hit {hit} cached blocks, fewer than "
+                     f"their shared prefix's")
+            groups.append({"leader": hex(leader), "prefix_hit_blocks": hit})
+            hits += hit
+        step("kv_routing")
+
+        # -- /clear_kv_blocks ----------------------------------------------
+        await until("idle workers", lambda: idle(live))
+        cached = sum(s["cached_blocks"] for s in (await all_stats(live)).values())
+        doc = await clear()
+        left = sum(s["cached_blocks"] for s in (await all_stats(live)).values())
+        cleared = doc["results"].get(MAINS_MODEL, {}).get("cleared_blocks")
+        if cleared != cached or left != 0 or cached <= 0:
+            fail(f"mains: /clear_kv_blocks cleared {doc}, the workers held {cached} cached "
+                 f"blocks before and {left} after")
+        step("clear_kv")
+
+        # -- migration -------------------------------------------------------
+        long_body = dict(body, prompt=pipeline_text(tok, rng, 150), max_tokens=MAINS_LONG_TOKENS,
+                         stream=True, logprobs=2, stream_options={"include_usage": True})
+        seen = {"tokens": 0, "times": []}
+
+        def on_frame(t, frame):
+            if frame.startswith("data: {"):
+                chunk = json.loads(frame[6:])
+                if chunk.get("choices"):
+                    lp = chunk["choices"][0].get("logprobs") or {}
+                    seen["tokens"] += len(lp.get("tokens") or [])
+                    seen["times"].append(t)
+
+        def long_text(record, what):
+            """A complete long stream's tokens and their logprobs: status
+            200, no error frame, finish_reason length, MAINS_LONG_TOKENS
+            tokens, [DONE]."""
+            chunks, usage, done = sse_chunks(record)
+            errors = [f for _, f in record["frames"] if f.startswith("data: {") and
+                      "error" in json.loads(f[6:])]
+            finish = chunks[-1][1]["choices"][0]["finish_reason"] if chunks else None
+            if record["status"] != 200 or errors or not done or finish != "length" or \
+                    (usage or {}).get("completion_tokens") != MAINS_LONG_TOKENS:
+                fail(f"mains: {what} ended {record['status']} {finish} {usage} [DONE] {done}, "
+                     f"errors {errors}; the frontend's alarms: {frontend.alarms()}")
+            lps = [c["choices"][0]["logprobs"] for _, c in chunks]
+            return {"tokens": [t for lp in lps for t in lp["tokens"]],
+                    "logprobs": [x for lp in lps for x in lp["token_logprobs"]]}
+
+        graphs_before = {w: s["decode_graphs"] for w, s in (await all_stats(live)).items()}
+        stream = asyncio.ensure_future(http({"path": "/v1/completions", "body": long_body},
+                                            on_frame))
+        await until("the long stream's first tokens", lambda: seen["tokens"] > 0 or stream.done())
+        serving = [w for w, s in (await all_stats(live)).items() if s["active_seqs"]]
+        if len(serving) != 1:
+            fail(f"mains: the long stream runs on workers {serving}")
+        victim, survivor = serving[0], next(w for w in live if w != serving[0])
+        await until(f"{MAINS_KILL_AFTER} tokens of the long stream",
+                    lambda: seen["tokens"] >= MAINS_KILL_AFTER or stream.done())
+        if stream.done():
+            fail(f"mains: the long stream ended before the kill: {stream.result()}")
+        workers[victim].proc.kill()
+        t_kill = time.monotonic()
+        everyone.remove((f"worker {victim:#x}", workers[victim]))
+        tokens_at_kill = seen["tokens"]
+        live = [survivor]
+        record = await stream
+        workers[victim].proc.wait(timeout=10)
+        migrated = long_text(record, "the migrated stream")
+        next_token_s = min(t for t in seen["times"] if t > t_kill) - t_kill
+        survivor_captured = (await stats(survivor))["decode_graphs"] - graphs_before[survivor]
+        dead = await until("liveness's dead line", lambda: frontend.find(
+            rf"worker {victim:#x} declared DEAD after \S+ missed load reports \((\S+)s since"),
+            timeout=10)
+        detect_s = dead[0] - t_kill
+        budget_s = MAINS_INTERVAL_S * MAINS_DEAD_AFTER + MAINS_INTERVAL_S
+        if detect_s > budget_s:
+            fail(f"mains: liveness declared {victim:#x} dead {detect_s:.3f} s after the kill, "
+                 f"past {budget_s} s")
+        metrics = (await get("/metrics"))["body"]
+        migrations = sum(float(v) for v in re.findall(
+            r'^dynamo_tpu_migration_migrations_total\{reason="[a-z_]+"\} (\S+)$', metrics,
+            re.M))
+        cards = await runtime.discovery.get_prefix("models/dynamo/")
+        limit = min(doc["card"]["migration_limit"] for doc in cards.values())
+        if not 1 <= migrations <= limit:
+            fail(f"mains: /metrics counts {migrations} migrations (the card's limit {limit})")
+        _, ran_on, _ = await served_on(post("/v1/completions", body))
+        if ran_on != survivor:
+            fail(f"mains: after the kill a request ran on {ran_on:#x}")
+        # the request's witnesses on the survivor, each from an empty
+        # cache: the request unbroken, then the request Migration built
+        carried = sum(int(m.group(1)) for _, line in list(frontend.lines)
+                      for m in [re.search(r"with (\d+) tokens carried", line)] if m)
+        if not tokens_at_kill <= carried < MAINS_LONG_TOKENS:
+            fail(f"mains: Migration carried {carried} tokens; the client had read "
+                 f"{tokens_at_kill} at the kill")
+        card = ModelDeploymentCard.from_dict(next(iter(cards.values()))["card"])
+        card_tok = resolve_tokenizer(card)
+        pre = OpenAIPreprocessor(card, card_tok, resolve_chat_template(card)).preprocess(
+            dict(long_body))
+        pre.request_id = "unbroken"
+        await until("the survivor's generate instance", lambda: survivor in gen.instance_ids)
+
+        async def on_survivor(req, want_tokens):
+            """A request sent to the survivor's generate endpoint from an
+            empty cache: its token ids, (decoded token, logprob) pairs and
+            top alternatives."""
+            await clear()
+            ids, lps, tops, finish = [], [], [], None
+            async for out in gen.direct(req.to_dict(), survivor, Context()):
+                out = out if isinstance(out, dict) else out.to_dict()
+                if out.get("error"):
+                    fail(f"mains: {req.request_id} on the survivor failed: {out['error']}")
+                ids += out["token_ids"]
+                lps += [step[0]["logprob"] for step in out.get("logprobs") or []]
+                tops += [{card_tok.decode([t["token_id"]]): t["logprob"] for t in step[1:]}
+                         for step in out.get("logprobs") or []]
+                finish = out.get("finish_reason") or finish
+            if len(ids) != want_tokens or len(lps) != want_tokens or finish != "length":
+                fail(f"mains: {req.request_id} on the survivor gave {len(ids)} tokens, "
+                     f"{len(lps)} logprobs, finish {finish}; want {want_tokens}, length")
+            return ids, list(zip((card_tok.decode([i]) for i in ids), lps)), tops
+
+        unbroken_ids, unbroken, unbroken_top = await on_survivor(pre, MAINS_LONG_TOKENS)
+        witness_req = _carry_tokens(pre, unbroken_ids[:carried])
+        witness_req.request_id = "witness"
+        _, witness, _ = await on_survivor(witness_req, MAINS_LONG_TOKENS - carried)
+        got = list(zip(migrated["tokens"], migrated["logprobs"]))
+
+        def first_apart(a, b):
+            return next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+
+        head_apart = first_apart(got[:carried], unbroken[:carried])
+        tail_apart = first_apart(got[carried:], witness)
+        if head_apart is not None or tail_apart is not None:
+            k = head_apart if head_apart is not None else carried + tail_apart
+            fail(f"mains: the migrated stream (carried {carried}, killed at {tokens_at_kill}) "
+                 f"parts at token {k}: {got[k:k + 4]} against "
+                 f"{(unbroken if head_apart is not None else [None] * carried + witness)[k:k + 4]}"
+                 f" ({'the unbroken run' if head_apart is not None else 'its witness'}); "
+                 f"the frontend's alarms: {frontend.alarms()}")
+        # printed only: where the unbroken run parts from the migrated
+        # stream, the gap of its top two there, and the chosen tokens'
+        # logprobs apart by span, before the kill and after it
+        parted = first_apart([t for t, _ in got], [t for t, _ in unbroken])
+        edges = [0, carried, carried + 16, carried + 64, carried + 256,
+                 parted if parted is not None else MAINS_LONG_TOKENS]
+        drift = {f"{a}-{b}": max(abs(x[1] - y[1]) for x, y in zip(got[a:b], unbroken[a:b]))
+                 for a, b in zip(edges, edges[1:]) if a < b}
+        margin = None
+        if parted is not None:
+            alt = unbroken_top[parted].get(got[parted][0])
+            margin = None if alt is None else unbroken[parted][1] - alt
+        step("migration")
+
+        # -- shutdown --------------------------------------------------------
+        workers[survivor].proc.send_signal(signal.SIGTERM)
+        t_term = time.monotonic()
+        try:
+            rc = workers[survivor].proc.wait(timeout=MAINS_GRACE_S)
+        except subprocess.TimeoutExpired:
+            fail(f"mains: the survivor did not exit within {MAINS_GRACE_S} s of SIGTERM")
+        term_s = time.monotonic() - t_term
+        if rc != 0:
+            fail(f"mains: the survivor exited {rc} on SIGTERM: {workers[survivor].tail()}")
+        instances = await runtime.discovery.get_prefix(
+            instance_prefix("dynamo", "backend", "generate"))
+        if any(k.endswith(f"{survivor:016x}") for k in instances):
+            fail(f"mains: the survivor's instance is still in discd: {sorted(instances)}")
+        await until("an empty /v1/models", lambda: _is(listed(), []), timeout=MAINS_WAIT_S)
+        t_gone = time.monotonic()
+        r = await post("/v1/completions", body)
+        if r["status"] < 400 or "error" not in json.loads(r["body"]):
+            fail(f"mains: with no worker a request got {r['status']} {r['body'][:300]}")
+        frontend.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = frontend.proc.wait(timeout=MAINS_GRACE_S)
+        except subprocess.TimeoutExpired:
+            fail("mains: the frontend did not exit within its grace period of SIGTERM")
+        if rc != 0:
+            fail(f"mains: the frontend exited {rc} on SIGTERM: {frontend.tail()}")
+        step("shutdown")
+        return {
+            "registration_s": t_listed - t_spawn, "listed_after_serving_s": t_listed - max(served),
+            "latency": latency, "pinned_text_chars": len(pinned[MAINS_WORKERS[0]]),
+            "long_stream_distinct_tokens": len(set(unbroken_ids)),
+            "groups": groups, "prefix_hit_blocks": hits, "cleared_blocks": cleared,
+            "migration": {"killed": hex(victim), "tokens_at_kill": tokens_at_kill,
+                          "kill_to_next_token_s": next_token_s, "detection_s": detect_s,
+                          "graphs_captured_on_survivor": survivor_captured,
+                          "carried": carried, "equal_to_witness_after_carried": True,
+                          "parted_from_unbroken_at": parted, "parting_margin": margin,
+                          "logprob_drift_by_span": drift,
+                          "liveness_since_last_s": float(dead[1].group(1)),
+                          "migrations": migrations, "limit": limit},
+            "sigterm_exit_s": term_s, "model_gone_after_kill_s": t_gone - t_kill,
+            "steps_s": steps}
+    finally:
+        await ctl.close()
+        await gen.close()
+        await runtime.shutdown(grace_period=1)
+        await runtime.event_plane.close()
+
+
+async def _is(coro, want):
+    return await coro == want
+
+
+def tick_retry_phase(torch, smi) -> None:
+    """The engine's tick retry on the card: Qwen2.5-0.5B in process at the
+    engine's defaults (CUDA graphs, depth 2; the embedding scaled by
+    QWEN_EMBED_SCALE so that attention decides the stream) serves a greedy
+    stream and a penalised one (the processor bursts, whose penalty counts
+    the abort rebuilds), each unpoisoned, then under a FaultPlan poisoning
+    hit 2 of ENGINE_TICK_DISPATCH, then of ENGINE_TICK_REAP, then with the
+    runner's 2nd decode_dispatch failing after it wrote the device state
+    ("synced") and after it enqueued its graph replay ("enqueued"). Each
+    poisoned stream must equal its unpoisoned one, with one failure each."""
+    from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+    from dynamo_tpu_torch.models.config import qwen2_500m_config
+    from dynamo_tpu_torch.runtime import fault_names, faults
+    from dynamo_tpu_torch.runtime.context import Context
+
+    t_phase = time.monotonic()
+    cfg = qwen2_500m_config()
+    args = TorchEngineArgs(config=cfg, block_size=16, num_kv_blocks=2048, max_num_seqs=16,
+                           max_model_len=2048, prefill_chunk=512, seed=0, device=DEV)
+    engine = TorchEngine(args, scaled_params(torch, cfg, args, QWEN_EMBED_SCALE))
+    prompt = [(i * 7919 + 13) % 150_000 for i in range(300)]
+    samplings = {"greedy": dict(temperature=0.0),
+                 "penalised": dict(temperature=0.0, frequency_penalty=0.7,
+                                   repetition_penalty=1.3)}
+
+    async def one(sampling):
+        req = PreprocessedRequest(token_ids=prompt, request_id="tick",
+                                  sampling=SamplingOptions(**samplings[sampling]),
+                                  stop=StopConditions(max_tokens=64, ignore_eos=True))
+        ids = []
+        async for out in engine.generate(req, Context()):
+            if out.error:
+                fail(f"tick_retry: the {sampling} stream failed: {out.error}")
+            ids += out.token_ids
+        await idle_cleared(engine)
+        return ids
+
+    async def failing_dispatch(sampling, when):
+        """one(sampling) with the runner's 2nd decode_dispatch raising
+        ``when`` it has synced or enqueued; the dispatches it saw."""
+        real, calls = engine.runner.decode_dispatch, []
+
+        def dispatch(*a, **k):
+            calls.append(when)
+            if len(calls) == 2:
+                if when == "enqueued":
+                    real(*a, **k)
+                raise RuntimeError(f"dispatch failed {when}")
+            return real(*a, **k)
+
+        engine.runner.decode_dispatch = dispatch
+        try:
+            return await one(sampling), calls
+        finally:
+            engine.runner.decode_dispatch = real
+
+    async def run():
+        got = {}
+        try:
+            for sampling in samplings:
+                await one(sampling)  # the stream's graphs captured
+                t0 = time.monotonic()
+                want = await one(sampling)
+                got[sampling, "unpoisoned"] = (want, None, time.monotonic() - t0)
+                for point in (fault_names.ENGINE_TICK_DISPATCH, fault_names.ENGINE_TICK_REAP):
+                    plan = faults.FaultPlan(seed=3, rules=(faults.FaultRule(
+                        point=point, at=(2,), kind="error"),))
+                    with faults.armed(plan) as plane:
+                        t0 = time.monotonic()
+                        ids = await one(sampling)
+                        got[sampling, point] = (ids, list(plane.trace), time.monotonic() - t0)
+                for when in ("synced", "enqueued"):
+                    t0 = time.monotonic()
+                    ids, calls = await failing_dispatch(sampling, when)
+                    got[sampling, when] = (ids, calls, time.monotonic() - t0)
+            return got
+        finally:
+            await engine.stop()
+
+    got = asyncio.run(run())
+    for (sampling, seam), (ids, trace, _) in got.items():
+        want = got[sampling, "unpoisoned"][0]
+        if seam == "unpoisoned":
+            if len(want) != 64:
+                fail(f"tick_retry: the unpoisoned {sampling} stream has {len(want)} tokens")
+            continue
+        if seam in ("synced", "enqueued"):
+            if len(trace) <= 2:
+                fail(f"tick_retry: the {sampling} stream failing {seam} saw {len(trace)} "
+                     "dispatches")
+        elif trace != [(seam, 2, 0, "error")]:
+            fail(f"tick_retry: {seam} injected {trace}")
+        if ids != want:
+            at = next((k for k, (a, b) in enumerate(zip(ids, want)) if a != b), len(ids))
+            fail(f"tick_retry: failing at {seam}, the {sampling} stream parts from the "
+                 f"unpoisoned one at token {at}")
+    emit({"phase": "tick_retry", "model": cfg.name, "tokens": 64,
+          "graphs": len(engine.runner.graphs),
+          "stream_s": {f"{sampling}/{seam}": t for (sampling, seam), (_, _, t) in got.items()},
+          "seconds": time.monotonic() - t_phase, "card": smi})
+
+
 # Faults the probe can plant, in memory only, to see what the dense check
 # of an engine phase reads when the engine is wrong.
 FAULTS = {
@@ -4006,6 +4744,8 @@ def probe(torch, smi, specs) -> None:
 def main() -> int:
     if sys.argv[1:2] == ["--runtime-worker"]:
         return runtime_worker()
+    if sys.argv[1:2] == ["--mains-worker"]:
+        return mains_worker()
     import torch
 
     if not torch.cuda.is_available():
@@ -4081,7 +4821,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     cli_batch_phase(smi)
     # The same over HTTP: the OpenAI frontend in-process, and cli run --input http.
-    counts_http = http_phase(torch, smi)
+    counts_http, http_set = http_phase(torch, smi)
     gc.collect()
     torch.cuda.empty_cache()
     cli_http_phase(smi)
@@ -4091,6 +4831,13 @@ def main() -> int:
     # Two such worker processes publishing KV events and load, this process
     # their frontend with the KV router: prefix groups follow the cache.
     counts_kv = kv_router_phase(smi)
+    # The deployment: discd, two `python -m dynamo_tpu_torch.worker`
+    # processes and `python -m dynamo_tpu_torch.frontend`; a killed worker's
+    # stream migrates. Then the engine's tick retry in this process.
+    counts_mains = mains_phase(smi, http_set)
+    tick_retry_phase(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     # Llama-3-8B, random int8 weights: the fused layer's gate turns it on.
     # Random weights give logits ~ N(0, 1); the dense check's layers round
     # q/k/v to bf16 where the fused layer keeps f32, which moves logits by a
@@ -4268,14 +5015,15 @@ def main() -> int:
     # Llama-3-8B int8 with int8 KV, Gemma-2-2B bf16, Gemma-3-1B int8 with
     # int8 KV, Gemma-3-1B int8 over bf16 pools, and the latter with the fused
     # layer off), the OpenAI pipeline, the HTTP frontend and the worker
-    # process behind the runtime's planes and the two KV-routed worker
-    # processes over Qwen2.5-0.5B and the three
+    # process behind the runtime's planes, the two KV-routed worker
+    # processes and the two worker mains over Qwen2.5-0.5B and the three
     # profiling paths (prof_attn, prof_fused_ffn,
     # prof_8b's four modes); times of the D 64 (bf16 pools) and D 128 (int8
     # pools) cases, the D 256 and block-size-128 ones above, #5-#7 at their
     # main cases
     paths = (counts, counts8, counts8kv, counts_g, counts_3, counts_3bf, counts_3u, counts_pipe,
-             counts_http, counts_tcp, counts_kv, counts_attn, counts_ffn, counts_8b)
+             counts_http, counts_tcp, counts_kv, counts_mains, counts_attn, counts_ffn,
+             counts_8b)
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{sources[n]}",
          "replaces": replaces[n], "launches": sum(c.get(n, 0) for c in paths),

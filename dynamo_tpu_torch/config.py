@@ -31,6 +31,38 @@ def _parse_bool(raw: str) -> bool:
     return raw.strip().lower() in ("1", "true", "yes", "on")
 
 
+NAMESPACE = EnvVar(
+    "DYN_TPU_NAMESPACE", "dynamo", str,
+    "Default namespace for components (dynamo_tpu/config.py:118)",
+)
+HTTP_HOST = EnvVar(
+    "DYN_TPU_HTTP_HOST", "0.0.0.0", str,
+    "Frontend HTTP bind host (dynamo_tpu/config.py:192)",
+)
+HTTP_PORT = EnvVar(
+    "DYN_TPU_HTTP_PORT", 8000, int,
+    "Frontend HTTP bind port (dynamo_tpu/config.py:196)",
+)
+ROUTER_TEMPERATURE = EnvVar(
+    "DYN_TPU_ROUTER_TEMPERATURE", 0.0, float,
+    "KV router softmax sampling temperature (0 = argmin) "
+    "(dynamo_tpu/config.py:205)",
+)
+ROUTER_OVERLAP_WEIGHT = EnvVar(
+    "DYN_TPU_ROUTER_OVERLAP_WEIGHT", 1.0, float,
+    "KV router overlap score weight (dynamo_tpu/config.py:210)",
+)
+MIGRATION_LIMIT = EnvVar(
+    "DYN_TPU_MIGRATION_LIMIT", 3, int,
+    "Max per-request migrations to new workers on stream death "
+    "(dynamo_tpu/config.py:214)",
+)
+MIGRATION_REPREFILL_CAP = EnvVar(
+    "DYN_TPU_MIGRATION_REPREFILL_CAP", 131072, int,
+    "Total re-prefill token budget across all migrations of one stream "
+    "(caps the work a flapping worker set can burn per request) "
+    "(dynamo_tpu/config.py:219)",
+)
 KV_QUANT_AUTO_CTX = EnvVar(
     "DYN_TPU_KV_QUANT_AUTO_CTX", 512, int,
     "kv_cache_dtype='auto': quantize the KV cache to int8 when max_model_len "
@@ -96,6 +128,35 @@ LOAD_REPORT_INTERVAL_S = EnvVar(
     "Worker load-report publish cadence (router/publisher.py LoadPublisher); "
     "the liveness detection budget is denominated in these intervals "
     "(dynamo_tpu/config.py:348)",
+)
+LIVENESS_INTERVAL_S = EnvVar(
+    "DYN_TPU_LIVENESS_INTERVAL_S", 1.0, float,
+    "Expected worker load-report cadence the frontend's liveness tracker "
+    "judges missed intervals against (match the LoadPublisher interval) "
+    "(dynamo_tpu/config.py:355)",
+)
+LIVENESS_SUSPECT_AFTER = EnvVar(
+    "DYN_TPU_LIVENESS_SUSPECT_AFTER", 2, int,
+    "Missed load-report intervals before a worker is SUSPECT "
+    "(dynamo_tpu/config.py:361)",
+)
+LIVENESS_DEAD_AFTER = EnvVar(
+    "DYN_TPU_LIVENESS_DEAD_AFTER", 5, int,
+    "Missed load-report intervals before a worker is DEAD: drop_worker "
+    "reconciliation runs and its in-flight streams abort into migration "
+    "(detection-to-migration is bounded by dead_after x interval) "
+    "(dynamo_tpu/config.py:366)",
+)
+WORKER_ID = EnvVar(
+    "DYN_TPU_WORKER_ID", 0, int,
+    "Stable worker identity across restarts (0 = random per start). A "
+    "restarted worker re-registers under the SAME id with a fresh "
+    "incarnation so warm rejoin and incarnation fencing line up "
+    "(dynamo_tpu/config.py:373)",
+)
+GRACE_PERIOD = EnvVar(
+    "DYN_TPU_GRACE_PERIOD", 30.0, float,
+    "Graceful-shutdown drain seconds (dynamo_tpu/config.py:380)",
 )
 SLOW_REQUEST_S = EnvVar(
     "DYN_TPU_SLOW_REQUEST_S", 30.0, float,

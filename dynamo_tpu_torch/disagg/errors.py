@@ -1,21 +1,32 @@
-"""Failure taxonomy — the port's copy of ``classify_failure`` from
-dynamo_tpu/disagg/errors.py (the HTTP frontend's ``error_kind`` for a
-connection or timeout failure; the transfer error itself comes with
-disaggregated serving).
+"""Failure taxonomy — the port's copy of dynamo_tpu/disagg/errors.py.
 
 ``classify_failure`` buckets an exception into an ``error_kind`` label:
 the difference between "the link is down" (connection), "the link is
 slow" (timeout) and "the payload is garbage" (decode) is the difference
 between opening a circuit breaker, lengthening a deadline, and paging a
 human.
+
+``DisaggTransferError`` is the terminal failure of a pull on a handler
+configured WITHOUT local-prefill fallback (strict disagg: the decode
+worker cannot afford a full prefill). It subclasses ConnectionError so the
+frontend's Migration operator re-dispatches the stream to another worker.
+The port's workers do not pull KV yet (ROADMAP A6); Migration names the
+class to label its ``disagg`` reason.
 """
 
 from __future__ import annotations
 
 import asyncio
 
+
+class DisaggTransferError(ConnectionError):
+    """KV pull terminally failed and local re-prefill is disabled —
+    migratable: the router should place the request elsewhere."""
+
+
 # Exception classes per kind, most specific first. TimeoutError is checked
-# before ConnectionError because builtin TimeoutError subclasses OSError.
+# before ConnectionError because builtin TimeoutError subclasses OSError
+# (and asyncio.TimeoutError is a DISTINCT class until Python 3.11).
 _TIMEOUT_TYPES = (TimeoutError, asyncio.TimeoutError)
 _CONNECTION_TYPES = (ConnectionError, EOFError, OSError)
 _DECODE_TYPES = (ValueError, KeyError, TypeError, IndexError)

@@ -37,12 +37,23 @@ logprobs variant when a request asks for logprobs; every emitted token
 carries its TokenLogprob entry, the first token's included, with the top
 ``min(logprobs, top_logprobs_cap)`` after it.
 
-Not ported yet (ROADMAP): the JAX engine's retry with backoff after a
-failed tick and ``_abort_inflight``'s resync (here the first failed tick
-fails every stream and drops the bursts in flight), speculative decoding
-(and so logprobs under it), LoRA, MoE, the tick budget, sleep/wake, KV
-export/import/checkpoint, multimodal, prefill under CUDA graphs, metrics
-and the flight recorder.
+A failed tick, as the JAX engine's (engine.py:1050-1083, 1664-1710): the
+bursts in flight are dropped and every slot's state and table row is
+marked dirty, so the next dispatch rolls the device state (and the decode
+graphs' inputs, which are that state) back to the host mirrors; the
+penalty counts of each live slot that uses processors are rebuilt from
+its emitted history; the tick is retried after min(0.05·2^n, 2) s, and
+after 5 failures in a row the engine fails terminally (every stream ends
+with the error, new requests are refused). The position-keyed sampling
+noise makes the retried bursts draw the same tokens. Fault seams:
+``ENGINE_TICK_DISPATCH`` and ``ENGINE_TICK_REAP`` (runtime/fault_names.py).
+
+Not ported yet (ROADMAP): the abort's flight record and dump (the engine
+has no flight ring, A9), the admission's containment of a request that
+fails its prefill deterministically, speculative decoding (and so
+logprobs under it), LoRA, MoE, the tick budget, sleep/wake, KV
+export/import/checkpoint, multimodal, prefill under CUDA graphs and
+metrics.
 
 All device work runs on one executor thread so the asyncio loop never
 blocks on the card. Every block-pool call runs on the loop's thread, so the
@@ -72,7 +83,9 @@ from dynamo_tpu_torch.llm.protocols.common import (
 )
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops.logits_process import MAX_BIAS_SLOTS, pack_bias, prompt_hot
+from dynamo_tpu_torch.runtime import fault_names
 from dynamo_tpu_torch.runtime.context import Context
+from dynamo_tpu_torch.runtime.faults import fault_point
 from dynamo_tpu_torch.tokens.blocks import compute_block_hashes
 
 logger = logging.getLogger(__name__)
@@ -87,6 +100,10 @@ PREFILL_BATCH = 8
 ADMIT_BATCHES_PER_TICK = 8
 WATERMARK = 0.01
 ADMIT_KV_HIGH_WATERMARK = 0.95
+# Failed ticks in a row before the engine fails terminally
+# (engine.py:1078), and the retry backoff's cap in seconds.
+MAX_TICK_FAILURES = 5
+TICK_BACKOFF_CAP_S = 2.0
 
 
 def _next_pow2(n: int) -> int:
@@ -227,8 +244,9 @@ class TorchEngine:
         self._bias_ids = np.full((S, MAX_BIAS_SLOTS), -1, dtype=np.int32)
         self._bias_vals = np.zeros((S, MAX_BIAS_SLOTS), dtype=np.float32)
         # Penalty bookkeeping resets of installed slots, applied on the device
-        # thread before the next dispatch: (slot, prompt, generated, first).
-        self._proc_resets: List[Tuple[int, List[int], List[int], int]] = []
+        # thread before the next dispatch: (slot, prompt, generated, first);
+        # first is None for an abort's rebuild, whose generated holds it.
+        self._proc_resets: List[Tuple[int, List[int], List[int], Optional[int]]] = []
         self._next_salt = 0
         # Slots whose device state or table row differs from these mirrors,
         # synced at the next dispatch (engine.py:404-410).
@@ -239,7 +257,8 @@ class TorchEngine:
         self._loop_task: Optional[asyncio.Task] = None
         self._stopped = asyncio.Event()
         self._wake = asyncio.Event()
-        self._failure: Optional[str] = None
+        self._failure: Optional[str] = None  # terminal engine failure
+        self._consecutive_tick_failures = 0
         self._executor = ThreadPoolExecutor(1, thread_name_prefix="torch-engine")
         self.steps = 0  # decode bursts
         self.prefill_tokens = 0
@@ -293,6 +312,13 @@ class TorchEngine:
             "kv_high_watermark": ADMIT_KV_HIGH_WATERMARK,
             "draining": 0,
         }
+
+    def clear_kv_blocks(self) -> int:
+        """Flush the reusable prefix cache (ref: clear_kv_blocks.rs route).
+        In-flight sequences keep their pinned blocks."""
+        n = self.pool.cached_blocks
+        self.pool.clear()
+        return n
 
     def _pipeline_depth(self) -> int:
         return max(1, int(self.args.pipeline_depth))
@@ -364,10 +390,29 @@ class TorchEngine:
                         pass
             except asyncio.CancelledError:
                 raise
-            except Exception as exc:  # the loop is the boundary: report, stop serving
-                logger.exception("torch engine scheduler tick failed")
-                self._failure = f"{type(exc).__name__}: {exc}"
-                break
+            except Exception as exc:
+                # A failed tick may leave dispatched-but-unreaped bursts
+                # whose device carry ran ahead of what was emitted: drop
+                # them and resync from the host mirrors — the retried
+                # bursts regenerate identical tokens (position-keyed RNG).
+                self._abort_inflight()
+                # Retry with exponential backoff (transient device hiccups
+                # can span seconds), then treat the failure as terminal:
+                # fail every pending request and refuse new ones. A sticky
+                # CUDA error fails every retry and so reaches this bound.
+                self._consecutive_tick_failures += 1
+                logger.exception(
+                    "torch engine scheduler tick failed (%d consecutive)",
+                    self._consecutive_tick_failures,
+                )
+                if self._consecutive_tick_failures >= MAX_TICK_FAILURES:
+                    self._fail_terminally(exc)
+                    break
+                await asyncio.sleep(
+                    min(0.05 * 2 ** self._consecutive_tick_failures, TICK_BACKOFF_CAP_S)
+                )
+            else:
+                self._consecutive_tick_failures = 0
         # Bursts in flight are dropped: every sequence is finished below.
         self._inflight.clear()
         reason = FinishReason.ERROR if self._failure else FinishReason.CANCELLED
@@ -380,6 +425,13 @@ class TorchEngine:
             self._waiting.popleft().queue.put_nowait(
                 BackendOutput(error=err, finish_reason=reason)
             )
+
+    def _fail_terminally(self, exc: Exception) -> None:
+        self._failure = f"{type(exc).__name__}: {exc}"
+        logger.critical(
+            "torch engine entering failed state: %s (tick strikes=%d)",
+            self._failure, self._consecutive_tick_failures,
+        )
 
     # -- admission (engines/tpu/admission.py) ------------------------------
 
@@ -680,6 +732,11 @@ class TorchEngine:
         # the burst's variant (engine.py:1509-1512)
         want_logprobs = any(s.request.sampling.logprobs is not None for s in active)
         use_procs = any(self._uses_procs[s.slot] for s in active)
+        # Chaos seam, deliberately AFTER the sync payloads were built (the
+        # dirty sets are already cleared): recovery must resync every slot
+        # from the mirrors (_abort_inflight), and the position-keyed RNG
+        # must regenerate identical tokens on the retried burst.
+        fault_point(fault_names.ENGINE_TICK_DISPATCH)
         handles = await self._device(self._dispatch_on_device, nb, state_sync, table_sync,
                                      want_logprobs, use_procs, resets)
         self._inflight.append(_InflightBurst(handles=handles, seqs=[(s.slot, s) for s in active]))
@@ -691,7 +748,8 @@ class TorchEngine:
         newly installed slots, sync the dirty rows, enqueue."""
         for slot, prompt, generated, first in resets:
             self.runner.proc_reset_slot(slot, prompt, generated)
-            self.runner.proc_count(slot, first)
+            if first is not None:
+                self.runner.proc_count(slot, first)
         if state_sync is not None:
             self.runner.sync_slots(*state_sync)
         if table_sync is not None:
@@ -726,6 +784,9 @@ class TorchEngine:
         """Read back and emit the oldest burst in flight. A row whose
         sequence finished or was preempted while the burst was in flight is
         dropped (engine.py:1592-1656)."""
+        # Chaos seam: a reap failure drops an in-flight burst whose device
+        # carry ran ahead of emission — the abort path must roll back.
+        fault_point(fault_names.ENGINE_TICK_REAP)
         rec = self._inflight.popleft()
         out = await self._device(self.runner.decode_read, rec.handles)
         self.steps += 1
@@ -740,6 +801,31 @@ class TorchEngine:
         """Reap every burst in flight: the barrier before admission."""
         while self._inflight:
             await self._reap_burst()
+
+    def _abort_inflight(self) -> None:
+        """Failure path (engine.py:1664-1710): drop un-reaped bursts and
+        resync EVERYTHING from the host mirrors. The device carry
+        (pos/tokens) advanced past what was emitted; marking all slots dirty
+        makes the next dispatch write every slot's state and table row back
+        to the scheduler's view — the same tensors the decode graphs read —
+        and the position-keyed sampling RNG makes the retried bursts
+        regenerate the identical tokens. The JAX engine also records the
+        abort in its flight ring and dumps the rings; this engine has no
+        flight ring yet (ROADMAP A9)."""
+        logger.error("aborted %d in-flight burst(s)", len(self._inflight))
+        self._inflight.clear()
+        self._dirty_state.update(range(self.args.max_num_seqs))
+        self._dirty_tables.update(range(self.args.max_num_seqs))
+        # Aborted processor bursts already advanced their slots' counts in
+        # runner.proc_state, and a failed dispatch may have taken pending
+        # install resets with it: rebuild every live penalty-using slot's
+        # counts from the EMITTED history (on the device thread, before the
+        # next dispatch), or the retry would penalize against wrong tallies.
+        self._proc_resets = [
+            (slot, list(seq.request.token_ids), list(seq.generated), None)
+            for slot, seq in enumerate(self._slots)
+            if seq is not None and self._uses_procs[slot]
+        ]
 
     def _emit_burst(self, seq: _Sequence, toks: np.ndarray, logps: Optional[np.ndarray] = None,
                     topv: Optional[np.ndarray] = None, topi: Optional[np.ndarray] = None) -> None:

@@ -2,10 +2,9 @@
 copy of dynamo_tpu/http/model_manager.py.
 
 Reference parity: lib/llm/src/discovery/model_manager.rs — maps model name →
-assembled pipeline engine + deployment card. Fed statically (tests,
-single-process serving). What only the distributed runtime sets (the
-ModelWatcher that feeds it from the discovery plane, a per-model load
-monitor, admin hooks such as clear_kv, unregistering) comes with it.
+assembled pipeline engine + deployment card. Fed either statically (tests,
+single-process serving) or dynamically by the ModelWatcher as workers
+register/deregister on the discovery plane.
 """
 
 from __future__ import annotations
@@ -25,14 +24,34 @@ class ModelEntry:
     engine: AsyncEngine  # full pipeline: OpenAI dict request in
     card: ModelDeploymentCard
     registered_at: float = field(default_factory=time.time)
+    # optional per-model operational attachments (worker_monitor.py / health.py)
+    monitor: Optional[Any] = None  # WorkerLoadMonitor
+    health: Optional[Any] = None  # CanaryHealthChecker
+    # admin hooks, e.g. {"clear_kv": async () -> int} (clear_kv_blocks route)
+    admin: Dict[str, Any] = field(default_factory=dict)
 
 
 class ModelManager:
     def __init__(self) -> None:
         self._models: Dict[str, ModelEntry] = {}
 
-    def register(self, name: str, engine: AsyncEngine, card: ModelDeploymentCard) -> None:
-        self._models[name] = ModelEntry(name=name, engine=engine, card=card)
+    def register(
+        self,
+        name: str,
+        engine: AsyncEngine,
+        card: ModelDeploymentCard,
+        *,
+        monitor: Optional[Any] = None,
+        health: Optional[Any] = None,
+        admin: Optional[Dict[str, Any]] = None,
+    ) -> None:
+        self._models[name] = ModelEntry(
+            name=name, engine=engine, card=card, monitor=monitor, health=health,
+            admin=dict(admin or {}),
+        )
+
+    def unregister(self, name: str) -> None:
+        self._models.pop(name, None)
 
     def get(self, name: str) -> Optional[ModelEntry]:
         return self._models.get(name)

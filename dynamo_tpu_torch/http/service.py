@@ -9,13 +9,10 @@ axum server with /v1/chat/completions (:865), /v1/completions (:327),
 handling (disconnect.rs), and the system routes /health /live /metrics
 (runtime/src/system_status_server.rs).
 
-Not here yet, each with the distributed runtime (ROADMAP A4c): the
-overload controller (admission, brownout, sheds), tracing spans and the
-``/debug/trajectory`` routes, the SLO families on ``/metrics``, TLS, the
-busy-threshold shed (``/busy_threshold`` stores thresholds that nothing
-enforces until the WorkerLoadMonitor comes) and the workers' clear_kv
-hook. Embedding and image models come later still: their routes answer
-404 for every model.
+Not here yet (ROADMAP A4c-4): the overload controller (admission,
+brownout, sheds), tracing spans and the ``/debug/trajectory`` routes, the
+SLO families on ``/metrics`` and TLS. Embedding and image models come
+later still: their routes answer 404 for every model.
 """
 
 from __future__ import annotations
@@ -116,9 +113,7 @@ class HttpService:
         self.port = port
         self.metrics = FrontendMetrics()
         self.tracker = TaskTracker("http")
-        # model name → busy thresholds (ref: busy_threshold.rs). Stored and
-        # listed only: the shed check reads a model's WorkerLoadMonitor,
-        # which comes with the router's load events (distributed runtime).
+        # model name → busy thresholds (ref: busy_threshold.rs)
         self.busy_thresholds: Dict[str, BusyThresholds] = {}
         # Request auditing (ref: lib/llm/src/audit): DYN_TPU_AUDIT policy.
         self.audit = AuditBus.from_env()
@@ -258,10 +253,19 @@ class HttpService:
         names = [model] if model else self.models.names()
         results: Dict[str, Any] = {}
         for name in names:
-            # (the clear_kv admin hook comes with the distributed runtime's
-            # workers; a local pipeline has none)
-            results[name] = {"error": "model not found" if self.models.get(name) is None
-                             else "no clear_kv hook (local pipeline)"}
+            entry = self.models.get(name)
+            if entry is None:
+                results[name] = {"error": "model not found"}
+                continue
+            clear = entry.admin.get("clear_kv")
+            if clear is None:
+                results[name] = {"error": "no clear_kv hook (local pipeline)"}
+                continue
+            try:
+                results[name] = {"cleared_blocks": await clear()}
+            except Exception as exc:
+                logger.exception("clear_kv_blocks for %s failed", name)
+                results[name] = {"error": str(exc)}
         return web.json_response({"results": results})
 
     async def _responses(self, request: web.Request) -> web.StreamResponse:
@@ -554,6 +558,12 @@ class HttpService:
             }
         )
 
+    def _model_busy(self, model: str, entry) -> bool:
+        th = self.busy_thresholds.get(model)
+        if th is None or entry.monitor is None:
+            return False
+        return entry.monitor.all_busy(th)
+
     # -- OpenAI routes -----------------------------------------------------
 
     async def _chat_completions(self, request: web.Request) -> web.StreamResponse:
@@ -625,11 +635,32 @@ class HttpService:
         endpoint = "chat_completions" if kind == "chat" else "completions"
         # W3C trace propagation (ref: logging.rs:72): an incoming
         # traceparent joins the caller's trace (its id rides the metrics'
-        # exemplars). The gateway's worker pin (x-dynamo-worker) comes with
-        # the KV router's picker that reads it.
+        # exemplars).
         traceparent = request.headers.get("traceparent")
-        # (the busy-threshold shed, 503 with Retry-After, comes with the
-        # WorkerLoadMonitor it reads)
+        # Gateway pin (EPP header hint, gateway/epp.py): the inference
+        # gateway already ran KV-aware selection — carry the pin to the
+        # request-plane picker. The body key is trusted-infra-only: strip
+        # anything a client smuggled into the JSON before honoring the
+        # header (otherwise any client could steer load to one worker).
+        body.pop("_pinned_worker", None)
+        pin = request.headers.get("x-dynamo-worker")
+        if pin:
+            try:
+                body["_pinned_worker"] = int(pin.split(":", 1)[0])
+            except ValueError:
+                pass
+        if self._model_busy(model, entry):
+            # All workers over threshold: shed before any work is queued
+            # (ref: busy_threshold.rs middleware → 503).
+            resp = _error_response(
+                OpenAIError(
+                    f"all workers for model '{model}' are busy; retry later",
+                    status=503,
+                    err_type="service_unavailable",
+                )
+            )
+            resp.headers["Retry-After"] = "1"
+            return resp
         # Client deadline: header wins over the body key; the budget lands
         # in Context.deadline and rides the request end to end — engine
         # admission sheds it expired.

@@ -14,6 +14,8 @@ import re
 from dataclasses import asdict, dataclass, field
 from typing import Any, Dict, List, Optional
 
+from dynamo_tpu_torch import config
+
 
 def slugify(name: str) -> str:
     return re.sub(r"[^a-zA-Z0-9_.-]+", "-", name).strip("-").lower()
@@ -39,10 +41,11 @@ class ModelDeploymentCard:
     model_path: Optional[str] = None  # local dir with tokenizer/config
     context_length: int = 4096
     kv_block_size: int = 64
-    # The worker's migration budget, carried to every frontend that serves
-    # it: JAX's DYN_TPU_MIGRATION_LIMIT default. The knob comes with
-    # migration (ROADMAP A4c); until then nothing reads the field.
-    migration_limit: int = 3
+    # DYN_TPU_MIGRATION_LIMIT, read at card creation: the card carries
+    # the worker's migration budget to every frontend that serves it.
+    migration_limit: int = field(
+        default_factory=lambda: config.MIGRATION_LIMIT.get()
+    )
     eos_token_ids: List[int] = field(default_factory=list)
     chat_template_source: Optional[str] = None  # inline template override
     # Reasoning-content marker style (parsers/reasoning.py KNOWN_MARKERS):

@@ -104,6 +104,10 @@ class OpenAIPreprocessor:
             pre.extra[ANNOTATION_FORMATTED_PROMPT] = prompt
         if media_urls:
             pre.extra["_mm_media"] = media_urls
+        if isinstance(request, dict) and "_pinned_worker" in request:
+            # Gateway pin (EPP header hint): survives preprocessing so the
+            # request-plane KV picker can honor it (router.py attach).
+            pre.extra["_pinned_worker"] = int(request["_pinned_worker"])
         return pre
 
     def _parse(self, request: Union[Dict[str, Any], ParsedRequest]) -> ParsedRequest:

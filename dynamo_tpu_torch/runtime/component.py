@@ -17,6 +17,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import random
+import weakref
 from dataclasses import dataclass, field
 from enum import Enum
 from typing import Any, AsyncIterator, Dict, List, Optional, TYPE_CHECKING
@@ -188,6 +189,13 @@ class Client:
         # worker that rejoins under the SAME incarnation never re-PUTs
         # its key, so the watch alone cannot restore its capacity.
         self._evicted: Dict[int, Instance] = {}
+        # The instances whose stream failed a request, by the request's
+        # Context: its re-dispatch (Migration's) prefers the others. A
+        # divergence from JAX's Client, whose re-dispatch goes back to a
+        # killed worker until liveness evicts it.
+        self._failed_for: "weakref.WeakKeyDictionary[Context, set]" = (
+            weakref.WeakKeyDictionary()
+        )
 
     @property
     def endpoint_path(self) -> str:
@@ -349,6 +357,11 @@ class Client:
                 raise NoInstancesError(
                     f"{self.endpoint_path}: all instances excluded (unhealthy)"
                 )
+        failed = self._failed_for.get(context) if context is not None else None
+        if failed:
+            others = {iid: inst for iid, inst in eligible.items() if iid not in failed}
+            if others:
+                eligible = others
         ids = sorted(eligible)
         if self.router_mode == RouterMode.RANDOM:
             return eligible[random.choice(ids)]
@@ -390,6 +403,10 @@ class Client:
             else:
                 async for item in remote.generate(request, context):
                     yield item
+        except Exception:
+            if instance is not None:
+                self._failed_for.setdefault(context, set()).add(instance.instance_id)
+            raise
         finally:
             # Fires even when _pick itself fails after the KV picker charged
             # the scheduler (the instance may have raced away) — otherwise

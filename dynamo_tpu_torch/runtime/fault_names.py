@@ -25,6 +25,14 @@ HEALTH_CANARY = "health.canary"
 # crashed worker does.
 LIVENESS_REPORT = "liveness.report"
 
+# -- engine decode tick (engines/gpu/engine.py) -------------------------------
+# Dispatch: after the sync payloads are built, before the device call — the
+# adversarial spot, because the dirty-slot sets were already cleared and
+# recovery must resync them from the mirrors (_abort_inflight).
+ENGINE_TICK_DISPATCH = "engine.tick.dispatch"
+# Reap: before the oldest in-flight burst's readback.
+ENGINE_TICK_REAP = "engine.tick.reap"
+
 # -- parser plane (parsers/jail.py) -------------------------------------------
 # One hit per jail operation (each content delta fed, plus the finish at
 # stream end): an injection models the tool-call parser dying mid-stream
@@ -40,5 +48,7 @@ ALL_FAULT_POINTS = (
     DISCOVERY_LEASE_RENEW,
     HEALTH_CANARY,
     LIVENESS_REPORT,
+    ENGINE_TICK_DISPATCH,
+    ENGINE_TICK_REAP,
     PARSER_JAIL_FEED,
 )

@@ -1,7 +1,7 @@
 """Canonical metric names — the port's copy of the entries of
 dynamo_tpu/runtime/metric_names.py that the port emits (the frontend's, the
-parser plane's, the crash plane's, the router's and the KV-reuse plane's
-families), letter for letter, so that dashboards and
+parser plane's, the crash plane's, the router's, the KV-reuse plane's and
+migration's families), letter for letter, so that dashboards and
 scrapers read the port as they read the JAX package.
 
 Reference parity: lib/runtime/src/metrics/prometheus_names.rs — emitters
@@ -113,3 +113,15 @@ KVCACHE_SKETCH_LOOKUP_P99_SECONDS = (
 # read-back). Mirrors kvbm_tier_evictions_total with the reason split the
 # popularity-eviction follow-on acts on.
 KVCACHE_EVICTIONS_TOTAL = f"{KVCACHE_PREFIX}_evictions_total"
+
+# -- migration (llm/migration.py Migration) ----------------------------------
+MIGRATION_PREFIX = "dynamo_tpu_migration"
+# Re-dispatches of a live stream to another worker, by failure reason
+# (connection | timeout | no_instances | disagg | other).
+MIGRATION_MIGRATIONS_TOTAL = f"{MIGRATION_PREFIX}_migrations_total"
+# Streams that failed AFTER exhausting the migration budget (attempt
+# limit or the re-prefill token cap) — each one reached the client.
+MIGRATION_EXHAUSTED_TOTAL = f"{MIGRATION_PREFIX}_exhausted_total"
+# Prompt+carried tokens re-prefilled by migrations (the cost the
+# re-prefill cap bounds).
+MIGRATION_REPREFILL_TOKENS_TOTAL = f"{MIGRATION_PREFIX}_reprefill_tokens_total"

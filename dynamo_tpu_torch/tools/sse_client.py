@@ -8,8 +8,9 @@ the server's event loop.
 
 Run it by path: it imports nothing of the package (nor torch). The input
 is a JSON list of ``{"method": "POST", "path": ..., "body": {...} or
-"raw": "...", "close_after": N}`` (``close_after``: close the connection
-after N SSE frames, as a client that leaves mid-stream). The output, on
+"raw": "...", "headers": {...}, "close_after": N}`` (``headers``: extra
+request headers; ``close_after``: close the connection after N SSE frames,
+as a client that leaves mid-stream). The output, on
 stdout, is a JSON list in the same order of ``{"status", "headers",
 "t0", "frames": [[t, frame], ...], "body", "t_end"}``: ``t0`` just before
 the request was written, ``t`` when the frame's last byte arrived, both
@@ -26,13 +27,16 @@ import sys
 import time
 
 
-async def one(port: int, req: dict) -> dict:
+async def one(port: int, req: dict, on_frame=None) -> dict:
+    """One request; ``on_frame(t, frame)`` is called as each SSE frame
+    arrives."""
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
     data = req["raw"].encode() if "raw" in req else (
         json.dumps(req["body"]).encode() if "body" in req else b"")
+    extra = "".join(f"{k}: {v}\r\n" for k, v in req.get("headers", {}).items())
     head = (f"{req.get('method', 'POST')} {req['path']} HTTP/1.1\r\nHost: 127.0.0.1\r\n"
             f"Content-Type: application/json\r\nContent-Length: {len(data)}\r\n"
-            "Connection: close\r\n\r\n").encode()
+            f"{extra}Connection: close\r\n\r\n").encode()
     t0 = time.monotonic()
     writer.write(head + data)
     await writer.drain()
@@ -57,6 +61,8 @@ async def one(port: int, req: dict) -> dict:
             while "\n\n" in buf:
                 frame, buf = buf.split("\n\n", 1)
                 out["frames"].append([t, frame])
+                if on_frame is not None:
+                    on_frame(t, frame)
             if close_after is not None and len(out["frames"]) >= close_after:
                 break
     else:
