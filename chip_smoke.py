@@ -304,6 +304,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
    by span (printed, not held: its KV for the carried tokens was decoded,
    not re-prefilled, and rounds apart in bf16), SIGTERM exit, both
    workers' launches.
+   Before the kill, the overload and trajectory planes (an `overload`
+   line): two more frontend mains on the same discd, one with
+   OVERLOAD_CAPS (4 streams, 4 waiters), one with OVERLOAD_SLA (a 0.5 ms
+   p50 ITL SLA). Fails unless: a chat carrying TRACEPARENT through the
+   default frontend is stitched on its /debug/trajectory/{trace_id} with
+   the frontend's spans (http.chat_completions, overload.queue,
+   router.select_worker) and the worker's (endpoint.serve, engine.queue,
+   engine.prefill, engine.decode), queue, prefill and decode above zero,
+   the phases summing to the root and no skew flagged; a request pinned to
+   worker 0x101 with a 300 ms deadline, queued behind its 16 busy slots
+   (a first pass of the 16 fillers captured their decode graphs),
+   answers 504 with error_kind timeout ("deadline expired before
+   admission") while all 16 still run, and the worker counts a deadline
+   shed; OVERLOAD_BURST concurrent 256-token
+   streams at the caps frontend give 8 whole streams, each the request
+   run alone, and 16 typed 429s (queue_full, Retry-After 1) all answered
+   before any admitted stream ended; at the SLA frontend, while a
+   1,500-token stream runs and admissions keep coming, healthy ->
+   brownout, a 512-token request clamped to 256, -> shed and a 503
+   (brownout_shed, Retry-After 1) before that stream ends whole, both
+   steps on /debug/overload and /metrics; both extra frontends end on
+   SIGTERM with exit 0. The line: the stitched phases, the shed's
+   answer time and the graphs captured meanwhile, the caps frontend's TTFT and ITL with the planes on, the
+   SLA frontend's probes and p50 ITL.
 36. tick_retry — the engine's tick retry on the card: Qwen2.5-0.5B in
    this process (CUDA graphs, depth 2, embedding x QWEN_EMBED_SCALE) serves
    a greedy and a penalised stream (each after a run that captures its
@@ -3960,6 +3984,20 @@ MAINS_INTERVAL_S = 0.2  # load reports, and the interval liveness judges them by
 MAINS_DEAD_AFTER = 4  # missed intervals before liveness declares a worker dead
 MAINS_GRACE_S = 10.0  # every process's DYN_TPU_GRACE_PERIOD
 MAINS_WAIT_S = 30.0  # the longest any one step of the phase may wait
+# The overload phase inside the deployment: two more frontend mains on the
+# same discd, one with small caps, one with an ITL SLA no decode can meet.
+OVERLOAD_CAPS = {"DYN_TPU_OVERLOAD_MAX_CONCURRENCY": "4", "DYN_TPU_OVERLOAD_MAX_QUEUE": "4"}
+OVERLOAD_SLA = {"DYN_TPU_OVERLOAD_ITL_SLA_MS": "0.5"}
+OVERLOAD_BURST = 24  # concurrent streams at the caps frontend: 4 run, 4 queue, 16 shed
+OVERLOAD_TOKENS = 256  # each burst stream's tokens (ignore_eos): none ends before the last arrives
+OVERLOAD_CLAMPED = 512  # the request the browned-out frontend clamps to its 256
+OVERLOAD_DEADLINE_MS = 300  # the pinned request that waits behind a full engine
+# Each of the 16 streams that fill that engine's slots: long enough (4 s
+# and more) that all 16 still run when the expired request is shed, which
+# the engine does at its deadline, with no slot free.
+OVERLOAD_FILL_TOKENS = 1024
+OVERLOAD_WARM_S = 1.5  # the fillers' first pass outlasts the measured one by this
+TRACEPARENT = "00-4bf92f3577b34da6a3ce929d0e0e4736-00f067aa0ba902b7-01"
 # The migrated stream is held token for token: up to the failure against
 # the same request run unbroken on the survivor, and after it against its
 # witness, the request Migration built (the prompt with the carried tokens,
@@ -4099,10 +4137,12 @@ def mains_phase(smi, http_set) -> dict:
                      counts_files[wid], "--model", MAINS_MODEL],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=root,
                     env={**env, "DYN_TPU_WORKER_ID": str(wid)}))
-            procs["frontend"] = ProcLines(subprocess.Popen(
-                [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--host", "127.0.0.1",
-                 "--http-port", "0"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True, cwd=root, env=env))
+            for name, extra in (("frontend", {}), ("frontend caps", OVERLOAD_CAPS),
+                                ("frontend sla", OVERLOAD_SLA)):
+                procs[name] = ProcLines(subprocess.Popen(
+                    [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--host", "127.0.0.1",
+                     "--http-port", "0"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True, cwd=root, env={**env, **extra}))
             saved = {k: os.environ.get(k) for k in env if k.startswith("DYN_TPU_")}
             os.environ.update({k: env[k] for k in saved})
             try:
@@ -4130,6 +4170,7 @@ def mains_phase(smi, http_set) -> dict:
         for n in ("paged_attention_decode", "paged_attention_chunk"):
             if c[n] <= 0:
                 fail(f"mains: {n} never launched in worker {wid:#x}")
+    emit({"phase": "overload", "model": MAINS_MODEL, **result.pop("overload"), "card": smi})
     emit({"phase": "mains", "model": MAINS_MODEL, "workers": [hex(w) for w in MAINS_WORKERS],
           **result, "launches": {hex(w): {n: c[n] for n in (
               "paged_attention_decode", "paged_attention_chunk")} for w, c in counts.items()},
@@ -4142,6 +4183,7 @@ async def mains_client(procs, t_spawn, http_set) -> dict:
     the workers' ``control`` endpoints (stats, clear_kv_blocks) through
     the runtime's planes."""
     import signal
+    from types import SimpleNamespace
 
     import numpy as np
 
@@ -4331,6 +4373,12 @@ async def mains_client(procs, t_spawn, http_set) -> dict:
                  f"blocks before and {left} after")
         step("clear_kv")
 
+        # -- the overload and trajectory planes -----------------------------
+        overload = await overload_client(SimpleNamespace(
+            procs=procs, everyone=everyone, port=port, http=http, get=get, post=post,
+            stats=stats, clear=clear, listed=listed, body=body))
+        step("overload")
+
         # -- migration -------------------------------------------------------
         long_body = dict(body, prompt=pipeline_text(tok, rng, 150), max_tokens=MAINS_LONG_TOKENS,
                          stream=True, logprobs=2, stream_options={"include_usage": True})
@@ -4345,17 +4393,9 @@ async def mains_client(procs, t_spawn, http_set) -> dict:
                     seen["times"].append(t)
 
         def long_text(record, what):
-            """A complete long stream's tokens and their logprobs: status
-            200, no error frame, finish_reason length, MAINS_LONG_TOKENS
-            tokens, [DONE]."""
-            chunks, usage, done = sse_chunks(record)
-            errors = [f for _, f in record["frames"] if f.startswith("data: {") and
-                      "error" in json.loads(f[6:])]
-            finish = chunks[-1][1]["choices"][0]["finish_reason"] if chunks else None
-            if record["status"] != 200 or errors or not done or finish != "length" or \
-                    (usage or {}).get("completion_tokens") != MAINS_LONG_TOKENS:
-                fail(f"mains: {what} ended {record['status']} {finish} {usage} [DONE] {done}, "
-                     f"errors {errors}; the frontend's alarms: {frontend.alarms()}")
+            """A complete long stream's tokens and their logprobs."""
+            chunks = whole_stream(record, MAINS_LONG_TOKENS, f"mains: {what}",
+                                  f"; the frontend's alarms: {frontend.alarms()}")
             lps = [c["choices"][0]["logprobs"] for _, c in chunks]
             return {"tokens": [t for lp in lps for t in lp["tokens"]],
                     "logprobs": [x for lp in lps for x in lp["token_logprobs"]]}
@@ -4508,7 +4548,7 @@ async def mains_client(procs, t_spawn, http_set) -> dict:
                           "liveness_since_last_s": float(dead[1].group(1)),
                           "migrations": migrations, "limit": limit},
             "sigterm_exit_s": term_s, "model_gone_after_kill_s": t_gone - t_kill,
-            "steps_s": steps}
+            "steps_s": steps, "overload": overload}
     finally:
         await ctl.close()
         await gen.close()
@@ -4518,6 +4558,284 @@ async def mains_client(procs, t_spawn, http_set) -> dict:
 
 async def _is(coro, want):
     return await coro == want
+
+
+def whole_stream(record, tokens, what, more=""):
+    """A streamed completion that ended whole: status 200, no error frame,
+    finish_reason length, ``tokens`` tokens, [DONE]; its (time, chunk)s."""
+    chunks, usage, done = sse_chunks(record)
+    errors = [f for _, f in record["frames"] if f.startswith("data: {") and
+              "error" in json.loads(f[6:])]
+    finish = chunks[-1][1]["choices"][0]["finish_reason"] if chunks else None
+    if record["status"] != 200 or errors or not done or finish != "length" or \
+            (usage or {}).get("completion_tokens") != tokens:
+        fail(f"{what} ended {record['status']} {finish} {usage} [DONE] {done}, "
+             f"errors {errors}{more}")
+    return chunks
+
+
+def stream_text(chunks):
+    return "".join(choice_text(c["choices"][0]) for _, c in chunks)
+
+
+async def overload_client(m) -> dict:
+    """The overload and trajectory planes inside the mains deployment (the
+    mains phase's client, before the kill): a traced request stitched
+    across the frontend and a worker, a deadline shed behind a full engine,
+    the caps frontend's typed 429s, and the SLA frontend's brownout, clamp
+    and 503. Returns the overload line's figures."""
+    import signal
+
+    from dynamo_tpu_torch.tools import sse_client
+
+    out = {}
+    wid = MAINS_WORKERS[0]
+
+    # -- one trace id, stitched across the frontend and a worker -----------
+    chat = {"model": MAINS_MODEL, "messages": [{"role": "user", "content": "paged attention"}],
+            "max_tokens": 32, "temperature": 0.0, "stream": True}
+    trace_id = TRACEPARENT.split("-")[1]
+    r = await m.http({"path": "/v1/chat/completions", "body": chat,
+                      "headers": {"traceparent": TRACEPARENT}})
+    if r["status"] != 200 or not sse_chunks(r)[2]:
+        fail(f"overload: the traced chat answered {r['status']} {r['frames'][-3:]}")
+    need = {"http.chat_completions", "overload.queue", "router.select_worker",
+            "endpoint.serve", "engine.queue", "engine.prefill", "engine.decode"}
+
+    async def stitched():
+        got = await m.get(f"/debug/trajectory/{trace_id}")
+        if got["status"] != 200:
+            return None
+        view = json.loads(got["body"])
+        return view if need <= {s["name"] for s in view["spans"]} else None
+
+    t_done = time.monotonic()
+    view = await until("the traced request's worker spans on /debug/trajectory", stitched,
+                       procs=m.everyone)
+    phases = view["phases"]
+    if not (phases["queue"] > 0 and phases["prefill"] > 0 and phases["decode"] > 0) or \
+            abs(sum(phases.values()) - view["root_ms"]) > 0.01 or view["skew_flagged"] or \
+            not view["complete"] or not any(p.startswith("worker-") for p in view["processes"]):
+        fail(f"overload: the stitched trajectory {json.dumps(view)[:3000]}")
+    out["trajectory"] = {"processes": view["processes"], "spans": len(view["spans"]),
+                         "root_ms": view["root_ms"], "phases": phases,
+                         "dominant_phase": view["dominant_phase"],
+                         "kv_reuse": view["kv_reuse"], "skew_flagged": view["skew_flagged"],
+                         "stitched_after_s": time.monotonic() - t_done}
+
+    # -- a deadline shed behind a full engine (the default frontend) ----------
+    fill = dict(m.body, max_tokens=OVERLOAD_FILL_TOKENS, nvext={"ignore_eos": True},
+                stream=True)
+
+    async def idle():
+        s = await m.stats(wid)
+        return s["active_seqs"] + s["waiting"] == 0
+
+    async def fill_engine():
+        fillers = [await HeldStream.open(m.port, fill, {"x-dynamo-worker": str(wid)})
+                   for _ in range(16)]
+        return fillers, await until(f"worker {wid:#x}'s 16 slots busy",
+                                    lambda: _full(m, wid), procs=m.everyone)
+
+    if not await idle():
+        fail(f"overload: worker {wid:#x} is not idle: {await m.stats(wid)}")
+    # A first pass, longer than the measured one, captures the fillers'
+    # decode graphs (ROADMAP C note 5), so that no capture delays the shed.
+    fillers, _ = await fill_engine()
+    await asyncio.sleep(OVERLOAD_DEADLINE_MS / 1000 + OVERLOAD_WARM_S)
+    for f in fillers:
+        f.close()
+    await until(f"worker {wid:#x} idle after the first pass", idle, procs=m.everyone)
+    await m.clear()
+    fillers, full = await fill_engine()
+    sheds_before = full["deadline_sheds"]
+    t_sent = time.monotonic()
+    # the engine sheds it at its deadline, with every slot still busy
+    late = await asyncio.wait_for(m.http({
+        "path": "/v1/completions", "body": m.body, "headers": {
+            "x-dynamo-worker": str(wid), "x-dynamo-deadline-ms": str(OVERLOAD_DEADLINE_MS)}}),
+        MAINS_WAIT_S)
+    answered_s = time.monotonic() - t_sent
+    after = await m.stats(wid)
+    frames, ended = [f.frames for f in fillers], [f.task.done() for f in fillers]
+    for f in fillers:
+        f.close()
+    doc = json.loads(late["body"])
+    if late["status"] != 504 or doc.get("error", {}).get("error_kind") != "timeout" or \
+            "deadline expired before admission" not in doc["error"].get("message", ""):
+        fail(f"overload: the pinned request past its deadline answered {late['status']} "
+             f"{late['body'][:500]}")
+    if after["active_seqs"] < 16 or any(ended) or min(frames) < 1:
+        fail(f"overload: the fillers did not all run through the shed: {after['active_seqs']} "
+             f"active, ended {ended}, frames {frames}")
+    sheds = after["deadline_sheds"] - sheds_before
+    if sheds < 1:
+        fail(f"overload: worker {wid:#x} counts {sheds} deadline sheds")
+    out["deadline_shed"] = {"worker": hex(wid), "deadline_ms": OVERLOAD_DEADLINE_MS,
+                            "answered_after_s": answered_s, "deadline_sheds": sheds,
+                            "graphs_captured_meanwhile":
+                                after["decode_graphs"] - full["decode_graphs"],
+                            "capture_ms_meanwhile":
+                                after["graph_capture_ms"] - full["graph_capture_ms"]}
+    await m.clear()
+
+    # -- the caps frontend: 4 run, 4 queue, the rest shed 429 ---------------
+    ports = {}
+    for name in ("frontend caps", "frontend sla"):
+        ports[name] = int((await until(f"the {name}'s listening line", lambda n=name: m.procs[
+            n].find(r"frontend listening on \S+:(\d+)"), procs=m.everyone))[1].group(1))
+
+        async def models(p=ports[name]):
+            got = await sse_client.one(p, {"method": "GET", "path": "/v1/models"})
+            return [x["id"] for x in json.loads(got["body"])["data"]]
+
+        await until(f"the model on the {name}'s /v1/models", lambda f=models: _is(
+            f(), [MAINS_MODEL]), procs=m.everyone)
+    burst_body = dict(m.body, max_tokens=OVERLOAD_TOKENS, stream=True, nvext={
+        "ignore_eos": True}, stream_options={"include_usage": True})
+    want = stream_text(whole_stream(await m.http({"path": "/v1/completions",
+                                                  "body": burst_body}),
+                                    OVERLOAD_TOKENS, "overload: the burst request alone"))
+    await m.clear()
+    caps = ports["frontend caps"]
+    records = await asyncio.wait_for(sse_client.main(caps, [
+        {"path": "/v1/completions", "body": burst_body}] * OVERLOAD_BURST), MAINS_WAIT_S * 4)
+    admitted = [r for r in records if r["status"] == 200]
+    shed = [r for r in records if r["status"] != 200]
+    for i, r in enumerate(admitted):
+        if stream_text(whole_stream(r, OVERLOAD_TOKENS, f"overload: admitted stream {i}")) \
+                != want:
+            fail(f"overload: admitted stream {i} parts from the request run alone")
+    for r in shed:
+        doc = json.loads(r["body"])
+        if r["status"] != 429 or r["headers"].get("retry-after") != "1" or \
+                doc["error"].get("error_kind") != "queue_full" or \
+                doc["error"].get("type") != "overloaded":
+            fail(f"overload: a shed answered {r['status']} {r['headers']} {r['body'][:300]}")
+    if len(admitted) != 8 or len(shed) != OVERLOAD_BURST - 8:
+        fail(f"overload: the caps frontend admitted {len(admitted)} of {OVERLOAD_BURST}")
+    if max(r["t_end"] for r in shed) >= min(r["t_end"] for r in admitted):
+        fail("overload: an admitted stream ended before the last shed was answered")
+    snap = json.loads((await sse_client.one(caps, {"method": "GET",
+                                                   "path": "/debug/overload"}))["body"])
+    if snap["admitted"] != 8 or snap["sheds"] != {"queue_full": OVERLOAD_BURST - 8} or \
+            snap["peak_queue_depth"] != 4 or snap["state"] != "healthy":
+        fail(f"overload: the caps frontend's /debug/overload {snap}")
+    out["caps"] = {"admitted": len(admitted), "shed_429": len(shed),
+                   "retry_after": shed[0]["headers"]["retry-after"],
+                   "latency_ms": http_latency_ms(admitted, range(len(admitted)))}
+    await m.clear()
+
+    # -- the SLA frontend: healthy -> brownout (the clamp) -> shed (503) -----
+    sla = ports["frontend sla"]
+
+    async def state():
+        got = await sse_client.one(sla, {"method": "GET", "path": "/debug/overload"})
+        return json.loads(got["body"])
+
+    long_body = dict(burst_body, max_tokens=1500)
+    frames = []
+    long_stream = asyncio.ensure_future(sse_client.one(
+        sla, {"path": "/v1/completions", "body": long_body}, lambda t, f: frames.append(t)))
+    await until("the SLA frontend's ITL samples", lambda: len(frames) > 20 or long_stream.done(),
+                procs=m.everyone)
+    probe = dict(m.body, max_tokens=4)
+    probes, clamped, shed_503 = [], None, None
+    for _ in range(40):
+        await asyncio.sleep(0.3)  # past min_eval_interval_s: each admission evaluates
+        snap = await state()
+        if snap["state"] == "brownout" and clamped is None:
+            clamped = asyncio.ensure_future(sse_client.one(sla, {
+                "path": "/v1/completions", "body": dict(
+                    m.body, max_tokens=OVERLOAD_CLAMPED, nvext={"ignore_eos": True})}))
+            continue
+        r = await sse_client.one(sla, {"path": "/v1/completions", "body": probe})
+        probes.append((snap["state"], r["status"]))
+        if r["status"] == 503:
+            shed_503 = r
+            break
+    if shed_503 is None or clamped is None:
+        fail(f"overload: the SLA frontend went {probes}, clamp sent {clamped is not None}: "
+             f"{await state()}")
+    doc = json.loads(shed_503["body"])
+    if doc["error"].get("error_kind") != "brownout_shed" or \
+            shed_503["headers"].get("retry-after") != "1":
+        fail(f"overload: the 503 {shed_503['headers']} {shed_503['body'][:300]}")
+    snap = await state()
+    metrics = (await sse_client.one(sla, {"method": "GET", "path": "/metrics"}))["body"]
+    clamp_doc = await clamped
+    long_rec = await long_stream
+    whole_stream(long_rec, 1500, "overload: the SLA frontend's long stream")
+    clamp = json.loads(clamp_doc["body"])
+    if clamp_doc["status"] != 200 or clamp["usage"]["completion_tokens"] != 256 or \
+            clamp["choices"][0]["finish_reason"] != "length":
+        fail(f"overload: the clamped request {clamp_doc['status']} {clamp_doc['body'][:400]}")
+    if not shed_503["t_end"] < long_rec["t_end"]:
+        fail("overload: the 503 came after the admitted stream ended")
+    states = [(e["frm"], e["to"]) for e in snap["events"] if e["kind"] == "state"]
+    if snap["state"] != "shed" or snap["transitions"] != {"brownout": 1, "shed": 1} or \
+            states != [("healthy", "brownout"), ("brownout", "shed")]:
+        fail(f"overload: the SLA frontend's /debug/overload {snap}")
+    for line in ("dynamo_tpu_overload_state 2",
+                 'dynamo_tpu_overload_transitions_total{to="brownout"} 1',
+                 'dynamo_tpu_overload_transitions_total{to="shed"} 1'):
+        if line not in metrics:
+            fail(f"overload: the SLA frontend's /metrics lacks {line!r}")
+    if not re.search(r'^dynamo_tpu_overload_shed_total\{reason="brownout_shed"\} [1-9]',
+                     metrics, re.M):
+        fail("overload: the SLA frontend's /metrics counts no brownout shed")
+    out["sla"] = {"itl_sla_ms": float(OVERLOAD_SLA["DYN_TPU_OVERLOAD_ITL_SLA_MS"]),
+                  "probes": probes, "itl_p50_ms": snap["itl_p50_ms"],
+                  "clamped_tokens": clamp["usage"]["completion_tokens"],
+                  "transitions": snap["transitions"], "sheds": snap["sheds"],
+                  "long_stream_latency_ms": http_latency_ms([long_rec], [0]),
+                  "shed_503_before_stream_end_s": long_rec["t_end"] - shed_503["t_end"]}
+    # the two extra frontends end on SIGTERM
+    for name in ("frontend caps", "frontend sla"):
+        p = m.procs[name]
+        m.everyone.remove((name, p))
+        p.proc.send_signal(signal.SIGTERM)
+        try:
+            rc = p.proc.wait(timeout=MAINS_GRACE_S)
+        except subprocess.TimeoutExpired:
+            fail(f"overload: the {name} did not exit within {MAINS_GRACE_S} s of SIGTERM")
+        if rc != 0:
+            fail(f"overload: the {name} exited {rc} on SIGTERM: {p.tail()}")
+    await m.clear()
+    return out
+
+
+class HeldStream:
+    """A streamed request whose frames a task reads (and counts) until
+    ``close()`` drops the connection, as a client that leaves."""
+
+    @classmethod
+    async def open(cls, port, body, headers):
+        self = cls()
+        self.reader, self.writer = await asyncio.open_connection("127.0.0.1", port)
+        data = json.dumps(body).encode()
+        extra = "".join(f"{k}: {v}\r\n" for k, v in headers.items())
+        self.writer.write((f"POST /v1/completions HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                           f"Content-Type: application/json\r\nContent-Length: {len(data)}"
+                           f"\r\n{extra}\r\n").encode() + data)
+        await self.writer.drain()
+        self.frames = 0
+        self.task = asyncio.ensure_future(self._read())
+        return self
+
+    async def _read(self):
+        while chunk := await self.reader.read(65536):
+            self.frames += chunk.count(b"data: ")
+
+    def close(self):
+        self.task.cancel()
+        self.writer.close()
+
+
+async def _full(m, wid):
+    """Worker ``wid``'s stats once its 16 slots are taken, else None."""
+    s = await m.stats(wid)
+    return s if s["active_seqs"] >= 16 else None
 
 
 def tick_retry_phase(torch, smi) -> None:

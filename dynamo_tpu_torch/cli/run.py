@@ -215,7 +215,13 @@ async def run_batch(pipeline, model: str, args, batch_path: str) -> None:
 async def run_http(pipeline, card: ModelDeploymentCard, args) -> None:
     """Single-process OpenAI server over the local pipeline (in=http)."""
     from dynamo_tpu_torch.http import HttpService, ModelManager
+    from dynamo_tpu_torch.runtime.trajectory import global_store
+    from dynamo_tpu_torch.utils.tracing import set_service
 
+    # Trajectory plane, dev-mode wiring: attach the store to the tracer
+    # BEFORE the first request so /debug/trajectory sees every span.
+    set_service("dev-http")
+    global_store()
     manager = ModelManager()
     manager.register(card.name, pipeline, card)
     service = HttpService(manager, host="0.0.0.0", port=args.http_port)

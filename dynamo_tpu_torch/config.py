@@ -197,3 +197,64 @@ OTLP_SERVICE = EnvVar(
     "service.name resource attribute on exported spans "
     "(dynamo_tpu/config.py:490)",
 )
+# -- overload armor (runtime/overload.py) --------------------------------------
+OVERLOAD_MAX_CONCURRENCY = EnvVar(
+    "DYN_TPU_OVERLOAD_MAX_CONCURRENCY", 256, int,
+    "Frontend streams generating concurrently; excess queues (EDF) "
+    "(dynamo_tpu/config.py:285)",
+)
+OVERLOAD_MAX_QUEUE = EnvVar(
+    "DYN_TPU_OVERLOAD_MAX_QUEUE", 1024, int,
+    "Bounded admission queue depth; beyond it requests shed 429 "
+    "(dynamo_tpu/config.py:290)",
+)
+OVERLOAD_MAX_QUEUE_DELAY_S = EnvVar(
+    "DYN_TPU_OVERLOAD_MAX_QUEUE_DELAY_S", 30.0, float,
+    "Shed when predicted queue delay exceeds this (429 + Retry-After) "
+    "(dynamo_tpu/config.py:295)",
+)
+OVERLOAD_DEFAULT_DEADLINE_S = EnvVar(
+    "DYN_TPU_OVERLOAD_DEFAULT_DEADLINE_S", 0.0, float,
+    "Deadline stamped on requests that carry none (0 = unbounded) "
+    "(dynamo_tpu/config.py:300)",
+)
+OVERLOAD_ITL_SLA_MS = EnvVar(
+    "DYN_TPU_OVERLOAD_ITL_SLA_MS", 0.0, float,
+    "p50 ITL SLA driving healthy->brownout->shed (0 = brownout disabled; "
+    "admission caps still enforce) (dynamo_tpu/config.py:305)",
+)
+OVERLOAD_BROWNOUT_MAX_TOKENS = EnvVar(
+    "DYN_TPU_OVERLOAD_BROWNOUT_MAX_TOKENS", 256, int,
+    "max_tokens clamp applied while browned out (dynamo_tpu/config.py:311)",
+)
+# -- trajectory plane (runtime/trajectory.py) -----------------------------------
+TRAJECTORY_RECENT = EnvVar(
+    "DYN_TPU_TRAJECTORY_RECENT", 256, int,
+    "Recent request trajectories retained for GET /debug/trajectory "
+    "(dynamo_tpu/config.py:317)",
+)
+TRAJECTORY_SLOW = EnvVar(
+    "DYN_TPU_TRAJECTORY_SLOW", 64, int,
+    "Slow/errored trajectory summaries retained past recent-ring eviction "
+    "(dynamo_tpu/config.py:322)",
+)
+TRAJECTORY_SHIP_INTERVAL_S = EnvVar(
+    "DYN_TPU_TRAJECTORY_SHIP_S", 0.5, float,
+    "Worker-side finished-span batch flush cadence onto the event plane "
+    "(dynamo_tpu/config.py:327)",
+)
+SLO_TTFT_MS = EnvVar(
+    "DYN_TPU_SLO_TTFT_MS", 0.0, float,
+    "TTFT SLA for the goodput/burn-rate gauges (0 = SLO tracking off) "
+    "(dynamo_tpu/config.py:332)",
+)
+SLO_ITL_MS = EnvVar(
+    "DYN_TPU_SLO_ITL_MS", 0.0, float,
+    "Mean-ITL SLA for the goodput/burn-rate gauges (0 = SLO tracking off) "
+    "(dynamo_tpu/config.py:337)",
+)
+SLO_TARGET = EnvVar(
+    "DYN_TPU_SLO_TARGET", 0.99, float,
+    "SLO target the burn-rate denominates against (error budget = 1 - target) "
+    "(dynamo_tpu/config.py:342)",
+)

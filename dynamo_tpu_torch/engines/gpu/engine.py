@@ -48,12 +48,23 @@ with the error, new requests are refused). The position-keyed sampling
 noise makes the retried bursts draw the same tokens. Fault seams:
 ``ENGINE_TICK_DISPATCH`` and ``ENGINE_TICK_REAP`` (runtime/fault_names.py).
 
-Not ported yet (ROADMAP): the abort's flight record and dump (the engine
-has no flight ring, A9), the admission's containment of a request that
-fails its prefill deterministically, speculative decoding (and so
-logprobs under it), LoRA, MoE, the tick budget, sleep/wake, KV
-export/import/checkpoint, multimodal, prefill under CUDA graphs and
-metrics.
+A request whose context stopped while it waited is finished before any
+prefill, as the JAX engine's ``_shed_expired`` does (engine.py:1306-1330):
+an expired deadline ends in a typed timeout error and counts in
+``stats()["deadline_sheds"]``; a cancellation ends quietly. Unlike JAX's,
+which sheds only the queue's head when a slot frees, every admission pass
+sheds each stopped waiter, full engine or not.
+A request that carries a ``traceparent`` gets the retrospective
+``engine.queue`` / ``engine.prefill`` / ``engine.decode`` spans when its
+stream ends (engine.py:915-955), built from host monotonic stamps the
+serving path takes as it passes: no device sync, nothing inside a burst.
+
+Not ported yet (ROADMAP): the abort's and the deadline shed's flight
+records and the dump (the engine has no flight ring, A9), the
+admission's containment of a request that fails its prefill
+deterministically, speculative decoding (and so logprobs under it),
+LoRA, MoE, the tick budget, sleep/wake, KV export/import/checkpoint,
+multimodal, prefill under CUDA graphs and metrics.
 
 All device work runs on one executor thread so the asyncio loop never
 blocks on the card. Every block-pool call runs on the loop's thread, so the
@@ -67,6 +78,7 @@ import asyncio
 import collections
 import logging
 import math
+import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, AsyncIterator, Callable, Dict, List, Optional, Tuple
@@ -85,7 +97,9 @@ from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops.logits_process import MAX_BIAS_SLOTS, pack_bias, prompt_hot
 from dynamo_tpu_torch.runtime import fault_names
 from dynamo_tpu_torch.runtime.context import Context
-from dynamo_tpu_torch.runtime.faults import fault_point
+from dynamo_tpu_torch.runtime.faults import fault_point, note_activity
+from dynamo_tpu_torch.runtime.kv_reuse_observe import global_plane as kv_reuse_plane
+from dynamo_tpu_torch.runtime.lifecycle import trace_id_of
 from dynamo_tpu_torch.tokens.blocks import compute_block_hashes
 
 logger = logging.getLogger(__name__)
@@ -172,6 +186,11 @@ class _Sequence:
     block_hashes: List[int] = field(default_factory=list)  # committed prefix
     slot: int = -1
     salt: int = 0  # sampling salt (arrival order)
+    # Host monotonic stamps for the phase spans (0.0 = not yet).
+    t_enqueue: float = 0.0
+    t_prefill_start: float = 0.0
+    t_first_out: float = 0.0
+    kv_roi: Optional[Dict[str, Any]] = None  # KvReusePlane.note_request's
 
 
 @dataclass
@@ -264,6 +283,12 @@ class TorchEngine:
         self.prefill_tokens = 0
         self.generated_tokens = 0
         self.preemptions = 0
+        # Requests finished at dequeue because their deadline had expired
+        # while they waited (typed timeout, no prefill spent).
+        self.deadline_sheds = 0
+        # Brownout lever (runtime/overload.py): kept and honoured by the
+        # speculative decode, which the port does not have yet (A5).
+        self._spec_suspended = False
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -311,6 +336,7 @@ class TorchEngine:
             "queue_depth": len(self._waiting),
             "kv_high_watermark": ADMIT_KV_HIGH_WATERMARK,
             "draining": 0,
+            "deadline_sheds": self.deadline_sheds,
         }
 
     def clear_kv_blocks(self) -> int:
@@ -355,15 +381,91 @@ class TorchEngine:
             prompt=prompt, all_tokens=list(prompt), salt=self._next_salt,
         )
         self._next_salt = (self._next_salt + 1) & 0x7FFFFFFF
+        seq.t_enqueue = time.monotonic()
         self._waiting.append(seq)
         self._wake.set()
-        while True:
-            out = await seq.queue.get()
-            if out is None:
-                return
-            yield out
-            if out.finish_reason is not None:
-                return
+        try:
+            while True:
+                out = await seq.queue.get()
+                if out is None:
+                    return
+                if seq.t_first_out == 0.0 and out.token_ids:
+                    seq.t_first_out = time.monotonic()
+                yield out
+                if out.finish_reason is not None:
+                    return
+        finally:
+            self._export_phase_spans(seq)
+
+    def _export_phase_spans(self, seq: _Sequence) -> None:
+        """Retrospective engine.queue / engine.prefill / engine.decode
+        spans for one finished stream (engine.py:915-955, less the
+        handed-off stream's detach, which the drain plane brings). Built once
+        a request from the monotonic stamps the serving path already took —
+        nothing here runs inside a decode burst, and requests outside any
+        trace cost one dict lookup."""
+        if not seq.context.baggage.get("traceparent"):
+            return
+        try:
+            from dynamo_tpu_torch.utils.tracing import export_span
+
+            end = time.monotonic()
+            t_admit = seq.t_prefill_start or seq.t_first_out or end
+            export_span(
+                "engine.queue", seq.context,
+                start_mono=seq.t_enqueue or t_admit, end_mono=t_admit,
+            )
+            if seq.t_prefill_start:
+                roi = seq.kv_roi or {}
+                export_span(
+                    "engine.prefill", seq.context,
+                    start_mono=seq.t_prefill_start,
+                    end_mono=seq.t_first_out or end,
+                    prompt_tokens=len(seq.prompt),
+                    cached_tokens=roi.get("cached_tokens"),
+                    prefill_seconds_saved=roi.get("seconds_saved"),
+                )
+            if seq.t_first_out:
+                export_span(
+                    "engine.decode", seq.context,
+                    start_mono=seq.t_first_out, end_mono=end,
+                    generated=len(seq.generated),
+                )
+        except Exception:
+            logger.debug("phase-span export failed", exc_info=True)
+
+    def set_spec_suspended(self, suspended: bool) -> None:
+        """Brownout lever (engine.py:1293-1305): park/restore speculative
+        decode without touching the engine args (runtime/overload.py wires
+        this to the healthy↔brownout transitions). The port has no
+        speculative decode yet (A5), so, as JAX's engine with spec_mode
+        off, it keeps the flag and wakes the loop."""
+        suspended = bool(suspended)
+        if suspended == self._spec_suspended:
+            return
+        self._spec_suspended = suspended
+        self._wake.set()
+
+    def _shed_expired(self, seq: _Sequence) -> None:
+        """Finish a waiting sequence that stopped BEFORE admission
+        (engine.py:1306-1330). A deadline expiry is a typed, client-visible
+        error (the request's budget is gone — admitting it would burn
+        prefill on work nobody is waiting for); a plain cancellation stays
+        a quiet CANCELLED. JAX's engine also records a ``deadline_shed``
+        flight event; this engine has no flight ring yet (A9)."""
+        if seq.context.stop_reason == "deadline":
+            self.deadline_sheds += 1
+            note_activity("deadline_expired")
+            seq.queue.put_nowait(
+                BackendOutput(
+                    error="deadline expired before admission "
+                    "(shed at dequeue, no prefill spent)",
+                    error_kind="timeout",
+                    finish_reason=FinishReason.ERROR,
+                )
+            )
+        else:
+            seq.queue.put_nowait(BackendOutput(finish_reason=FinishReason.CANCELLED))
 
     # -- scheduler ---------------------------------------------------------
 
@@ -438,6 +540,7 @@ class TorchEngine:
     async def _admit_batch(self) -> int:
         """Admit and prefill up to PREFILL_BATCH waiting sequences in one
         [rows, C] device step per chunk round. Returns rows installed."""
+        self._shed_stopped_waiters()
         free = [i for i, s in enumerate(self._slots) if s is None]
         if not free or not self._waiting:
             return 0
@@ -445,10 +548,6 @@ class TorchEngine:
         limit = min(len(free), PREFILL_BATCH)
         while self._waiting and len(batch) < limit:
             seq = self._waiting[0]
-            if seq.context.stopped:  # cancelled while queued: no prefill spent
-                self._waiting.popleft()
-                seq.queue.put_nowait(BackendOutput(finish_reason=FinishReason.CANCELLED))
-                continue
             if (
                 self.pool.usage >= ADMIT_KV_HIGH_WATERMARK
                 and any(s is not None for s in self._slots)
@@ -472,6 +571,23 @@ class TorchEngine:
         for (seq, prep), first in zip(batch, firsts):
             self._install(seq, prep, next(free_iter), *first)
         return len(batch)
+
+    def _shed_stopped_waiters(self) -> None:
+        """Finish every waiting sequence whose context stopped, before any
+        pool or prefill spend, wherever it stands in the queue and whether
+        a slot is free or not. JAX's admission sheds only the head, when a
+        slot frees (admission.py:106-114); a request expired behind a full
+        engine then waits out the running streams, and past the TCP
+        server's cancel grace its client gets no answer from the stream."""
+        if not any(seq.context.stopped for seq in self._waiting):
+            return
+        kept: "collections.deque[_Sequence]" = collections.deque()
+        for seq in self._waiting:
+            if seq.context.stopped:
+                self._shed_expired(seq)
+            else:
+                kept.append(seq)
+        self._waiting = kept
 
     def _prepare_admission(self, seq: _Sequence) -> Optional[_Prep]:
         """Prefix match + block allocation for one sequence; None (after
@@ -548,6 +664,16 @@ class TorchEngine:
             temp[r], topk[r], topp[r] = prep.sp
             salts[r] = seq.salt
         procs = self._prefill_procs(batch)
+        for seq, prep in batch:
+            seq.t_prefill_start = time.monotonic()
+            # Cache-ROI attribution (admission.py:371-379): one feed an
+            # admitted request, stamped into its trajectory when traced.
+            seq.kv_roi = kv_reuse_plane().note_request(
+                anchor=prep.hashes[prep.matched - 1] if prep.matched else None,
+                cached_tokens=prep.matched_tokens,
+                recomputed_tokens=len(seq.all_tokens) - prep.matched_tokens,
+                trace_id=trace_id_of(seq.context),
+            )
         while any(pos[r] < len(prompts[r]) for r in range(rows)):
             chunks = [prompts[r][pos[r] : pos[r] + args.prefill_chunk] for r in range(rows)]
             C = max(len(ch) for ch in chunks)

@@ -5,11 +5,13 @@ workers (KV-aware by default) behind Migration.
 
     python -m dynamo_tpu_torch.frontend --host 127.0.0.1 --http-port 8000
 
-It has JAX's flags and defaults. ``--tls-cert`` and ``--tls-key`` are
-refused until TLS comes (ROADMAP A4c-4), as are the overload controller
-and the trajectory collector JAX's frontend starts. Divergences: SIGTERM
-and SIGINT end the wait and the frontend shuts down in JAX's order (the
-service, the watcher, the runtime) and exits 0, where JAX's frontend has
+It has JAX's flags and defaults, and starts what JAX's frontend starts:
+the trajectory collector (the workers' shipped spans, stitched on
+``/debug/trajectory/{trace_id}``), the overload controller on the
+``DYN_TPU_OVERLOAD_*`` knobs (``runtime/overload.config_from_env``), and
+TLS with ``--tls-cert`` and ``--tls-key``. Divergences: SIGTERM and SIGINT
+end the wait and the frontend shuts down in JAX's order (the service, the
+watcher, the collector, the runtime) and exits 0, where JAX's frontend has
 no handler and dies by the signal; ``/metrics`` also carries the models'
 Migration families (llm/discovery.py).
 """
@@ -67,14 +69,25 @@ async def main() -> None:
     from dynamo_tpu_torch.router import KvRouterConfig
     from dynamo_tpu_torch.runtime.component import RouterMode
     from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.overload import OverloadController, config_from_env
+    from dynamo_tpu_torch.runtime.trajectory import TrajectoryCollector
+    from dynamo_tpu_torch.utils.tracing import set_service
 
     parser = build_parser()
     args = parser.parse_args()
-    if args.tls_cert or args.tls_key:
-        parser.error("--tls-cert/--tls-key: TLS is not ported (ROADMAP A4c-4)")
+    if bool(args.tls_cert) != bool(args.tls_key):
+        # JAX's frontend serves plain HTTP then; an operator who set one of
+        # the two expects TLS.
+        parser.error("--tls-cert and --tls-key are given together or not at all")
 
     configure_logging()
     runtime = DistributedRuntime.from_settings()
+    # Trajectory plane: label this process's spans and collect the fleet's
+    # shipped spans into the process-global store (the store auto-attaches
+    # to the global tracer, so the frontend's own spans land there too).
+    set_service("frontend")
+    trajectory = TrajectoryCollector(runtime.event_plane, config.NAMESPACE.get())
+    await trajectory.start()
     manager = ModelManager()
     mode = {
         "kv": RouterMode.KV,
@@ -93,7 +106,13 @@ async def main() -> None:
         canary_interval_s=args.canary_interval,
         canary_timeout_s=args.canary_timeout,
     )
-    service = HttpService(manager, host=args.host, port=args.http_port)
+    # Overload armor on by default: bounded EDF admission + (when an ITL
+    # SLA is configured) the brownout state machine (DYN_TPU_OVERLOAD_*).
+    service = HttpService(
+        manager, host=args.host, port=args.http_port,
+        tls_cert=args.tls_cert, tls_key=args.tls_key,
+        overload=OverloadController(config_from_env()),
+    )
     # the models' Migration families, on the registry /metrics renders
     watcher.migration_metrics = MigrationMetrics(service.metrics.registry)
     await watcher.start()
@@ -108,6 +127,7 @@ async def main() -> None:
     finally:
         await service.stop(grace_period=config.GRACE_PERIOD.get())
         await watcher.stop()
+        await trajectory.stop()
         await runtime.shutdown(grace_period=config.GRACE_PERIOD.get())
         await runtime.event_plane.close()
 

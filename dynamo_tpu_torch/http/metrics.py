@@ -8,15 +8,20 @@ TTFT/ITL/duration histograms, in-flight gauges) with the canonical naming
 scheme of lib/runtime/src/metrics/prometheus_names.rs.
 
 Exemplars: the TTFT and request-duration histograms carry the request's
-trace id (from an incoming W3C ``traceparent``) as an OpenMetrics exemplar
+trace id (from the request's ``traceparent``) as an OpenMetrics exemplar
 — rendered when the scraper negotiates ``application/openmetrics-text``.
+
+Each finished stream also gives the SLO plane its verdict
+(runtime/trajectory.py ``SloTracker.note_stream``), and an optional
+``itl_observer`` taps the ITL deltas (the overload controller's brownout
+signal).
 """
 
 from __future__ import annotations
 
 import re
 import time
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 from dynamo_tpu_torch.runtime import metric_names as mn
 from dynamo_tpu_torch.runtime.metrics_core import MetricsRegistry
@@ -99,7 +104,10 @@ class RequestTimer:
     ``bind_context`` attaches the request's trace id — from then on
     TTFT/duration observations carry it as an exemplar."""
 
-    def __init__(self, metrics: FrontendMetrics, model: str, endpoint: str) -> None:
+    def __init__(
+        self, metrics: FrontendMetrics, model: str, endpoint: str,
+        *, itl_observer: Optional[Callable[[float], None]] = None,
+    ) -> None:
         self._m = metrics
         self._model = model
         self._endpoint = endpoint
@@ -107,6 +115,15 @@ class RequestTimer:
         self._last_token: Optional[float] = None
         self._done = False
         self._trace_id: Optional[str] = None
+        # SLO inputs (runtime/trajectory.py SloTracker): the stream's TTFT
+        # and summed ITL deltas, judged once at done().
+        self._ttft_s: Optional[float] = None
+        self._itl_sum = 0.0
+        self._itl_n = 0
+        # Optional tap on the same deltas the ITL histogram observes —
+        # the overload controller's brownout machine reads its p50 SLA
+        # signal here (runtime/overload.py observe_itl).
+        self._itl_observer = itl_observer
         self._m.inflight.inc(model=model, endpoint=endpoint)
 
     def bind_context(self, context) -> None:
@@ -117,10 +134,15 @@ class RequestTimer:
     def on_token(self, count: int = 1) -> None:
         now = time.monotonic()
         if self._last_token is None:
+            self._ttft_s = now - self._start
             self._m.ttft.observe(now - self._start, trace_id=self._trace_id,
                                  model=self._model)
         else:
+            self._itl_sum += now - self._last_token
+            self._itl_n += 1
             self._m.itl.observe(now - self._last_token, model=self._model)
+            if self._itl_observer is not None:
+                self._itl_observer(now - self._last_token)
         self._last_token = now
         self._m.output_tokens.inc(count, model=self._model)
 
@@ -143,3 +165,20 @@ class RequestTimer:
             time.monotonic() - self._start, trace_id=self._trace_id,
             model=self._model, endpoint=self._endpoint,
         )
+        if status != 499 and (self._ttft_s is not None or status >= 429):
+            # SLO verdict (no-op while no SLA is configured): one stream,
+            # did TTFT and mean ITL land inside the SLA. Token-less
+            # failures count too — sheds (429/503/504) and errors never
+            # met the SLA. Token-less 2xx stay out: they have no latency
+            # SLA. Client aborts (499) stay out entirely — a user walking
+            # away says nothing about the server's SLA.
+            from dynamo_tpu_torch.runtime.trajectory import global_slo
+
+            global_slo().note_stream(
+                self._trace_id,
+                ttft_s=self._ttft_s,
+                mean_itl_s=(
+                    self._itl_sum / self._itl_n if self._itl_n else None
+                ),
+                status=status,
+            )

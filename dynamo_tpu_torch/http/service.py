@@ -9,10 +9,16 @@ axum server with /v1/chat/completions (:865), /v1/completions (:327),
 handling (disconnect.rs), and the system routes /health /live /metrics
 (runtime/src/system_status_server.rs).
 
-Not here yet (ROADMAP A4c-4): the overload controller (admission,
-brownout, sheds), tracing spans and the ``/debug/trajectory`` routes, the
-SLO families on ``/metrics`` and TLS. Embedding and image models come
-later still: their routes answer 404 for every model.
+With an ``overload=`` controller (runtime/overload.py) every generation
+route admits through it: bounded EDF admission, typed 429/503/504 sheds
+with ``Retry-After``, the brownout ``max_tokens`` clamp; ``/debug/overload``
+serves its snapshot and ``/metrics`` its families. Each chat or completion
+request opens its root ``http.{endpoint}`` span before admission, with the
+queue wait as an ``overload.queue`` child, and ``/debug/trajectory[/{id}]``
+serve the trajectory plane's stitched views (runtime/trajectory.py), whose
+SLO families ``/metrics`` carries too. ``tls_cert=`` / ``tls_key=`` serve
+HTTPS. Embedding and image models come later: their routes answer 404 for
+every model.
 """
 
 from __future__ import annotations
@@ -55,7 +61,18 @@ from dynamo_tpu_torch.parsers import (
 )
 from dynamo_tpu_torch.parsers.observe import parser_plane
 from dynamo_tpu_torch.runtime.context import Context
+from dynamo_tpu_torch.runtime.overload import (
+    AdmissionTicket,
+    OverloadController,
+    OverloadShedError,
+)
 from dynamo_tpu_torch.runtime.tasks import TaskTracker
+from dynamo_tpu_torch.runtime.trajectory import (
+    render_trajectory_metrics,
+    trajectory_index,
+    trajectory_view,
+)
+from dynamo_tpu_torch.utils.tracing import span
 
 logger = logging.getLogger(__name__)
 
@@ -105,13 +122,27 @@ class HttpService:
         *,
         host: str = "0.0.0.0",
         port: int = 8000,
+        tls_cert: Optional[str] = None,
+        tls_key: Optional[str] = None,
+        overload: Optional[OverloadController] = None,
     ) -> None:
+        # TLS termination (ref: service_v2.rs enable_tls + rustls config).
+        self._ssl_context = None
+        if tls_cert and tls_key:
+            import ssl
+
+            self._ssl_context = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            self._ssl_context.load_cert_chain(tls_cert, tls_key)
         # NOT `or`: an empty ModelManager is falsy (__len__ == 0) and would be
         # silently replaced, detaching the caller's manager from the server.
         self.models = model_manager if model_manager is not None else ModelManager()
         self.host = host
         self.port = port
         self.metrics = FrontendMetrics()
+        # Overload armor (runtime/overload.py): bounded EDF admission +
+        # brownout. None = unguarded; the frontend main constructs one by
+        # default.
+        self.overload = overload
         self.tracker = TaskTracker("http")
         # model name → busy thresholds (ref: busy_threshold.rs)
         self.busy_thresholds: Dict[str, BusyThresholds] = {}
@@ -136,6 +167,10 @@ class HttpService:
         app.router.add_post("/clear_kv_blocks", self._clear_kv_blocks)
         app.router.add_get("/debug/overload", self._debug_overload)
         app.router.add_get("/debug/parser", self._debug_parser)
+        app.router.add_get("/debug/trajectory", self._debug_trajectories)
+        app.router.add_get(
+            "/debug/trajectory/{trace_id}", self._debug_trajectory
+        )
         app.router.add_get("/openapi.json", self._openapi)
         return app
 
@@ -144,7 +179,7 @@ class HttpService:
     async def start(self) -> int:
         """Bind and serve; returns the bound port (useful with port=0)."""
         self._server = web.Server(self.app)
-        self.port = await self._server.start(self.host, self.port)
+        self.port = await self._server.start(self.host, self.port, ssl=self._ssl_context)
         logger.info("HTTP frontend listening on %s:%d", self.host, self.port)
         return self.port
 
@@ -171,28 +206,70 @@ class HttpService:
         if openmetrics:
             # OpenMetrics exposition carries trace-id exemplars on the TTFT
             # and request-duration histograms (see http/metrics.py). The
-            # parser families go in BEFORE the # EOF terminator.
+            # overload, parser and SLO families go in BEFORE the # EOF
+            # terminator.
             body = self.metrics.render(openmetrics=True)
+            extra = (
+                parser_plane().metrics.render(openmetrics=True)
+                + "\n" + render_trajectory_metrics(openmetrics=True)
+            )
+            if self.overload is not None:
+                extra = (
+                    self.overload.metrics.render(openmetrics=True)
+                    + "\n" + extra
+                )
             stripped = body.rstrip()
             if stripped.endswith(b"# EOF"):
                 stripped = stripped[: -len(b"# EOF")].rstrip()
-            extra = parser_plane().metrics.render(openmetrics=True)
             body = stripped + b"\n" + extra.encode() + b"\n# EOF\n"
             return web.Response(
                 body=body, content_type="application/openmetrics-text",
             )
+        body = self.metrics.render()
+        if self.overload is not None:
+            # The frontend's controller is the one that actually admits
+            # and sheds — its families must be on THIS scrape surface.
+            body = body + self.overload.metrics.render().encode() + b"\n"
         # Parser plane: the jail runs inside THIS process's SSE handlers —
         # tool-call streaming health scrapes here.
-        body = self.metrics.render() + parser_plane().metrics.render().encode() + b"\n"
+        body = body + parser_plane().metrics.render().encode() + b"\n"
+        # SLO plane: goodput/burn-rate/phase gauges are fed by THIS
+        # process's finished streams — they belong on this scrape.
+        body = body + render_trajectory_metrics().encode() + b"\n"
         return web.Response(body=body, content_type="text/plain")
 
     async def _models_route(self, request: web.Request) -> web.Response:
         return web.json_response(model_list(self.models.openai_model_list()))
 
+    async def _debug_trajectories(self, request: web.Request) -> web.Response:
+        """Fleet trajectory index (recent + slow/error, SLO snapshot)."""
+        return web.json_response(trajectory_index())
+
+    async def _debug_trajectory(self, request: web.Request) -> web.Response:
+        tid = request.match_info["trace_id"]
+        stitched = trajectory_view(tid)
+        if stitched is None:
+            return web.json_response(
+                {"error": f"no trajectory for trace {tid!r}"}, status=404
+            )
+        return web.json_response(stitched)
+
     async def _debug_overload(self, request: web.Request) -> web.Response:
-        """The overload plane's snapshot: this frontend runs no overload
-        controller (it comes with the distributed runtime)."""
-        return web.json_response({"enabled": False})
+        """Overload-plane snapshot + the 'overload' flight ring (the
+        frontend has no system server; this is its /debug/flight slice)."""
+        if self.overload is None:
+            return web.json_response({"enabled": False})
+        try:
+            limit = int(request.query.get("limit", 256))
+        except ValueError:
+            limit = 256
+        return web.json_response(
+            {
+                "enabled": True,
+                **self.overload.snapshot(),
+                "events": self.overload.flight.snapshot(limit=limit),
+            }
+        )
 
     async def _debug_parser(self, request: web.Request) -> web.Response:
         """Parser-plane snapshot + the 'parser' flight ring."""
@@ -317,13 +394,30 @@ class HttpService:
                 OpenAIError(f"model '{model}' not found", status=404,
                             err_type="not_found_error")
             )
+        # The Responses API rides the same chat generation pipeline, so it
+        # gets the same overload armor: client deadline, EDF admission,
+        # and the brownout output clamp (a saturating burst must not
+        # tunnel past the plane through this endpoint).
         deadline, derr = self._parse_deadline(request, body)
         if derr is not None:
             return derr
-        timer = RequestTimer(self.metrics, model, "responses")
+        timer = RequestTimer(
+            self.metrics, model, "responses",
+            itl_observer=(
+                self.overload.observe_itl if self.overload is not None else None
+            ),
+        )
         ctx = Context(baggage={"model": model}, deadline=deadline)
         stream = bool(body.get("stream", False))
         rid = gen_id("resp")
+        ticket: Optional[AdmissionTicket] = None
+        if self.overload is not None:
+            self.overload.apply_default_deadline(ctx)
+            try:
+                ticket = await self.overload.admit(ctx)
+            except OverloadShedError as exc:
+                timer.done(exc.status)
+                return _shed_response(exc)
 
         def envelope(status: str, output=None, usage=None) -> Dict[str, Any]:
             resp: Dict[str, Any] = {
@@ -334,12 +428,21 @@ class HttpService:
                 resp["usage"] = usage
             return resp
 
+        ok = False
         try:
+            if self.overload is not None:
+                clamped = self.overload.clamp_max_tokens(
+                    chat_body.get("max_tokens")
+                )
+                if clamped is not None and clamped != chat_body.get("max_tokens"):
+                    chat_body["max_tokens"] = clamped
             with self.tracker.guard():
                 if stream:
-                    return await self._responses_stream(
+                    resp = await self._responses_stream(
                         request, chat_body, entry, ctx, timer, envelope
                     )
+                    ok = True
+                    return resp
                 text_parts: list = []
                 prompt_tokens = 0
                 completion_tokens = 0
@@ -362,6 +465,7 @@ class HttpService:
                         completion_tokens += len(out.token_ids)
                         timer.on_token(len(out.token_ids))
                 timer.done(200)
+                ok = True
                 return web.json_response(
                     envelope(
                         "completed",
@@ -402,6 +506,9 @@ class HttpService:
                     err_type=_err_type_of_kind(error_kind), kind=error_kind,
                 )
             )
+        finally:
+            if ticket is not None:
+                self.overload.release(ticket, ok=ok)
 
     async def _responses_stream(
         self, request: web.Request, chat_body, entry, ctx: Context,
@@ -549,6 +656,8 @@ class HttpService:
             },
             "/clear_kv_blocks": {"post": op("Flush worker KV prefix caches", body=True)},
             "/debug/parser": {"get": op("Tool-call parser plane: stream outcomes, degrades, parser flight ring")},
+            "/debug/trajectory": {"get": op("Fleet trajectory index (recent + slow/error, SLO snapshot)")},
+            "/debug/trajectory/{trace_id}": {"get": op("One stitched cross-worker request trajectory")},
         }
         return web.json_response(
             {
@@ -634,8 +743,7 @@ class HttpService:
             )
         endpoint = "chat_completions" if kind == "chat" else "completions"
         # W3C trace propagation (ref: logging.rs:72): an incoming
-        # traceparent joins the caller's trace (its id rides the metrics'
-        # exemplars).
+        # traceparent joins the caller's trace; spans flow via baggage.
         traceparent = request.headers.get("traceparent")
         # Gateway pin (EPP header hint, gateway/epp.py): the inference
         # gateway already ran KV-aware selection — carry the pin to the
@@ -661,25 +769,64 @@ class HttpService:
             )
             resp.headers["Retry-After"] = "1"
             return resp
-        # Client deadline: header wins over the body key; the budget lands
-        # in Context.deadline and rides the request end to end — engine
-        # admission sheds it expired.
+        # Client deadline (overload armor): header wins over the body key;
+        # the budget lands in Context.deadline and rides the request plane
+        # end to end — engine admission sheds it expired.
         deadline, err = self._parse_deadline(request, body)
         if err is not None:
             return err
-        timer = RequestTimer(self.metrics, model, endpoint)
+        timer = RequestTimer(
+            self.metrics, model, endpoint,
+            itl_observer=(
+                self.overload.observe_itl if self.overload is not None else None
+            ),
+        )
         baggage: Dict[str, Any] = {"model": model}
         if traceparent:
             baggage["traceparent"] = traceparent
         ctx = Context(baggage=baggage, deadline=deadline)
+        ticket: Optional[AdmissionTicket] = None
+        ok = False
         try:
-            with self.tracker.guard():
+            # Root span opens BEFORE admission so the overload queue wait
+            # is a child span inside the trace (the trajectory plane's
+            # "queue" phase) instead of invisible pre-trace time.
+            with self.tracker.guard(), span(
+                f"http.{endpoint}", ctx, model=model, stream=stream
+            ):
+                # The root span just wrote its traceparent into the context
+                # baggage: binding here gives the timer (exemplars) the
+                # request's trace id.
                 timer.bind_context(ctx)
+                if self.overload is not None:
+                    self.overload.apply_default_deadline(ctx)
+                    with span("overload.queue", ctx) as qsp:
+                        ticket = await self.overload.admit(ctx)
+                        qsp.attributes["queued_s"] = round(
+                            ticket.queue_delay_s, 4
+                        )
+                    # Brownout output clamp: under pressure nobody gets an
+                    # unbounded completion (no-op while healthy). Inside
+                    # the try so NOTHING between admit and release can
+                    # leak the admission slot.
+                    clamped = self.overload.clamp_max_tokens(
+                        body.get("max_tokens")
+                    )
+                    if clamped is not None and clamped != body.get("max_tokens"):
+                        body["max_tokens"] = clamped
                 if stream:
-                    return await self._stream_response(
+                    resp = await self._stream_response(
                         request, body, entry, ctx, kind, timer
                     )
-                return await self._unary_response(body, entry, ctx, kind, timer, n)
+                else:
+                    resp = await self._unary_response(
+                        body, entry, ctx, kind, timer, n
+                    )
+                ok = True
+                return resp
+        except OverloadShedError as exc:
+            timer.done(exc.status)
+            return _shed_response(exc)
         except OpenAIError as exc:
             timer.done(exc.status)
             return _error_response(exc)
@@ -701,6 +848,9 @@ class HttpService:
                     err_type=_err_type_of_kind(error_kind), kind=error_kind,
                 )
             )
+        finally:
+            if ticket is not None:
+                self.overload.release(ticket, ok=ok)
 
     def _parse_deadline(self, request: web.Request, body: Dict[str, Any]):
         """(absolute monotonic deadline | None, error response | None).
@@ -1181,6 +1331,24 @@ def _fold_jail_events(base: Dict[str, Any], events) -> list:
 
 def _error_response(exc: OpenAIError) -> web.Response:
     return web.json_response(exc.to_body(), status=exc.status)
+
+
+def _shed_response(exc: OverloadShedError) -> web.Response:
+    """Typed overload shed: 429 (load) / 503 (brownout) / 504 (dead
+    deadline), with Retry-After carrying the predicted drain time."""
+    dead = exc.reason == "deadline_expired"
+    resp = _error_response(
+        OpenAIError(
+            str(exc), status=exc.status,
+            err_type="deadline_exceeded" if dead else "overloaded",
+            kind="timeout" if dead else exc.reason,
+        )
+    )
+    if exc.retry_after is not None:
+        resp.headers["Retry-After"] = str(
+            max(1, int(exc.retry_after + 0.999))
+        )
+    return resp
 
 
 async def _prepend(first, rest: AsyncIterator[Any]):

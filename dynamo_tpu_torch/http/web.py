@@ -1,8 +1,10 @@
 """A small HTTP/1.1 server on the standard library's asyncio streams, with
 the subset of aiohttp's ``web`` API that http/service.py uses: ``Request``,
 ``Response``, ``json_response``, ``StreamResponse``, an ``Application``
-whose router takes ``add_get`` / ``add_post``, and ``Server`` to serve it
-through ``asyncio.start_server``. The JAX frontend runs on aiohttp, which
+whose router takes ``add_get`` / ``add_post`` (exact paths, and paths with
+``{name}`` segments whose values land in ``Request.match_info``), and
+``Server`` to serve it through ``asyncio.start_server``, over TLS when it
+is given an ``ssl.SSLContext``. The JAX frontend runs on aiohttp, which
 the card's machine lacks; this module answers on the wire as aiohttp 3.13
 does for everything the frontend sends and receives:
 
@@ -39,7 +41,7 @@ import socket
 import sys
 from collections.abc import Mapping, MutableMapping
 from http import HTTPStatus
-from typing import Any, Awaitable, Callable, Dict, Iterator, Optional, Tuple
+from typing import Any, Awaitable, Callable, Dict, Iterator, List, Optional, Tuple
 from urllib.parse import parse_qsl, unquote, urlsplit
 
 logger = logging.getLogger(__name__)
@@ -144,6 +146,7 @@ class Request:
         for k, v in parse_qsl(parts.query, keep_blank_values=True):
             self.query.setdefault(k, v)
         self.headers = headers
+        self.match_info: Dict[str, str] = {}  # a {name} route's segments
         self.version = conn.version
         self._body_kind = body_kind  # none | length | chunked
         self._content_length = content_length
@@ -304,14 +307,24 @@ Handler = Callable[[Request], Awaitable[StreamResponse]]
 
 
 class Router:
-    """Exact-path routes; ``add_get`` also answers HEAD, as aiohttp's
-    does."""
+    """Routes matched in the order they were added, as aiohttp's are: an
+    exact path, or a path with ``{name}`` segments (each matching one
+    non-empty segment, aiohttp's default pattern), whose values land in
+    ``Request.match_info``. A path that some route matches under another
+    method only is a 405 naming the methods; ``add_get`` also answers
+    HEAD, as aiohttp's does."""
 
     def __init__(self) -> None:
-        self._routes: Dict[str, Dict[str, Handler]] = {}
+        # (path segments, whether any is a {name}, method → handler)
+        self._routes: List[Tuple[List[str], bool, Dict[str, Handler]]] = []
 
     def add_route(self, method: str, path: str, handler: Handler) -> None:
-        self._routes.setdefault(path, {})[method] = handler
+        segments = path.split("/")
+        for seg, _, methods in self._routes:
+            if seg == segments:
+                methods[method] = handler
+                return
+        self._routes.append((segments, "{" in path, {method: handler}))
 
     def add_get(self, path: str, handler: Handler) -> None:
         self.add_route("GET", path, handler)
@@ -320,13 +333,35 @@ class Router:
     def add_post(self, path: str, handler: Handler) -> None:
         self.add_route("POST", path, handler)
 
-    def resolve(self, method: str, path: str) -> Handler:
-        methods = self._routes.get(path)
-        if methods is None:
-            raise HTTPException(404)
-        if method not in methods:
-            raise HTTPException(405, headers={"Allow": ",".join(sorted(methods))})
-        return methods[method]
+    def resolve(self, method: str, path: str) -> Tuple[Handler, Dict[str, str]]:
+        """(handler, match_info) for a request, or HTTPException 404/405."""
+        parts = path.split("/")
+        allowed: set = set()
+        for segments, dynamic, methods in self._routes:
+            match = _match(segments, parts) if dynamic else ({} if segments == parts else None)
+            if match is None:
+                continue
+            if method in methods:
+                return methods[method], match
+            allowed.update(methods)
+        if allowed:
+            raise HTTPException(405, headers={"Allow": ",".join(sorted(allowed))})
+        raise HTTPException(404)
+
+
+def _match(segments: List[str], parts: List[str]) -> Optional[Dict[str, str]]:
+    """A {name} route's match_info for a path's segments, or None."""
+    if len(segments) != len(parts):
+        return None
+    match: Dict[str, str] = {}
+    for want, got in zip(segments, parts):
+        if want.startswith("{") and want.endswith("}"):
+            if not got:
+                return None
+            match[want[1:-1]] = got
+        elif want != got:
+            return None
+    return match
 
 
 class Application:
@@ -349,9 +384,10 @@ class Server:
         self._server: Optional[asyncio.AbstractServer] = None
         self._conns: set = set()
 
-    async def start(self, host: str, port: int) -> int:
+    async def start(self, host: str, port: int, ssl: Any = None) -> int:
+        """Bind and serve (over TLS when ``ssl`` is an SSLContext)."""
         self._server = await asyncio.start_server(self._serve, host, port,
-                                                  limit=_HEAD_LIMIT)
+                                                  limit=_HEAD_LIMIT, ssl=ssl)
         return self._server.sockets[0].getsockname()[1]
 
     async def stop(self) -> None:
@@ -398,7 +434,8 @@ class Server:
                 request.headers.get("Expect", "").lower() == "100-continue":
             conn.writer.write(b"HTTP/1.1 100 Continue\r\n\r\n")
         try:
-            handler = self.app.router.resolve(request.method, request.path)
+            handler, request.match_info = self.app.router.resolve(
+                request.method, request.path)
             response = await handler(request)
         except HTTPException as exc:
             response = exc.response()

@@ -40,6 +40,20 @@ ENGINE_TICK_REAP = "engine.tick.reap"
 # (error_kind=tool_call_parse), never a dropped stream.
 PARSER_JAIL_FEED = "parser.jail.feed"
 
+# -- trajectory plane (runtime/trajectory.py) ---------------------------------
+# One hit per shipped span/event batch, BEFORE the event-plane publish: an
+# injection models the telemetry path dying — the batch is counted dropped
+# and serving continues untouched (observability must never take down the
+# data plane; the shipper tests replay this).
+TRAJECTORY_SHIP = "trajectory.ship"
+
+# -- overload plane (runtime/overload.py) -------------------------------------
+# One hit per QUEUED admission attempt, before the EDF wait: an injected
+# timeout here expires exactly that request's queue budget — the
+# deterministic mid-queue-expiry schedule the saturation tests replay
+# (wall-clock deadline races can't).
+OVERLOAD_ADMIT = "overload.admit"
+
 ALL_FAULT_POINTS = (
     NET_TCP_SEND,
     NET_TCP_RECV,
@@ -51,4 +65,6 @@ ALL_FAULT_POINTS = (
     ENGINE_TICK_DISPATCH,
     ENGINE_TICK_REAP,
     PARSER_JAIL_FEED,
+    TRAJECTORY_SHIP,
+    OVERLOAD_ADMIT,
 )

@@ -20,8 +20,9 @@ whether that hit raises.
 
 The module also aggregates process-wide *recovery activity* counters
 (``note_activity``), counted whether or not a plane is armed. The plane's
-metric families and the activity snapshot come with the system server
-that renders them.
+metric families come with the system server that renders them;
+``activity_snapshot`` / ``plane_snapshot`` are what the overload plane's
+zero-spurious-activation checks read.
 """
 
 from __future__ import annotations
@@ -191,3 +192,22 @@ def note_activity(kind: str, n: int = 1) -> None:
     """Record one recovery-path activation (e.g. ``parser_degraded``).
     GIL-atomic dict bump — callable from any thread."""
     _ACTIVITY[kind] = _ACTIVITY.get(kind, 0) + n
+
+
+def activity_snapshot() -> Dict[str, int]:
+    return dict(_ACTIVITY)
+
+
+def reset_activity() -> None:
+    _ACTIVITY.clear()
+
+
+def plane_snapshot() -> Dict[str, Any]:
+    """Fault-plane state for bench legs / debug surfaces: armed flag,
+    per-point injections, and the recovery-activity counters."""
+    plane = _PLANE
+    return {
+        "armed": plane is not None,
+        "injections": dict(plane.injected) if plane is not None else {},
+        "activity": activity_snapshot(),
+    }

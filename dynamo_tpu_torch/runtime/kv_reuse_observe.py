@@ -1,6 +1,5 @@
 """KV-reuse observability plane: prefix popularity, cache ROI, tier flow —
-the port's copy of dynamo_tpu/runtime/kv_reuse_observe.py. The port has no
-trajectory plane yet, so ``note_request`` stamps no "kvcache" event into one.
+the port's copy of dynamo_tpu/runtime/kv_reuse_observe.py.
 
 ROADMAP item 2 (enterprise-scale KV reuse) needs eviction informed by "the
 router's observed prefix popularity" and a hit-rate win provable as TTFT
@@ -408,10 +407,11 @@ class KvReusePlane:
         recomputed_tokens: int,
         tier: str = "device",
         worker: Any = None,
+        trace_id: Optional[str] = None,
     ) -> Dict[str, Any]:
-        """One admitted request's cache outcome: sketch + ROI counters.
-        Returns the ROI dict so callers can stamp it elsewhere (lifecycle,
-        bench)."""
+        """One admitted request's cache outcome: sketch + ROI counters +
+        (when traced) a trajectory "kvcache"/"roi" event. Returns the ROI
+        dict so callers can stamp it elsewhere (lifecycle, bench)."""
         seconds_saved = cached_tokens * self.prefill_cost_per_token()
         roi = {
             "cached_tokens": int(cached_tokens),
@@ -433,6 +433,10 @@ class KvReusePlane:
                 self.metrics.misses.inc()
             if recomputed_tokens > 0:
                 self.metrics.recomputed_tokens.inc(int(recomputed_tokens))
+            if trace_id:
+                from dynamo_tpu_torch.runtime.trajectory import note_event
+
+                note_event(trace_id, "kvcache", "roi", **roi)
         except Exception:
             # Observability must not take down serving — but a plane bug
             # must not be invisible either.

@@ -1,7 +1,7 @@
 """Canonical metric names — the port's copy of the entries of
 dynamo_tpu/runtime/metric_names.py that the port emits (the frontend's, the
-parser plane's, the crash plane's, the router's, the KV-reuse plane's and
-migration's families), letter for letter, so that dashboards and
+parser plane's, the crash plane's, the router's, the KV-reuse plane's,
+migration's, the overload plane's and the SLO plane's families), letter for letter, so that dashboards and
 scrapers read the port as they read the JAX package.
 
 Reference parity: lib/runtime/src/metrics/prometheus_names.rs — emitters
@@ -125,3 +125,40 @@ MIGRATION_EXHAUSTED_TOTAL = f"{MIGRATION_PREFIX}_exhausted_total"
 # Prompt+carried tokens re-prefilled by migrations (the cost the
 # re-prefill cap bounds).
 MIGRATION_REPREFILL_TOKENS_TOTAL = f"{MIGRATION_PREFIX}_reprefill_tokens_total"
+
+# -- overload plane (runtime/overload.py OverloadController) -----------------
+OVERLOAD_PREFIX = "dynamo_tpu_overload"
+# Brownout state machine: 0 healthy, 1 brownout (max_tokens clamped,
+# speculative decode off), 2 shed (new admissions refused 503).
+OVERLOAD_STATE = f"{OVERLOAD_PREFIX}_state"
+OVERLOAD_TRANSITIONS_TOTAL = f"{OVERLOAD_PREFIX}_transitions_total"
+# Admissions refused, by reason (queue_full | predicted_delay |
+# deadline_expired | brownout_shed) — every shed reached a client as a
+# typed 429/503/504 + Retry-After.
+OVERLOAD_SHED_TOTAL = f"{OVERLOAD_PREFIX}_shed_total"
+OVERLOAD_ADMITTED_TOTAL = f"{OVERLOAD_PREFIX}_admitted_total"
+# Bounded EDF admission queue: live depth and the wait granted requests
+# actually paid (the predicted-delay shed keeps the tail of this
+# histogram inside max_queue_delay_s).
+OVERLOAD_QUEUE_DEPTH = f"{OVERLOAD_PREFIX}_queue_depth"
+OVERLOAD_QUEUE_DELAY = f"{OVERLOAD_PREFIX}_queue_delay_seconds"
+# Requests whose deadline expired before admission (dead on arrival or
+# expired mid-queue) — shed before any prefill work.
+OVERLOAD_DEADLINE_EXPIRED_TOTAL = f"{OVERLOAD_PREFIX}_deadline_expired_total"
+
+# -- SLO plane (runtime/trajectory.py SloTracker) -----------------------------
+SLO_PREFIX = "dynamo_tpu_slo"
+# Rolling-window fraction of finished streams that met BOTH the TTFT and
+# ITL SLAs, labeled by window (5m | 60m). 1.0 = every stream inside SLA.
+SLO_GOODPUT = f"{SLO_PREFIX}_goodput_ratio"
+# Finished streams by SLO verdict (good | breach) — the goodput ratio's
+# monotonic source of truth across scrapes.
+SLO_STREAMS_TOTAL = f"{SLO_PREFIX}_streams_total"
+# Error-budget burn rate per window: breach fraction ÷ (1 − slo_target).
+# 1.0 = burning exactly the budget; a multi-window alert fires when BOTH
+# the fast and slow windows burn hot (the SRE-workbook shape).
+SLO_BURN_RATE = f"{SLO_PREFIX}_burn_rate"
+# p99 of each phase's per-request duration over the trajectory window —
+# which phase (queue / prefill / kv_transfer / decode / handoff_stall /
+# overhead) dominates the tail, as a number a dashboard can rank.
+SLO_PHASE_P99_MS = f"{SLO_PREFIX}_phase_p99_contribution_ms"

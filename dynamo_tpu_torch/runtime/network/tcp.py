@@ -10,7 +10,7 @@ two-part codec; one connection multiplexes many request streams.
 
 Frame headers:
   {"type": "req",    "stream": id, "key": instance_key, "ctx": {...}}  payload=request
-  {"type": "cancel", "stream": id}                                     (client→server)
+  {"type": "cancel", "stream": id[, "reason": "deadline"]}             (client→server)
   {"type": "item",   "stream": id}  payload=response item              (server→client)
   {"type": "end",    "stream": id}                                     stream done
   {"type": "err",    "stream": id, "message": str, "kind": str}        stream failed
@@ -31,8 +31,22 @@ frames must all carry ONE incarnation — a frame claiming a different one
 predecessor) is counted (``stale_incarnation_drops_total{seam="tcp"}``)
 and dropped, never delivered. Old peers that omit ``inc`` skip the check.
 
-The JAX server wraps each stream in an ``endpoint.serve`` tracing span;
-the port has no tracing yet (ROADMAP A4c-4), so its server does not.
+Each served stream runs inside an ``endpoint.serve`` tracing span
+(utils/tracing.py), the worker-side root of the trajectory plane's view.
+
+A client whose context stopped because its deadline passed says so in its
+``cancel`` frame (``"reason": "deadline"``), and the server stops the
+stream's context with that reason, so an engine that still holds the
+request queued ends it with its typed timeout. JAX's client sends no
+reason (its server ignores the key): there the cancel frame and the
+server's own deadline timer race, and a cancel that lands first ends the
+stream as a quiet cancel.
+
+A stream still running ``CANCEL_GRACE_S`` after its cancel frame is
+hard-cancelled, and its client gets an ``err`` frame: of kind ``timeout``
+when the stream stopped for its deadline, else ``cancelled`` (a
+RuntimeError on the client). JAX's server sends nothing then, and its
+client waits until the connection closes.
 """
 
 from __future__ import annotations
@@ -56,6 +70,7 @@ from dynamo_tpu_torch.utils.logging import get_logger
 logger = get_logger(__name__)
 
 CANCEL_GRACE_S = 2.0  # cooperative-cancel window before hard task cancel
+HARD_CANCEL = "tcp-hard-cancel"  # the cancel message of the grace's end
 
 
 class StreamDisconnectedError(ConnectionError):
@@ -141,10 +156,13 @@ class TcpRequestPlane:
                         task, ctx = entry
                         # Cooperative first (engines check ctx between decode
                         # steps); hard-cancel as a backstop for stuck handlers.
-                        ctx.stop_generating(reason="client-cancelled")
+                        ctx.stop_generating(
+                            reason="deadline" if header.get("reason") == "deadline"
+                            else "client-cancelled"
+                        )
                         loop.call_later(
                             CANCEL_GRACE_S,
-                            lambda t=task: t.cancel() if not t.done() else None,
+                            lambda t=task: t.cancel(HARD_CANCEL) if not t.done() else None,
                         )
                 else:
                     logger.warning("unknown frame type %r", ftype)
@@ -186,14 +204,32 @@ class TcpRequestPlane:
                     "kind": "draining",
                 })
                 return
-            with tracker.guard():
+            from dynamo_tpu_torch.utils.tracing import span
+
+            with tracker.guard(), span("endpoint.serve", ctx, endpoint=key) as sp:
+                n_items = 0
                 async for item in engine.generate(request, ctx):
                     await fw.send(
                         {"type": "item", "stream": sid, "inc": inc}, item
                     )
+                    n_items += 1
+                sp.attributes["items"] = n_items
             await fw.send({"type": "end", "stream": sid, "inc": inc})
-        except asyncio.CancelledError:
+        except asyncio.CancelledError as exc:
             ctx.stop_generating(reason="client-cancelled")
+            if exc.args == (HARD_CANCEL,):
+                # The grace ran out: the client still waits for an end or
+                # err frame, so give it a typed one (JAX's server sends
+                # nothing here and its client waits until the connection
+                # closes).
+                with _suppress_conn():
+                    await fw.send({
+                        "type": "err", "stream": sid, "inc": inc,
+                        "message": f"stream hard-cancelled {CANCEL_GRACE_S} s "
+                        f"after its cancel ({ctx.stop_reason})",
+                        "kind": "timeout" if ctx.stop_reason == "deadline"
+                        else "cancelled",
+                    })
             raise
         except (ConnectionResetError, BrokenPipeError):
             ctx.stop_generating(reason="connection-lost")
@@ -353,8 +389,11 @@ class _TcpClientEngine:
 
         async def watch_cancel() -> None:
             await context.wait_stopped()
+            cancel = {"type": "cancel", "stream": sid}
+            if context.stop_reason == "deadline":
+                cancel["reason"] = "deadline"
             with _suppress_conn():
-                await conn.send({"type": "cancel", "stream": sid})
+                await conn.send(cancel)
 
         cancel_task = asyncio.get_running_loop().create_task(watch_cancel())
         stream_inc: Optional[int] = None

@@ -12,13 +12,20 @@ defaults, plus ``--device`` (cuda by default, which raises without a card;
 machinery the port lacks is refused with the ROADMAP item that brings it
 (``refuse_unported``).
 
+As JAX's worker, it labels its spans ``worker-{id:#x}`` and ships them to
+the frontend's trajectory collector (``TrajectoryShipper`` on the global
+tracer), and runs a worker-side ``OverloadController`` whose brownout
+reads the KV pool's occupancy, evaluated on the load-report interval, with
+its transitions suspending speculative decode
+(``TorchEngine.set_spec_suspended``). Its budget rung stays unregistered:
+the port has no tick budget (A9), as JAX leaves it with the budgeter off.
+
 Divergences from the JAX worker, each with its ROADMAP item: SIGTERM ends
 the wait at once, where JAX's starts a DrainController live handoff (the
 drain plane needs KV export, A6); the ``generate`` handler serves
 ``engine.generate`` and refuses a request that carries
 ``disaggregated_params`` (JAX's DecodeHandler pulls its KV, A6); there is
-no ``kv`` or handoff endpoint (A6), no system server (A4c-4), no
-trajectory shipper and no overload controller (A4c-4).
+no ``kv`` or handoff endpoint (A6) and no system server (A4c-4b).
 """
 
 from __future__ import annotations
@@ -34,7 +41,9 @@ from typing import Any, List, Optional
 from dynamo_tpu_torch import config
 from dynamo_tpu_torch.llm.protocols.common import BackendOutput, FinishReason
 from dynamo_tpu_torch.models import config as model_configs
-from dynamo_tpu_torch.utils.logging import configure_logging
+from dynamo_tpu_torch.utils.logging import configure_logging, get_logger
+
+logger = get_logger(__name__)
 
 # The presets the port serves, under the JAX worker's names
 # (dynamo_tpu/worker/__main__.py:34-44).
@@ -183,7 +192,7 @@ _UNPORTED: List[tuple] = [
      or a.tick_budget_itl_slo_ms is not None, "--tick-budget*",
      "the tick budget is not ported (ROADMAP A9, the tick budget)"),
     (lambda a: a.system_port is not None, "--system-port",
-     "the system server is not ported (ROADMAP A4c-4)"),
+     "the system server is not ported (ROADMAP A4c-4b)"),
     (lambda a: a.kv_checkpoint_dir, "--kv-checkpoint-dir",
      "the KV checkpoint needs KV export and import (ROADMAP A6)"),
     (lambda a: a.coordinator or a.num_processes is not None or a.process_id is not None
@@ -214,7 +223,8 @@ def refuse_unported(parser: argparse.ArgumentParser, args: argparse.Namespace) -
 @dataclass
 class WorkerHandle:
     """A serving worker (``serve_worker``): what it serves, and ``close()``,
-    the JAX worker's shutdown order short of the runtime itself."""
+    the JAX worker's shutdown order short of the runtime itself
+    (dynamo_tpu/worker/__main__.py:615-637, less what the port lacks)."""
 
     engine: Any
     card: Any
@@ -225,8 +235,17 @@ class WorkerHandle:
     load_pub: Any
     served: Any  # the generate endpoint
     served_ctl: Any
+    trajectory_shipper: Any
+    overload_task: Any  # the worker-side OverloadController's evaluate loop
 
     async def close(self) -> None:
+        from dynamo_tpu_torch.runtime.tasks import reap_task
+        from dynamo_tpu_torch.runtime.trajectory import set_global_shipper
+
+        self.overload_task.cancel()
+        await reap_task(self.overload_task, "overload eval loop", logger)
+        set_global_shipper(None)
+        await self.trajectory_shipper.close()
         await self.load_pub.close()
         await self.kv_pub.close()
         await self.served.shutdown(grace_period=config.GRACE_PERIOD.get())
@@ -249,6 +268,13 @@ async def serve_worker(args: argparse.Namespace, runtime: Any, *,
     from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard, RuntimeConfig
     from dynamo_tpu_torch.router import KvEventPublisher, LoadPublisher
     from dynamo_tpu_torch.runtime.liveness import process_incarnation
+    from dynamo_tpu_torch.runtime.overload import OverloadController, config_from_env
+    from dynamo_tpu_torch.runtime.trajectory import (
+        TrajectoryShipper,
+        global_store,
+        set_global_shipper,
+    )
+    from dynamo_tpu_torch.utils.tracing import global_tracer, set_service
 
     model_config = BUILTIN_CONFIGS[args.model]()
     engine_args = TorchEngineArgs(
@@ -272,6 +298,15 @@ async def serve_worker(args: argparse.Namespace, runtime: Any, *,
     # rejoin purge and the fence line up; 0 keeps the random-per-start
     # behavior for ad-hoc workers.
     instance_id = config.WORKER_ID.get() or random.getrandbits(63)
+    # Trajectory plane: label this process's spans (clock-domain tag for
+    # cross-worker stitching) and ship finished spans frontend-ward.
+    set_service(f"worker-{instance_id:#x}")
+    trajectory_shipper = TrajectoryShipper(runtime.event_plane, args.namespace)
+    trajectory_shipper.attach(global_tracer())
+    set_global_shipper(trajectory_shipper)
+    # Eagerly attach the local store too, so that this process's own
+    # spans are stitched from the first request.
+    global_store()
     kv_pub = KvEventPublisher(
         runtime.event_plane, args.namespace, args.component, instance_id
     )
@@ -338,9 +373,29 @@ async def serve_worker(args: argparse.Namespace, runtime: Any, *,
     )
     await register_llm(runtime, card, endpoint, instance_id, incarnation=incarnation)
     load_pub.start()
+    trajectory_shipper.start()
+    # Worker-side overload plane: KV-pool-occupancy-driven brownout that
+    # suspends speculative decode before admission backpressure turns into
+    # a preemption storm. Its occupancy source and its evaluate loop run on
+    # the event loop's thread, where every block-pool call runs. The budget
+    # rung stays unregistered: the port has no tick budget (A9).
+    overload = OverloadController(
+        config_from_env(), occupancy_source=lambda: engine.pool.usage,
+    )
+    overload.on_transition(lambda _old, new: engine.set_spec_suspended(new > 0))
+
+    async def overload_eval_loop() -> None:
+        while True:
+            await asyncio.sleep(load_pub.interval_s)
+            overload.evaluate()
+
+    overload_task = asyncio.get_running_loop().create_task(
+        overload_eval_loop(), name="overload-eval"
+    )
     return WorkerHandle(engine=engine, card=card, name=name, instance_id=instance_id,
                         incarnation=incarnation, kv_pub=kv_pub, load_pub=load_pub,
-                        served=served, served_ctl=served_ctl)
+                        served=served, served_ctl=served_ctl,
+                        trajectory_shipper=trajectory_shipper, overload_task=overload_task)
 
 
 async def main() -> None:

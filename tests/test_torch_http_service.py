@@ -9,16 +9,18 @@ completions and chats unary, n 2, streamed with usage and annotations,
 logprobs, a stop string, the deadline header and body key, the Responses
 API unary and streamed, the errors raised before the first frame as 4xx,
 /v1/models, /health, /live, /openapi.json, /busy_threshold, /clear_kv_blocks,
-/debug/overload, /debug/parser, /v1/embeddings, /v1/images/generations, an
+/debug/overload, /debug/parser, an unknown /debug/trajectory/{trace_id},
+/v1/embeddings, /v1/images/generations, an
 unknown route and a wrong method. Status codes, headers (``Date``,
 ``Server`` and ``Content-Length`` aside: the last is checked against each
 side's own body) and bodies must be equal, with ``id``, ``created``,
 ``X-Request-Id`` and tool-call ids masked; SSE streams equal frame for
 frame; texts and ids exact (temperature 0), logprob values within
 LOGPROB_TOL. Then /metrics, in the text format and in OpenMetrics: the
-families (JAX's SLO families aside, which the port leaves to the
-distributed runtime), label sets, counters, histogram counts and the
-histograms' bucket boundaries equal, each ``+Inf`` bucket its count.
+families (the SLO families among them), label sets, counters, histogram
+counts and the histograms' bucket boundaries equal, each ``+Inf`` bucket
+its count; the SLO phase gauges' values are timings, so only their label
+sets are held equal.
 
 One scripted engine written here, registered in both services, holds the
 reasoning and tool-call folding of unary and streamed chats equal (in-band
@@ -49,7 +51,8 @@ from dynamo_tpu.llm.protocols import common as jcommon
 from dynamo_tpu.parsers import observe as jobserve
 from dynamo_tpu.runtime import faults as jfaults
 from dynamo_tpu.runtime.fault_names import PARSER_JAIL_FEED
-from dynamo_tpu.runtime.metric_names import ALL_SLO
+from dynamo_tpu.runtime import trajectory as jtrajectory
+from dynamo_tpu.runtime.metric_names import SLO_PHASE_P99_MS
 from dynamo_tpu_torch.cli import run as trun
 from dynamo_tpu_torch.http import HttpService as THttpService
 from dynamo_tpu_torch.http import ModelManager as TModelManager
@@ -58,6 +61,7 @@ from dynamo_tpu_torch.llm import model_card as tcard
 from dynamo_tpu_torch.llm.protocols import common as tcommon
 from dynamo_tpu_torch.parsers import observe as tobserve
 from dynamo_tpu_torch.runtime import faults as tfaults
+from dynamo_tpu_torch.runtime import trajectory as ttrajectory
 from dynamo_tpu_torch.runtime.context import Context as TContext
 from tests.test_torch_pipeline import LOGPROB_TOL, ROOT, _jax_pipeline, _torch_pipeline
 
@@ -137,6 +141,7 @@ def requests(stop):
         ("clear kv model", "POST", "/clear_kv_blocks", {"model": "tiny"}, {}),
         ("clear kv unknown", "POST", "/clear_kv_blocks", {"model": "nope"}, {}),
         ("debug overload", "GET", "/debug/overload", None, {}),
+        ("debug trajectory unknown", "GET", "/debug/trajectory/" + "f" * 32, None, {}),
         ("debug parser", "GET", "/debug/parser?limit=2", None, {}),
         ("debug parser bad limit", "GET", "/debug/parser?limit=abc", None, {}),
         ("embeddings", "POST", "/v1/embeddings", {"model": "tiny", "input": "x"}, {}),
@@ -277,6 +282,11 @@ def metric_samples(text, drop=()):
     return family, samples, buckets
 
 
+def phase_keys(text):
+    """The label sets of the SLO phase gauge's samples in an exposition."""
+    return set(re.findall(rf'^{SLO_PHASE_P99_MS}(\{{[^}}]*\}}) ', text, re.M))
+
+
 class Pair:
     """The JAX service and the port's, each over its own entries."""
 
@@ -304,9 +314,12 @@ class Pair:
 
 @pytest.fixture
 def fresh_planes(monkeypatch):
-    """A new process-global parser plane on each side, and the audit off."""
+    """A new process-global parser plane and trajectory store on each
+    side, and the audit off."""
     for observe in (jobserve, tobserve):
         monkeypatch.setattr(observe, "_PLANE", None)
+    for trajectory in (jtrajectory, ttrajectory):
+        monkeypatch.setattr(trajectory, "_STORE", None)
     monkeypatch.delenv("DYN_TPU_AUDIT", raising=False)
 
 
@@ -330,12 +343,26 @@ async def test_every_route_matches_jax(fresh_planes):
                     assert json.loads(got[2])["choices"][0]["finish_reason"] == "stop"
                 if name.startswith("bad max_tokens stream"):
                     assert got[0] == 400
+            # Every request runs in a trace (its http root span), and a
+            # bucket's exemplar is its last observation's: the client-traced
+            # request goes once more, last, for the exemplar checked below.
+            # Its trajectory: the root a child of the client's span, on both.
+            traced = next(r for r in requests(stop) if r[0] == "traceparent")
+            want, got = await pair.both(*traced[1:])
+            close(view(*got, traced[2]), view(*want, traced[2]), "traceparent, last")
+            views = [json.loads(b) for _, _, b in await pair.both(
+                "GET", "/debug/trajectory/0af7651916cd43dd8448eb211c80319c")]
+            for v in views:
+                root = next(x for x in v["spans"] if x["name"] == "http.completions")
+                assert root["parent_span_id"] == "b7ad6b7169203331" and v["complete"]
+            assert {x["name"] for x in views[1]["spans"]} == {x["name"] for x in views[0]["spans"]}
             # the scrape: text format, then OpenMetrics
             (js, jh, jb), (ts, th, tb) = await pair.both("GET", "/metrics")
             assert ts == js == 200 and th["content-type"] == jh["content-type"]
-            jfam, jsamp, jbuck = metric_samples(jb.decode(), drop=ALL_SLO)
-            tfam, tsamp, tbuck = metric_samples(tb.decode())
+            jfam, jsamp, jbuck = metric_samples(jb.decode(), drop=(SLO_PHASE_P99_MS,))
+            tfam, tsamp, tbuck = metric_samples(tb.decode(), drop=(SLO_PHASE_P99_MS,))
             assert tfam == jfam
+            assert phase_keys(tb.decode()) == phase_keys(jb.decode()) != set()
             assert tsamp == jsamp
             # the three histograms' boundaries, each series' full set
             assert tbuck == jbuck
@@ -357,9 +384,10 @@ async def test_every_route_matches_jax(fresh_planes):
                    if line.startswith("# TYPE ")}
             tom = {line.split(" ")[2] for line in tb.decode().splitlines()
                    if line.startswith("# TYPE ")}
-            # (an OpenMetrics counter family drops its name's _total)
-            assert tom == {f for f in jom if f not in ALL_SLO and f + "_total" not in ALL_SLO}
-            assert metric_samples(tb.decode()) == metric_samples(jb.decode(), drop=ALL_SLO)
+            assert tom == jom
+            assert metric_samples(tb.decode(), drop=(SLO_PHASE_P99_MS,)) == metric_samples(
+                jb.decode(), drop=(SLO_PHASE_P99_MS,))
+            assert phase_keys(tb.decode()) == phase_keys(jb.decode())
     finally:
         await je.stop()
         await te.stop()
@@ -440,7 +468,8 @@ async def test_reasoning_and_tool_call_folding_match_jax(stream, fresh_planes):
         # the jail streams calls; a unary chat parses the whole text once
         assert (json.loads(got[2])["calls"] > 0) == stream
         (_, _, jb), (_, _, tb) = await pair.both("GET", "/metrics")
-        assert metric_samples(tb.decode()) == metric_samples(jb.decode(), drop=ALL_SLO)
+        assert metric_samples(tb.decode(), drop=(SLO_PHASE_P99_MS,)) == metric_samples(
+            jb.decode(), drop=(SLO_PHASE_P99_MS,))
 
 
 async def test_audit_records_match_jax(fresh_planes, tmp_path, monkeypatch):

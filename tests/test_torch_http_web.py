@@ -3,7 +3,8 @@ alone, through ``http.client`` and raw sockets on 127.0.0.1. One small
 app, written once against the API both modules share, runs on the port's
 server and on aiohttp's (the JAX frontend's server): the same raw requests
 — Content-Length and chunked bodies, ``Expect: 100-continue``, 404, 405,
-413, JSON and plain-text responses, a chunked SSE response, HTTP/1.0 —
+413, routes with ``{name}`` segments (matched in the order added), JSON
+and plain-text responses, a chunked SSE response, HTTP/1.0 —
 must get the same status line, headers (``Date`` and ``Server`` aside) and
 body from both. Then what only the port's side can show from inside:
 keep-alive (several requests on one connection, ``Connection: close``,
@@ -68,6 +69,12 @@ def make_app(web, state):
     async def boom(request):
         raise RuntimeError("handler bug")
 
+    async def item(request):
+        return web.json_response({"name": request.match_info["name"]})
+
+    async def fixed(request):
+        return web.json_response({"fixed": True})
+
     app = web.Application()
     app.router.add_post("/echo", echo)
     app.router.add_get("/plain", plain)
@@ -76,6 +83,10 @@ def make_app(web, state):
     app.router.add_get("/busy", busy)
     app.router.add_get("/nodelay", nodelay)
     app.router.add_get("/boom", boom)
+    # a {name} route, after an exact route it also matches
+    app.router.add_get("/item/fixed", fixed)
+    app.router.add_get("/item/{name}", item)
+    app.router.add_post("/item/{name}/tag", item)
     return app
 
 
@@ -154,6 +165,14 @@ CASES = {
               b"Connection: close\r\n\r\n",
     "method, post only": b"GET /echo HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n",
     "plain": b"GET /plain HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n",
+    "match": b"GET /item/4bf92f35 HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n",
+    "match, exact first": b"GET /item/fixed HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n",
+    "match, two segments": b"POST /item/a/tag HTTP/1.1\r\nHost: x\r\nContent-Length: 0\r\n"
+                           b"Connection: close\r\n\r\n",
+    "match, empty segment": b"GET /item/ HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n",
+    "match, too deep": b"GET /item/a/b HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n",
+    "match, method": b"POST /item/a HTTP/1.1\r\nHost: x\r\nContent-Length: 0\r\n"
+                     b"Connection: close\r\n\r\n",
     "text": b"GET /text HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n",
     "head": b"HEAD /plain HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n",
     "retry-after": b"GET /busy HTTP/1.1\r\nHost: x\r\nConnection: close\r\n\r\n",

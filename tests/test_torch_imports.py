@@ -3,8 +3,8 @@ neither jax nor anything of dynamo_tpu, nor a package the card's machine
 lacks (tokenizers, regex, aiohttp, msgpack, zmq, prometheus_client; jinja2
 only inside a function); every module (the HTTP frontend, the parsers and
 the runtime's planes with their msgpack and ZMTP wire modules, and the KV
-router with its pure-Python xxh3, discovery, migration and the worker and
-frontend mains, among them) imports with all of those and xxhash blocked, and the text
+router with its pure-Python xxh3, discovery, migration, the worker and
+frontend mains, and the overload and trajectory planes, among them) imports with all of those and xxhash blocked, and the text
 path (tokenizer, default chat template) runs so; an entry point left on
 its default device (cuda) raises when there is no card instead of
 carrying on on the CPU."""
@@ -126,7 +126,8 @@ wanted = set("dynamo_tpu_torch." + n for n in (
     "router.indexer", "router.approx", "router.scheduler", "router.publisher",
     "router.router", "runtime.kv_reuse_observe", "runtime.lifecycle", "utils.tracing",
     "llm.migration", "llm.discovery", "disagg", "disagg.prefill_router", "worker",
-    "worker.__main__", "frontend", "frontend.__main__"))
+    "worker.__main__", "frontend", "frontend.__main__", "runtime.overload",
+    "runtime.trajectory"))
 assert wanted <= set(names), sorted(wanted - set(names))
 spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))

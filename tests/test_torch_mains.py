@@ -2,8 +2,8 @@
 
 ``worker.__main__.build_parser()`` gives JAX's defaults for every flag the
 two share, and the frontend's parser JAX's frontend's; each flag whose
-machinery the port lacks exits naming its ROADMAP item; the worker left on
-its default device exits naming cuda. Then processes on the CPU: the
+machinery the port lacks exits naming its ROADMAP item; the frontend
+serves TLS; the worker left on its default device exits naming cuda. Then processes on the CPU: the
 port's discd, two ``python -m dynamo_tpu_torch.worker --model tiny
 --device cpu`` and ``python -m dynamo_tpu_torch.frontend``. The model
 appears on ``/v1/models``; a stream completes; a stream whose worker is
@@ -19,7 +19,9 @@ import json
 import os
 import queue
 import re
+import shutil
 import signal
+import ssl
 import subprocess
 import sys
 import threading
@@ -75,7 +77,7 @@ REFUSED = [
     (["--tick-budget"], "ROADMAP A9, the tick budget"),
     (["--tick-budget-floor", "32"], "ROADMAP A9, the tick budget"),
     (["--tick-budget-policy", "0.0"], "ROADMAP A9, the tick budget"),
-    (["--system-port", "0"], "ROADMAP A4c-4"),
+    (["--system-port", "0"], "ROADMAP A4c-4b"),
     (["--kv-checkpoint-dir", "/tmp/x"], "ROADMAP A6"),
     (["--coordinator", "h:1"], "ROADMAP A9, parallelism"),
     (["--num-processes", "2"], "ROADMAP A9, parallelism"),
@@ -113,9 +115,47 @@ def _run(args, env=None, timeout=60):
                           timeout=timeout, env=env, cwd=ROOT)
 
 
-def test_frontend_refuses_tls_and_worker_needs_the_card_by_default():
-    proc = _run(["dynamo_tpu_torch.frontend", "--tls-cert", "c.pem", "--tls-key", "k.pem"])
-    assert proc.returncode == 2 and "ROADMAP A4c-4" in proc.stderr
+def test_frontend_serves_tls_and_worker_needs_the_card_by_default(tmp_path):
+    """``--tls-cert``/``--tls-key`` (a certificate from ``openssl req
+    -x509``, as tests/test_http_e2e.py makes it): the frontend answers over
+    HTTPS and not over plain HTTP, and ends on SIGTERM with exit 0. Given
+    only one of the two, it refuses to start."""
+    env = {"DYN_TPU_DISCOVERY": "memory", "DYN_TPU_EVENT_PLANE": "memory"}
+    for flag in ("--tls-cert", "--tls-key"):
+        proc = _run(["dynamo_tpu_torch.frontend", "--http-port", "0", flag,
+                     str(tmp_path / "x.pem")], env=env)
+        assert proc.returncode == 2 and "--tls-cert and --tls-key" in proc.stderr
+        assert "frontend listening" not in proc.stdout
+    if shutil.which("openssl") is None:
+        pytest.skip("openssl unavailable")
+    cert, key = str(tmp_path / "c.pem"), str(tmp_path / "k.pem")
+    gen = subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+                          "-keyout", key, "-out", cert, "-days", "1", "-subj", "/CN=localhost"],
+                         capture_output=True)
+    if gen.returncode != 0:
+        pytest.skip("openssl unavailable")
+    deadline = time.monotonic() + DEADLINE_S
+    env = {**os.environ, "PYTHONUNBUFFERED": "1", "DYN_TPU_DISCOVERY": "memory",
+           "DYN_TPU_EVENT_PLANE": "memory", "DYN_TPU_GRACE_PERIOD": "5"}
+    frontend = Proc(["dynamo_tpu_torch.frontend", "--host", "127.0.0.1", "--http-port", "0",
+                     "--tls-cert", cert, "--tls-key", key], env)
+    try:
+        port = int(frontend.wait_for(r"frontend listening on \S+:(\d+)", deadline).group(1))
+        ctx = ssl.create_default_context(cafile=cert)
+        ctx.check_hostname = False
+        for path, want in (("/health", {"status": "no_models", "models": []}),
+                           ("/v1/models", {"object": "list", "data": []})):
+            conn = http.client.HTTPSConnection("127.0.0.1", port, timeout=30, context=ctx)
+            conn.request("GET", path)
+            r = conn.getresponse()
+            assert (r.status, json.loads(r.read())) == (200, want)
+            conn.close()
+        with pytest.raises((http.client.HTTPException, ConnectionError)):
+            _get(port, "/health")  # plain HTTP gets no HTTP answer
+        frontend.proc.send_signal(signal.SIGTERM)
+        assert frontend.proc.wait(timeout=10) == 0
+    finally:
+        frontend.end()
     # no card here: the worker on its default device stops before serving
     proc = _run(["dynamo_tpu_torch.worker", "--model", "tiny"],
                 env={"DYN_TPU_DISCOVERY": "memory", "DYN_TPU_EVENT_PLANE": "memory"})
