@@ -328,6 +328,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
    SIGTERM with exit 0. The line: the stitched phases, the shed's
    answer time and the graphs captured meanwhile, the caps frontend's TTFT and ITL with the planes on, the
    SLA frontend's probes and p50 ITL.
+   After it, the system part (a `system` line): worker 0x101
+   (SYSTEM_WORKER) runs with `--system-port 0`. Fails unless: /live
+   answers 200 right after `system server on :PORT` is printed, /readyz
+   answers 503 until it answers 200 and 200 after `worker serving` (the
+   line records whether a poll saw the 503); idle, /metrics carries the
+   engine's gauges (decode_graphs and generated_tokens equal to the
+   worker's stats), the overload, SLO, KV-reuse, fence and profiler
+   families, dynamo_tpu_runtime_hbm_bytes for every ledger category and
+   the device's bytes in use equal to the worker's CUDA allocator (its
+   counts file); /debug/memory has the same categories, kv_cache the
+   pools' storage bytes (NB + 1 blocks each), params the parameters'
+   bytes, kv_pool_detail summing to kv_cache, device_bytes_in_use the
+   allocator's and unaccounted_bytes >= 0 (printed); after an idle
+   capture (the first sets CUPTI up), a /debug/profile capture of
+   SYSTEM_PROFILE_S seconds, started while the worker decodes
+   SYSTEM_PROFILE_LOAD streams and with a
+   SYSTEM_PROFILE_PROMPT-token request sent inside it,
+   stops by itself, no decode graph is captured inside it, its Chrome
+   trace names a paged_attention kernel (the line records whether kernels
+   replayed inside a CUDA graph show), /live answers within liveness's
+   interval throughout the capture and its stop, liveness declares the
+   worker dead no time, and the streams, paused while the stop parks the
+   engine, end whole; /engine/clear_kv_blocks returns
+   the worker's cached blocks and a `cleared` KV event from it reaches the
+   event plane the frontend's router reads; a traced chat through the
+   frontend shows on /debug/traces, /debug/requests[/{id}],
+   /debug/trajectory[/{id}] and /debug/kvcache; /drain, /v1/loras,
+   /debug/perf and /debug/compiles answer 501 naming their ROADMAP items;
+   `python -m dynamo_tpu_torch.cli observe kvcache --port P` exits 0. The
+   line also records the µs a /metrics and a /debug/memory scrape take
+   while a stream runs, and the ITL of SYSTEM_ITL_STREAMS streams with a
+   scrape of both every SYSTEM_SCRAPE_S against none (without, with, with,
+   without): a record, not a limit.
 36. tick_retry — the engine's tick retry on the card: Qwen2.5-0.5B in
    this process (CUDA graphs, depth 2, embedding x QWEN_EMBED_SCALE) serves
    a greedy and a penalised stream (each after a run that captures its
@@ -3998,6 +4031,28 @@ OVERLOAD_DEADLINE_MS = 300  # the pinned request that waits behind a full engine
 OVERLOAD_FILL_TOKENS = 1024
 OVERLOAD_WARM_S = 1.5  # the fillers' first pass outlasts the measured one by this
 TRACEPARENT = "00-4bf92f3577b34da6a3ce929d0e0e4736-00f067aa0ba902b7-01"
+# The system part inside the deployment: the worker main that serves its
+# system server (the one whose decode buckets the overload part warmed).
+SYSTEM_WORKER = MAINS_WORKERS[0]
+SYSTEM_TRACEPARENT = "00-5c0ffee0d15ea5e0ba5eba11deadbeef-1a2b3c4d5e6f7a8b-01"
+SYSTEM_PROFILE_S = 2.0  # the bounded torch.profiler capture
+# The capture runs while the worker decodes this many OVERLOAD_FILL_TOKENS
+# streams (and the request below): the profiler records every kernel of
+# every replayed burst (some 1,400 a token at Qwen2.5-0.5B), and the stop
+# turns each into a trace event, tens of µs apiece, without the worker's
+# GIL and with its engine's device thread parked (the streams pause). /live,
+# polled every SYSTEM_LIVE_POLL_S through the capture and its stop, must
+# answer within MAINS_INTERVAL_S, and liveness declares nothing.
+SYSTEM_PROFILE_LOAD = 15
+SYSTEM_LIVE_POLL_S = 0.02
+# The request sent inside the capture: 2 prefill chunks (the second runs the
+# chunk kernel), then its first token and one decode burst, replayed.
+SYSTEM_PROFILE_PROMPT = 600
+SYSTEM_PROFILE_TOKENS = 2
+SYSTEM_SCRAPES = 50  # timed scrapes of /metrics and of /debug/memory while a stream runs
+SYSTEM_SCRAPE_S = 0.1  # the scrape interval of the ITL comparison
+SYSTEM_ITL_STREAMS = 4  # concurrent 256-token streams a run of the ITL comparison
+HBM_CATEGORIES = ("kv_cache", "params", "slot_state", "slot_tables", "lora", "proc_state")
 # The migrated stream is held token for token: up to the failure against
 # the same request run unbroken on the survivor, and after it against its
 # witness, the request Migration built (the prompt with the carried tokens,
@@ -4014,8 +4069,9 @@ def mains_worker() -> int:
     ARGS...``): ``dynamo_tpu_torch.worker.__main__.main()`` unchanged, on
     ARGS, with the kernel launch counts (zeroed as the process starts)
     written to COUNTS_FILE every 0.25 s and when main() returns — a
-    SIGKILLed worker leaves its last write. It adds no endpoint and no
-    control op."""
+    SIGKILLed worker leaves its last write — and beside them the CUDA
+    caching allocator's bytes in use to COUNTS_FILE.alloc (null before the
+    process made its CUDA context). It adds no endpoint and no control op."""
     import threading
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
@@ -4023,13 +4079,18 @@ def mains_worker() -> int:
     sys.argv = [sys.argv[0]] + sys.argv[3:]
     from dynamo_tpu_torch.worker import __main__ as worker
 
+    import torch
+
     reset_counts()
     done = threading.Event()
 
     def dump():
-        with open(out + ".tmp", "w") as f:
-            json.dump(read_counts(), f)
-        os.replace(out + ".tmp", out)
+        alloc = (torch.cuda.memory_stats()["allocated_bytes.all.current"]
+                 if torch.cuda.is_initialized() else None)
+        for path, doc in ((out, read_counts()), (out + ".alloc", alloc)):
+            with open(path + ".tmp", "w") as f:
+                json.dump(doc, f)
+            os.replace(path + ".tmp", path)
 
     def every_quarter_second():
         while not done.wait(0.25):
@@ -4060,11 +4121,12 @@ class ProcLines:
         for line in self.proc.stdout:
             self.lines.append((time.monotonic(), line))
 
-    def find(self, pattern):
-        """(arrival time, match) of the first line matching, or None."""
+    def find(self, pattern, since=None):
+        """(arrival time, match) of the first line matching (that arrived
+        after ``since``), or None."""
         for t, line in list(self.lines):
             m = re.search(pattern, line)
-            if m:
+            if m and (since is None or t > since):
                 return t, m
         return None
 
@@ -4134,7 +4196,8 @@ def mains_phase(smi, http_set) -> dict:
                 counts_files[wid] = os.path.join(tmp, f"counts-{wid:x}.json")
                 procs[f"worker {wid:#x}"] = ProcLines(subprocess.Popen(
                     [sys.executable, os.path.abspath(__file__), "--mains-worker",
-                     counts_files[wid], "--model", MAINS_MODEL],
+                     counts_files[wid], "--model", MAINS_MODEL,
+                     *(["--system-port", "0"] if wid == SYSTEM_WORKER else [])],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=root,
                     env={**env, "DYN_TPU_WORKER_ID": str(wid)}))
             for name, extra in (("frontend", {}), ("frontend caps", OVERLOAD_CAPS),
@@ -4146,7 +4209,8 @@ def mains_phase(smi, http_set) -> dict:
             saved = {k: os.environ.get(k) for k in env if k.startswith("DYN_TPU_")}
             os.environ.update({k: env[k] for k in saved})
             try:
-                result = asyncio.run(mains_client(procs, t_spawn, http_set))
+                result = asyncio.run(mains_client(procs, t_spawn, http_set,
+                                                  counts_files[SYSTEM_WORKER]))
             finally:
                 for k, v in saved.items():
                     if v is None:
@@ -4171,6 +4235,8 @@ def mains_phase(smi, http_set) -> dict:
             if c[n] <= 0:
                 fail(f"mains: {n} never launched in worker {wid:#x}")
     emit({"phase": "overload", "model": MAINS_MODEL, **result.pop("overload"), "card": smi})
+    emit({"phase": "system", "model": MAINS_MODEL, "worker": hex(SYSTEM_WORKER),
+          **result.pop("system"), "card": smi})
     emit({"phase": "mains", "model": MAINS_MODEL, "workers": [hex(w) for w in MAINS_WORKERS],
           **result, "launches": {hex(w): {n: c[n] for n in (
               "paged_attention_decode", "paged_attention_chunk")} for w, c in counts.items()},
@@ -4178,10 +4244,10 @@ def mains_phase(smi, http_set) -> dict:
     return {n: sum(c.get(n, 0) for c in counts.values()) for n in counts[MAINS_WORKERS[0]]}
 
 
-async def mains_client(procs, t_spawn, http_set) -> dict:
+async def mains_client(procs, t_spawn, http_set, counts_file) -> dict:
     """The client side of mains_phase: HTTP to the frontend process, and
     the workers' ``control`` endpoints (stats, clear_kv_blocks) through
-    the runtime's planes."""
+    the runtime's planes; ``counts_file`` is the system worker's."""
     import signal
     from types import SimpleNamespace
 
@@ -4206,6 +4272,7 @@ async def mains_client(procs, t_spawn, http_set) -> dict:
     workers = {wid: procs[f"worker {wid:#x}"] for wid in MAINS_WORKERS}
     frontend = procs["frontend"]
     everyone = list(procs.items())  # the processes that must stay up
+    startup = asyncio.ensure_future(system_startup(workers[SYSTEM_WORKER], everyone))
     port = int((await until("the frontend's listening line", lambda: frontend.find(
         r"frontend listening on \S+:(\d+)"), procs=everyone))[1].group(1))
 
@@ -4379,6 +4446,13 @@ async def mains_client(procs, t_spawn, http_set) -> dict:
             stats=stats, clear=clear, listed=listed, body=body))
         step("overload")
 
+        # -- the worker's system server -------------------------------------
+        system = await system_client(SimpleNamespace(
+            everyone=everyone, port=port, http=http, stats=stats, clear=clear, body=body, tok=tok,
+            rng=rng, runtime=runtime, counts_file=counts_file, frontend=frontend),
+            *await startup)
+        step("system")
+
         # -- migration -------------------------------------------------------
         long_body = dict(body, prompt=pipeline_text(tok, rng, 150), max_tokens=MAINS_LONG_TOKENS,
                          stream=True, logprobs=2, stream_options={"include_usage": True})
@@ -4423,8 +4497,8 @@ async def mains_client(procs, t_spawn, http_set) -> dict:
         next_token_s = min(t for t in seen["times"] if t > t_kill) - t_kill
         survivor_captured = (await stats(survivor))["decode_graphs"] - graphs_before[survivor]
         dead = await until("liveness's dead line", lambda: frontend.find(
-            rf"worker {victim:#x} declared DEAD after \S+ missed load reports \((\S+)s since"),
-            timeout=10)
+            rf"worker {victim:#x} declared DEAD after \S+ missed load reports \((\S+)s since",
+            since=t_kill), timeout=10)
         detect_s = dead[0] - t_kill
         budget_s = MAINS_INTERVAL_S * MAINS_DEAD_AFTER + MAINS_INTERVAL_S
         if detect_s > budget_s:
@@ -4548,12 +4622,406 @@ async def mains_client(procs, t_spawn, http_set) -> dict:
                           "liveness_since_last_s": float(dead[1].group(1)),
                           "migrations": migrations, "limit": limit},
             "sigterm_exit_s": term_s, "model_gone_after_kill_s": t_gone - t_kill,
-            "steps_s": steps, "overload": overload}
+            "steps_s": steps, "overload": overload, "system": system}
     finally:
         await ctl.close()
         await gen.close()
         await runtime.shutdown(grace_period=1)
         await runtime.event_plane.close()
+
+
+def _tensors(tree):
+    """The tensors of a params tree (nested dicts, lists and tuples)."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+async def system_startup(worker, everyone):
+    """The system server's probes while its worker starts: /live answers as
+    soon as ``system server on :PORT`` is printed; /readyz, polled from then
+    on, answers 503 until it answers 200, and 200 once ``worker serving``
+    is printed. Returns (port, the startup's figures)."""
+    from dynamo_tpu_torch.tools import sse_client
+
+    t_line, m = await until("the system server's line", lambda: worker.find(
+        r"system server on :(\d+)"), timeout=300, procs=everyone)
+    port = int(m.group(1))
+    live = await sse_client.one(port, {"method": "GET", "path": "/live"})
+    t_live = time.monotonic()
+    if live["status"] != 200 or json.loads(live["body"]) != {"status": "live"}:
+        fail(f"system: /live right after the server's line answered {live['status']} "
+             f"{live.get('body')}")
+    polls, t0 = [], time.monotonic()
+    while True:
+        r = await sse_client.one(port, {"method": "GET", "path": "/readyz"})
+        polls.append(r["status"])
+        if r["status"] == 200:
+            t_ready = time.monotonic()
+            break
+        if r["status"] != 503 or json.loads(r["body"])["status"] != "not_ready":
+            fail(f"system: /readyz before ready answered {r['status']} {r.get('body')}")
+        if time.monotonic() - t0 > 300:
+            fail(f"system: /readyz not 200 within 300 s: {worker.tail()}")
+        await asyncio.sleep(0.005)
+    t_serving, _ = await until("the worker's serving line", lambda: worker.find(
+        r"worker serving "), timeout=MAINS_WAIT_S, procs=everyone)
+    r = await sse_client.one(port, {"method": "GET", "path": "/readyz"})
+    if r["status"] != 200 or json.loads(r["body"])["status"] != "ready":
+        fail(f"system: /readyz after `worker serving` answered {r['status']} {r.get('body')}")
+    return port, {"live_after_line_ms": 1e3 * (t_live - t_line), "readyz_polls": len(polls),
+                  "readyz_503_polls": polls.count(503), "saw_503": 503 in polls,
+                  "line_to_ready_ms": 1e3 * (t_ready - t_line),
+                  "ready_to_serving_line_ms": 1e3 * (t_serving - t_ready)}
+
+
+async def system_client(m, port, startup) -> dict:
+    """The system server of worker SYSTEM_WORKER inside the mains
+    deployment, after the overload part warmed its decode buckets: its
+    /metrics, /debug/memory against the CUDA allocator (read in the worker
+    through its counts file), a /debug/profile capture while the frontend
+    streams, /engine/clear_kv_blocks and its KV event, the debug routes for
+    a traced request, the 501 refusals, ``cli observe kvcache``, and what
+    a scrape costs. Returns the system line's figures."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.config import qwen2_500m_config
+    from dynamo_tpu_torch.router.protocols import kv_events_topic
+    from dynamo_tpu_torch.runtime.device_observe import TRACE_FILE
+    from dynamo_tpu_torch.tools import sse_client
+    from dynamo_tpu_torch.worker.__main__ import build_parser
+
+    import torch
+
+    wid, out = SYSTEM_WORKER, {"startup": startup}
+
+    async def sget(path):
+        return await sse_client.one(port, {"method": "GET", "path": path})
+
+    async def spost(path, body):
+        return await sse_client.one(port, {"path": path, "body": body})
+
+    async def idle():
+        s = await m.stats(wid)
+        return not (s["active_seqs"] or s["waiting"] or s["inflight_bursts"])
+
+    async def settled_alloc():
+        """The worker's allocator bytes, read twice 0.6 s apart while idle
+        (the counts file is written every 0.25 s): equal, or None."""
+        await until(f"worker {wid:#x} idle", idle, procs=m.everyone)
+        with open(counts_file_alloc) as f:
+            first = json.load(f)
+        await asyncio.sleep(0.6)
+        with open(counts_file_alloc) as f:
+            again = json.load(f)
+        return first if first == again else None
+
+    counts_file_alloc = m.counts_file + ".alloc"
+    kv_sub = m.runtime.event_plane.subscribe(kv_events_topic("dynamo", "backend"))
+
+    # -- /metrics and /debug/memory, idle ---------------------------------
+    cfg = qwen2_500m_config()
+    args = build_parser().parse_args(["--model", MAINS_MODEL])
+    kv_bytes = (2 * cfg.n_layers * (args.num_kv_blocks + 1) * args.block_size * cfg.n_kv_heads
+                * cfg.head_dim_ * cfg.dtype.itemsize)
+    # the worker's params are these shapes (random init, another seed's draws)
+    params = {id(t): t for t in _tensors(llama.init_params(cfg, 0, DEV))}
+    param_bytes = sum(t.nbytes for t in params.values())
+    del params
+    gc.collect()
+    if DEV == "cuda":
+        torch.cuda.empty_cache()
+    for _ in range(5):
+        alloc = await settled_alloc()
+        metrics = (await sget("/metrics"))["body"]
+        mem_r = await sget("/debug/memory")
+        stats = await m.stats(wid)
+        if alloc is not None and alloc == await settled_alloc():
+            break
+    else:
+        fail("system: the worker's allocator bytes did not settle while idle")
+
+    def gauge(series):
+        found = re.search(rf"^{re.escape(series)} (\S+)$", metrics, re.M)
+        if found is None:
+            fail(f"system: /metrics has no {series}")
+        return found and float(found.group(1))
+
+    for key in ("decode_graphs", "generated_tokens"):
+        if gauge(f"dynamo_tpu_engine_{key}") != stats[key]:
+            fail(f"system: /metrics dynamo_tpu_engine_{key} {gauge(f'dynamo_tpu_engine_{key}')} "
+                 f"!= /engine/stats {stats[key]}")
+    for family in ("# TYPE dynamo_tpu_overload_state gauge", "# TYPE dynamo_tpu_slo_goodput_ratio",
+                   "# TYPE dynamo_tpu_kvcache_hit_rate",
+                   "# TYPE dynamo_tpu_liveness_stale_incarnation_drops_total",
+                   "# TYPE dynamo_tpu_runtime_profiler_captures_total"):
+        if family not in metrics:
+            fail(f"system: /metrics lacks {family!r}")
+    ledger_metrics = {c: gauge(f'dynamo_tpu_runtime_hbm_bytes{{category="{c}"}}')
+                      for c in HBM_CATEGORIES}
+    device_in_use = gauge('dynamo_tpu_runtime_hbm_device_bytes{device="0",kind="bytes_in_use"}')
+    if device_in_use != alloc:
+        fail(f"system: /metrics reads {device_in_use} device bytes in use, the worker's "
+             f"allocator {alloc}")
+    mem = json.loads(mem_r["body"])
+    eng, detail = mem["sources"]["engine"], mem["sources"]["kv_pool_detail"]
+    if {c: float(v) for c, v in eng.items()} != ledger_metrics:
+        fail(f"system: /debug/memory {eng} != /metrics {ledger_metrics}")
+    parts = detail["active_bytes"] + detail["cached_bytes"] + detail["free_bytes"] + \
+        detail["sink_bytes"]
+    if eng["kv_cache"] != kv_bytes or eng["params"] != param_bytes or \
+            not parts == detail["total_bytes"] == eng["kv_cache"] or \
+            mem.get("device_bytes_in_use") != alloc or mem.get("unaccounted_bytes", -1) < 0:
+        fail(f"system: /debug/memory {mem}; want kv_cache {kv_bytes}, params {param_bytes}, "
+             f"the detail summing to kv_cache, device bytes {alloc} and unaccounted >= 0")
+    out["memory"] = {"ledger": eng, "kv_pool_detail": detail,
+                     "ledger_total_bytes": mem["ledger_total_bytes"],
+                     "device_bytes_in_use": mem.get("device_bytes_in_use"),
+                     "unaccounted_bytes": mem.get("unaccounted_bytes"),
+                     "devices": mem["devices"]}
+    print(f"system: unaccounted_bytes {mem.get('unaccounted_bytes')} (the graph pool, "
+          f"workspaces and the allocator's share) of {mem.get('device_bytes_in_use')} in use",
+          flush=True)
+
+    # -- a bounded profile while the frontend streams ------------------------
+    # The process's first capture sets CUPTI up (seconds, off the worker's
+    # event loop): an idle one first, as the decode buckets are warmed first.
+    t0 = time.monotonic()
+    for action in ("start", "stop"):
+        r = await spost("/debug/profile", {"action": action})
+        if r["status"] != 200 or not json.loads(r["body"]).get("ok"):
+            fail(f"system: the idle capture's {action} answered {r['status']} {r['body']}")
+    first_capture_s = time.monotonic() - t0
+    graphs0 = (await m.stats(wid))["decode_graphs"]
+    dead = rf"worker {wid:#x} declared DEAD"
+    dead_before = sum(1 for _, line in list(m.frontend.lines) if re.search(dead, line))
+    pin = {"x-dynamo-worker": str(wid)}
+    fill = dict(m.body, max_tokens=OVERLOAD_FILL_TOKENS, nvext={"ignore_eos": True}, stream=True)
+    fillers = [await HeldStream.open(m.port, fill, pin) for _ in range(SYSTEM_PROFILE_LOAD)]
+
+    async def loaded():
+        s = await m.stats(wid)
+        return s if s["active_seqs"] >= SYSTEM_PROFILE_LOAD and min(
+            f.frames for f in fillers) > 1 else None
+
+    await until(f"worker {wid:#x} decoding {SYSTEM_PROFILE_LOAD} streams", loaded,
+                procs=m.everyone)
+    live_ms, frames_at = [], []  # /live's answer times; (time, the fillers' frames)
+
+    async def poll_live():
+        while True:
+            t0 = time.perf_counter()
+            await sget("/live")
+            live_ms.append(1e3 * (time.perf_counter() - t0))
+            frames_at.append((time.monotonic(), sum(f.frames for f in fillers)))
+            await asyncio.sleep(SYSTEM_LIVE_POLL_S)
+
+    poller = asyncio.ensure_future(poll_live())
+    r = await spost("/debug/profile", {"action": "start", "seconds": SYSTEM_PROFILE_S})
+    started = json.loads(r["body"])
+    if r["status"] != 200 or not started.get("ok") or "CUDA" not in started.get("activities", ()):
+        fail(f"system: /debug/profile start answered {r['status']} {started}")
+    t_start = time.monotonic()
+    load_at_start = (await m.stats(wid))["active_seqs"]
+    long_prompt = dict(m.body, prompt=pipeline_text(m.tok, m.rng, SYSTEM_PROFILE_PROMPT),
+                       max_tokens=SYSTEM_PROFILE_TOKENS)
+    inside = await m.http({"path": "/v1/completions", "headers": pin, "body": long_prompt})
+    if inside["status"] != 200:
+        fail(f"system: the request inside the profile answered {inside['status']}")
+
+    async def stopped():
+        got = json.loads((await spost("/debug/profile", {"action": "status"}))["body"])
+        return got if not got["active"] else None
+
+    status = await until("the capture's auto-stop", stopped, timeout=SYSTEM_PROFILE_S + 180,
+                         procs=m.everyone)
+    stopped_after_s = time.monotonic() - t_start
+    # The fillers paused while the stop parked the engine: they go on to
+    # their [DONE].
+    await until("the profiled fillers' ends", lambda: all(f.done for f in fillers),
+                procs=m.everyone)
+    poller.cancel()
+    for f in fillers:
+        f.close()
+    graphs1 = (await m.stats(wid))["decode_graphs"]
+    if graphs1 != graphs0:
+        fail(f"system: {graphs1 - graphs0} decode graphs were captured inside the profile: "
+             "its buckets were not warm")
+    with open(os.path.join(started["dir"], TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    ours = sorted({k.group(0) for e in kernels
+                   for k in [re.search(r"paged_attention_\w+", e["name"])] if k})
+    if not ours:
+        fail(f"system: the trace names no paged_attention kernel among {len(kernels)} kernels")
+    await asyncio.sleep(5 * MAINS_INTERVAL_S)  # a liveness verdict would be in by now
+    t_auto = t_start + SYSTEM_PROFILE_S
+    in_stop = [n for t, n in frames_at if t_auto <= t <= t_start + stopped_after_s]
+    longest_pause, t_moved, last = 0.0, None, None
+    for t, n in frames_at:  # the stop parks the engine: the fillers pause
+        if n != last:
+            t_moved, last = t, n
+        if t <= t_start + stopped_after_s:
+            longest_pause = max(longest_pause, t - t_moved)
+    out["profile"] = {
+        "seconds": SYSTEM_PROFILE_S, "captures": status["captures"],
+        "first_capture_s": first_capture_s, "streams_at_start": load_at_start,
+        "stopped_after_s": stopped_after_s, "live_polls": len(live_ms),
+        "live_max_ms": max(live_ms), "live_limit_ms": 1e3 * MAINS_INTERVAL_S,
+        "filler_frames_during_stop": in_stop[-1] - in_stop[0] if in_stop else None,
+        "filler_longest_pause_s": longest_pause,
+        "trace_events": len(events), "kernel_events": len(kernels), "port_kernels_named": ours,
+        # the worker decodes only by replaying a burst's graph
+        "graph_replayed_kernels_in_trace": bool(set(ours) - {"paged_attention_chunk_kernel"}),
+        "declared_dead_meanwhile": sum(1 for _, line in list(m.frontend.lines)
+                                       if re.search(dead, line)) - dead_before,
+        "trace_mb": os.path.getsize(os.path.join(started["dir"], TRACE_FILE)) / 2**20}
+    del events, kernels
+    if out["profile"]["declared_dead_meanwhile"] or max(live_ms) > 1e3 * MAINS_INTERVAL_S:
+        fail(f"system: profiling the loaded worker stalled it: {out['profile']}")
+
+    # -- /engine/clear_kv_blocks and its KV event ----------------------------
+    await until(f"worker {wid:#x} idle", idle, procs=m.everyone)
+    cached = (await m.stats(wid))["cached_blocks"]
+    r = await spost("/engine/clear_kv_blocks", {})
+    if r["status"] != 200 or json.loads(r["body"]) != {"cleared_blocks": cached} or cached <= 0:
+        fail(f"system: /engine/clear_kv_blocks answered {r['status']} {r['body']}; the worker "
+             f"held {cached} cached blocks")
+
+    async def cleared_event():
+        while True:
+            _, ev = await kv_sub.get(MAINS_WAIT_S)
+            if ev.get("kind") == "cleared" and ev.get("worker_id") == wid:
+                return ev
+
+    await asyncio.wait_for(cleared_event(), MAINS_WAIT_S)
+    await kv_sub.aclose()
+    out["cleared_blocks"] = cached
+
+    # -- the debug routes for a traced request through the frontend ----------
+    trace_id = SYSTEM_TRACEPARENT.split("-")[1]
+    chat = {"model": MAINS_MODEL, "messages": [{"role": "user", "content": "system server"}],
+            "max_tokens": 16, "temperature": 0.0}
+    r = await m.http({"path": "/v1/chat/completions", "body": chat,
+                      "headers": {**pin, "traceparent": SYSTEM_TRACEPARENT}})
+    if r["status"] != 200:
+        fail(f"system: the traced chat answered {r['status']}")
+
+    async def traced():
+        spans = json.loads((await sget(f"/debug/traces?trace_id={trace_id}"))["body"])["spans"]
+        return spans if {"endpoint.serve", "engine.decode"} <= {s["name"] for s in spans} \
+            else None
+
+    spans = await until("the traced request's spans on the worker", traced, procs=m.everyone)
+    requests = json.loads((await sget("/debug/requests"))["body"])
+    mine = [q for q in requests["requests"] if q["trace_id"] == trace_id]
+    view = await sget(f"/debug/trajectory/{trace_id}")
+    kv = json.loads((await sget("/debug/kvcache"))["body"])
+    index = json.loads((await sget("/debug/trajectory"))["body"])
+    if not mine or "prefill_start" not in mine[0]["events"] or view["status"] != 200 or \
+            not any(t["trace_id"] == trace_id for t in index["traces"]) or "hits" not in kv:
+        fail(f"system: the debug routes for trace {trace_id}: requests {mine}, trajectory "
+             f"{view['status']}, index {index['traces'][:3]}, kvcache {sorted(kv)}")
+    one = await sget(f"/debug/requests/{mine[0]['request_id']}")
+    if one["status"] != 200:
+        fail(f"system: /debug/requests/{mine[0]['request_id']} answered {one['status']}")
+    out["debug"] = {"spans": sorted({s["name"] for s in spans}), "request": mine[0],
+                    "trajectory_phases": json.loads(view["body"])["phases"]}
+
+    # -- the refusals -------------------------------------------------------
+    refusals = {}
+    for method, path, item in (("GET", "/drain", "A11"), ("POST", "/drain", "A11"),
+                               ("GET", "/v1/loras", "A7"), ("DELETE", "/v1/loras/x", "A7"),
+                               ("GET", "/debug/perf", "A4c-4b-2"),
+                               ("GET", "/debug/compiles", "A9")):
+        r = await sse_client.one(port, {"method": method, "path": path,
+                                        **({"body": {}} if method == "POST" else {})})
+        if r["status"] != 501 or f"(ROADMAP {item})" not in json.loads(r["body"])["error"]:
+            fail(f"system: {method} {path} answered {r['status']} {r.get('body')}")
+        refusals[f"{method} {path}"] = r["status"]
+    out["refusals"] = refusals
+
+    # -- cli observe kvcache ----------------------------------------------
+    cli = await asyncio.to_thread(subprocess.run, [
+        sys.executable, "-m", "dynamo_tpu_torch.cli", "observe", "kvcache", "--port", str(port)],
+        capture_output=True, text=True, timeout=60, cwd=os.path.dirname(os.path.abspath(
+            __file__)))
+    if cli.returncode != 0 or "== kv reuse" not in cli.stdout:
+        fail(f"system: cli observe kvcache exited {cli.returncode}: {cli.stdout[-500:]} "
+             f"{cli.stderr[-1500:]}")
+    out["cli_observe_kvcache_lines"] = len(cli.stdout.splitlines())
+
+    # -- what a scrape costs while the worker serves -------------------------
+    streams = [dict(m.body, max_tokens=256, stream=True, nvext={"ignore_eos": True},
+                    stream_options={"include_usage": True}) for _ in range(SYSTEM_ITL_STREAMS)]
+
+    async def run_streams(scrape_every):
+        """The streams at once, pinned to the worker; with ``scrape_every``
+        a scraper GETs /metrics and /debug/memory that often meanwhile."""
+        await m.clear()
+        done = asyncio.Event()
+        scrapes = {"/metrics": [], "/debug/memory": []}
+
+        async def scraper():
+            while not done.is_set():
+                for path, times in scrapes.items():
+                    t0 = time.perf_counter()
+                    r = await sget(path)
+                    times.append(1e6 * (time.perf_counter() - t0))
+                    if r["status"] != 200:
+                        fail(f"system: a scrape of {path} answered {r['status']}")
+                try:
+                    await asyncio.wait_for(done.wait(), scrape_every)
+                except asyncio.TimeoutError:
+                    pass
+
+        task = asyncio.ensure_future(scraper()) if scrape_every else None
+        records = await asyncio.gather(*(m.http({"path": "/v1/completions", "headers": pin,
+                                                 "body": b}) for b in streams))
+        done.set()
+        if task is not None:
+            await task
+        for i, rec in enumerate(records):
+            whole_stream(rec, 256, f"system: stream {i} of the ITL comparison")
+        return http_latency_ms(records, range(len(records)))[2], len(scrapes["/metrics"])
+
+    itl = {"without": [], "with": [], "scrapes_a_run": []}
+    for scrape_every in (None, SYSTEM_SCRAPE_S, SYSTEM_SCRAPE_S, None):
+        mean_itl, n = await run_streams(scrape_every)
+        itl["with" if scrape_every else "without"].append(mean_itl)
+        if scrape_every:
+            itl["scrapes_a_run"].append(n)
+    # the µs a scrape takes while a stream runs, each route SYSTEM_SCRAPES times
+    await m.clear()
+    busy = asyncio.ensure_future(m.http({"path": "/v1/completions", "headers": pin,
+                                         "body": dict(streams[0], max_tokens=1024)}))
+
+    async def serving():
+        return (await m.stats(wid))["active_seqs"] > 0 or busy.done()
+
+    await until("the scraped stream's start", serving, procs=m.everyone)
+    scrape_us = {}
+    for path in ("/metrics", "/debug/memory"):
+        times = []
+        for _ in range(SYSTEM_SCRAPES):
+            t0 = time.perf_counter()
+            await sget(path)
+            times.append(1e6 * (time.perf_counter() - t0))
+        times.sort()
+        scrape_us[path] = {"p50": times[len(times) // 2], "p90": times[int(0.9 * (len(times) - 1))],
+                           "max": times[-1], "busy": not busy.done()}
+    whole_stream(await busy, 1024, "system: the scraped stream")
+    out["scrape_us"] = scrape_us
+    out["itl_ms"] = {**itl, "scrape_interval_s": SYSTEM_SCRAPE_S, "streams": SYSTEM_ITL_STREAMS,
+                     "tokens": 256}
+    await m.clear()
+    return out
 
 
 async def _is(coro, want):
@@ -4819,13 +5287,15 @@ class HeldStream:
                            f"Content-Type: application/json\r\nContent-Length: {len(data)}"
                            f"\r\n{extra}\r\n").encode() + data)
         await self.writer.drain()
-        self.frames = 0
+        self.frames, self.done, self._tail = 0, False, b""
         self.task = asyncio.ensure_future(self._read())
         return self
 
     async def _read(self):
         while chunk := await self.reader.read(65536):
             self.frames += chunk.count(b"data: ")
+            self._tail = (self._tail + chunk)[-32:]
+            self.done = self.done or b"data: [DONE]" in self._tail
 
     def close(self):
         self.task.cancel()

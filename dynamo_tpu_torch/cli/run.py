@@ -1,5 +1,6 @@
 """``python -m dynamo_tpu_torch.cli run``: drive the port's engine without a
-cluster — the counterpart of ``dynamo_tpu.cli run`` (dynamo_tpu/cli/run.py).
+cluster — the counterpart of ``dynamo_tpu.cli run`` (dynamo_tpu/cli/run.py);
+and ``observe``, which pretty-prints a running worker's system server.
 
 Reference parity: lib/llm/src/entrypoint/input.rs (Input::Text :31 —
 interactive REPL; Input::Stdin — one prompt per line; Input::Batch — JSONL
@@ -12,6 +13,12 @@ versions on the CPU (the tests use it).
 Refused, each naming the ROADMAP item that brings it: ``--model mock`` (the
 mock engine, A4d), a model directory (weight loading, A9) and a preset
 whose layers the port does not have (MoE, A7).
+
+``observe trajectory [TRACE_ID]`` and ``observe kvcache`` print what
+JAX's print (dynamo_tpu/cli/run.py:311-495), read over the standard
+library's HTTP client (JAX's reads over aiohttp, which the card's machine
+lacks). ``observe`` with no view reads ``/debug/compiles`` and ``observe
+perf`` reads ``/debug/perf``, which are not ported: both refuse.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ import json
 import os
 import sys
 import time
+import urllib.error
+import urllib.request
 from typing import Any, Tuple
 
 from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard
@@ -253,3 +262,213 @@ async def main_run(args) -> None:
             await run_batch(pipeline, card.name, args, mode.split(":", 1)[1])
     finally:
         await engine.stop()
+
+
+# -- observe: views of a running worker's system server ----------------------
+
+# The observe views whose routes the system server does not serve yet.
+UNPORTED_VIEWS = {
+    None: "the device-plane snapshot reads /debug/compiles (compile telemetry, ROADMAP A9)",
+    "perf": "the perf view reads /debug/perf (the perf ledger, ROADMAP A4c-4b-2)",
+}
+
+
+def add_observe_args(parser: argparse.ArgumentParser) -> None:
+    parser.add_argument(
+        "what", nargs="?", default=None,
+        choices=[None, "trajectory", "kvcache", "perf"],
+        help="the view: 'trajectory' pretty-prints one stitched request "
+        "trajectory (GET /debug/trajectory/{trace_id}); 'kvcache' the KV-reuse "
+        "plane (GET /debug/kvcache); 'perf' and no view are not ported",
+    )
+    parser.add_argument(
+        "trace_id", nargs="?", default=None,
+        help="trace id for the trajectory view (omit to list recent + slow "
+        "trajectories)",
+    )
+    parser.add_argument("--top-k", type=int, default=15,
+                        help="ranked prefixes to show in the kvcache view")
+    parser.add_argument("--host", default="127.0.0.1",
+                        help="system-server host of the running worker")
+    parser.add_argument("--port", type=int, default=None,
+                        help="system-server port (default: DYN_TPU_SYSTEM_PORT)")
+    parser.add_argument("--json", action="store_true",
+                        help="dump the raw endpoint JSON instead of tables")
+
+
+def _system_base(args) -> str:
+    from dynamo_tpu_torch import config
+
+    port = args.port if args.port is not None else config.SYSTEM_PORT.get()
+    return f"http://{args.host}:{port}"
+
+
+def _get_json(base: str, path: str) -> Any:
+    """GET ``base + path`` as JSON; exits naming the status or the error."""
+    try:
+        with urllib.request.urlopen(base + path, timeout=30) as r:
+            return json.loads(r.read())
+    except urllib.error.HTTPError as exc:
+        raise SystemExit(f"GET {base}{path} -> {exc.code}: {exc.read().decode()}")
+    except (urllib.error.URLError, OSError) as exc:
+        raise SystemExit(f"cannot reach system server at {base}: {exc}")
+
+
+def main_observe_trajectory(args) -> None:
+    """Pretty-print one stitched request trajectory (or the recent/slow
+    index): phases, per-hop spans across processes, retries, skew flags,
+    and the dominant phase."""
+    base = _system_base(args)
+    path = f"/debug/trajectory/{args.trace_id}" if args.trace_id else "/debug/trajectory"
+    doc = _get_json(base, path)
+    if args.json:
+        print(json.dumps(doc, indent=2))
+        return
+    if not args.trace_id:
+        print(f"== trajectories ({base}{path})")
+        for row in doc.get("traces") or []:
+            print(
+                f"  {row['trace_id']}  {row['total_ms']:>9.1f} ms  "
+                f"dominant={row['dominant_phase']:<13} "
+                f"procs={len(row['processes'])} spans={row['span_count']}"
+                f"{'  SKEW' if row.get('skew_flagged') else ''}"
+            )
+        slow = doc.get("slow") or []
+        if slow:
+            print("  -- slow/error ring --")
+            for row in slow:
+                print(
+                    f"  {row['trace_id']}  {row['total_ms']:>9.1f} ms  "
+                    f"dominant={row['dominant_phase']} "
+                    f"[{row.get('retained', 'slow')}]"
+                )
+        return
+    print(f"== trajectory {doc.get('trace_id')} ({base}{path})")
+    print(
+        f"  total {doc.get('total_ms', 0):.1f} ms across "
+        f"{len(doc.get('processes') or [])} processes "
+        f"({', '.join(doc.get('processes') or [])})"
+        f"{'  [residual clock skew flagged]' if doc.get('skew_flagged') else ''}"
+    )
+    phases = doc.get("phases") or {}
+    print("  phases:")
+    for phase, ms in phases.items():
+        marker = "  <- dominant" if phase == doc.get("dominant_phase") else ""
+        print(f"    {phase:<14} {ms:>9.1f} ms{marker}")
+    if doc.get("summary"):
+        # Slow-ring hit: the full span set aged out of the recent ring;
+        # the retained summary still names the bottleneck.
+        print(
+            f"  (summary only — {doc.get('span_count', 0)} spans aged out "
+            "of the recent ring)"
+        )
+        return
+    print("  spans:")
+    for s in doc.get("spans") or []:
+        attrs = s.get("attributes") or {}
+        detail = " ".join(
+            f"{k}={v}" for k, v in attrs.items()
+            if k in ("worker", "src", "peer", "attempts", "retries",
+                     "overlap_blocks", "candidates_scored", "queued_s",
+                     "outcome", "adopted", "model")
+        )
+        flags = []
+        if s.get("skew_flagged"):
+            flags.append(f"skew={s.get('skew_ms')}ms")
+        if str(s.get("status", "ok")) != "ok":
+            flags.append(str(s["status"]))
+        print(
+            f"    {s.get('offset_ms', 0):>9.1f} +{s.get('duration_ms', 0):>8.1f} ms"
+            f"  [{s.get('proc', '?'):<16}] {s.get('name', '?'):<22} "
+            f"{detail}{('  ' + ' '.join(flags)) if flags else ''}"
+        )
+    events = doc.get("events") or []
+    if events:
+        print("  events:")
+        for ev in events:
+            detail = " ".join(
+                f"{k}={v}" for k, v in ev.items()
+                if k not in ("trace_id", "ring", "kind", "t_wall", "offset_ms")
+            )
+            print(
+                f"    {ev.get('offset_ms', 0):>9.1f} ms  "
+                f"{ev.get('ring', '?')}/{ev.get('kind', '?')} {detail}"
+            )
+
+
+def main_observe_kvcache(args) -> None:
+    """Pretty-print the KV-reuse plane of a running worker: hit rate by
+    tier, cache ROI (reused vs recomputed prefill tokens, prefill seconds
+    saved), sketch health, and the ranked hot-prefix table."""
+    base = _system_base(args)
+    top_k = max(int(getattr(args, "top_k", 15) or 15), 1)
+    doc = _get_json(base, f"/debug/kvcache?top_k={top_k}")
+    prefixes = _get_json(base, f"/debug/kvcache/prefixes?k={top_k}")
+    if args.json:
+        print(json.dumps({"kvcache": doc, "prefixes": prefixes}, indent=2))
+        return
+
+    print(f"== kv reuse ({base}/debug/kvcache)")
+    hits = doc.get("hits") or {}
+    misses = doc.get("misses", 0)
+    total = sum(hits.values()) + misses
+    overall = (sum(hits.values()) / total) if total else 0.0
+    per_tier = " ".join(
+        f"{t}={r:.3f}" for t, r in (doc.get("hit_rate") or {}).items()
+    )
+    print(
+        f"  hit rate {overall:.3f}  "
+        f"(hits={sum(hits.values())} misses={misses}"
+        f"{'; by tier: ' + per_tier if per_tier else ''})"
+    )
+    print(
+        f"  prefill tokens  reused={doc.get('reused_prefill_tokens', 0)}  "
+        f"recomputed={doc.get('recomputed_prefill_tokens', 0)}"
+    )
+    print(
+        f"  prefill saved   {doc.get('prefill_seconds_saved', 0.0):.3f} s  "
+        f"(cost/token {doc.get('prefill_cost_per_token_s', 0.0):.2e} s)"
+    )
+    sketch = doc.get("sketch") or {}
+    print(
+        f"  sketch          {sketch.get('tracked', 0)}/"
+        f"{sketch.get('capacity', 0)} tracked  "
+        f"replacements={sketch.get('replacements', 0)}  "
+        f"half_life={sketch.get('half_life_s', 0.0):.0f}s"
+    )
+    tiers = doc.get("tiers") or {}
+    for label, view in tiers.items():
+        print(f"  [{label}]")
+        for tier, stats in (view or {}).items():
+            if not isinstance(stats, dict):
+                continue
+            detail = " ".join(
+                f"{k}={stats[k]}" for k in
+                ("blocks", "stored", "hits", "misses", "evicted")
+                if k in stats
+            )
+            print(f"    {tier:<8} {detail}")
+    rows = prefixes.get("prefixes") or []
+    print(f"\n== hot prefixes (top {top_k}; {base}/debug/kvcache/prefixes)")
+    if not rows:
+        print("  (no tracked prefixes)")
+    for row in rows:
+        tier_mix = ",".join(
+            f"{t}:{n}" for t, n in (row.get("tiers") or {}).items()
+        )
+        print(
+            f"  {row.get('anchor', '?')}  score={row.get('score', 0.0):>10.2f} "
+            f"(+/-{row.get('score_error', 0.0):.2f})  hits={row.get('hits', 0):>6} "
+            f"tokens={row.get('tokens_from_cache', 0):>9} "
+            f"age={row.get('age_s', 0.0):>7.1f}s  {tier_mix}"
+        )
+
+
+def main_observe(args) -> None:
+    """The observe views; the unported ones exit naming their item."""
+    if args.what in UNPORTED_VIEWS:
+        raise SystemExit(f"observe: {UNPORTED_VIEWS[args.what]}, which is not ported")
+    if args.what == "trajectory":
+        main_observe_trajectory(args)
+    else:
+        main_observe_kvcache(args)

@@ -43,6 +43,10 @@ HTTP_PORT = EnvVar(
     "DYN_TPU_HTTP_PORT", 8000, int,
     "Frontend HTTP bind port (dynamo_tpu/config.py:196)",
 )
+SYSTEM_PORT = EnvVar(
+    "DYN_TPU_SYSTEM_PORT", 9090, int,
+    "System status server port (/health /live /metrics) (dynamo_tpu/config.py:200)",
+)
 ROUTER_TEMPERATURE = EnvVar(
     "DYN_TPU_ROUTER_TEMPERATURE", 0.0, float,
     "KV router softmax sampling temperature (0 = argmin) "

@@ -64,7 +64,14 @@ records and the dump (the engine has no flight ring, A9), the
 admission's containment of a request that fails its prefill
 deterministically, speculative decoding (and so logprobs under it),
 LoRA, MoE, the tick budget, sleep/wake, KV export/import/checkpoint,
-multimodal, prefill under CUDA graphs and metrics.
+multimodal, prefill under CUDA graphs and the step metrics (A4c-4b-2).
+
+The HBM ledger (``hbm``, JAX's categories, engine.py:494-509) samples the
+runner's live tensors when the system server scrapes it: ``kv_cache`` counts
+each pool's whole allocation, its sink block included (one block a pool
+more than JAX's), ``lora`` is 0 (no LoRA, A7), and ``slot_state`` holds the
+port's own fields and widths (int64 tokens, salts and bias ids, no adapter
+ids), JAX's ``slot_tables`` being the port's ``slot_state["tables"]``.
 
 All device work runs on one executor thread so the asyncio loop never
 blocks on the card. Every block-pool call runs on the loop's thread, so the
@@ -76,12 +83,14 @@ from __future__ import annotations
 
 import asyncio
 import collections
+import contextlib
 import logging
 import math
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Any, AsyncIterator, Callable, Dict, List, Optional, Tuple
+from typing import Any, AsyncIterator, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
@@ -97,8 +106,10 @@ from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.ops.logits_process import MAX_BIAS_SLOTS, pack_bias, prompt_hot
 from dynamo_tpu_torch.runtime import fault_names
 from dynamo_tpu_torch.runtime.context import Context
+from dynamo_tpu_torch.runtime.device_observe import HbmLedger, tree_device_bytes
 from dynamo_tpu_torch.runtime.faults import fault_point, note_activity
 from dynamo_tpu_torch.runtime.kv_reuse_observe import global_plane as kv_reuse_plane
+from dynamo_tpu_torch.runtime import lifecycle
 from dynamo_tpu_torch.runtime.lifecycle import trace_id_of
 from dynamo_tpu_torch.tokens.blocks import compute_block_hashes
 
@@ -289,12 +300,40 @@ class TorchEngine:
         # Brownout lever (runtime/overload.py): kept and honoured by the
         # speculative decode, which the port does not have yet (A5).
         self._spec_suspended = False
+        runner = self.runner
+        self.hbm = HbmLedger(runner.device)
+        self.hbm.register("kv_cache", lambda: tree_device_bytes((runner.k_cache, runner.v_cache)))
+        self.hbm.register("params", lambda: tree_device_bytes(runner.params))
+        self.hbm.register("slot_state", lambda: tree_device_bytes(
+            [t for name, t in runner.slot_state.items() if name != "tables"]))
+        self.hbm.register("slot_tables", lambda: tree_device_bytes(runner.slot_state["tables"]))
+        self.hbm.register("lora", lambda: 0)
+        self.hbm.register("proc_state", lambda: tree_device_bytes(runner.proc_state))
 
     # -- lifecycle ---------------------------------------------------------
 
     async def _device(self, fn, *a, **kw):
         loop = asyncio.get_running_loop()
         return await loop.run_in_executor(self._executor, lambda: fn(*a, **kw))
+
+    @contextlib.contextmanager
+    def device_held(self) -> Iterator[None]:
+        """Park the device thread for the block: no work of this engine
+        reaches the card until the block ends, and what the scheduler
+        queues meanwhile runs after it. A profiler's stop runs inside it
+        (runtime/system_server.attach_engine): Kineto's stop, without the
+        GIL, and a graph launch on this thread can deadlock."""
+        parked, release = threading.Event(), threading.Event()
+        try:
+            self._executor.submit(lambda: (parked.set(), release.wait()))
+        except RuntimeError:  # shut down: nothing reaches the card
+            yield
+            return
+        parked.wait()
+        try:
+            yield
+        finally:
+            release.set()
 
     async def start(self) -> None:
         if self._loop_task is None:
@@ -338,6 +377,15 @@ class TorchEngine:
             "draining": 0,
             "deadline_sheds": self.deadline_sheds,
         }
+
+    def kv_pool_bytes_breakdown(self) -> Dict[str, int]:
+        """The KV pools' bytes by block state (active, cached, free, and the
+        pools' sink blocks), for GET /debug/memory: they sum to
+        ``total_bytes``, the ledger's ``kv_cache``."""
+        total = tree_device_bytes((self.runner.k_cache, self.runner.v_cache))
+        per_block = total // (self.args.num_kv_blocks + 1)  # + the sink block
+        return {**self.pool.bytes_breakdown(per_block), "sink_bytes": per_block,
+                "total_bytes": total}
 
     def clear_kv_blocks(self) -> int:
         """Flush the reusable prefix cache (ref: clear_kv_blocks.rs route).
@@ -666,6 +714,9 @@ class TorchEngine:
         procs = self._prefill_procs(batch)
         for seq, prep in batch:
             seq.t_prefill_start = time.monotonic()
+            lifecycle.record(seq.request.request_id, "prefill_start", context=seq.context,
+                             prompt_tokens=len(seq.all_tokens),
+                             cached_tokens=prep.matched_tokens)
             # Cache-ROI attribution (admission.py:371-379): one feed an
             # admitted request, stamped into its trajectory when traced.
             seq.kv_roi = kv_reuse_plane().note_request(

@@ -1,8 +1,9 @@
 """A small HTTP/1.1 server on the standard library's asyncio streams, with
 the subset of aiohttp's ``web`` API that http/service.py uses: ``Request``,
 ``Response``, ``json_response``, ``StreamResponse``, an ``Application``
-whose router takes ``add_get`` / ``add_post`` (exact paths, and paths with
-``{name}`` segments whose values land in ``Request.match_info``), and
+whose router takes ``add_get`` / ``add_post`` / ``add_delete`` (exact paths,
+paths with ``{name}`` segments whose values land in ``Request.match_info``,
+and a last ``{name:.*}`` segment that takes the rest of the path), and
 ``Server`` to serve it through ``asyncio.start_server``, over TLS when it
 is given an ``ssl.SSLContext``. The JAX frontend runs on aiohttp, which
 the card's machine lacks; this module answers on the wire as aiohttp 3.13
@@ -309,8 +310,10 @@ Handler = Callable[[Request], Awaitable[StreamResponse]]
 class Router:
     """Routes matched in the order they were added, as aiohttp's are: an
     exact path, or a path with ``{name}`` segments (each matching one
-    non-empty segment, aiohttp's default pattern), whose values land in
-    ``Request.match_info``. A path that some route matches under another
+    non-empty segment, aiohttp's default pattern) and perhaps a last
+    ``{name:.*}`` segment (the rest of the path, slashes included, possibly
+    empty), whose values land in ``Request.match_info``. A path that some
+    route matches under another
     method only is a 405 naming the methods; ``add_get`` also answers
     HEAD, as aiohttp's does."""
 
@@ -333,6 +336,9 @@ class Router:
     def add_post(self, path: str, handler: Handler) -> None:
         self.add_route("POST", path, handler)
 
+    def add_delete(self, path: str, handler: Handler) -> None:
+        self.add_route("DELETE", path, handler)
+
     def resolve(self, method: str, path: str) -> Tuple[Handler, Dict[str, str]]:
         """(handler, match_info) for a request, or HTTPException 404/405."""
         parts = path.split("/")
@@ -351,6 +357,15 @@ class Router:
 
 def _match(segments: List[str], parts: List[str]) -> Optional[Dict[str, str]]:
     """A {name} route's match_info for a path's segments, or None."""
+    last = segments[-1]
+    if last.startswith("{") and last.endswith(":.*}"):
+        head = len(segments) - 1
+        if len(parts) < len(segments):
+            return None
+        match = _match(segments[:head], parts[:head])
+        if match is not None:
+            match[last[1:-4]] = "/".join(parts[head:])
+        return match
     if len(segments) != len(parts):
         return None
     match: Dict[str, str] = {}

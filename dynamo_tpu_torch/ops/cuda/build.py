@@ -5,7 +5,9 @@ compiled by ``nvcc`` into a shared library with a
 plain C interface (no PyTorch headers: a build takes seconds, not minutes)
 inside ``dynamo_tpu_torch/_build/``, which git ignores. The library's file
 name carries a hash of its source and flags, so an edited source rebuilds
-and an unchanged one is loaded from the previous build.
+and an unchanged one is loaded from the previous build. ``build_host``
+does the same for a host-only C++ source that calls into libtorch_cpu,
+with the host's C++ compiler.
 """
 
 from __future__ import annotations
@@ -89,3 +91,40 @@ def build(name: str, directory: Path = CSRC) -> Built:
         built = Built(lib=ctypes.CDLL(str(out)), ptxas=ptxas)
         _loaded[name] = built
         return built
+
+
+def build_host(src: Path) -> ctypes.CDLL:
+    """Compile the C++ source ``src`` (no PyTorch headers; it declares the
+    libtorch_cpu functions it calls) with ``$CXX`` (``g++`` by default),
+    linked against this process's libtorch_cpu, if needed, and load it
+    (once per process)."""
+    import torch
+
+    src = Path(src)
+    key = str(src)
+    with _locks_guard:
+        lock = _locks.setdefault(key, threading.Lock())
+    with lock:
+        if key in _loaded:
+            return _loaded[key].lib
+        torch_lib = Path(torch.__file__).parent / "lib"
+        flags = ["-O2", "-std=c++17", "-shared", "-fPIC", "-fno-sized-deallocation",
+                 f"-D_GLIBCXX_USE_CXX11_ABI={int(torch._C._GLIBCXX_USE_CXX11_ABI)}"]
+        libs = ["-L", str(torch_lib), "-ltorch_cpu", f"-Wl,-rpath,{torch_lib}"]
+        cxx = os.environ.get("CXX", "g++")
+        digest = hashlib.sha256(
+            src.read_bytes() + " ".join([cxx, torch.__version__, *flags, *libs]).encode()
+        ).hexdigest()[:16]
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        out = BUILD_DIR / f"lib{src.stem}-{digest}.so"
+        if not out.exists():
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.run([cxx, *flags, "-o", str(tmp), str(src), *libs],
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"{cxx} failed for {src} (exit {proc.returncode}):\n"
+                                   f"{proc.stdout}\n{proc.stderr}")
+            os.replace(tmp, out)
+        built = Built(lib=ctypes.CDLL(str(out)), ptxas=[])
+        _loaded[key] = built
+        return built.lib

@@ -61,6 +61,11 @@ class KvIndexer:
             return
         self._events_applied += 1
 
+    def has_seen(self, worker: WorkerKey) -> bool:
+        """Whether an event of ``worker`` was applied since this index
+        started or last dropped it."""
+        return worker in self._last_event_id
+
     def has_gap(self, event: RouterEvent) -> bool:
         """True when ``event`` implies missed events from its worker (the
         router should request a snapshot)."""

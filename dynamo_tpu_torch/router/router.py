@@ -203,6 +203,8 @@ class KvRouter:
             # The port's planes say when a subscription reaches its broker:
             # ask only then, so that the snapshots are not published before
             # the broker forwards them here (JAX's pyzmq plane cannot tell).
+            # The broker may still pass the subscription on to a publisher
+            # after the request: _pump_load asks such a worker again.
             await asyncio.wait_for(kv_sub.ready.wait(), SUBSCRIBE_TIMEOUT_S)
             await self._request_sync(None)
 
@@ -262,9 +264,20 @@ class KvRouter:
     async def _pump_load(self, sub) -> None:
         async for _topic, payload in sub:
             try:
-                self.scheduler.update_load(LoadSnapshot.from_dict(payload))
+                load = LoadSnapshot.from_dict(payload)
+                self.scheduler.update_load(load)
             except Exception:
                 logger.exception("bad load payload")
+                continue
+            # A worker that reports load while the index holds no event of
+            # it is asked for its snapshot: the start-up request's answer
+            # is lost when it leaves the worker before this router's
+            # subscription has reached it (the broker forwards the two on
+            # different sockets). The cooldown spaces the asks until one
+            # lands; a late duplicate snapshot is dropped as stale.
+            worker = (load.worker_id, load.dp_rank)
+            if self.use_kv_events and not self.indexer.has_seen(worker):
+                await self._request_sync(worker)
 
     def drop_worker(self, worker: WorkerKey) -> None:
         """Crash-plane reconciliation: one call releases the scheduler's

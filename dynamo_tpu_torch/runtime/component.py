@@ -9,7 +9,7 @@ Naming: ``{namespace}/{component}/{endpoint}`` addresses a logical service;
 N live *instances* (workers) back it. Serving an endpoint registers an
 instance in the discovery plane under a lease; clients watch the prefix and
 route per-request among live instances. ``set_kv_picker`` is the seam the
-KV router fills (ROADMAP A4c-2).
+KV router (router/router.py) fills.
 """
 
 from __future__ import annotations

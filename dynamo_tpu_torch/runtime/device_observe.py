@@ -1,14 +1,46 @@
-"""Flight recorder — the port's copy of ``FlightRecorder`` from
-dynamo_tpu/runtime/device_observe.py, the one part of that module the
-port reads (the parser plane's ``parser`` ring, parsers/observe.py). The
-ring's own metric families render on the system server, which comes with
-the distributed runtime.
+"""Device plane — the port's copy of the parts of
+dynamo_tpu/runtime/device_observe.py that the system server serves:
+
+  1. the flight recorder (``FlightRecorder``), the typed event ring that
+     the overload, trajectory, crash and parser planes keep;
+  2. the HBM ledger (``HbmLedger``): structural byte accounting a category
+     (KV pools, params, slot state and tables, processor state), sampled
+     from the engine's live tensors at scrape time and set beside the CUDA
+     caching allocator's own count (``device_memory_stats``). A tensor
+     counts the storage it holds (``tree_device_bytes``), so a KV pool made
+     by ops/attention.sink_pool_tensor counts its sink block;
+  3. profiler control (``ProfilerControl``): ``POST /debug/profile`` starts
+     and stops a ``torch.profiler`` capture that writes a Chrome trace. It
+     records CUDA activity when the engine's device is a card, CPU activity
+     (its own thread's) else. A start or stop that fails is an error, where
+     JAX's degrades to a no-op: a profile that silently leaves out the
+     device would hide it.
+
+Both read the engine's one device, never every card the process can see.
+
+The compile watcher has no counterpart yet (graph counts for
+``/debug/compiles``, ROADMAP A9). Nothing here synchronises the device or
+copies a tensor to the host: the samplers read shapes, storages and the
+allocator's counters.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import os
+import tempfile
+import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from concurrent.futures import Future, ThreadPoolExecutor
+from pathlib import Path
+from typing import Any, Callable, ContextManager, Dict, List, Optional, Tuple
+
+from dynamo_tpu_torch.runtime import metric_names as mn
+from dynamo_tpu_torch.runtime.metrics_core import MetricsRegistry
+from dynamo_tpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
 
 
 class FlightRecorder:
@@ -56,3 +88,269 @@ class FlightRecorder:
                 d.update(fields)
             out.append(d)
         return out
+
+
+# ---------------------------------------------------------------------------
+# HBM ledger
+# ---------------------------------------------------------------------------
+
+
+def tree_device_bytes(tree: Any) -> int:
+    """Bytes of the storages that the tensors in ``tree`` (nested dicts,
+    lists and tuples) hold, each storage counted once and whole: a view
+    counts the allocation it lives in. None and other leaves count 0."""
+    import torch
+
+    seen = set()
+    total = 0
+    stack = [tree]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, torch.Tensor):
+            storage = x.untyped_storage()
+            key = (str(storage.device), storage.data_ptr())
+            if key not in seen:
+                seen.add(key)
+                total += storage.nbytes()
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+    return total
+
+
+def device_memory_stats(device: Any = None) -> List[Dict[str, Any]]:
+    """The entry of ``device`` (a worker's engine's; None, a process that
+    serves none, is the CPU), with JAX's ``memory_stats`` keys from the
+    CUDA caching allocator: ``bytes_in_use`` (allocated now),
+    ``peak_bytes_in_use`` and ``bytes_limit`` (the device's memory). The CPU
+    gets one ``cpu`` entry whose ``memory_stats`` is None, as JAX's CPU
+    client reports. Only that device is read: the process's other cards
+    are not its engine's, and the CPU's process never starts CUDA here."""
+    import torch
+
+    device = torch.device("cpu" if device is None else device)
+    if device.type != "cuda":
+        return [{"id": 0, "platform": "cpu", "memory_stats": None}]
+    i = torch.cuda.current_device() if device.index is None else device.index
+    stats = torch.cuda.memory_stats(i)
+    return [{"id": i, "platform": "gpu", "memory_stats": {
+        "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
+        "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
+        "bytes_limit": torch.cuda.get_device_properties(i).total_memory,
+    }}]
+
+
+class HbmLedger:
+    """Structural device-memory accounting: category → byte-count sampler.
+
+    Samplers run at snapshot/scrape time only and read live object
+    references — a category whose sampler throws reports -1 (visible as
+    "unknown" rather than silently zero). The ledger also tracks the peak
+    total it has ever observed. ``device`` is the engine's, whose allocator
+    the device gauge reads (None: the CPU, which has no such count)."""
+
+    def __init__(self, device: Any = None) -> None:
+        self.device = device
+        self._sources: Dict[str, Callable[[], int]] = {}
+        self.peak_bytes = 0
+        self.registry = MetricsRegistry()
+        self._gauge = self.registry.gauge(
+            mn.RUNTIME_HBM_BYTES,
+            "Structural device-memory bytes per ledger category "
+            "(sampled from live engine state at scrape time)",
+            ["category"],
+        )
+        self._device_gauge = self.registry.gauge(
+            mn.RUNTIME_HBM_DEVICE_BYTES,
+            "Backend-reported device memory (device.memory_stats(), "
+            "absent on backends that do not provide it)",
+            ["device", "kind"],
+        )
+        self.registry.on_render(self._refresh)
+
+    def register(self, category: str, fn: Callable[[], int]) -> None:
+        self._sources[category] = fn
+
+    def snapshot(self) -> Dict[str, int]:
+        out: Dict[str, int] = {}
+        for category, fn in list(self._sources.items()):
+            try:
+                out[category] = int(fn())
+            except Exception:
+                out[category] = -1
+        total = sum(v for v in out.values() if v > 0)
+        if total > self.peak_bytes:
+            self.peak_bytes = total
+        return out
+
+    def total_bytes(self) -> int:
+        return sum(v for v in self.snapshot().values() if v > 0)
+
+    def _refresh(self) -> None:
+        for category, nbytes in self.snapshot().items():
+            self._gauge.set(nbytes, category=category)
+        for dev in device_memory_stats(self.device):
+            stats = dev.get("memory_stats")
+            if not stats:
+                continue
+            for kind in ("bytes_in_use", "bytes_limit", "peak_bytes_in_use"):
+                if kind in stats:
+                    self._device_gauge.set(
+                        stats[kind], device=str(dev.get("id")), kind=kind
+                    )
+
+
+# ---------------------------------------------------------------------------
+# On-demand profiler capture
+# ---------------------------------------------------------------------------
+
+TRACE_FILE = "trace.json"  # the Chrome trace a capture writes into its directory
+
+
+class ProfilerControl:
+    """Start/stop ``torch.profiler`` captures on demand (POST
+    /debug/profile), with JAX's state machine: one capture at a time, a
+    generation bumped at each start (so a bounded capture's auto-stop can
+    tell its own capture from a newer one), and the count of completed
+    captures. A stop writes the capture's Chrome trace to ``TRACE_FILE`` in
+    its directory. A profiler that fails to start or stop raises.
+
+    Each start and stop runs whole on this object's one thread, in the
+    order asked, so the state needs no lock: ``start`` and ``stop`` return
+    that thread's future (a server awaits it off its event loop, a script
+    takes ``.result()``). The session belongs to that thread: a process's
+    first start on the card (CUPTI's set-up) takes seconds. A capture
+    records CUDA activity, the whole process's, when ``device`` is a CUDA
+    device, and else the CPU activity of that thread.
+
+    The stop runs in C++ without the GIL (``csrc/profiler_stop.cpp``, built
+    at the first start): it turns every record into a trace event, some
+    30 µs a record on the card, so seconds for a capture of a loaded
+    worker, and ``torch.profiler``'s stop holds the GIL for all of it,
+    which stalls the worker's event loop and its load reports. Without the
+    GIL the stop can deadlock with a CUDA graph launch on another thread
+    (on an H100: the engine's replay and the stop, both stuck for
+    minutes), so a server stops inside the engine's ``device_held``: its
+    streams pause for the stop, its event loop does not."""
+
+    def __init__(self) -> None:
+        self._thread = ThreadPoolExecutor(1, thread_name_prefix="profiler")
+        self._active_dir: Optional[str] = None
+        self._t_start = 0.0
+        self.captures = 0
+        self.generation = 0
+        self.registry = MetricsRegistry()
+        self._captures_metric = self.registry.counter(
+            mn.RUNTIME_PROFILER_CAPTURES_TOTAL,
+            # JAX's help text, letter for letter: scrapers compare families
+            "Completed on-demand jax.profiler captures",
+        )
+        self.registry.on_render(
+            lambda: self._captures_metric.set_total(self.captures)
+        )
+
+    def status(self) -> Dict[str, Any]:
+        return {
+            "active": self._active_dir is not None,
+            "dir": self._active_dir,
+            "captures": self.captures,
+            "generation": self.generation,
+        }
+
+    def start(self, log_dir: Optional[str] = None, device: Any = None) -> "Future[Dict[str, Any]]":
+        return self._thread.submit(self._start, log_dir, device)
+
+    def stop(self, hold: Optional[Callable[[], ContextManager[Any]]] = None
+             ) -> "Future[Dict[str, Any]]":
+        """``hold()`` is entered around the stop: an engine's
+        ``device_held``, so that no launch of its meets the stop."""
+        return self._thread.submit(self._stop, hold)
+
+    def _start(self, log_dir: Optional[str], device: Any) -> Dict[str, Any]:
+        if self._active_dir is not None:
+            return {"ok": False, "error": "capture already active", "dir": self._active_dir}
+        import torch
+        from torch.autograd import profiler as autograd_profiler
+        from torch.profiler import ProfilerActivity
+
+        _stop_library()  # built first: a capture must be stoppable
+        cuda = device is not None and torch.device(device).type == "cuda"
+        activities = {ProfilerActivity.CUDA if cuda else ProfilerActivity.CPU}
+        # Hyphenated prefix: the metric-name lint greps for
+        # dynamo_tpu_* snake literals.
+        log_dir = log_dir or tempfile.mkdtemp(prefix="dynamo-tpu-profile-")
+        os.makedirs(log_dir, exist_ok=True)
+        config = autograd_profiler.ProfilerConfig(
+            autograd_profiler.ProfilerState.KINETO, False, False, False, False, False,
+            torch._C._profiler._ExperimentalConfig())
+        autograd_profiler._prepare_profiler(config, activities)
+        autograd_profiler._run_on_profiler_start()
+        try:
+            autograd_profiler._enable_profiler(config, activities)
+        except BaseException:
+            autograd_profiler._run_on_profiler_stop()
+            raise
+        self._active_dir = log_dir
+        self._t_start = time.monotonic()
+        self.generation += 1
+        return {"ok": True, "dir": log_dir, "generation": self.generation,
+                "activities": [a.name for a in activities]}
+
+    def _stop(self, hold: Optional[Callable[[], ContextManager[Any]]]) -> Dict[str, Any]:
+        if self._active_dir is None:
+            return {"ok": False, "error": "no active capture"}
+        from torch.autograd import profiler as autograd_profiler
+
+        log_dir = self._active_dir
+        duration = time.monotonic() - self._t_start
+        trace = os.path.join(log_dir, TRACE_FILE)
+        # Active until the trace is written (a reader of status() then
+        # finds it); over whatever happens, so that a failed stop or
+        # export does not wedge start().
+        try:
+            error = ctypes.create_string_buffer(1024)
+            try:
+                with hold() if hold is not None else contextlib.nullcontext():
+                    failed = _stop_library().profiler_stop_and_save(
+                        trace.encode(), error, len(error))
+            finally:
+                autograd_profiler._run_on_profiler_stop()
+            if failed:
+                raise RuntimeError(f"profiler stop failed: {error.value.decode(errors='replace')}")
+            self.captures += 1
+        finally:
+            self._active_dir = None
+        return {"ok": True, "dir": log_dir, "duration_s": round(duration, 3), "trace": trace}
+
+
+def _stop_library() -> Any:
+    from dynamo_tpu_torch.ops.cuda import build
+
+    lib = build.build_host(Path(__file__).parent / "csrc" / "profiler_stop.cpp")
+    lib.profiler_stop_and_save.argtypes = [ctypes.c_char_p, ctypes.c_char_p, ctypes.c_int]
+    lib.profiler_stop_and_save.restype = ctypes.c_int
+    return lib
+
+
+# ---------------------------------------------------------------------------
+# Process globals (mirrors lifecycle.global_lifecycle / tracing.global_tracer)
+# ---------------------------------------------------------------------------
+
+_LOCK = threading.Lock()
+_PROFILER: Optional[ProfilerControl] = None
+
+
+def global_profiler() -> ProfilerControl:
+    global _PROFILER
+    with _LOCK:
+        if _PROFILER is None:
+            _PROFILER = ProfilerControl()
+        return _PROFILER
+
+
+def render_runtime_metrics(openmetrics: bool = False) -> str:
+    """Prometheus text for the process-global runtime families (the
+    profiler's; the compile watcher's come with ROADMAP A9). Registered on
+    every SystemStatusServer."""
+    return global_profiler().registry.render(openmetrics=openmetrics)

@@ -2,7 +2,7 @@
 dynamo_tpu/runtime/drain.py:57-62, which the request planes' ``err``
 frames name (network/errors.py kind ``draining``). The drain controller
 (the serving → draining → drained state machine, live handoff and the
-rolling-restart ladder) comes with the worker main (ROADMAP A4c-3).
+rolling-restart ladder) comes with the drain plane (ROADMAP A11).
 """
 
 from __future__ import annotations

@@ -1,8 +1,10 @@
 """Canonical metric names — the port's copy of the entries of
-dynamo_tpu/runtime/metric_names.py that the port emits (the frontend's, the
-parser plane's, the crash plane's, the router's, the KV-reuse plane's,
-migration's, the overload plane's and the SLO plane's families), letter for letter, so that dashboards and
-scrapers read the port as they read the JAX package.
+dynamo_tpu/runtime/metric_names.py that the port emits (the engine's stats
+gauges, the frontend's, the parser plane's, the crash plane's, the
+router's, the KV-reuse plane's, migration's, the overload plane's, the SLO
+plane's and the device plane's HBM ledger and profiler families), letter
+for letter, so that dashboards and scrapers read the port as they read the
+JAX package.
 
 Reference parity: lib/runtime/src/metrics/prometheus_names.rs — emitters
 import these constants instead of repeating strings.
@@ -11,6 +13,15 @@ Naming scheme: ``dynamo_tpu_<subsystem>_<metric>[_unit][_total]``.
 """
 
 from __future__ import annotations
+
+# -- engine stats gauges (runtime/system_server.py engine_stats_prometheus) --
+ENGINE_PREFIX = "dynamo_tpu_engine"
+
+
+def engine_gauge(stat_key: str) -> str:
+    """Engine stats-dict key → canonical gauge name (system server)."""
+    return f"{ENGINE_PREFIX}_{stat_key}"
+
 
 # -- frontend (http/metrics.py) ---------------------------------------------
 FRONTEND_PREFIX = "dynamo_tpu_frontend"
@@ -113,6 +124,14 @@ KVCACHE_SKETCH_LOOKUP_P99_SECONDS = (
 # read-back). Mirrors kvbm_tier_evictions_total with the reason split the
 # popularity-eviction follow-on acts on.
 KVCACHE_EVICTIONS_TOTAL = f"{KVCACHE_PREFIX}_evictions_total"
+
+# -- device/runtime plane (runtime/device_observe.py) ------------------------
+RUNTIME_PREFIX = "dynamo_tpu_runtime"
+# HBM ledger (structural byte accounting + the CUDA allocator's mirror).
+RUNTIME_HBM_BYTES = f"{RUNTIME_PREFIX}_hbm_bytes"
+RUNTIME_HBM_DEVICE_BYTES = f"{RUNTIME_PREFIX}_hbm_device_bytes"
+# On-demand torch.profiler captures (POST /debug/profile).
+RUNTIME_PROFILER_CAPTURES_TOTAL = f"{RUNTIME_PREFIX}_profiler_captures_total"
 
 # -- migration (llm/migration.py Migration) ----------------------------------
 MIGRATION_PREFIX = "dynamo_tpu_migration"

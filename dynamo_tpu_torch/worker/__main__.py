@@ -12,6 +12,12 @@ defaults, plus ``--device`` (cuda by default, which raises without a card;
 machinery the port lacks is refused with the ROADMAP item that brings it
 (``refuse_unported``).
 
+With ``--system-port N`` (0 picks a free port) it serves the system server
+(runtime/system_server.py) in JAX's start order: up before
+``engine.start()``, so that ``/live`` and ``/healthz`` answer at once while
+``/readyz`` is 503 until the worker is registered and serving. It prints
+``system server on :PORT``.
+
 As JAX's worker, it labels its spans ``worker-{id:#x}`` and ships them to
 the frontend's trajectory collector (``TrajectoryShipper`` on the global
 tracer), and runs a worker-side ``OverloadController`` whose brownout
@@ -25,7 +31,8 @@ the wait at once, where JAX's starts a DrainController live handoff (the
 drain plane needs KV export, A6); the ``generate`` handler serves
 ``engine.generate`` and refuses a request that carries
 ``disaggregated_params`` (JAX's DecodeHandler pulls its KV, A6); there is
-no ``kv`` or handoff endpoint (A6) and no system server (A4c-4b).
+no ``kv`` or handoff endpoint (A6); the system server's ``/drain`` and
+``/v1/loras`` answer 501 (A11, A7).
 """
 
 from __future__ import annotations
@@ -191,8 +198,6 @@ _UNPORTED: List[tuple] = [
      or a.tick_budget_ceiling is not None or a.tick_budget_policy != 0.5
      or a.tick_budget_itl_slo_ms is not None, "--tick-budget*",
      "the tick budget is not ported (ROADMAP A9, the tick budget)"),
-    (lambda a: a.system_port is not None, "--system-port",
-     "the system server is not ported (ROADMAP A4c-4b)"),
     (lambda a: a.kv_checkpoint_dir, "--kv-checkpoint-dir",
      "the KV checkpoint needs KV export and import (ROADMAP A6)"),
     (lambda a: a.coordinator or a.num_processes is not None or a.process_id is not None
@@ -237,11 +242,14 @@ class WorkerHandle:
     served_ctl: Any
     trajectory_shipper: Any
     overload_task: Any  # the worker-side OverloadController's evaluate loop
+    system_server: Any  # None without --system-port
 
     async def close(self) -> None:
         from dynamo_tpu_torch.runtime.tasks import reap_task
         from dynamo_tpu_torch.runtime.trajectory import set_global_shipper
 
+        if self.system_server is not None:
+            await self.system_server.stop()
         self.overload_task.cancel()
         await reap_task(self.overload_task, "overload eval loop", logger)
         set_global_shipper(None)
@@ -258,7 +266,8 @@ async def serve_worker(args: argparse.Namespace, runtime: Any, *,
     """Boot the engine and serve it on ``runtime`` as the JAX worker does
     (dynamo_tpu/worker/__main__.py:172-637, in its order): the KV-event
     publisher and TorchEngine(on_kv_event=), the snapshot source, the load
-    publisher, the card, engine.start(), the ``control`` and ``generate``
+    publisher, the card, the system server (``args.system_port``; readiness
+    503 until the end of this call), engine.start(), the ``control`` and ``generate``
     endpoints (under DYN_TPU_WORKER_ID or a random 63-bit id, the process
     incarnation in the instance metadata), register_llm, the load reports.
     ``params`` overrides the engine's random init (tests pass weights
@@ -336,7 +345,23 @@ async def serve_worker(args: argparse.Namespace, runtime: Any, *,
     component = runtime.namespace(args.namespace).component(args.component)
     endpoint = component.endpoint(args.endpoint)
 
+    # The system server is up before the engine starts: /healthz (the
+    # process turns) answers through the start while /readyz stays 503,
+    # so an orchestrator neither restarts the worker nor routes to it.
+    ready_state = {"ready": False, "detail": "starting engine"}
+    system_server = None
+    if args.system_port is not None:
+        from dynamo_tpu_torch.runtime.system_server import SystemStatusServer, attach_engine
+
+        system_server = SystemStatusServer(port=args.system_port)
+        attach_engine(system_server, engine)
+        system_server.register_readiness(
+            "worker", lambda: (ready_state["ready"], ready_state["detail"]))
+        await system_server.start()
+        print(f"system server on :{system_server.port}", flush=True)
+
     await engine.start()
+    ready_state["detail"] = "registering endpoints"
     incarnation = process_incarnation()
 
     async def control(request, context):
@@ -392,10 +417,14 @@ async def serve_worker(args: argparse.Namespace, runtime: Any, *,
     overload_task = asyncio.get_running_loop().create_task(
         overload_eval_loop(), name="overload-eval"
     )
+    if system_server is not None:
+        overload.register_metrics(system_server)
+    ready_state.update(ready=True, detail=f"serving (incarnation {incarnation:#x})")
     return WorkerHandle(engine=engine, card=card, name=name, instance_id=instance_id,
                         incarnation=incarnation, kv_pub=kv_pub, load_pub=load_pub,
                         served=served, served_ctl=served_ctl,
-                        trajectory_shipper=trajectory_shipper, overload_task=overload_task)
+                        trajectory_shipper=trajectory_shipper, overload_task=overload_task,
+                        system_server=system_server)
 
 
 async def main() -> None:

@@ -26,7 +26,82 @@ JAX = types.SimpleNamespace(name="jax", plane=jplane)
 PORT = types.SimpleNamespace(name="port", plane=tplane)
 APIS = [pytest.param(JAX, id="jax"), pytest.param(PORT, id="port")]
 WAIT = 5.0
-SETTLE = 0.3  # subscriptions reach the publishers (pyzmq's slow joiner)
+PROBE = "settle-probe"  # the payload key of an in-band probe, and the raw probes' topic
+
+
+async def until(cond, what, timeout=2 * WAIT):
+    """Poll ``cond()`` (sync or async) until it is truthy; fail after
+    ``timeout`` seconds."""
+    deadline = asyncio.get_running_loop().time() + timeout
+    while True:
+        got = cond()
+        if asyncio.iscoroutine(got):
+            got = await got
+        if got:
+            return got
+        assert asyncio.get_running_loop().time() < deadline, f"{what}: not within {timeout} s"
+        await asyncio.sleep(0.01)
+
+
+async def until_delivered(pub, topic, subs, timeout=2 * WAIT):
+    """Publish probes on ``topic`` until each subscription of ``subs`` has
+    read one: ``pub`` now sends what it publishes on ``topic`` (a
+    subscription covering it reached ``pub`` through the broker), and the
+    broker forwards it to each of ``subs``. A publisher's messages reach a
+    subscriber in order, so what ``pub`` publishes next arrives after every
+    probe; ``get`` skips them."""
+    pending = list(subs)
+    deadline = asyncio.get_running_loop().time() + timeout
+    n = 0
+    while pending:
+        assert asyncio.get_running_loop().time() < deadline, f"no probe on {topic} within {timeout} s"
+        await pub.publish(topic, {PROBE: n})
+        n += 1
+        for sub in list(pending):
+            try:
+                _, payload = await sub.get(0.02)
+            except asyncio.TimeoutError:
+                continue
+            assert PROBE in payload, f"a message before any probe: {payload}"
+            pending.remove(sub)
+
+
+async def get(sub, timeout=WAIT):
+    """The next message of ``sub`` that is not a probe."""
+    while True:
+        topic, payload = await sub.get(timeout)
+        if not (isinstance(payload, dict) and PROBE in payload):
+            return topic, payload
+
+
+async def _send_raw(plane, frames):
+    if hasattr(plane, "_connect_pub"):  # the port's publisher connects in the background
+        await asyncio.shield(plane._connect_pub())
+    await plane._pub.send_multipart(frames)
+
+
+async def publisher_holds_subscriptions(plane, broker_address, timeout=2 * WAIT):
+    """Wait until the publisher of ``plane`` holds every subscription its
+    broker has handed up so far. A raw SUB made now subscribes to the probe
+    topic; the broker hands that up after the earlier ones, in order on each
+    publisher's connection, so the first probe of ``plane`` that reaches it
+    proves the publisher has them all. The probes have three frames, which
+    neither package's durable broker logs (it logs two-frame messages)."""
+    host, _, xpub = broker_address.rsplit(":", 2)
+    probe = zmq.asyncio.Context.instance().socket(zmq.SUB)
+    probe.connect(f"tcp://{host}:{xpub}")
+    probe.setsockopt(zmq.SUBSCRIBE, PROBE.encode())
+    deadline = asyncio.get_running_loop().time() + timeout
+    try:
+        while True:
+            assert asyncio.get_running_loop().time() < deadline, \
+                f"the publisher got no subscription within {timeout} s"
+            await _send_raw(plane, [PROBE.encode(), b"", b""])
+            if await probe.poll(20):
+                await probe.recv_multipart()
+                return
+    finally:
+        probe.close(0)
 
 
 def _broker(api, **kw):
@@ -45,14 +120,15 @@ async def test_pub_sub_through_either_broker(broker_api, pub_api, sub_api):
     try:
         exact = subs.subscribe("ns.comp.kv_events")
         wild = subs.subscribe("ns.>")
-        await asyncio.sleep(SETTLE)
+        await until_delivered(pub, "ns.comp.kv_events", [exact, wild])
+        await until_delivered(pub, "ns.comp.load", [wild])
         big = {"blob": b"\x07" * 5000, "ids": list(range(300))}
         await pub.publish("ns.comp.kv_events", {"k": 1})
         await pub.publish("other.topic", {"k": 2})
         await pub.publish("ns.comp.load", big)
-        assert await exact.get(WAIT) == ("ns.comp.kv_events", {"k": 1})
-        assert await wild.get(WAIT) == ("ns.comp.kv_events", {"k": 1})
-        assert await wild.get(WAIT) == ("ns.comp.load", big)  # other.topic filtered
+        assert await get(exact) == ("ns.comp.kv_events", {"k": 1})
+        assert await get(wild) == ("ns.comp.kv_events", {"k": 1})
+        assert await get(wild) == ("ns.comp.load", big)  # other.topic filtered
         await exact.aclose()
         await wild.aclose()
     finally:
@@ -70,14 +146,15 @@ async def test_publish_before_subscribe_is_dropped_as_by_libzmq(pub_api):
     pub = pub_api.plane.ZmqEventPlane(broker.address)
     subs = JAX.plane.ZmqEventPlane(broker.address)
     try:
-        await asyncio.sleep(SETTLE)  # the publisher is connected, no subscription
+        # the publisher is connected and holds no subscription to t.>
+        await publisher_holds_subscriptions(pub, broker.address)
         await pub.publish("t.a", {"n": 1})
         sub = subs.subscribe("t.>")
-        await asyncio.sleep(SETTLE)
+        await until_delivered(pub, "t.b", [sub])
         await pub.publish("t.b", {"n": 2})
-        assert await sub.get(WAIT) == ("t.b", {"n": 2})
+        assert await get(sub) == ("t.b", {"n": 2})  # t.a, published first, is not there
         with pytest.raises(asyncio.TimeoutError):
-            await sub.get(0.2)
+            await get(sub, 0.2)
     finally:
         await pub.close()
         await subs.close()
@@ -159,7 +236,7 @@ async def _durable_log(broker_api, tmp_path, publisher_api=JAX):
     broker = _broker(broker_api, log_path=log)
     pub = publisher_api.plane.ZmqEventPlane(broker.address)
     try:
-        await asyncio.sleep(SETTLE)  # the broker's subscribe-all reaches the publisher
+        await publisher_holds_subscriptions(pub, broker.address)  # the broker's subscribe-all
         for topic, payload in SEQUENCE:
             await pub.publish(topic, payload)
         for _ in range(200):
@@ -222,7 +299,7 @@ async def test_a_restarted_broker_continues_the_sequence(tmp_path, first, restar
     try:
         assert again.seq == len(SEQUENCE)
         assert again._offsets == {1: 0, 257: again._offsets[257]}
-        await asyncio.sleep(SETTLE)
+        await publisher_holds_subscriptions(pub, again.address)
         await pub.publish("ns.after", {"restart": True})
         for _ in range(200):
             if again.seq == len(SEQUENCE) + 1:
@@ -258,7 +335,7 @@ async def test_a_subscription_closes_when_its_broker_goes():
     plane = tplane.ZmqEventPlane(broker.address)
     try:
         sub = plane.subscribe("t.>")
-        await asyncio.sleep(SETTLE)
+        await until(lambda: broker._xpub._all.get(b"t."), "the subscription at the broker")
         await broker.close()
         with pytest.raises(StopAsyncIteration):
             await sub.get(WAIT)
@@ -288,7 +365,8 @@ async def test_publish_never_waits_on_a_broker_that_stops_reading(monkeypatch):
 
     try:
         await xsub.send(b"\x01")  # subscribe to all, as the durable broker does
-        await asyncio.sleep(SETTLE)
+        await plane._connect_pub()
+        await until(lambda: b"" in plane._pub._subs, "the subscribe-all at the publisher")
         await asyncio.wait_for(publish_all(), WAIT)
         assert xsub._inbox.qsize() == 8
         assert plane._pub._conn.queued() <= (1 << 20) + len(blob) + 64

@@ -39,8 +39,10 @@ from dynamo_tpu_torch.models.weights import params_from_jax
 from dynamo_tpu_torch.router import publisher as tpublisher
 from dynamo_tpu_torch.router import router as trouter
 from dynamo_tpu_torch.runtime import context as tcontext
+from dynamo_tpu_torch.router.protocols import kv_events_topic, kv_sync_topic, load_topic
 from dynamo_tpu_torch.runtime.events import zmq_plane as tzmq
 from dynamo_tpu_torch.tokens.blocks import compute_block_hashes
+from tests.test_torch_event_plane import get, publisher_holds_subscriptions, until, until_delivered
 
 JAX = types.SimpleNamespace(proto=jproto, Context=jcontext.Context)
 TORCH = types.SimpleNamespace(proto=tproto, Context=tcontext.Context)
@@ -50,7 +52,6 @@ PREFIX = [int(t) for t in np.random.default_rng(1).integers(3, 500, 12)]  # 3 bl
 PROMPTS = [PREFIX + [int(t) for t in np.random.default_rng(10 + i).integers(3, 500, n)]
            for i, n in enumerate((5, 9, 14))] + [
     [int(t) for t in np.random.default_rng(20).integers(3, 500, 23)]]
-SETTLE = 0.3  # subscriptions reach the publishers (pyzmq's slow joiner)
 
 
 @pytest.fixture(scope="module")
@@ -209,14 +210,31 @@ async def test_routers_of_both_packages_index_both_packages_workers(weights):
         routers.extend(rs)
         return rs
 
-    async def all_applied(rs, base):
-        for r, b in zip(rs, base):
-            await r.wait_for_events(b + jpub._event_id + tpub._event_id, timeout=10)
+    topics = {t.encode(): t for t in (kv_events_topic(ns, comp), load_topic(ns, comp),
+                                      kv_sync_topic(ns, comp))}
+
+    def at_broker(routers_n):
+        """Whether the broker holds each router's KV and load subscriptions
+        and each publisher's sync subscription, and nothing more of them."""
+        held = {t: broker._xpub._all.get(p, 0) for p, t in topics.items()}
+        return held == {kv_events_topic(ns, comp): routers_n, load_topic(ns, comp): routers_n,
+                        kv_sync_topic(ns, comp): 2}
+
+    async def subscribed(routers_n):
+        """Every subscription at the broker, and every publishing plane
+        holding them: what a plane publishes now reaches its subscribers."""
+        await until(lambda: at_broker(routers_n), f"{routers_n} routers' subscriptions")
+        for plane in planes:
+            await publisher_holds_subscriptions(plane, broker.address)
+
+    def caught_up(rs):
+        """Whether each router applied the last event of each publisher."""
+        want = {(1, 0): jpub._event_id, (2, 0): tpub._event_id}
+        return all(r.indexer._last_event_id.get(w) == n for r in rs for w, n in want.items())
 
     try:
         rs = await start_routers()
-        await asyncio.sleep(SETTLE)
-        base = [r.indexer.events_applied - jpub._event_id - tpub._event_id for r in rs]
+        await subscribed(2)
         # JAX's worker takes the prompts sharing PREFIX, the port's the rest
         await _traffic(jeng, JAX, "prefixes")
         for p in (PROMPTS[3], PROMPTS[3][:9] + PREFIX):
@@ -224,7 +242,7 @@ async def test_routers_of_both_packages_index_both_packages_workers(weights):
         await _settle(teng)
         for lp in loads:
             await lp.publish_once()
-        await all_applied(rs, base)
+        await until(lambda: caught_up(rs), "the routers applying every event", timeout=10)
         port_router, jax_router = rs
         assert _held(port_router, (1, 0)) == {h for h, _ in jeng.pool.committed_view()}
         assert _held(port_router, (2, 0)) == {h for h, _ in teng.pool.committed_view()}
@@ -248,9 +266,24 @@ async def test_routers_of_both_packages_index_both_packages_workers(weights):
         for r in rs:
             await r.stop()
         routers.clear()
+        await until(lambda: at_broker(0), "the stopped routers' subscriptions leaving the broker")
         rs2 = await start_routers()
-        for r in rs2:
-            await r.wait_for_events(2, timeout=10)
+        await subscribed(2)
+        # The port's router catches up by itself: from its start-up request,
+        # or, where that request's answer left a worker before the
+        # subscription reached it, from the load reports the workers send
+        # each interval.
+        for lp in loads:
+            await lp.publish_once()
+        await until(lambda: caught_up(rs2[:1]), "the restarted port router applying the snapshots",
+                    timeout=10)
+        # JAX's router asks for the snapshots as it subscribes, without
+        # waiting for the subscription (dynamo_tpu/router/router.py), and
+        # never again: the test asks once more for it.
+        rs2[1]._sync_requested.clear()
+        await rs2[1]._request_sync(None)
+        await until(lambda: caught_up(rs2), "the restarted JAX router applying the snapshots",
+                    timeout=10)
         assert _held(rs2[0], (1, 0)) == _held(port_router, (1, 0))
         assert _held(rs2[0], (2, 0)) == _held(port_router, (2, 0))
         for q in queries:
@@ -287,9 +320,9 @@ async def test_subscription_ready_says_when_the_subscribe_was_sent():
         sub = plane.subscribe("ns.comp.kv_events")
         assert not sub.ready.is_set()
         await asyncio.wait_for(sub.ready.wait(), 5)
-        await asyncio.sleep(SETTLE)  # the broker forwards it to publishers
+        await until_delivered(plane, "ns.comp.kv_events", [sub])  # it reached the publisher
         await plane.publish("ns.comp.kv_events", {"n": 1})
-        assert await sub.get(5) == ("ns.comp.kv_events", {"n": 1})
+        assert await get(sub, 5) == ("ns.comp.kv_events", {"n": 1})
     finally:
         await plane.close()
         await broker.close()

@@ -77,7 +77,6 @@ REFUSED = [
     (["--tick-budget"], "ROADMAP A9, the tick budget"),
     (["--tick-budget-floor", "32"], "ROADMAP A9, the tick budget"),
     (["--tick-budget-policy", "0.0"], "ROADMAP A9, the tick budget"),
-    (["--system-port", "0"], "ROADMAP A4c-4b"),
     (["--kv-checkpoint-dir", "/tmp/x"], "ROADMAP A6"),
     (["--coordinator", "h:1"], "ROADMAP A9, parallelism"),
     (["--num-processes", "2"], "ROADMAP A9, parallelism"),
@@ -105,7 +104,8 @@ def test_worker_serves_the_port_presets_and_accepts_their_flags():
     for model in tworker.BUILTIN_CONFIGS:
         tworker.refuse_unported(parser, parser.parse_args(
             ["--model", model, "--quantization", "int8", "--kv-cache-dtype", "auto",
-             "--decode-steps", "4", "--pipeline-depth", "1", "--device", "cpu"]))
+             "--decode-steps", "4", "--pipeline-depth", "1", "--device", "cpu",
+             "--system-port", "0"]))
     assert set(tworker.BUILTIN_CONFIGS) | set(tworker.MOE_PRESETS) == set(jworker.BUILTIN_CONFIGS)
 
 
