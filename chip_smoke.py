@@ -52,6 +52,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the int8 head and the chunk-attention kernel must have launched, and a
    stream is checked against a teacher-forced dense forward that takes the
    unfused layers.
+   Its perf ledger (made anew before the engine) must hold only rows with
+   path "fused", each with a roofline fraction in (0, 1.05] (a
+   `perf_int8` line with them).
 8. profile_int8 — one decode burst of the 8B engine: host wall vs device
    busy, idle share, device ops a step, the fused layer's share.
 9. int8kv kernels — parity and timing of the int8-pool paged-attention
@@ -282,7 +285,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    key steers nothing; each of MAINS_GROUPS groups' followers (sharing a
    1,024-token prefix) prefill on their leader's worker and hit the
    prefix's blocks; /clear_kv_blocks clears the workers' cached blocks,
-   exactly; a 1,500-token greedy stream whose worker is SIGKILLed after
+   exactly; a 1,500-token greedy stream pinned to worker 0x202, which is SIGKILLed after
    MAINS_KILL_AFTER tokens ends with finish_reason length and no error
    frame, its tokens and their logprobs exactly those of the same request
    run unbroken on the survivor up to the tokens Migration carried, and
@@ -292,7 +295,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    /metrics counting 1 to the card's migration_limit migrations, liveness
    declaring the worker dead within MAINS_INTERVAL_S x (MAINS_DEAD_AFTER +
    1) and a new request running on the survivor; SIGTERM ends the survivor with exit 0 within
-   its grace period, its instance leaves discd, the model leaves
+   its grace period and leaves its perf ledger's fingerprint file
+   (DYN_TPU_PERF_FINGERPRINT_PATH, set for 0x101 alone) with a record of
+   qwen2.5-0.5b on cuda, its instance leaves discd, the model leaves
    /v1/models (when the killed worker's lease lapses) and a request then
    gets a JSON error; SIGTERM ends the frontend with exit 0; both
    paged-attention kernels launched in each worker. The line: seconds to
@@ -354,13 +359,20 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the worker's cached blocks and a `cleared` KV event from it reaches the
    event plane the frontend's router reads; a traced chat through the
    frontend shows on /debug/traces, /debug/requests[/{id}],
-   /debug/trajectory[/{id}] and /debug/kvcache; /drain, /v1/loras,
-   /debug/perf and /debug/compiles answer 501 naming their ROADMAP items;
-   `python -m dynamo_tpu_torch.cli observe kvcache --port P` exits 0. The
-   line also records the µs a /metrics and a /debug/memory scrape take
-   while a stream runs, and the ITL of SYSTEM_ITL_STREAMS streams with a
-   scrape of both every SYSTEM_SCRAPE_S against none (without, with, with,
-   without): a record, not a limit.
+   /debug/trajectory[/{id}] and /debug/kvcache; /drain and /v1/loras
+   answer 501 naming their ROADMAP items; `python -m dynamo_tpu_torch.cli
+   observe kvcache|perf --port P` and `observe --port P` (the device
+   plane) exit 0; the /debug/perf a scraper read while the ITL
+   comparison's streams ran holds decode rows with samples, each roofline
+   fraction in (0, 1.05] and equal within 1e-6 to its tok/s over the
+   card's roofline (runtime/roofline.py) recomputed from the row's median
+   occupancy and context; idle, /metrics' decode step count equals the
+   worker's reaped bursts and /debug/compiles' captures its graphs. The
+   line also records the µs a scrape of each SYSTEM_SCRAPED route takes
+   while a stream runs, the ITL of SYSTEM_ITL_STREAMS streams with a
+   scrape of them all every SYSTEM_SCRAPE_S against none (without, with,
+   with, without): a record, not a limit; and the captures each of those
+   runs held (printed too).
 36. tick_retry — the engine's tick retry on the card: Qwen2.5-0.5B in
    this process (CUDA graphs, depth 2, embedding x QWEN_EMBED_SCALE) serves
    a greedy and a penalised stream (each after a run that captures its
@@ -369,10 +381,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    2nd decode_dispatch failing after its syncs and after its replay was
    enqueued: each must equal its unpoisoned stream. The line times all
    ten streams.
+37. perf — the perf ledger's sentinel (``perf_phase``): three Qwen2.5-0.5B
+   engines in this process on the same weights, each with a ledger of its
+   own, PERF_KNOBS (evaluation interval, minimum samples) and a
+   fingerprint file set through the environment, the same traffic: with
+   graphs, storing its fingerprints at stop(); with graphs, loading them,
+   no anomaly; eager (cuda_graphs=False, ~6x slower a burst), loading
+   them: verdict regression with a step_regression anomaly, counted and
+   in the perf ring. The line: each run's rows, verdicts and anomalies.
 
 (18-20 run right after the Llama-3-8B kernels of phases 3-4, 22 right after
 the fused layer's timing, 21 right after phase 11, 23 right after phase 6,
-24-28 after phase 17, 29-36 right after phase 23.)
+24-28 after phase 17, 29-37 right after phase 23.)
 Then one JSON line {"kernels": [...]} for all ten kernels, nvidia-smi's
 name and power limit, and last {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result.
@@ -4049,7 +4069,8 @@ SYSTEM_LIVE_POLL_S = 0.02
 # chunk kernel), then its first token and one decode burst, replayed.
 SYSTEM_PROFILE_PROMPT = 600
 SYSTEM_PROFILE_TOKENS = 2
-SYSTEM_SCRAPES = 50  # timed scrapes of /metrics and of /debug/memory while a stream runs
+SYSTEM_SCRAPES = 50  # timed scrapes of each SYSTEM_SCRAPED route while a stream runs
+SYSTEM_SCRAPED = ("/metrics", "/debug/memory", "/debug/perf", "/debug/compiles")
 SYSTEM_SCRAPE_S = 0.1  # the scrape interval of the ITL comparison
 SYSTEM_ITL_STREAMS = 4  # concurrent 256-token streams a run of the ITL comparison
 HBM_CATEGORIES = ("kv_cache", "params", "slot_state", "slot_tables", "lora", "proc_state")
@@ -4192,6 +4213,9 @@ def mains_phase(smi, http_set) -> dict:
             env.pop("DYN_TPU_LEASE_TTL", None)
             t_spawn = time.monotonic()
             counts_files = {}
+            # the system worker's perf ledger persists its fingerprints here
+            # at its SIGTERM (it is the survivor of the migration below)
+            fingerprints = os.path.join(tmp, "fingerprints.json")
             for wid in MAINS_WORKERS:
                 counts_files[wid] = os.path.join(tmp, f"counts-{wid:x}.json")
                 procs[f"worker {wid:#x}"] = ProcLines(subprocess.Popen(
@@ -4199,7 +4223,9 @@ def mains_phase(smi, http_set) -> dict:
                      counts_files[wid], "--model", MAINS_MODEL,
                      *(["--system-port", "0"] if wid == SYSTEM_WORKER else [])],
                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=root,
-                    env={**env, "DYN_TPU_WORKER_ID": str(wid)}))
+                    env={**env, "DYN_TPU_WORKER_ID": str(wid),
+                         **({"DYN_TPU_PERF_FINGERPRINT_PATH": fingerprints}
+                            if wid == SYSTEM_WORKER else {})}))
             for name, extra in (("frontend", {}), ("frontend caps", OVERLOAD_CAPS),
                                 ("frontend sla", OVERLOAD_SLA)):
                 procs[name] = ProcLines(subprocess.Popen(
@@ -4210,7 +4236,7 @@ def mains_phase(smi, http_set) -> dict:
             os.environ.update({k: env[k] for k in saved})
             try:
                 result = asyncio.run(mains_client(procs, t_spawn, http_set,
-                                                  counts_files[SYSTEM_WORKER]))
+                                                  counts_files[SYSTEM_WORKER], fingerprints))
             finally:
                 for k, v in saved.items():
                     if v is None:
@@ -4244,10 +4270,11 @@ def mains_phase(smi, http_set) -> dict:
     return {n: sum(c.get(n, 0) for c in counts.values()) for n in counts[MAINS_WORKERS[0]]}
 
 
-async def mains_client(procs, t_spawn, http_set, counts_file) -> dict:
+async def mains_client(procs, t_spawn, http_set, counts_file, fingerprints) -> dict:
     """The client side of mains_phase: HTTP to the frontend process, and
     the workers' ``control`` endpoints (stats, clear_kv_blocks) through
-    the runtime's planes; ``counts_file`` is the system worker's."""
+    the runtime's planes; ``counts_file`` is the system worker's, and
+    ``fingerprints`` the file its perf ledger stores at its SIGTERM."""
     import signal
     from types import SimpleNamespace
 
@@ -4475,12 +4502,16 @@ async def mains_client(procs, t_spawn, http_set, counts_file) -> dict:
                     "logprobs": [x for lp in lps for x in lp["token_logprobs"]]}
 
         graphs_before = {w: s["decode_graphs"] for w, s in (await all_stats(live)).items()}
-        stream = asyncio.ensure_future(http({"path": "/v1/completions", "body": long_body},
+        # pinned to the worker that is not SYSTEM_WORKER: that one survives,
+        # and its SIGTERM below stores its perf fingerprints
+        doomed = next(w for w in MAINS_WORKERS if w != SYSTEM_WORKER)
+        stream = asyncio.ensure_future(http({"path": "/v1/completions", "body": long_body,
+                                             "headers": {"x-dynamo-worker": str(doomed)}},
                                             on_frame))
         await until("the long stream's first tokens", lambda: seen["tokens"] > 0 or stream.done())
         serving = [w for w, s in (await all_stats(live)).items() if s["active_seqs"]]
-        if len(serving) != 1:
-            fail(f"mains: the long stream runs on workers {serving}")
+        if serving != [doomed]:
+            fail(f"mains: the long stream pinned to {doomed:#x} runs on workers {serving}")
         victim, survivor = serving[0], next(w for w in live if w != serving[0])
         await until(f"{MAINS_KILL_AFTER} tokens of the long stream",
                     lambda: seen["tokens"] >= MAINS_KILL_AFTER or stream.done())
@@ -4591,6 +4622,18 @@ async def mains_client(procs, t_spawn, http_set, counts_file) -> dict:
         term_s = time.monotonic() - t_term
         if rc != 0:
             fail(f"mains: the survivor exited {rc} on SIGTERM: {workers[survivor].tail()}")
+        # the survivor (SYSTEM_WORKER) stored its perf ledger's fingerprints
+        try:
+            with open(fingerprints) as f:
+                stored = json.load(f)
+        except (OSError, ValueError) as exc:
+            fail(f"mains: no fingerprint file after the survivor's SIGTERM: {exc!r}")
+            stored = {"fingerprints": {}, "identity": {}}
+        mine = {k: v for k, v in stored["fingerprints"].items()
+                if k.startswith(f"{MAINS_MODEL}|") and k.split("|")[2] == DEV}
+        if not mine or stored["identity"].get("backend") != DEV:
+            fail(f"mains: the fingerprint file holds {sorted(stored['fingerprints'])} for "
+                 f"{stored['identity']}; want a record of {MAINS_MODEL} on {DEV}")
         instances = await runtime.discovery.get_prefix(
             instance_prefix("dynamo", "backend", "generate"))
         if any(k.endswith(f"{survivor:016x}") for k in instances):
@@ -4622,6 +4665,9 @@ async def mains_client(procs, t_spawn, http_set, counts_file) -> dict:
                           "liveness_since_last_s": float(dead[1].group(1)),
                           "migrations": migrations, "limit": limit},
             "sigterm_exit_s": term_s, "model_gone_after_kill_s": t_gone - t_kill,
+            "fingerprints_at_sigterm": {k: {f: v[f] for f in ("step_p50_s", "toks_per_sec",
+                                                             "samples")}
+                                        for k, v in mine.items()},
             "steps_s": steps, "overload": overload, "system": system}
     finally:
         await ctl.close()
@@ -4937,9 +4983,7 @@ async def system_client(m, port, startup) -> dict:
     # -- the refusals -------------------------------------------------------
     refusals = {}
     for method, path, item in (("GET", "/drain", "A11"), ("POST", "/drain", "A11"),
-                               ("GET", "/v1/loras", "A7"), ("DELETE", "/v1/loras/x", "A7"),
-                               ("GET", "/debug/perf", "A4c-4b-2"),
-                               ("GET", "/debug/compiles", "A9")):
+                               ("GET", "/v1/loras", "A7"), ("DELETE", "/v1/loras/x", "A7")):
         r = await sse_client.one(port, {"method": method, "path": path,
                                         **({"body": {}} if method == "POST" else {})})
         if r["status"] != 501 or f"(ROADMAP {item})" not in json.loads(r["body"])["error"]:
@@ -4947,26 +4991,36 @@ async def system_client(m, port, startup) -> dict:
         refusals[f"{method} {path}"] = r["status"]
     out["refusals"] = refusals
 
-    # -- cli observe kvcache ----------------------------------------------
-    cli = await asyncio.to_thread(subprocess.run, [
-        sys.executable, "-m", "dynamo_tpu_torch.cli", "observe", "kvcache", "--port", str(port)],
-        capture_output=True, text=True, timeout=60, cwd=os.path.dirname(os.path.abspath(
-            __file__)))
-    if cli.returncode != 0 or "== kv reuse" not in cli.stdout:
-        fail(f"system: cli observe kvcache exited {cli.returncode}: {cli.stdout[-500:]} "
-             f"{cli.stderr[-1500:]}")
-    out["cli_observe_kvcache_lines"] = len(cli.stdout.splitlines())
+    # -- cli observe kvcache, perf and the device plane ----------------------
+    for view, head in (("kvcache", "== kv reuse"), ("perf", "== perf ledger"),
+                       (None, "== compiled programs")):
+        cli = await asyncio.to_thread(subprocess.run, [
+            sys.executable, "-m", "dynamo_tpu_torch.cli", "observe", *([view] if view else []),
+            "--port", str(port)], capture_output=True, text=True, timeout=60,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        if cli.returncode != 0 or head not in cli.stdout:
+            fail(f"system: cli observe {view or ''} exited {cli.returncode}: "
+                 f"{cli.stdout[-500:]} {cli.stderr[-1500:]}")
+        out[f"cli_observe_{view or 'device'}_lines"] = len(cli.stdout.splitlines())
 
-    # -- what a scrape costs while the worker serves -------------------------
+    # -- what a scrape costs while the worker serves, and the perf plane -----
     streams = [dict(m.body, max_tokens=256, stream=True, nvext={"ignore_eos": True},
                     stream_options={"include_usage": True}) for _ in range(SYSTEM_ITL_STREAMS)]
+    scraped = {}  # the last body of each route a scraper read while streams ran
+
+    async def captures():
+        compiles = json.loads((await sget("/debug/compiles"))["body"])
+        return compiles["totals"]["compiles"], (await m.stats(wid))["decode_graphs"]
 
     async def run_streams(scrape_every):
         """The streams at once, pinned to the worker; with ``scrape_every``
-        a scraper GETs /metrics and /debug/memory that often meanwhile."""
+        a scraper GETs /metrics, /debug/memory, /debug/perf and
+        /debug/compiles that often meanwhile. Returns the mean ITL, the
+        scrapes a route, and the captures the run held."""
         await m.clear()
         done = asyncio.Event()
-        scrapes = {"/metrics": [], "/debug/memory": []}
+        scrapes = {path: [] for path in SYSTEM_SCRAPED}
+        before = await captures()
 
         async def scraper():
             while not done.is_set():
@@ -4976,6 +5030,7 @@ async def system_client(m, port, startup) -> dict:
                     times.append(1e6 * (time.perf_counter() - t0))
                     if r["status"] != 200:
                         fail(f"system: a scrape of {path} answered {r['status']}")
+                    scraped[path] = r["body"]
                 try:
                     await asyncio.wait_for(done.wait(), scrape_every)
                 except asyncio.TimeoutError:
@@ -4989,14 +5044,30 @@ async def system_client(m, port, startup) -> dict:
             await task
         for i, rec in enumerate(records):
             whole_stream(rec, 256, f"system: stream {i} of the ITL comparison")
-        return http_latency_ms(records, range(len(records)))[2], len(scrapes["/metrics"])
+        after = await captures()
+        return (http_latency_ms(records, range(len(records)))[2], len(scrapes["/metrics"]),
+                [a - b for a, b in zip(after, before)])
 
-    itl = {"without": [], "with": [], "scrapes_a_run": []}
+    itl = {"without": [], "with": [], "scrapes_a_run": [], "captures_inside": []}
     for scrape_every in (None, SYSTEM_SCRAPE_S, SYSTEM_SCRAPE_S, None):
-        mean_itl, n = await run_streams(scrape_every)
+        mean_itl, n, captured = await run_streams(scrape_every)
         itl["with" if scrape_every else "without"].append(mean_itl)
+        itl["captures_inside"].append(captured)
         if scrape_every:
             itl["scrapes_a_run"].append(n)
+    print(f"system: captures inside the measured streams (compiles, graphs) a run: "
+          f"{itl['captures_inside']}", flush=True)
+    # idle: /metrics and /debug/compiles read between two equal stats
+    await until(f"worker {wid:#x} idle", idle, procs=m.everyone)
+    for _ in range(50):
+        first = await m.stats(wid)
+        metrics = (await sget("/metrics"))["body"]
+        compiles = json.loads((await sget("/debug/compiles"))["body"])
+        last = await m.stats(wid)
+        if all(first[k] == last[k] for k in ("decode_steps", "decode_graphs")):
+            break
+        await asyncio.sleep(0.1)
+    out["perf"] = perf_plane_checks(scraped, last, metrics, compiles)
     # the µs a scrape takes while a stream runs, each route SYSTEM_SCRAPES times
     await m.clear()
     busy = asyncio.ensure_future(m.http({"path": "/v1/completions", "headers": pin,
@@ -5007,7 +5078,7 @@ async def system_client(m, port, startup) -> dict:
 
     await until("the scraped stream's start", serving, procs=m.everyone)
     scrape_us = {}
-    for path in ("/metrics", "/debug/memory"):
+    for path in SYSTEM_SCRAPED:
         times = []
         for _ in range(SYSTEM_SCRAPES):
             t0 = time.perf_counter()
@@ -5022,6 +5093,53 @@ async def system_client(m, port, startup) -> dict:
                      "tokens": 256}
     await m.clear()
     return out
+
+
+def perf_plane_checks(scraped, stats, metrics, compiles) -> dict:
+    """The system worker's perf plane: the /debug/perf body a scraper read
+    while the ITL comparison's streams ran (decode rows with live samples,
+    each roofline fraction in (0, 1.05] and equal, within 1e-6, to its
+    tok/s over the card's roofline recomputed from the row's median
+    occupancy and context), then, idle, /metrics' decode step count equal
+    to the engine's reaped bursts and /debug/compiles' captures equal to
+    its graphs. Returns the system line's perf figures."""
+    from dynamo_tpu_torch.models.config import qwen2_500m_config
+    from dynamo_tpu_torch.runtime.roofline import make_roofline_fn
+
+    roofline = make_roofline_fn(qwen2_500m_config(), None)
+    perf = json.loads(scraped.get("/debug/perf") or "{}")
+    rows = [r for r in perf.get("decode", ()) if r["samples"] > 0]
+    if not rows:
+        fail(f"system: /debug/perf held no decode row with samples while streams ran: {perf}")
+    for r in rows:
+        frac = r.get("roofline_fraction")
+        want = r["toks_per_sec"] / roofline(int(round(r["occupancy_p50"])), r["avg_ctx_p50"])
+        if frac is None or not 0 < frac <= 1.05 or abs(frac - want) > 1e-6:
+            fail(f"system: /debug/perf row {r}: roofline_fraction {frac}, the card's roofline "
+                 f"gives {want}")
+    found = re.search(r'^dynamo_tpu_engine_step_duration_seconds_count\{phase="decode"\} (\S+)$',
+                      metrics, re.M)
+    decode_count = found and int(float(found.group(1)))
+    if decode_count != stats["decode_steps"]:
+        fail(f"system: /metrics counts {decode_count} decode steps, /engine/stats "
+             f"{stats['decode_steps']} reaped bursts")
+    if compiles["totals"]["compiles"] != stats["decode_graphs"]:
+        fail(f"system: /debug/compiles counts {compiles['totals']} captures, the runner holds "
+             f"{stats['decode_graphs']} graphs")
+    for family in ("# TYPE dynamo_tpu_perf_roofline_fraction gauge",
+                   "# TYPE dynamo_tpu_perf_step_p50_seconds gauge",
+                   "# TYPE dynamo_tpu_engine_host_gap_seconds histogram",
+                   "# TYPE dynamo_tpu_runtime_compiles_total counter"):
+        if family not in metrics:
+            fail(f"system: /metrics lacks {family!r}")
+    return {"decode_rows": [{k: r.get(k) for k in (
+                "width", "variant", "path", "samples", "step_p50_s", "toks_per_sec",
+                "occupancy_p50", "avg_ctx_p50", "roofline_fraction")} for r in rows],
+            "roofline_fraction": [min(r["roofline_fraction"] for r in rows),
+                                  max(r["roofline_fraction"] for r in rows)],
+            "decode_steps": decode_count, "compiles": compiles["totals"],
+            "verdicts": {k: v["verdict"] for k, v in perf.get("verdicts", {}).items()},
+            "prefill": perf.get("prefill")}
 
 
 async def _is(coro, want):
@@ -5413,6 +5531,149 @@ def tick_retry_phase(torch, smi) -> None:
           "seconds": time.monotonic() - t_phase, "card": smi})
 
 
+PERF_KNOBS = {"DYN_TPU_PERF_EVAL_INTERVAL_S": "0.2", "DYN_TPU_PERF_MIN_SAMPLES": "8"}
+PERF_STREAMS = 4  # concurrent requests a run of the perf phase
+PERF_PROMPT = 280  # tokens: with PERF_TOKENS every burst stays in width bucket 32
+PERF_TOKENS = 200
+
+
+def perf_phase(torch, smi) -> dict:
+    """The perf ledger's sentinel on the card: Qwen2.5-0.5B in this process,
+    three engines on the same weights, each with a perf ledger of its own
+    (the process-global one made anew), PERF_KNOBS set through the
+    environment and DYN_TPU_PERF_FINGERPRINT_PATH a file of the phase. The
+    same traffic (PERF_STREAMS requests of PERF_PROMPT tokens, PERF_TOKENS
+    each, one width bucket) through each: a run with graphs stores its
+    fingerprints at stop(); a second run with graphs loads them and raises
+    no anomaly; a third with cuda_graphs=False, the eager burst that PERF.md
+    section 5 reads at ~6x a replayed one, loads the same file and must
+    reach verdict ``regression`` with a step_regression anomaly, counted on
+    dynamo_tpu_perf_anomalies_total and recorded in the perf ring. Returns
+    the launch counts of the three runs."""
+    import tempfile
+
+    from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+    from dynamo_tpu_torch.models.config import qwen2_500m_config
+    from dynamo_tpu_torch.runtime import perf_ledger
+    from dynamo_tpu_torch.runtime.context import Context
+
+    t_phase = time.monotonic()
+    cfg = qwen2_500m_config()
+    base = dict(config=cfg, block_size=16, num_kv_blocks=2048, max_num_seqs=16,
+                max_model_len=2048, prefill_chunk=512, seed=0, device=DEV)
+    params = scaled_params(torch, cfg, TorchEngineArgs(**base), QWEN_EMBED_SCALE)
+    prompts = [[(i * 7919 + 13 * (r + 1)) % 150_000 for i in range(PERF_PROMPT)]
+               for r in range(PERF_STREAMS)]
+
+    async def traffic(engine):
+        async def one(prompt):
+            req = PreprocessedRequest(token_ids=prompt, sampling=SamplingOptions(temperature=0.0),
+                                      stop=StopConditions(max_tokens=PERF_TOKENS, ignore_eos=True))
+            n = 0
+            async for out in engine.generate(req, Context()):
+                if out.error:
+                    fail(f"perf: a stream failed: {out.error}")
+                n += len(out.token_ids)
+            if n != PERF_TOKENS:
+                fail(f"perf: a stream gave {n} tokens")
+
+        try:
+            await asyncio.gather(*(one(p) for p in prompts))
+            await idle_cleared(engine)
+        finally:
+            await engine.stop()
+
+    saved = {k: os.environ.get(k) for k in (*PERF_KNOBS, "DYN_TPU_PERF_FINGERPRINT_PATH")}
+    runs, counts = [], {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fingerprints.json")
+        os.environ.update({**PERF_KNOBS, "DYN_TPU_PERF_FINGERPRINT_PATH": path})
+        try:
+            for mode, graphs in (("graphs, stores", True), ("graphs, loads", True),
+                                 ("eager, loads", False)):
+                perf_ledger._LEDGER = None  # this engine's own ledger
+                engine = TorchEngine(TorchEngineArgs(**base, cuda_graphs=graphs), params)
+                led = engine._perf
+                loaded = led._fingerprints_loaded
+                reset_counts()
+                t0 = time.monotonic()
+                asyncio.run(traffic(engine))
+                wall = time.monotonic() - t0
+                for n, c in read_counts().items():
+                    counts[n] = counts.get(n, 0) + c
+                with open(path) as f:
+                    stored = json.load(f)["fingerprints"]
+                snap = led.snapshot()
+                runs.append({
+                    "mode": mode, "fingerprints_loaded": loaded, "wall_s": wall,
+                    "rows": [{k: r.get(k) for k in ("width", "variant", "path", "samples",
+                                                     "step_p50_s", "toks_per_sec",
+                                                     "roofline_fraction")}
+                             for r in snap["decode"]],
+                    "verdicts": {k: {f: v.get(f) for f in ("verdict", "samples", "step_p50_s",
+                                                           "toks_per_sec", "anomalies")}
+                                 for k, v in snap["verdicts"].items()},
+                    "anomalies_total": snap["anomalies_total"],
+                    "anomaly_events": [e for e in led.flight.snapshot() if e["kind"] == "anomaly"],
+                    "anomalies_metric": re.findall(
+                        r'^dynamo_tpu_perf_anomalies_total\{kind="(\w+)"\} (\S+)$',
+                        led.render(), re.M),
+                    "stored": sorted(stored)})
+                del engine, led
+                gc.collect()
+        finally:
+            perf_ledger._LEDGER = None
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    stores, warm, eager = runs
+    if stores["fingerprints_loaded"] != 0 or not stores["stored"]:
+        fail(f"perf: the first run loaded {stores['fingerprints_loaded']} fingerprints and "
+             f"stored {stores['stored']}")
+    for run in (warm, eager):
+        if run["fingerprints_loaded"] < 1:
+            fail(f"perf: the {run['mode']} run loaded no fingerprints")
+    if warm["anomalies_total"] or warm["anomaly_events"] or not warm["verdicts"] or any(
+            v["verdict"] not in ("ok", "improved") for v in warm["verdicts"].values()):
+        fail(f"perf: the second run on the same traffic: {warm['verdicts']}, "
+             f"{warm['anomalies_total']} anomalies")
+    regressed = [v for v in eager["verdicts"].values() if v["verdict"] == "regression"
+                 and any(a["kind"] == "step_regression" for a in v.get("anomalies") or ())]
+    metric = sum(float(v) for kind, v in eager["anomalies_metric"] if kind == "step_regression")
+    if not regressed or eager["anomalies_total"] < 1 or metric < 1 or not eager["anomaly_events"]:
+        fail(f"perf: the eager run: verdicts {eager['verdicts']}, anomalies "
+             f"{eager['anomalies_total']} (metric {eager['anomalies_metric']}), ring "
+             f"{eager['anomaly_events']}")
+    print(f"perf: knobs {PERF_KNOBS}", flush=True)
+    emit({"phase": "perf", "model": cfg.name, "knobs": PERF_KNOBS, "streams": PERF_STREAMS,
+          "prompt": PERF_PROMPT, "tokens": PERF_TOKENS, "runs": runs,
+          "launches": {n: counts.get(n, 0) for n in ("paged_attention_decode",
+                                                     "paged_attention_chunk")},
+          "seconds": time.monotonic() - t_phase, "card": smi})
+    return counts
+
+
+def fused_ledger_line(engine, smi) -> None:
+    """The Llama-3-8B int8 engine's perf ledger (made anew before the
+    engine): its decode rows must run the fused layer (path "fused"), each
+    with a roofline fraction in (0, 1.05]; printed with that fraction."""
+    snap = engine._perf.snapshot()
+    rows = [r for r in snap["decode"] if r["path"] == "fused" and r["samples"] > 0]
+    others = [r for r in snap["decode"] if r["path"] != "fused"]
+    if not rows or others or not all(0 < r.get("roofline_fraction", 0) <= 1.05 for r in rows):
+        fail(f"perf_int8: the fused engine's ledger rows {snap['decode']}")
+    emit({"phase": "perf_int8", "model": engine.config.name, "identity": snap["identity"],
+          "rows": [{k: r.get(k) for k in ("width", "variant", "path", "samples", "step_p50_s",
+                                          "toks_per_sec", "occupancy_p50", "avg_ctx_p50",
+                                          "roofline_fraction")} for r in rows],
+          "card": smi})
+
+
 # Faults the probe can plant, in memory only, to see what the dense check
 # of an engine phase reads when the engine is wrong.
 FAULTS = {
@@ -5626,6 +5887,13 @@ def main() -> int:
     tick_retry_phase(torch, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    # The perf ledger's sentinel: stored, loaded, and a slower path flagged.
+    counts_perf = perf_phase(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    from dynamo_tpu_torch.runtime import perf_ledger
+
+    perf_ledger._LEDGER = None  # the 8B int8 engine's ledger of its own
     # Llama-3-8B, random int8 weights: the fused layer's gate turns it on.
     # Random weights give logits ~ N(0, 1); the dense check's layers round
     # q/k/v to bf16 where the fused layer keeps f32, which moves logits by a
@@ -5636,6 +5904,7 @@ def main() -> int:
                                    quantization="int8")
     if not engine.runner.use_megakernel:
         fail("the fused layer's gate did not turn it on for Llama-3-8B int8")
+    fused_ledger_line(engine, smi)
     profile_phase(torch, engine.runner, smi, "profile_int8")
     del engine
     gc.collect()
@@ -5810,8 +6079,8 @@ def main() -> int:
     # pools) cases, the D 256 and block-size-128 ones above, #5-#7 at their
     # main cases
     paths = (counts, counts8, counts8kv, counts_g, counts_3, counts_3bf, counts_3u, counts_pipe,
-             counts_http, counts_tcp, counts_kv, counts_mains, counts_attn, counts_ffn,
-             counts_8b)
+             counts_http, counts_tcp, counts_kv, counts_mains, counts_perf, counts_attn,
+             counts_ffn, counts_8b)
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{sources[n]}",
          "replaces": replaces[n], "launches": sum(c.get(n, 0) for c in paths),

@@ -7,9 +7,9 @@
   wait for their ROADMAP items);
 - ``run`` drives a local engine (text, stdin, batch, or an OpenAI HTTP
   server over the local pipeline);
-- ``observe trajectory`` and ``observe kvcache`` pretty-print a running
-  worker's system server; ``observe`` alone and ``observe perf`` read
-  routes that are not ported and refuse;
+- ``observe`` (the device plane: memory, compiles, flight),
+  ``observe trajectory``, ``observe kvcache`` and ``observe perf``
+  pretty-print a running worker's system server;
 - ``env`` prints the environment knobs the port reads.
 """
 
@@ -63,7 +63,7 @@ def main(argv=None) -> None:
     add_run_args(run_p)
     observe_p = sub.add_parser(
         "observe", help="pretty-print a running worker's system server: the "
-        "trajectory and kvcache views")
+        "device plane, or the trajectory, kvcache and perf views")
     add_observe_args(observe_p)
     sub.add_parser("env", help="print the environment knobs the port reads")
     args = parser.parse_args(argv)

@@ -14,11 +14,11 @@ Refused, each naming the ROADMAP item that brings it: ``--model mock`` (the
 mock engine, A4d), a model directory (weight loading, A9) and a preset
 whose layers the port does not have (MoE, A7).
 
-``observe trajectory [TRACE_ID]`` and ``observe kvcache`` print what
-JAX's print (dynamo_tpu/cli/run.py:311-495), read over the standard
-library's HTTP client (JAX's reads over aiohttp, which the card's machine
-lacks). ``observe`` with no view reads ``/debug/compiles`` and ``observe
-perf`` reads ``/debug/perf``, which are not ported: both refuse.
+``observe trajectory [TRACE_ID]``, ``observe kvcache``, ``observe perf``
+and ``observe`` with no view (``/debug/memory``, ``/debug/compiles`` and
+``/debug/flight``) print what JAX's print (dynamo_tpu/cli/run.py:311-660),
+read over the standard library's HTTP client (JAX's reads over aiohttp,
+which the card's machine lacks).
 """
 
 from __future__ import annotations
@@ -266,20 +266,16 @@ async def main_run(args) -> None:
 
 # -- observe: views of a running worker's system server ----------------------
 
-# The observe views whose routes the system server does not serve yet.
-UNPORTED_VIEWS = {
-    None: "the device-plane snapshot reads /debug/compiles (compile telemetry, ROADMAP A9)",
-    "perf": "the perf view reads /debug/perf (the perf ledger, ROADMAP A4c-4b-2)",
-}
-
 
 def add_observe_args(parser: argparse.ArgumentParser) -> None:
     parser.add_argument(
         "what", nargs="?", default=None,
         choices=[None, "trajectory", "kvcache", "perf"],
-        help="the view: 'trajectory' pretty-prints one stitched request "
+        help="optional view: 'trajectory' pretty-prints one stitched request "
         "trajectory (GET /debug/trajectory/{trace_id}); 'kvcache' the KV-reuse "
-        "plane (GET /debug/kvcache); 'perf' and no view are not ported",
+        "plane (GET /debug/kvcache); 'perf' the perf ledger — per-shape decode "
+        "attribution, roofline fractions and the sentinel's verdicts (GET "
+        "/debug/perf); no view the device plane (memory, compiles, flight)",
     )
     parser.add_argument(
         "trace_id", nargs="?", default=None,
@@ -292,8 +288,23 @@ def add_observe_args(parser: argparse.ArgumentParser) -> None:
                         help="system-server host of the running worker")
     parser.add_argument("--port", type=int, default=None,
                         help="system-server port (default: DYN_TPU_SYSTEM_PORT)")
+    parser.add_argument("--flight-limit", type=int, default=24,
+                        help="newest flight-recorder events to show")
     parser.add_argument("--json", action="store_true",
                         help="dump the raw endpoint JSON instead of tables")
+
+
+def _fmt_bytes(n) -> str:
+    if not isinstance(n, (int, float)):
+        return "?"
+    # Negative values are meaningful (unaccounted_bytes < 0 = the ledger
+    # overcounts the allocator) — keep the sign visible.
+    sign, n = ("-", -n) if n < 0 else ("", n)
+    for unit in ("B", "KiB", "MiB", "GiB", "TiB"):
+        if n < 1024 or unit == "TiB":
+            return f"{sign}{int(n)} B" if unit == "B" else f"{sign}{n:.1f} {unit}"
+        n /= 1024
+    return f"{sign}{n:.1f} TiB"
 
 
 def _system_base(args) -> str:
@@ -464,11 +475,134 @@ def main_observe_kvcache(args) -> None:
         )
 
 
+def main_observe_perf(args) -> None:
+    """Pretty-print the perf ledger of a running worker: per-shape decode
+    attribution (step p50/p99, host gap, dispatch/reap split, tok/s,
+    roofline fraction), prefill tokens/s per chunk bucket, and the live
+    sentinel's fingerprint verdicts — 'did this engine get slower than it
+    used to be on this exact shape' in one command."""
+    base = _system_base(args)
+    doc = _get_json(base, "/debug/perf")
+    if args.json:
+        print(json.dumps(doc, indent=2))
+        return
+
+    ident = doc.get("identity") or {}
+    print(
+        f"== perf ledger ({base}/debug/perf)  "
+        f"preset={ident.get('preset', '?')} "
+        f"backend={ident.get('backend', '?')} host={ident.get('host', '?')}"
+    )
+    rows = doc.get("decode") or []
+    if not rows:
+        print("  (no decode samples yet)")
+    else:
+        print(
+            f"  {'shape':<28} {'n':>5} {'step p50':>10} {'p99':>10} "
+            f"{'gap p50':>9} {'disp':>8} {'reap':>8} {'tok/s':>9} "
+            f"{'roofline':>8}"
+        )
+        for row in rows:
+            shape = f"w{row.get('width')}/{row.get('variant')}/{row.get('path')}"
+            frac = row.get("roofline_fraction")
+            print(
+                f"  {shape:<28} {row.get('samples', 0):>5} "
+                f"{row.get('step_p50_s', 0.0) * 1e3:>8.2f}ms "
+                f"{row.get('step_p99_s', 0.0) * 1e3:>8.2f}ms "
+                f"{row.get('host_gap_p50_s', 0.0) * 1e3:>7.2f}ms "
+                f"{row.get('dispatch_p50_s', 0.0) * 1e3:>6.2f}ms "
+                f"{row.get('reap_p50_s', 0.0) * 1e3:>6.2f}ms "
+                f"{row.get('toks_per_sec', 0.0):>9.1f} "
+                f"{'' if frac is None else f'{frac:>7.1%}':>8}"
+            )
+    prefill = doc.get("prefill") or {}
+    if prefill:
+        print("  prefill tok/s by chunk bucket: " + "  ".join(
+            f"{b}={v.get('toks_per_sec_p50', 0.0):.0f}" for b, v in prefill.items()))
+    print(
+        f"\n== sentinel  fingerprints_loaded={doc.get('fingerprints_loaded', 0)}  "
+        f"anomalies_total={doc.get('anomalies_total', 0)}"
+    )
+    verdicts = doc.get("verdicts") or {}
+    if not verdicts:
+        print("  (no verdicts yet — sentinel has not evaluated)")
+    for key, v in sorted(verdicts.items()):
+        print(
+            f"  {key:<40} {v.get('verdict', '?'):<12} "
+            f"n={v.get('samples', 0)} "
+            f"step_p50={v.get('step_p50_s', 0.0) * 1e3:.2f}ms "
+            f"tok/s={v.get('toks_per_sec', 0.0):.1f}"
+        )
+        for anom in v.get("anomalies") or []:
+            print(
+                f"    ! {anom.get('kind')}  x{anom.get('ratio', 0.0):.3f} "
+                f"(live {anom.get('live'):.6g} vs baseline "
+                f"{anom.get('baseline'):.6g}, streak {anom.get('streak')})"
+            )
+
+
+def main_observe_device(args) -> None:
+    """One-shot pretty snapshot of /debug/memory, /debug/compiles and
+    /debug/flight from a running worker's system server — the operator's
+    'what is the device plane doing right now' view without curl + jq."""
+    base = _system_base(args)
+    memory = _get_json(base, "/debug/memory")
+    compiles = _get_json(base, "/debug/compiles")
+    flight = _get_json(base, f"/debug/flight?limit={args.flight_limit}")
+    if args.json:
+        print(json.dumps({"memory": memory, "compiles": compiles, "flight": flight}, indent=2))
+        return
+
+    print(f"== device memory ({base}/debug/memory)")
+    for source, cats in (memory.get("sources") or {}).items():
+        print(f"  [{source}]")
+        for category, nbytes in sorted(cats.items()):
+            print(f"    {category:<16} {_fmt_bytes(nbytes):>12}")
+    print(f"  ledger total       {_fmt_bytes(memory.get('ledger_total_bytes')):>12}")
+    if "device_bytes_in_use" in memory:
+        print(f"  device in use      {_fmt_bytes(memory['device_bytes_in_use']):>12}")
+        print(f"  unaccounted        {_fmt_bytes(memory['unaccounted_bytes']):>12}")
+    hwc = memory.get("host_weight_cache") or {}
+    for tier, usage in hwc.items():
+        print(
+            f"  weight cache {tier:<5} {_fmt_bytes(usage.get('bytes')):>12}"
+            f"  ({usage.get('entries', 0)} entries)"
+        )
+
+    print(f"\n== compiled programs ({base}/debug/compiles)")
+    print(f"  {'program':<32} {'compiles':>8} {'sigs':>6} {'storms':>6} {'seconds':>9}")
+    for name, st in (compiles.get("programs") or {}).items():
+        print(
+            f"  {name:<32} {st['compiles']:>8} {st['signatures']:>6} "
+            f"{st['storms']:>6} {st['compile_seconds']:>9.2f}"
+        )
+    totals = compiles.get("totals") or {}
+    print(
+        f"  {'TOTAL':<32} {totals.get('compiles', 0):>8} "
+        f"{totals.get('signatures', 0):>6} {totals.get('storms', 0):>6} "
+        f"{totals.get('compile_seconds', 0.0):>9.2f}"
+    )
+
+    print(f"\n== flight recorder (newest {args.flight_limit}; {base}/debug/flight)")
+    events = flight.get("events") or []
+    if not events:
+        print("  (no events)")
+    for ev in events:
+        extras = {k: v for k, v in ev.items() if k not in ("seq", "t_mono", "ring", "kind")}
+        detail = " ".join(f"{k}={v}" for k, v in extras.items())
+        print(
+            f"  {ev.get('t_mono', 0):>14.3f} {ev.get('ring', '?'):<7} "
+            f"{ev.get('kind', '?'):<12} {detail}"
+        )
+
+
 def main_observe(args) -> None:
-    """The observe views; the unported ones exit naming their item."""
-    if args.what in UNPORTED_VIEWS:
-        raise SystemExit(f"observe: {UNPORTED_VIEWS[args.what]}, which is not ported")
+    """The observe views (dynamo_tpu/cli/run.py main_observe)."""
     if args.what == "trajectory":
         main_observe_trajectory(args)
-    else:
+    elif args.what == "kvcache":
         main_observe_kvcache(args)
+    elif args.what == "perf":
+        main_observe_perf(args)
+    else:
+        main_observe_device(args)

@@ -262,3 +262,37 @@ SLO_TARGET = EnvVar(
     "SLO target the burn-rate denominates against (error budget = 1 - target) "
     "(dynamo_tpu/config.py:342)",
 )
+
+# -- perf ledger (runtime/perf_ledger.py)
+PERF_WINDOW = EnvVar(
+    "DYN_TPU_PERF_WINDOW", 256, int,
+    "Perf-ledger rolling window (samples per decode shape; bounds both "
+    "memory and quantile cost) (dynamo_tpu/config.py:401)",
+)
+PERF_SAMPLE_TTL_S = EnvVar(
+    "DYN_TPU_PERF_SAMPLE_TTL_S", 120.0, float,
+    "Perf-ledger sample TTL in seconds (stale samples age out so the "
+    "windows describe the CURRENT regime, not history) (dynamo_tpu/config.py:407)",
+)
+PERF_EVAL_INTERVAL_S = EnvVar(
+    "DYN_TPU_PERF_EVAL_INTERVAL_S", 5.0, float,
+    "Seconds between perf-sentinel evaluations (the fingerprint "
+    "comparison runs at this cadence, not per tick) (dynamo_tpu/config.py:413)",
+)
+PERF_NOISE_BAND = EnvVar(
+    "DYN_TPU_PERF_NOISE_BAND", 0.10, float,
+    "Fractional noise band around a fingerprint before the sentinel "
+    "calls regression (0.10 = ±5% run-to-run noise stays silent, a "
+    "20% slowdown is flagged) (dynamo_tpu/config.py:419)",
+)
+PERF_MIN_SAMPLES = EnvVar(
+    "DYN_TPU_PERF_MIN_SAMPLES", 16, int,
+    "Samples a window needs before the sentinel issues a verdict for it "
+    "(dynamo_tpu/config.py:426)",
+)
+PERF_FINGERPRINT_PATH = EnvVar(
+    "DYN_TPU_PERF_FINGERPRINT_PATH", "", str,
+    "Where steady-state perf fingerprints persist across restarts "
+    "(JSON; empty = in-memory only, every start is a cold start) "
+    "(dynamo_tpu/config.py:431)",
+)

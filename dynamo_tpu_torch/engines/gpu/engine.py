@@ -64,7 +64,23 @@ records and the dump (the engine has no flight ring, A9), the
 admission's containment of a request that fails its prefill
 deterministically, speculative decoding (and so logprobs under it),
 LoRA, MoE, the tick budget, sleep/wake, KV export/import/checkpoint,
-multimodal, prefill under CUDA graphs and the step metrics (A4c-4b-2).
+multimodal and prefill under CUDA graphs.
+
+The step metrics and the perf ledger, stamped as JAX's engine stamps them
+(engine.py:455-479, 1490-1550, 1610-1655; admission.py:464-504):
+``step_metrics`` (engines/metrics.py) observes each reaped burst (dispatch
+to readback, its occupancy and the tokens it emitted), each dispatch's
+host gap (0 when a burst was already in flight) and in-flight depth, and
+each prefill chunk round (its rows with tokens, its tokens); the
+process-global perf ledger (runtime/perf_ledger.py), configured with the
+preset, the device type as the backend, the host and the card's roofline
+(runtime/roofline.py), gets the same bursts by shape (width bucket,
+variant ``w{nb}[_logprobs][_procs]``, ``fused`` when the runner runs the
+fused layer, else ``fallback``) with the dispatch and reap host split, and
+each round's tokens/s by its pow2 chunk bucket; ``stop()`` stores the
+ledger's fingerprints unless the engine failed terminally. The stamps are
+host monotonic reads around calls the engine already makes: none syncs
+the device or touches a graph.
 
 The HBM ledger (``hbm``, JAX's categories, engine.py:494-509) samples the
 runner's live tensors when the system server scrapes it: ``kv_cache`` counts
@@ -86,6 +102,7 @@ import collections
 import contextlib
 import logging
 import math
+import socket
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -96,6 +113,7 @@ import numpy as np
 
 from dynamo_tpu_torch.engines.gpu.block_pool import BlockPool, KvEvent
 from dynamo_tpu_torch.engines.gpu.runner import DeviceRunner, _DecodeHandles
+from dynamo_tpu_torch.engines.metrics import EngineStepMetrics
 from dynamo_tpu_torch.llm.protocols.common import (
     BackendOutput,
     FinishReason,
@@ -111,6 +129,8 @@ from dynamo_tpu_torch.runtime.faults import fault_point, note_activity
 from dynamo_tpu_torch.runtime.kv_reuse_observe import global_plane as kv_reuse_plane
 from dynamo_tpu_torch.runtime import lifecycle
 from dynamo_tpu_torch.runtime.lifecycle import trace_id_of
+from dynamo_tpu_torch.runtime.perf_ledger import global_perf_ledger
+from dynamo_tpu_torch.runtime.roofline import make_roofline_fn
 from dynamo_tpu_torch.tokens.blocks import compute_block_hashes
 
 logger = logging.getLogger(__name__)
@@ -206,10 +226,19 @@ class _Sequence:
 
 @dataclass
 class _InflightBurst:
-    """A dispatched, not yet reaped decode burst (engine.py:_InflightBurst)."""
+    """A dispatched, not yet reaped decode burst (engine.py:_InflightBurst),
+    with the stamps its reap reports to the step metrics and the perf
+    ledger."""
 
     handles: _DecodeHandles
     seqs: List[Tuple[int, "_Sequence"]]  # (slot, sequence) rows it decodes
+    t_dispatch: float = 0.0  # host monotonic time the dispatch began
+    occupancy: int = 0  # rows it decodes
+    nb_bucket: int = 0  # its table width bucket
+    variant: str = ""  # w{nb}[_logprobs][_procs]
+    dispatch_s: float = 0.0  # host time of the dispatch call
+    avg_ctx: float = 0.0  # mean context its rows reach
+    gap_s: float = 0.0  # host gap observed at its dispatch
 
 
 @dataclass
@@ -301,6 +330,20 @@ class TorchEngine:
         # speculative decode, which the port does not have yet (A5).
         self._spec_suspended = False
         runner = self.runner
+        # Step-loop metric families (registered on the system server by
+        # attach_engine) and the process-global perf ledger with this
+        # engine's identity (the fingerprint key) and roofline; configure()
+        # also loads any persisted fingerprints (a corrupt file is a
+        # counted cold start).
+        self.step_metrics = EngineStepMetrics()
+        self._perf = global_perf_ledger()
+        self._perf.configure(
+            preset=self.config.name,
+            backend=runner.device.type,
+            host=socket.gethostname(),
+            roofline_fn=make_roofline_fn(self.config, args.quantization),
+        )
+        self._t_last_ready: Optional[float] = None  # the last burst's readback
         self.hbm = HbmLedger(runner.device)
         self.hbm.register("kv_cache", lambda: tree_device_bytes((runner.k_cache, runner.v_cache)))
         self.hbm.register("params", lambda: tree_device_bytes(runner.params))
@@ -348,6 +391,11 @@ class TorchEngine:
             await self._loop_task
             self._loop_task = None
         self._executor.shutdown(wait=True)
+        # A clean shutdown persists the fingerprints this run earned; after
+        # a terminal tick failure the windows describe a degraded engine,
+        # and a degraded baseline is worse than none.
+        if self._failure is None:
+            self._perf.store_fingerprints()
 
     def stats(self) -> Dict[str, Any]:
         return {
@@ -530,9 +578,16 @@ class TorchEngine:
                     if await self._admit_batch() == 0:
                         break
                     admitted = True
+                if admitted:
+                    # Prefill just ran on the device: the wait before the
+                    # next decode dispatch is device-busy time, not a
+                    # host-injected gap.
+                    self._t_last_ready = None
                 if any(s is not None for s in self._slots) or self._inflight:
                     await self._decode_tick()
                 elif not admitted:
+                    # Idle: request inter-arrival time is not host gap.
+                    self._t_last_ready = None
                     self._wake.clear()
                     try:
                         await asyncio.wait_for(self._wake.wait(), timeout=0.05)
@@ -737,11 +792,21 @@ class TorchEngine:
             # Fresh prefills (first round, no prefix hit) attend densely
             # over the chunk itself: no paged reads.
             first_chunk = bool(np.all(start == 0))
+            t0 = time.monotonic()
             out = await self._device(
                 self.runner.run_step, tok, start, lens, tables, temp, topk, topp, salts,
                 first_chunk=first_chunk, procs=procs, want_logprobs=want_logprobs,
                 want_top=want_top,
             )
+            dt = time.monotonic() - t0  # run_step read its tokens back
+            # Occupancy counts rows still prefilling this round: short
+            # prompts finish earlier rounds and ride along with lens 0.
+            round_tokens = int(lens.sum())
+            self.step_metrics.observe_prefill(dt, int(np.count_nonzero(lens)), round_tokens)
+            # The perf ledger's prefill tokens/s by the round's pow2 chunk
+            # bucket (admission.py:464-466).
+            self._perf.observe_prefill(min(_next_pow2(C), args.prefill_chunk), dt,
+                                       round_tokens)
             for r in range(rows):
                 n = int(lens[r])
                 if n == 0:
@@ -903,12 +968,14 @@ class TorchEngine:
         # burst spans up to pos + (inflight + 1)·K: the bucket a depth-1
         # engine takes for the same burst.
         ctx_off = K * (len(self._inflight) + 1)
-        max_blocks = max((int(self._pos[s.slot]) + ctx_off - 1) // args.block_size + 1
-                         for s in active)
+        ctxs = [int(self._pos[s.slot]) + ctx_off for s in active]
+        max_blocks = max((ctx - 1) // args.block_size + 1 for ctx in ctxs)
         nb = table_width_bucket(max_blocks, args.max_blocks_per_seq)
         # the burst's variant (engine.py:1509-1512)
         want_logprobs = any(s.request.sampling.logprobs is not None for s in active)
         use_procs = any(self._uses_procs[s.slot] for s in active)
+        had_inflight = bool(self._inflight)
+        t0 = time.monotonic()
         # Chaos seam, deliberately AFTER the sync payloads were built (the
         # dirty sets are already cleared): recovery must resync every slot
         # from the mirrors (_abort_inflight), and the position-keyed RNG
@@ -916,7 +983,21 @@ class TorchEngine:
         fault_point(fault_names.ENGINE_TICK_DISPATCH)
         handles = await self._device(self._dispatch_on_device, nb, state_sync, table_sync,
                                      want_logprobs, use_procs, resets)
-        self._inflight.append(_InflightBurst(handles=handles, seqs=[(s.slot, s) for s in active]))
+        t_dispatched = time.monotonic()
+        # Host gap: how long the card sat idle on host work between the
+        # previous burst's readback and this dispatch; 0 when another burst
+        # was already in flight (engine.py:1525-1534).
+        gap = 0.0
+        if self._t_last_ready is not None:
+            gap = 0.0 if had_inflight else max(0.0, t0 - self._t_last_ready)
+            self.step_metrics.observe_host_gap(gap)
+        self.step_metrics.observe_inflight(len(self._inflight) + 1)
+        self._inflight.append(_InflightBurst(
+            handles=handles, seqs=[(s.slot, s) for s in active], t_dispatch=t0,
+            occupancy=len(active), nb_bucket=nb,
+            variant=f"w{nb}" + ("_logprobs" if want_logprobs else "")
+            + ("_procs" if use_procs else ""),
+            dispatch_s=t_dispatched - t0, avg_ctx=sum(ctxs) / len(active), gap_s=gap))
         return True
 
     def _dispatch_on_device(self, nb, state_sync, table_sync, want_logprobs=False,
@@ -966,13 +1047,30 @@ class TorchEngine:
         fault_point(fault_names.ENGINE_TICK_REAP)
         rec = self._inflight.popleft()
         out = await self._device(self.runner.decode_read, rec.handles)
+        self._t_last_ready = time.monotonic()
         self.steps += 1
+        gen0 = self.generated_tokens
         for slot, seq in rec.seqs:
             if self._slots[slot] is not seq or seq.slot != slot:
                 continue
             self._emit_burst(seq, out.tokens[slot],
                              *(None if a is None else a[slot]
                                for a in (out.logprobs, out.top_vals, out.top_ids)))
+        # Emitted (post-stop-condition) tokens, not dispatched K x B; the
+        # duration is dispatch to readback of THIS burst (queue-inclusive
+        # at depth 2).
+        emitted = self.generated_tokens - gen0
+        self.step_metrics.observe_decode(time.monotonic() - rec.t_dispatch, rec.occupancy,
+                                         emitted)
+        # The same burst by shape, with the dispatch and reap host split;
+        # the sentinel's comparison is time-gated inside evaluate().
+        self._perf.observe_decode(
+            rec.nb_bucket, rec.variant, "fused" if self.runner.use_megakernel else "fallback",
+            self._t_last_ready - rec.t_dispatch, emitted, rec.occupancy, rec.avg_ctx,
+            rec.gap_s, rec.dispatch_s, time.monotonic() - self._t_last_ready,
+            now=self._t_last_ready,
+        )
+        self._perf.evaluate(now=self._t_last_ready)
 
     async def _drain_inflight(self) -> None:
         """Reap every burst in flight: the barrier before admission."""

@@ -31,6 +31,11 @@ the processor bursts and reset a slot at a time (``proc_reset_slot``,
 ``proc_count``). The prefill step has the same variants
 (``run_step(procs=..., want_logprobs=..., want_top=...)``).
 
+Each graph captured counts in the process's compile telemetry
+(runtime/device_observe.py, ``/debug/compiles``) as a compile of JAX's
+``runner.decode_state``, with the capture's wall time; prefill is eager and
+counts nothing.
+
 Divergences from the JAX runner: no demotion machinery (a capture or
 launch that fails raises, and the engine fails its streams).
 
@@ -61,10 +66,18 @@ from dynamo_tpu_torch.ops.sampling import (
     sample_tokens,
     top_of,
 )
+from dynamo_tpu_torch.runtime.device_observe import (
+    WatchedCapture,
+    global_compile_watcher,
+    watched_capture,
+)
 
 # A decode graph's key: (width bucket, want_logprobs, use_procs), as the
 # JAX runner keys its programs (runner.py:1008).
 GraphKey = Tuple[int, bool, bool]
+# The program a decode graph's capture counts under (compile telemetry):
+# the JAX runner's decode program's name.
+DECODE_PROGRAM = "runner.decode_state"
 
 
 class DeviceRunner:
@@ -135,6 +148,16 @@ class DeviceRunner:
         self._capture_stream: Optional[torch.cuda.Stream] = None
         self.capture_ms = 0.0
         self.eager_bursts = 0
+        # Compile telemetry (runtime/device_observe.py, /debug/compiles):
+        # each decode graph captured counts under JAX's program name, one
+        # capturing object a burst variant (want_logprobs, use_procs) as JAX
+        # has one jit object a variant, each with JAX's signature budget
+        # (runner.py:431-441): pow2 table widths give ~log2(cap) + 1 keys a
+        # variant; past 2x + 4 the widths stopped bucketing.
+        width_buckets = max(int(args.max_blocks_per_seq), 1).bit_length() + 1
+        self._decode_sig_budget = 2 * width_buckets + 4
+        global_compile_watcher().set_budget(DECODE_PROGRAM, self._decode_sig_budget)
+        self._captures: Dict[Tuple[bool, bool], WatchedCapture] = {}
         # Host-to-device traffic of the decode path, as the JAX runner's
         # transfer_log: ("slot_sync" | "table_sync", rows) and ("decode", nb).
         self.transfer_log: Deque[Tuple[str, int]] = collections.deque(maxlen=4096)
@@ -323,8 +346,20 @@ class DeviceRunner:
         t0 = time.monotonic()
         self.graphs[key] = CapturedCall(lambda: self._burst(key), pool=self._graph_pool,
                                         stream=stream)
-        self.capture_ms += 1e3 * (time.monotonic() - t0)
+        seconds = time.monotonic() - t0
+        self.capture_ms += 1e3 * seconds
+        self._capture_watch(key).captured(key, seconds)
         torch.cuda.current_stream(self.device).wait_stream(stream)
+
+    def _capture_watch(self, key: GraphKey) -> WatchedCapture:
+        """The capturing object of ``key``'s burst variant (compile
+        telemetry), made at the variant's first capture."""
+        variant = key[1:]
+        watch = self._captures.get(variant)
+        if watch is None:
+            watch = self._captures[variant] = watched_capture(
+                DECODE_PROGRAM, budget=self._decode_sig_budget)
+        return watch
 
     @torch.inference_mode()
     def decode_dispatch(self, nb: int, want_logprobs: bool = False,

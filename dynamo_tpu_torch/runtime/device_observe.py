@@ -1,6 +1,16 @@
 """Device plane — the port's copy of the parts of
 dynamo_tpu/runtime/device_observe.py that the system server serves:
 
+  0. compile telemetry (``CompileWatcher``, ``/debug/compiles`` and the
+     ``RUNTIME_COMPILE*`` families): the port compiles nothing with a JIT,
+     so a compile is a CUDA graph capture of a decode burst, at the
+     runner's one capture site (engines/gpu/runner.py). A program name
+     holds the stats of its captures (JAX's ``runner.decode_state``); each
+     capturing object (``WatchedCapture``, one a runner and burst variant,
+     as JAX has one jit object a variant) counts its distinct graph keys
+     against a signature budget, and crossing it counts a recompile storm
+     as JAX's watcher does. Prefill runs eagerly, so no prefill program
+     appears;
   1. the flight recorder (``FlightRecorder``), the typed event ring that
      the overload, trajectory, crash and parser planes keep;
   2. the HBM ledger (``HbmLedger``): structural byte accounting a category
@@ -18,10 +28,8 @@ dynamo_tpu/runtime/device_observe.py that the system server serves:
 
 Both read the engine's one device, never every card the process can see.
 
-The compile watcher has no counterpart yet (graph counts for
-``/debug/compiles``, ROADMAP A9). Nothing here synchronises the device or
-copies a tensor to the host: the samplers read shapes, storages and the
-allocator's counters.
+Nothing here synchronises the device or copies a tensor to the host: the
+samplers read shapes, storages and the allocator's counters.
 """
 
 from __future__ import annotations
@@ -37,10 +45,191 @@ from pathlib import Path
 from typing import Any, Callable, ContextManager, Dict, List, Optional, Tuple
 
 from dynamo_tpu_torch.runtime import metric_names as mn
-from dynamo_tpu_torch.runtime.metrics_core import MetricsRegistry
+from dynamo_tpu_torch.runtime.metrics_core import Histogram, MetricsRegistry
 from dynamo_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
+
+# Capture wall-times span ~10 ms (a small burst) to tens of seconds (a
+# graph of many thousand kernels on a loaded card): JAX's compile buckets.
+COMPILE_BUCKETS = (
+    0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+    120.0, 300.0,
+)
+
+# Default per-object distinct-signature budget for capture sites without an
+# explicit one (JAX's).
+DEFAULT_SIGNATURE_BUDGET = 256
+
+
+class _ProgramStats:
+    """Aggregated per-NAME compile stats. Several capturing objects may
+    share a name (the runner keeps one a burst variant, and a process may
+    build several engines); totals aggregate, while the storm budget is
+    judged per WatchedCapture — a fresh engine capturing its own graphs is
+    warmup, not a storm."""
+
+    __slots__ = (
+        "name", "compiles", "signatures", "storms", "compile_seconds",
+        "last_compile_seconds", "budget", "_hist",
+    )
+
+    def __init__(self, name: str, hist: Histogram) -> None:
+        self.name = name
+        self.compiles = 0
+        self.signatures = 0
+        self.storms = 0
+        self.compile_seconds = 0.0
+        self.last_compile_seconds = 0.0
+        self.budget: Optional[int] = None
+        self._hist = hist
+
+    def on_compile(self, n: int, dt: float) -> None:
+        self.compiles += n
+        self.signatures += n
+        self.compile_seconds += dt
+        self.last_compile_seconds = dt
+        # Histogram takes its lock — fine: captures are rare by definition
+        # (a site that captures on the hot path is the storm we detect).
+        self._hist.observe(dt, program=self.name)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return {
+            "compiles": self.compiles,
+            "signatures": self.signatures,
+            "storms": self.storms,
+            "compile_seconds": round(self.compile_seconds, 4),
+            "last_compile_seconds": round(self.last_compile_seconds, 4),
+            "budget": self.budget,
+        }
+
+
+class WatchedCapture:
+    """The counterpart of JAX's ``WatchedJit`` for one capturing object:
+    ``captured(key, seconds)`` after each CUDA graph capture, with the
+    graph's key and the capture's wall time. A key this object already
+    captured counts nothing (JAX's fallback signature set); a new one is a
+    compile of the program, and past the budget a recompile storm."""
+
+    __slots__ = ("_stats", "_seen", "_budget")
+
+    def __init__(self, stats: _ProgramStats, budget: Optional[int] = None) -> None:
+        self._stats = stats
+        self._seen: set = set()  # distinct keys THIS object captured
+        self._budget = budget
+
+    @property
+    def signatures(self) -> int:
+        return len(self._seen)
+
+    def captured(self, key: Any, seconds: float) -> None:
+        if key in self._seen:
+            return
+        self._seen.add(key)
+        st = self._stats
+        st.on_compile(1, seconds)
+        budget = self._budget if self._budget is not None else st.budget
+        if budget is None:
+            budget = DEFAULT_SIGNATURE_BUDGET
+        if len(self._seen) > budget:
+            st.storms += 1
+            logger.warning(
+                "recompile storm: program %r has captured %d distinct "
+                "graphs (budget %d) — dispatched shapes are not bucketing; "
+                "every new key pays a capture on the serving path",
+                st.name, len(self._seen), budget,
+            )
+
+
+class CompileWatcher:
+    """Per-process compile-telemetry registry (program name → stats).
+
+    Metrics mirror the plain counters at render time (``on_render``), so
+    capture-path increments are lock-free attribute bumps under the GIL.
+    The histogram writes its bucket bounds as JAX's kit does.
+    """
+
+    def __init__(self, registry: Optional[MetricsRegistry] = None) -> None:
+        self.registry = registry or MetricsRegistry(kit_le=True)
+        self._lock = threading.Lock()  # program-creation only, never hot
+        self._programs: Dict[str, _ProgramStats] = {}
+        self._hist = self.registry.histogram(
+            mn.RUNTIME_COMPILE_SECONDS,
+            "Wall time of each CUDA graph capture of a new program "
+            "signature (a decode burst's graph key)",
+            ["program"],
+            buckets=COMPILE_BUCKETS,
+        )
+        self._compiles = self.registry.counter(
+            mn.RUNTIME_COMPILES_TOTAL,
+            "CUDA graph captures observed per watched program site",
+            ["program"],
+        )
+        self._signatures = self.registry.gauge(
+            mn.RUNTIME_COMPILE_SIGNATURES,
+            "Distinct captured signatures (graph keys) per watched program site",
+            ["program"],
+        )
+        self._storms = self.registry.counter(
+            mn.RUNTIME_RECOMPILE_STORMS_TOTAL,
+            "Signature-budget violations (a capturing object capturing more "
+            "distinct graph keys than its width-bucketing budget allows)",
+            ["program"],
+        )
+        self.registry.on_render(self._refresh)
+
+    def _refresh(self) -> None:
+        for name, st in list(self._programs.items()):
+            self._compiles.set_total(st.compiles, program=name)
+            self._signatures.set(st.signatures, program=name)
+            self._storms.set_total(st.storms, program=name)
+
+    def program(self, name: str) -> _ProgramStats:
+        st = self._programs.get(name)
+        if st is None:
+            with self._lock:
+                st = self._programs.get(name)
+                if st is None:
+                    st = _ProgramStats(name, self._hist)
+                    self._programs[name] = st
+        return st
+
+    def set_budget(self, name: str, budget: Optional[int]) -> None:
+        """Default per-object signature budget for every WatchedCapture
+        that shares ``name`` and didn't set its own."""
+        self.program(name).budget = budget
+
+    def snapshot(self) -> Dict[str, Any]:
+        # Materialize the shared dict in one C-level call before touching
+        # Python code: writer threads may insert new programs mid-scrape.
+        programs = {
+            name: st.to_dict()
+            for name, st in sorted(list(self._programs.items()))
+        }
+        return {"programs": programs, "totals": self.totals()}
+
+    def totals(self) -> Dict[str, Any]:
+        stats = list(self._programs.values())
+        return {
+            "programs": len(stats),
+            "compiles": sum(s.compiles for s in stats),
+            "signatures": sum(s.signatures for s in stats),
+            "storms": sum(s.storms for s in stats),
+            "compile_seconds": round(sum(s.compile_seconds for s in stats), 4),
+        }
+
+
+def watched_capture(
+    name: str,
+    *,
+    budget: Optional[int] = None,
+    watcher: Optional[CompileWatcher] = None,
+) -> WatchedCapture:
+    """A capturing object whose captures count under ``name``. ``budget``:
+    its distinct-key budget (None = the watcher's per-name default, which
+    itself defaults to DEFAULT_SIGNATURE_BUDGET)."""
+    w = watcher if watcher is not None else global_compile_watcher()
+    return WatchedCapture(w.program(name), budget)
 
 
 class FlightRecorder:
@@ -59,6 +248,20 @@ class FlightRecorder:
             [None] * self.capacity
         )
         self._n = 0  # total events ever recorded (monotonic)
+        self.counts: Dict[str, int] = {}
+        self.registry = MetricsRegistry()
+        self._events = self.registry.counter(
+            mn.RUNTIME_FLIGHT_EVENTS_TOTAL,
+            "Flight-recorder events per ring and kind",
+            ["ring", "kind"],
+        )
+        self._overwritten = self.registry.counter(
+            mn.RUNTIME_FLIGHT_OVERWRITTEN_TOTAL,
+            "Flight-recorder events overwritten by ring wrap (history "
+            "older than the ring capacity is gone)",
+            ["ring"],
+        )
+        self.registry.on_render(self._refresh)
 
     def record(self, kind: str, **fields: Any) -> None:
         i = self._n
@@ -66,6 +269,11 @@ class FlightRecorder:
             time.monotonic(), kind, fields or None
         )
         self._n = i + 1
+        self.counts[kind] = self.counts.get(kind, 0) + 1
+
+    @property
+    def overwritten(self) -> int:
+        return max(0, self._n - self.capacity)
 
     def snapshot(self, limit: Optional[int] = None) -> List[Dict[str, Any]]:
         """Events oldest→newest as dicts (``seq`` is the global event
@@ -88,6 +296,11 @@ class FlightRecorder:
                 d.update(fields)
             out.append(d)
         return out
+
+    def _refresh(self) -> None:
+        for kind, count in list(self.counts.items()):
+            self._events.set_total(count, ring=self.name, kind=kind)
+        self._overwritten.set_total(self.overwritten, ring=self.name)
 
 
 # ---------------------------------------------------------------------------
@@ -338,7 +551,18 @@ def _stop_library() -> Any:
 # ---------------------------------------------------------------------------
 
 _LOCK = threading.Lock()
+_WATCHER: Optional[CompileWatcher] = None
 _PROFILER: Optional[ProfilerControl] = None
+
+
+def global_compile_watcher() -> CompileWatcher:
+    """Process-global compile telemetry (one watcher sees every runner's
+    captures)."""
+    global _WATCHER
+    with _LOCK:
+        if _WATCHER is None:
+            _WATCHER = CompileWatcher()
+        return _WATCHER
 
 
 def global_profiler() -> ProfilerControl:
@@ -350,7 +574,10 @@ def global_profiler() -> ProfilerControl:
 
 
 def render_runtime_metrics(openmetrics: bool = False) -> str:
-    """Prometheus text for the process-global runtime families (the
-    profiler's; the compile watcher's come with ROADMAP A9). Registered on
-    every SystemStatusServer."""
-    return global_profiler().registry.render(openmetrics=openmetrics)
+    """Prometheus text for the process-global runtime families (compile
+    watcher + profiler). Registered on every SystemStatusServer."""
+    parts = [
+        global_compile_watcher().registry.render(openmetrics=openmetrics),
+        global_profiler().registry.render(openmetrics=openmetrics),
+    ]
+    return "\n".join(p for p in parts if p)

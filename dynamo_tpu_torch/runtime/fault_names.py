@@ -54,6 +54,19 @@ TRAJECTORY_SHIP = "trajectory.ship"
 # (wall-clock deadline races can't).
 OVERLOAD_ADMIT = "overload.admit"
 
+# -- perf ledger (runtime/perf_ledger.py) -------------------------------------
+# One hit at the top of the startup fingerprint load, before the file is
+# opened: an injection models a corrupt / vanished / unreadable
+# fingerprint file — which MUST degrade to a counted, flight-recorded
+# cold start (no baseline, sentinel verdicts go "no_baseline"), never a
+# crash.
+PERF_FINGERPRINT_LOAD = "perf.fingerprint.load"
+# One hit per clean-shutdown fingerprint store, before the tmp write: an
+# injection models the persistence path dying — the shutdown proceeds,
+# the failure is counted, and the NEXT start is a cold start (a degraded
+# baseline is worse than none).
+PERF_FINGERPRINT_STORE = "perf.fingerprint.store"
+
 ALL_FAULT_POINTS = (
     NET_TCP_SEND,
     NET_TCP_RECV,
@@ -67,4 +80,6 @@ ALL_FAULT_POINTS = (
     PARSER_JAIL_FEED,
     TRAJECTORY_SHIP,
     OVERLOAD_ADMIT,
+    PERF_FINGERPRINT_LOAD,
+    PERF_FINGERPRINT_STORE,
 )

@@ -2,7 +2,8 @@
 dynamo_tpu/runtime/metric_names.py that the port emits (the engine's stats
 gauges, the frontend's, the parser plane's, the crash plane's, the
 router's, the KV-reuse plane's, migration's, the overload plane's, the SLO
-plane's and the device plane's HBM ledger and profiler families), letter
+plane's, the engine step loop's, the perf ledger's and the device plane's
+compile, HBM ledger, flight-ring and profiler families), letter
 for letter, so that dashboards and scrapers read the port as they read the
 JAX package.
 
@@ -21,6 +22,19 @@ ENGINE_PREFIX = "dynamo_tpu_engine"
 def engine_gauge(stat_key: str) -> str:
     """Engine stats-dict key → canonical gauge name (system server)."""
     return f"{ENGINE_PREFIX}_{stat_key}"
+
+
+# -- engine step loop (engines/metrics.py EngineStepMetrics) -----------------
+ENGINE_STEP_DURATION = f"{ENGINE_PREFIX}_step_duration_seconds"
+ENGINE_BATCH_OCCUPANCY = f"{ENGINE_PREFIX}_batch_occupancy"
+ENGINE_STEP_PREFILL_TOKENS = f"{ENGINE_PREFIX}_prefill_tokens_per_step"
+ENGINE_STEP_DECODE_TOKENS = f"{ENGINE_PREFIX}_decode_tokens_per_step"
+# Decode-tick pipelining (engines/gpu/engine.py dispatch/reap split):
+# host_gap = device wait injected by the host between a burst's readback
+# completing and the next dispatch (0 when another burst was already in
+# flight); inflight_depth = bursts in flight at each dispatch.
+ENGINE_HOST_GAP = f"{ENGINE_PREFIX}_host_gap_seconds"
+ENGINE_INFLIGHT_DEPTH = f"{ENGINE_PREFIX}_inflight_depth"
 
 
 # -- frontend (http/metrics.py) ---------------------------------------------
@@ -127,11 +141,20 @@ KVCACHE_EVICTIONS_TOTAL = f"{KVCACHE_PREFIX}_evictions_total"
 
 # -- device/runtime plane (runtime/device_observe.py) ------------------------
 RUNTIME_PREFIX = "dynamo_tpu_runtime"
+# Compile telemetry (CompileWatcher): in the port a compile is a CUDA graph
+# capture of a decode burst (engines/gpu/runner.py).
+RUNTIME_COMPILES_TOTAL = f"{RUNTIME_PREFIX}_compiles_total"
+RUNTIME_COMPILE_SIGNATURES = f"{RUNTIME_PREFIX}_compile_signatures"
+RUNTIME_COMPILE_SECONDS = f"{RUNTIME_PREFIX}_compile_seconds"
+RUNTIME_RECOMPILE_STORMS_TOTAL = f"{RUNTIME_PREFIX}_recompile_storms_total"
 # HBM ledger (structural byte accounting + the CUDA allocator's mirror).
 RUNTIME_HBM_BYTES = f"{RUNTIME_PREFIX}_hbm_bytes"
 RUNTIME_HBM_DEVICE_BYTES = f"{RUNTIME_PREFIX}_hbm_device_bytes"
 # On-demand torch.profiler captures (POST /debug/profile).
 RUNTIME_PROFILER_CAPTURES_TOTAL = f"{RUNTIME_PREFIX}_profiler_captures_total"
+# Flight recorder rings (the perf ledger's "perf" ring on the system server).
+RUNTIME_FLIGHT_EVENTS_TOTAL = f"{RUNTIME_PREFIX}_flight_events_total"
+RUNTIME_FLIGHT_OVERWRITTEN_TOTAL = f"{RUNTIME_PREFIX}_flight_overwritten_total"
 
 # -- migration (llm/migration.py Migration) ----------------------------------
 MIGRATION_PREFIX = "dynamo_tpu_migration"
@@ -164,6 +187,47 @@ OVERLOAD_QUEUE_DELAY = f"{OVERLOAD_PREFIX}_queue_delay_seconds"
 # Requests whose deadline expired before admission (dead on arrival or
 # expired mid-queue) — shed before any prefill work.
 OVERLOAD_DEADLINE_EXPIRED_TOTAL = f"{OVERLOAD_PREFIX}_deadline_expired_total"
+
+# -- perf ledger (runtime/perf_ledger.py PerfLedger) --------------------------
+PERF_PREFIX = "dynamo_tpu_perf"
+# Rolling-window median step wall time per (width, variant, path) decode
+# shape — the always-on attribution the regression sentinel judges.
+PERF_STEP_P50_SECONDS = f"{PERF_PREFIX}_step_p50_seconds"
+# Rolling-window p99 step wall time per shape — tail drift shows here
+# before the median moves.
+PERF_STEP_P99_SECONDS = f"{PERF_PREFIX}_step_p99_seconds"
+# Rolling-window median host gap (CPU time the device sat idle between
+# reap and the next dispatch) per shape.
+PERF_HOST_GAP_P50_SECONDS = f"{PERF_PREFIX}_host_gap_p50_seconds"
+# Rolling-window median dispatch-side host cost per shape (the portion of
+# the step spent building + launching the burst).
+PERF_DISPATCH_P50_SECONDS = f"{PERF_PREFIX}_dispatch_p50_seconds"
+# Rolling-window median reap-side host cost per shape (readback + state
+# update after the burst completed).
+PERF_REAP_P50_SECONDS = f"{PERF_PREFIX}_reap_p50_seconds"
+# Rolling-window decode throughput (tokens/s) per shape.
+PERF_TOKENS_PER_SEC = f"{PERF_PREFIX}_tokens_per_sec"
+# Measured tok/s divided by the pure-arithmetic bandwidth roofline
+# (runtime/roofline.py) at the window's median occupancy and context —
+# 1.0 is the HBM wall.
+PERF_ROOFLINE_FRACTION = f"{PERF_PREFIX}_roofline_fraction"
+# Rolling-window prefill throughput (tokens/s) per pow2 chunk bucket,
+# from the admission loop's per-round stamps.
+PERF_PREFILL_TOKENS_PER_SEC = f"{PERF_PREFIX}_prefill_tokens_per_sec"
+# Live samples currently inside each shape's rolling window (TTL-pruned);
+# verdicts are withheld below the min-sample floor.
+PERF_WINDOW_SAMPLES = f"{PERF_PREFIX}_window_samples"
+# Typed perf anomalies raised by the sentinel, labeled by kind
+# (step_regression | toks_regression).
+PERF_ANOMALIES_TOTAL = f"{PERF_PREFIX}_anomalies_total"
+# Steady-state fingerprints loaded from the persisted ledger at startup
+# (0 on cold start).
+PERF_FINGERPRINT_LOADED = f"{PERF_PREFIX}_fingerprints_loaded"
+# Fingerprint persistence failures by op (load | store) — a corrupt or
+# vanished file degrades to cold start and counts here, never crashes.
+PERF_FINGERPRINT_FAILURES_TOTAL = (
+    f"{PERF_PREFIX}_fingerprint_failures_total"
+)
 
 # -- SLO plane (runtime/trajectory.py SloTracker) -----------------------------
 SLO_PREFIX = "dynamo_tpu_slo"

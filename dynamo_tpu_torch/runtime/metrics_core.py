@@ -55,6 +55,11 @@ def _le(bound: float) -> str:
     return s
 
 
+def _kit_le(bound: float) -> str:
+    """A bucket's ``le`` as the JAX package's own metrics kit writes it."""
+    return "+Inf" if bound == float("inf") else _fmt(bound)
+
+
 def _escape(v: str) -> str:
     return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
 
@@ -173,9 +178,11 @@ class Histogram(_Metric):
         help: str,
         labelnames: Sequence[str] = (),
         buckets: Sequence[float] = DEFAULT_BUCKETS,
+        le: Callable[[float], str] = _le,
     ) -> None:
         super().__init__(name, help, labelnames)
         self.buckets = tuple(sorted(float(b) for b in buckets))
+        self._le = le
         # per label key: ([bucket counts..., +Inf], sum, count)
         self._counts: Dict[LabelKey, List[int]] = {}
         self._sums: Dict[LabelKey, float] = {}
@@ -201,6 +208,16 @@ class Histogram(_Metric):
             if trace_id:
                 self._exemplars[(key, idx)] = (v, str(trace_id), time.time())
 
+    def count(self, **labels: object) -> int:
+        return sum(self._counts.get(self._key(labels), ()))
+
+    def snapshot_total(self, **labels: object) -> Tuple[int, float]:
+        """(observation count, value sum) for one label key, read without
+        rendering the exposition."""
+        key = self._key(labels)
+        with self._lock:
+            return sum(self._counts.get(key, ())), self._sums.get(key, 0.0)
+
     def render(self, openmetrics: bool = False) -> List[str]:
         lines = [
             f"# HELP {self.name} {self.help}",
@@ -214,7 +231,7 @@ class Histogram(_Metric):
             acc = 0
             for i, bound in enumerate(list(self.buckets) + [float("inf")]):
                 acc += counts[i]
-                le_label = 'le="' + _le(bound) + '"'
+                le_label = 'le="' + self._le(bound) + '"'
                 line = (
                     f"{self.name}_bucket"
                     f"{_label_str(self.labelnames, key, le_label)} {acc}"
@@ -237,9 +254,13 @@ class MetricsRegistry:
     """A private registry: one per subsystem object. ``render()`` is the
     function handed to ``SystemStatusServer.register_metrics``."""
 
-    def __init__(self) -> None:
+    def __init__(self, kit_le: bool = False) -> None:
         self._metrics: List[_Metric] = []
         self._before_render: List[Callable[[], None]] = []
+        # Bucket bounds as the JAX package's own kit writes them (le="1",
+        # not prometheus_client's le="1.0"): the worker families that must
+        # be byte-equal to JAX's worker's.
+        self._le = _kit_le if kit_le else _le
 
     def counter(self, name: str, help: str, labelnames: Sequence[str] = ()) -> Counter:
         m = Counter(name, help, labelnames)
@@ -258,7 +279,7 @@ class MetricsRegistry:
         labelnames: Sequence[str] = (),
         buckets: Sequence[float] = DEFAULT_BUCKETS,
     ) -> Histogram:
-        m = Histogram(name, help, labelnames, buckets)
+        m = Histogram(name, help, labelnames, buckets, le=self._le)
         self._metrics.append(m)
         return m
 

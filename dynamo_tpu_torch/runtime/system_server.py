@@ -13,16 +13,17 @@ orchestration and debugging:
   GET  /debug/traces[?trace_id=]       the process tracer's span ring
   GET  /debug/trajectory[/{trace_id}]  stitched request trajectories
   GET  /debug/kvcache[/prefixes]       the KV-reuse plane
+  GET  /debug/perf           the perf ledger (runtime/perf_ledger.py)
   GET  /debug/memory         the HBM ledger beside the CUDA allocator
+  GET  /debug/compiles       compile telemetry: the CUDA graph captures
   GET  /debug/flight         merged flight-recorder rings
   POST /debug/profile        {"action": "start"|"stop"|"status", "dir"?,
                              "seconds"?} — a torch.profiler capture
 
 Routes whose planes the port has not yet answer 501 with a JSON ``error``
 naming the ROADMAP item that brings them: ``/drain`` (the drain plane,
-A11), ``/v1/loras`` (LoRA, A7), ``/debug/perf`` (the perf ledger,
-A4c-4b-2) and ``/debug/compiles`` (graph counts, A9). So the registration
-API has no ``register_drain`` or ``register_loras`` yet.
+A11) and ``/v1/loras`` (LoRA, A7). So the registration API has no
+``register_drain`` or ``register_loras`` yet.
 
 Divergences from JAX's server: a profiler capture that fails to start or
 stop answers 500 (JAX's answers 200 with ``degraded: true``, a no-op that
@@ -56,8 +57,6 @@ UNPORTED_ROUTES = (
     ("/drain", ("GET", "POST"), "the drain plane", "A11"),
     ("/v1/loras", ("GET", "POST"), "LoRA", "A7"),
     ("/v1/loras/{name}", ("DELETE",), "LoRA", "A7"),
-    ("/debug/perf", ("GET",), "the perf ledger", "A4c-4b-2"),
-    ("/debug/compiles", ("GET",), "compile telemetry (CUDA graph counts)", "A9"),
 )
 
 
@@ -188,18 +187,26 @@ class SystemStatusServer:
     # -- lifecycle ---------------------------------------------------------
 
     async def start(self) -> None:
-        # Process-global families, as JAX's server registers them (less the
-        # perf ledger's, ROADMAP A4c-4b-2); guarded for a stop()/start().
+        # Process-global families, as JAX's server registers them; guarded
+        # for a stop()/start().
         if not self._runtime_metrics_registered:
             from dynamo_tpu_torch.runtime.device_observe import render_runtime_metrics
             from dynamo_tpu_torch.runtime.kv_reuse_observe import render_kv_reuse_metrics
             from dynamo_tpu_torch.runtime.liveness import render_fence_metrics
+            from dynamo_tpu_torch.runtime.perf_ledger import (
+                global_perf_ledger,
+                render_perf_metrics,
+            )
             from dynamo_tpu_torch.runtime.trajectory import render_trajectory_metrics
 
             self.register_metrics(render_runtime_metrics)
             self.register_metrics(render_fence_metrics)
             self.register_metrics(render_trajectory_metrics)
             self.register_metrics(render_kv_reuse_metrics)
+            # The perf ledger's families and its "perf" flight ring: one
+            # ledger a process, which the engine feeds.
+            self.register_metrics(render_perf_metrics)
+            self.register_flight("perf", global_perf_ledger().flight.snapshot)
             self._runtime_metrics_registered = True
         app = web.Application()
         router = app.router
@@ -215,7 +222,9 @@ class SystemStatusServer:
         router.add_get("/debug/trajectory/{trace_id}", self._debug_trajectory)
         router.add_get("/debug/kvcache", self._debug_kvcache)
         router.add_get("/debug/kvcache/prefixes", self._debug_kvcache_prefixes)
+        router.add_get("/debug/perf", self._debug_perf)
         router.add_get("/debug/memory", self._debug_memory)
+        router.add_get("/debug/compiles", self._debug_compiles)
         router.add_get("/debug/flight", self._debug_flight)
         router.add_post("/debug/profile", self._debug_profile)
         for method in ENGINE_METHODS:
@@ -363,7 +372,19 @@ class SystemStatusServer:
             k = 50
         return web.json_response(kvcache_prefixes(k=k))
 
+    # -- perf ledger (runtime/perf_ledger.py) ------------------------------
+
+    async def _debug_perf(self, request: web.Request) -> web.Response:
+        from dynamo_tpu_torch.runtime.perf_ledger import perf_index
+
+        return web.json_response(perf_index())
+
     # -- device plane (runtime/device_observe.py) --------------------------
+
+    async def _debug_compiles(self, request: web.Request) -> web.Response:
+        from dynamo_tpu_torch.runtime.device_observe import global_compile_watcher
+
+        return web.json_response(global_compile_watcher().snapshot())
 
     async def _debug_memory(self, request: web.Request) -> web.Response:
         from dynamo_tpu_torch.runtime.device_observe import device_memory_stats
@@ -527,10 +548,10 @@ def engine_stats_prometheus(stats: Dict[str, Any]) -> str:
 def attach_engine(server: SystemStatusServer, engine: Any) -> None:
     """Register a TorchEngine's admin surface on the system server: the
     ``stats`` and ``clear_kv_blocks`` routes, its health, its stats gauges,
-    its HBM ledger (``/debug/memory`` and its gauges) and the KV pool's byte
-    split (``kv_pool_detail``). JAX's also registers sleep/wake, the KV
-    checkpoint, LoRA, the step metrics and the flight rings, which the port's
-    engine does not have yet."""
+    its step metrics, its HBM ledger (``/debug/memory`` and its gauges) and
+    the KV pool's byte split (``kv_pool_detail``). JAX's also registers
+    sleep/wake, the KV checkpoint, LoRA and the engine's flight rings, which
+    the port's engine does not have yet."""
 
     async def _stats(body: Dict[str, Any]):
         return 200, engine.stats()
@@ -551,6 +572,7 @@ def attach_engine(server: SystemStatusServer, engine: Any) -> None:
 
     server.register_health("engine", _engine_health)
     server.register_metrics(lambda: engine_stats_prometheus(engine.stats()))
+    engine.step_metrics.register_metrics(server)
     server.register_memory("engine", engine.hbm.snapshot)
     server.register_metrics(engine.hbm.registry.render)
     # Informational split of the ledger's kv_cache bytes (active vs

@@ -4,7 +4,9 @@ lacks (tokenizers, regex, aiohttp, msgpack, zmq, prometheus_client; jinja2
 only inside a function); every module (the HTTP frontend, the parsers and
 the runtime's planes with their msgpack and ZMTP wire modules, and the KV
 router with its pure-Python xxh3, discovery, migration, the worker and
-frontend mains, and the overload and trajectory planes, among them) imports with all of those and xxhash blocked, and the text
+frontend mains, the overload and trajectory planes, the system server, the
+device plane, the engine's step metrics, the perf ledger and the roofline,
+among them) imports with all of those and xxhash blocked, and the text
 path (tokenizer, default chat template) runs so; an entry point left on
 its default device (cuda) raises when there is no card instead of
 carrying on on the CPU."""
@@ -127,7 +129,8 @@ wanted = set("dynamo_tpu_torch." + n for n in (
     "router.router", "runtime.kv_reuse_observe", "runtime.lifecycle", "utils.tracing",
     "llm.migration", "llm.discovery", "disagg", "disagg.prefill_router", "worker",
     "worker.__main__", "frontend", "frontend.__main__", "runtime.overload",
-    "runtime.trajectory"))
+    "runtime.trajectory", "runtime.system_server", "runtime.device_observe",
+    "engines.metrics", "runtime.perf_ledger", "runtime.roofline"))
 assert wanted <= set(names), sorted(wanted - set(names))
 spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))

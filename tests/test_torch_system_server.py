@@ -6,23 +6,28 @@ against the JAX package's (on aiohttp), over sockets:
     profiler's directories masked): the probes, /health, /metrics (text
     and OpenMetrics, equal line for line for the same registries, the
     process-global families of both servers swapped for empty ones), the
-    request timelines, traces, trajectories, the KV-reuse plane,
-    /debug/memory, /debug/flight (less JAX's perf ring), /debug/profile's
-    state machine (a 409 on a second start, a 400 on bad ``seconds``, an
-    auto-stop that stops only its own capture) and /engine/{path};
+    request timelines, traces, trajectories, the KV-reuse plane, the perf
+    ledger (/debug/perf) and the compile watcher (/debug/compiles) fed the
+    same observations, /debug/memory, /debug/flight (the perf ledgers'
+    rings merged in), /debug/profile's state machine (a 409 on a second
+    start, a 400 on bad ``seconds``, an auto-stop that stops only its own
+    capture) and /engine/{path};
   - on a host with two cards, /debug/memory reads the attached engine's
     card alone, with its unaccounted bytes;
-  - the routes of unported planes answer 501 naming their ROADMAP items;
+  - the routes of unported planes (drain, LoRA) answer 501 naming their
+    ROADMAP items;
   - ``engine_stats_prometheus`` gives JAX's text for the same dict;
   - ``attach_engine`` over a TorchEngine and a JaxEngine on the same tiny
     weights and requests: the same health, clear and ledger categories, the
     port's ``kv_cache`` one sink block a pool above JAX's and its
     ``slot_state`` in its own widths (the rules stated below);
   - the worker main with ``--system-port 0``: /live at once, /readyz 503
-    while ``engine.start()`` is held by a gate and 200 once it serves;
+    while ``engine.start()`` is held by a gate and 200 once it serves, then
+    the step, perf and compile families on /metrics and the perf ring on
+    /debug/flight;
   - the CLI: delegation to the mains, ``env``, and ``observe kvcache`` /
-    ``observe trajectory`` printing what JAX's CLI prints for a live port
-    worker.
+    ``observe trajectory`` / ``observe perf`` / ``observe`` (the device
+    plane) printing what JAX's CLI prints for a live port worker.
 Each test that starts servers or processes keeps its own deadline."""
 
 import argparse
@@ -59,6 +64,7 @@ from dynamo_tpu_torch.runtime import kv_reuse_observe as tkv
 from dynamo_tpu_torch.runtime import lifecycle as tlifecycle
 from dynamo_tpu_torch.runtime import liveness as tliveness
 from dynamo_tpu_torch.runtime import metrics_core as tmetrics
+from dynamo_tpu_torch.runtime import perf_ledger as tperf
 from dynamo_tpu_torch.runtime import system_server as tss
 from dynamo_tpu_torch.runtime import trajectory as ttrajectory
 from dynamo_tpu_torch.runtime.context import Context as TContext
@@ -113,10 +119,25 @@ def fresh_globals(monkeypatch):
                          (jkv, "render_kv_reuse_metrics"), (jperf, "render_perf_metrics"),
                          (tdo, "render_runtime_metrics"), (tliveness, "render_fence_metrics"),
                          (ttrajectory, "render_trajectory_metrics"),
-                         (tkv, "render_kv_reuse_metrics")):
+                         (tkv, "render_kv_reuse_metrics"), (tperf, "render_perf_metrics")):
         monkeypatch.setattr(module, name, empty)
     monkeypatch.setattr(jkv, "_PLANE", jkv.KvReusePlane())
     monkeypatch.setattr(tkv, "_PLANE", tkv.KvReusePlane())
+    # fresh perf ledgers and compile watchers, fed the same observations
+    jdo.global_profiler()  # JAX makes its two process globals together
+    for perf, do in ((jperf, jdo), (tperf, tdo)):
+        led = perf.PerfLedger()
+        led.configure(preset="tiny-llama", backend="cuda", host="h")
+        for i in range(3):
+            led.observe_decode(4, "w4", "fallback", 0.01 + i / 1000, 8, 2, 50.0 + i, 0.0,
+                               0.001, 0.0002)
+        led.observe_prefill(32, 0.004, 30)
+        led.flight.record("fingerprint_load", path="x", loaded=0)
+        monkeypatch.setattr(perf, "_LEDGER", led)
+        watcher = do.CompileWatcher()
+        watcher.set_budget("runner.decode_state", 18)
+        watcher.program("runner.decode_state").on_compile(1, 0.25)
+        monkeypatch.setattr(do, "_WATCHER", watcher)
     # A main run in this process earlier (another test) named it: spans
     # carry the pid default again.
     monkeypatch.setattr(jtracing, "_SERVICE", None)
@@ -205,6 +226,7 @@ ROUTES = [
     ("GET", "/debug/trajectory", None, None), ("GET", "/debug/trajectory/abc", None, None),
     ("GET", "/debug/kvcache", None, None), ("GET", "/debug/kvcache?top_k=x", None, None),
     ("GET", "/debug/kvcache/prefixes?k=3", None, None),
+    ("GET", "/debug/perf", None, None), ("GET", "/debug/compiles", None, None),
     ("GET", "/engine/echo", None, None), ("POST", "/engine/echo", {"x": 1}, None),
     ("PUT", "/engine/echo", {"y": [2]}, None), ("POST", "/engine/echo", [1, 2], None),
     ("POST", "/engine/echo", b"{not json", None), ("DELETE", "/engine/a/b", None, None),
@@ -239,12 +261,15 @@ async def test_each_route_answers_as_jaxs_for_the_same_sources(fresh_globals):
             assert got[1] == got[0] and got[1]["ledger_total_bytes"] == 150
             assert devices[1] == [{"id": 0, "platform": "cpu", "memory_stats": None}]
             assert {d["platform"] for d in devices[0]} == {"cpu"}
-            # /debug/flight: JAX's server also merges its perf ledger's ring
-            for query in ("", "?limit=2", "?kind=reap", "?limit=x"):
+            # /debug/flight: both servers merge their perf ledger's ring
+            for query in ("", "?limit=2", "?kind=reap", "?kind=fingerprint_load", "?limit=x"):
                 got = [json.loads(b) for _, _, b in await s.both("GET", "/debug/flight" + query)]
-                got[0]["rings"].remove("perf")
-                got[0]["events"] = [e for e in got[0]["events"] if e["ring"] != "perf"]
                 assert _masked(got[1]) == _masked(got[0]) and got[1]["events"], query
+                assert got[1]["rings"] == ["engine", "perf"]
+            perf = json.loads((await s.both("GET", "/debug/perf"))[1][2])
+            assert perf["decode"][0]["samples"] == 3 and perf["prefill"]["32"]["samples"] == 1
+            compiles = json.loads((await s.both("GET", "/debug/compiles"))[1][2])
+            assert compiles["totals"]["compiles"] == 1
             metrics = (await s.both("GET", "/metrics"))[1][2].decode()
             assert metrics.count("# HELP dynamo_tpu_test_depth ") == 1
 
@@ -266,6 +291,7 @@ async def test_memory_view_reads_the_attached_engines_card_alone(two_cards):  # 
 
 
 async def test_unported_routes_answer_501_naming_their_item():
+    """/drain and /v1/loras; /debug/perf and /debug/compiles are served."""
     server = tss.SystemStatusServer(host="127.0.0.1", port=0)
     await server.start()
     try:
@@ -276,8 +302,9 @@ async def test_unported_routes_answer_501_naming_their_item():
                     call, server.port, method, url, {} if method == "POST" else None)
                 assert status == 501, (method, url)
                 assert json.loads(body) == {"error": f"{what} is not ported (ROADMAP {item})"}
-        assert {p for p, *_ in tss.UNPORTED_ROUTES} == {
-            "/drain", "/v1/loras", "/v1/loras/{name}", "/debug/perf", "/debug/compiles"}
+        assert {p for p, *_ in tss.UNPORTED_ROUTES} == {"/drain", "/v1/loras", "/v1/loras/{name}"}
+        for path in ("/debug/perf", "/debug/compiles"):
+            assert (await asyncio.to_thread(call, server.port, "GET", path))[0] == 200
     finally:
         await server.stop()
 
@@ -445,8 +472,10 @@ def test_worker_main_serves_its_system_server_ready_once_serving(tmp_path):
     """``--system-port 0``: the server prints its port before the engine
     starts; /live and /healthz answer at once; /readyz is 503 while a gate
     holds ``engine.start()`` and 200 once the worker serves; /metrics then
-    carries the engine's, the HBM ledger's and the process-global families
-    and the overload controller's; SIGTERM ends it with exit 0."""
+    carries the engine's, its step metrics', the HBM ledger's and the
+    process-global families (the perf ledger's and the compile watcher's
+    among them) and the overload controller's; SIGTERM ends it with exit
+    0."""
     gate = str(tmp_path / "gate")
     script = tmp_path / "gated_worker.py"
     script.write_text(GATED_WORKER.format(root=ROOT, gate=gate))
@@ -489,14 +518,24 @@ def test_worker_main_serves_its_system_server_ready_once_serving(tmp_path):
                        'dynamo_tpu_runtime_hbm_bytes{category="kv_cache"}',
                        "dynamo_tpu_runtime_profiler_captures_total", "dynamo_tpu_overload_state",
                        "# TYPE dynamo_tpu_slo_goodput_ratio", "# TYPE dynamo_tpu_kvcache_",
-                       "# TYPE dynamo_tpu_liveness_stale_incarnation_drops_total"):
+                       "# TYPE dynamo_tpu_liveness_stale_incarnation_drops_total",
+                       "# TYPE dynamo_tpu_engine_step_duration_seconds histogram",
+                       "# TYPE dynamo_tpu_engine_host_gap_seconds histogram",
+                       "dynamo_tpu_perf_fingerprints_loaded 0",
+                       "# TYPE dynamo_tpu_perf_roofline_fraction gauge",
+                       'dynamo_tpu_runtime_compiles_total{program="runner.decode_state"} 0'):
             assert family in metrics, family
         status, mem = _get(port, "/debug/memory")
         assert status == 200 and set(mem["sources"]) == {"engine", "kv_pool_detail"}
         assert mem["devices"] == [{"id": 0, "platform": "cpu", "memory_stats": None}]
         assert "device_bytes_in_use" not in mem and mem["host_weight_cache"] is None
         status, rings = _get(port, "/debug/flight")
-        assert status == 200 and rings["rings"] == ["overload"]
+        assert status == 200 and rings["rings"] == ["perf", "overload"]
+        status, perf = _get(port, "/debug/perf")
+        assert status == 200 and perf["identity"]["preset"] == "tiny-llama"
+        assert perf["identity"]["backend"] == "cpu" and perf["decode"] == []
+        status, compiles = _get(port, "/debug/compiles")
+        assert status == 200 and compiles["totals"]["compiles"] == 0
         assert call(port, "POST", "/engine/clear_kv_blocks")[:1] == (200,)
         assert call(port, "GET", "/drain")[0] == 501
         proc.send_signal(signal.SIGTERM)
@@ -526,10 +565,6 @@ def test_cli_delegates_to_the_mains_and_prints_the_ports_knobs():
     for name, default, value in rows:
         assert default == repr(knobs[name].default)
         assert value == ("7777" if name == "DYN_TPU_SYSTEM_PORT" else "")
-    for view in ([], ["perf"]):
-        refused = _cli(["dynamo_tpu_torch.cli", "observe", *view])
-        assert refused.returncode == 1
-        assert ("ROADMAP A4c-4b-2" if view else "ROADMAP A9") in refused.stderr
 
 
 async def test_observe_views_print_jaxs_text_for_a_live_port_worker(monkeypatch, fresh_globals):
@@ -551,7 +586,9 @@ async def test_observe_views_print_jaxs_text_for_a_live_port_worker(monkeypatch,
                     pass
             port = worker.system_server.port
             texts = {}
-            for what, as_json in (("kvcache", False), ("kvcache", True), ("trajectory", False)):
+            for what, as_json in (("kvcache", False), ("kvcache", True), ("trajectory", False),
+                                  ("perf", False), ("perf", True), (None, False),
+                                  (None, True)):
                 ns = argparse.Namespace(what=what, trace_id=None, top_k=5, host="127.0.0.1",
                                         port=port, json=as_json, flight_limit=24)
                 got, raw = [], None
@@ -571,6 +608,25 @@ async def test_observe_views_print_jaxs_text_for_a_live_port_worker(monkeypatch,
             # two of the three prompts found their shared prefix cached
             assert "hit rate 0.667  (hits=2.0 misses=1.0" in texts["kvcache", False]
             assert json.loads(texts["kvcache", True])["kvcache"]["hits"]
+            # the perf ledger the worker's engine fed (JAX's test_cli.py:232-282)
+            out = texts["perf", False]
+            assert "perf ledger" in out and "sentinel" in out and "fingerprints_loaded=" in out
+            assert "step p50" in out and "tok/s" in out and "backend=cpu" in out
+            doc = json.loads(texts["perf", True])
+            assert doc["identity"]["preset"] == worker.engine.config.name
+            assert doc["decode"] and doc["decode"][0]["samples"] >= 1
+            assert doc["decode"][0]["step_p50_s"] > 0.0 and doc["decode"][0]["path"] == "fallback"
+            # the device plane: memory, compiles (no graphs on the CPU), flight
+            out = texts[None, False]
+            for head in ("== device memory", "== compiled programs", "== flight recorder"):
+                assert head in out, head
+            doc = json.loads(texts[None, True])
+            # the fixture's one compile: a CPU worker captures no graphs
+            assert doc["compiles"]["totals"]["compiles"] == 1
+            assert set(doc["memory"]["sources"]) == {"engine", "kv_pool_detail"}
+            assert "perf" in doc["flight"]["rings"]
+            _, metrics = await asyncio.to_thread(_get, port, "/metrics")
+            assert 'dynamo_tpu_engine_step_duration_seconds_count{phase="decode"}' in metrics
             ns = argparse.Namespace(what="kvcache", trace_id=None, top_k=5, host="127.0.0.1",
                                     port=1, json=False)  # nothing listens there
             with pytest.raises(SystemExit, match="cannot reach system server"):
