@@ -346,7 +346,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    pools' storage bytes (NB + 1 blocks each), params the parameters'
    bytes, kv_pool_detail summing to kv_cache, device_bytes_in_use the
    allocator's and unaccounted_bytes >= 0 (printed); after an idle
-   capture (the first sets CUPTI up), a /debug/profile capture of
+   capture (the first sets CUPTI up) and one pass of the profiled fillers
+   to their ends pinned to the worker (their decode buckets warm, whichever
+   worker the routed long streams before ran on), a /debug/profile capture of
    SYSTEM_PROFILE_S seconds, started while the worker decodes
    SYSTEM_PROFILE_LOAD streams and with a
    SYSTEM_PROFILE_PROMPT-token request sent inside it,
@@ -389,10 +391,57 @@ Phases, each printing one JSON line; any failure exits non-zero:
    no anomaly; eager (cuda_graphs=False, ~6x slower a burst), loading
    them: verdict regression with a step_regression anomaly, counted and
    in the perf ring. The line: each run's rows, verdicts and anomalies.
+38. disagg_matrix — disaggregated prefill and decode in this process over
+   the process-local plane: Qwen2.5-0.5B at full width (embedding x
+   QWEN_EMBED_SCALE), one set of weights, four engines (max_model_len
+   4,096): a prefill and a decode engine over bf16 pools and over int8
+   pools. For each cell (bf16->bf16, int8->int8, bf16->int8, int8->bf16)
+   and each of DISAGG_PROMPTS (100, 700 and 3,000 tokens: five 8 MiB
+   chunks), the prompt goes through PrefillHandler (first token and
+   bootstrap), DecodeHandler pulls its blocks from KvTransferHandler's
+   ``kv`` endpoint and decodes DISAGG_TOKENS - 1 more. Fails unless: each
+   pull counts one transfer of the prompt's full blocks, no failure and no
+   fallback, and the decode engine prefills at most a block and the first
+   token; read on the card, the decode pools' blocks equal the prefill
+   pools' bit for bit in the same-dtype cells and the plain torch
+   dequantization (2e-3 + 1e-2 |plain|) or quantization (codes within one
+   step, scales within 2^-22) of them in the cross cells; a same-dtype
+   cell's stream equals its witness (the prefill engine serving the prompt
+   and the first token, which hits its own blocks and prefills the same
+   tail) token for token, a cross cell's is within QWEN_GAP_LIMIT of the
+   dense reference (K and V through the int8 round trip); the bf16->bf16
+   3,000-token pull, with disagg.kv.export failing at its 2nd chunk,
+   resumes from its anchor (one retry) and stays exact; the wire bytes a
+   block are 196,608 (bf16) and 104,448 (int8). Both pools' decode and
+   chunk kernels must have launched over the imported pages. The line: a
+   row a pull (prefill, pull, and, timed one at a time, export, msgpack
+   pack and unpack, and import ms; wire bytes; the worst block difference
+   and logit gap) beside the card.
+39. disagg — the deployment: discd, a ``--is-prefill-worker`` worker main
+   and a decode worker main (``--system-port``; both ``--max-model-len
+   4096``, Qwen2.5-0.5B) and the frontend main. The decode worker's width
+   buckets are first warmed by requests of the measured set's exact shapes
+   sent to its generate endpoint (no pull). Then DISAGG_CHAT_TOKENS chats,
+   64 tokens each with ignore_eos, one at a time. Fails unless: every
+   stream is whole; per chat the decode worker prefilled at most
+   DISAGG_TAIL_LIMIT tokens and the prefill worker at least the prompt;
+   the decode worker's /metrics moved by 8 transfers (8 in all) of
+   sum(prompt // 16) blocks with no failure, and its disagg flight ring
+   holds 8 pulls done and no error or rejected pull; both paged-attention
+   kernels launched on the decode worker and the chunk kernel on the
+   prefill worker in that window; a traced chat's stitched trajectory
+   holds a kv_transfer phase and the disagg.pull span. Then the prefill
+   worker gets SIGTERM (exit 0) and a second set of the same shape with
+   other tokens is served aggregated: whole streams, the decode worker
+   prefilling each whole prompt, no pull. The line: TTFT, the first to
+   second token gap (the pull and the tail's prefill), ITL from the third
+   token on and the pull's seconds (the decode worker's histogram) of each
+   chat in both sets and their means (also without each set's first), the graphs captured in the measured
+   window (/debug/compiles), the launches.
 
 (18-20 run right after the Llama-3-8B kernels of phases 3-4, 22 right after
 the fused layer's timing, 21 right after phase 11, 23 right after phase 6,
-24-28 after phase 17, 29-37 right after phase 23.)
+24-28 after phase 17, 29-39 right after phase 23.)
 Then one JSON line {"kernels": [...]} for all ten kernels, nvidia-smi's
 name and power limit, and last {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result.
@@ -4844,11 +4893,19 @@ async def system_client(m, port, startup) -> dict:
         if r["status"] != 200 or not json.loads(r["body"]).get("ok"):
             fail(f"system: the idle capture's {action} answered {r['status']} {r['body']}")
     first_capture_s = time.monotonic() - t0
+    pin = {"x-dynamo-worker": str(wid)}
+    fill = dict(m.body, max_tokens=OVERLOAD_FILL_TOKENS, nvext={"ignore_eos": True}, stream=True)
+    # The fillers' decode buckets (up to 128 pages at their last tokens) are
+    # warmed by one pass of the same fillers to their ends: the routed long
+    # streams before this part may have run on the other worker.
+    warm = [await HeldStream.open(m.port, fill, pin) for _ in range(SYSTEM_PROFILE_LOAD)]
+    await until("the warm pass's fillers' ends", lambda: all(f.done for f in warm),
+                procs=m.everyone)
+    for f in warm:
+        f.close()
     graphs0 = (await m.stats(wid))["decode_graphs"]
     dead = rf"worker {wid:#x} declared DEAD"
     dead_before = sum(1 for _, line in list(m.frontend.lines) if re.search(dead, line))
-    pin = {"x-dynamo-worker": str(wid)}
-    fill = dict(m.body, max_tokens=OVERLOAD_FILL_TOKENS, nvext={"ignore_eos": True}, stream=True)
     fillers = [await HeldStream.open(m.port, fill, pin) for _ in range(SYSTEM_PROFILE_LOAD)]
 
     async def loaded():
@@ -5658,6 +5715,597 @@ def perf_phase(torch, smi) -> dict:
     return counts
 
 
+# -- disaggregated prefill and decode (phases 38-39) ---------------------------
+
+DISAGG_PROMPTS = (100, 700, 3000)  # a cell's prompts; 3,000 tokens span five 8 MiB chunks
+DISAGG_TOKENS = 64  # each stream's tokens, the prefill's first among them
+DISAGG_MAX_MODEL_LEN = 4096
+DISAGG_FAULT_HIT = 2  # the hit of disagg.kv.export that fails: the 2nd chunk of a pull
+# (prefill pool, decode pool): None is bf16, "int8" int8 pools with scales
+DISAGG_CELLS = ((None, None), ("int8", "int8"), (None, "int8"), ("int8", None))
+DISAGG_WORKERS = {"prefill": 0x501, "decode": 0x502}  # DYN_TPU_WORKER_ID of the mains
+DISAGG_CHAT_TOKENS = (100, 300, 600, 900, 1300, 1800, 2400, 3000)  # a set's prompts, about
+DISAGG_TRACEPARENT = "00-d15a99d15a99d15a99d15a99d15a99d1-0011223344556677-01"
+# The decode side's tail over imported pages: at most one block and the
+# prefill's first token is prefilled there.
+DISAGG_TAIL_LIMIT = 16 + 1
+
+
+def _cell(cell):
+    return "->".join(kv or "bf16" for kv in cell)
+
+
+def pool_blocks(torch, runner, ids):
+    """Blocks ``ids`` of every layer's K and V pools, read by plain indexing:
+    {"k": t, "v": t} of [n, L, BS, KH, D] tensors, or for int8 pools
+    (codes [n, L, BS, KH, D], scales [n, L, KH, BS])."""
+    idx = torch.tensor(ids, dtype=torch.long, device=DEV)
+    out = {}
+    for name, pools in (("k", runner.k_cache), ("v", runner.v_cache)):
+        if isinstance(pools[0], dict):
+            out[name] = (torch.stack([p["q8"][idx] for p in pools], 1),
+                         torch.stack([p["s"][idx] for p in pools], 1))
+        else:
+            out[name] = torch.stack([p[idx] for p in pools], 1)
+    return out
+
+
+def imported_blocks_err(torch, src, dst, hashes, cell) -> float:
+    """The decode engine's blocks of ``hashes`` against the prefill
+    engine's, both read on the card: bit-equal in a same-dtype cell; in a
+    cross cell equal to the plain torch dequantization (int8 -> bf16,
+    within the attention checks' 2e-3 + 1e-2 |plain|) or quantization (bf16
+    -> int8: codes within one step, scales within 2^-22 relative) of the
+    source blocks. Returns the largest difference (0.0 when bit-equal)."""
+    from dynamo_tpu_torch.ops import kv_quant
+
+    pinned = [(e, e.pool.pin_prefix(hashes)[1]) for e in (src, dst)]
+    try:
+        for e, ids in pinned:
+            if len(ids) != len(hashes):
+                fail(f"disagg_matrix {cell}: {len(ids)} of {len(hashes)} blocks resident")
+        a, b = (pool_blocks(torch, e.runner, ids) for e, ids in pinned)
+    finally:
+        for e, ids in pinned:
+            e.pool.release(ids, hashes[: len(ids)])
+    worst = 0.0
+    for name in ("k", "v"):
+        s, d = a[name], b[name]
+        if isinstance(s, tuple) == isinstance(d, tuple):
+            same = all(torch.equal(x, y) for x, y in zip(s, d)) if isinstance(s, tuple) \
+                else torch.equal(s, d)
+            if not same:
+                fail(f"disagg_matrix {cell}: imported {name} blocks differ from the source's")
+        elif isinstance(s, tuple):
+            want = kv_quant.dequantize_pages(s[0], s[1], d.dtype).float()
+            err = (d.float() - want).abs()
+            if bool((err > 2e-3 + 1e-2 * want.abs()).any()):
+                fail(f"disagg_matrix {cell}: {name} blocks {float(err.max())} off the "
+                     "dequantized source")
+            worst = max(worst, float(err.max()))
+        else:
+            q8, sc = kv_quant.quantize_kv_chunk(s)
+            want_s = sc.transpose(-1, -2)
+            codes = float((d[0].int() - q8.int()).abs().max())
+            rel = float(((d[1] - want_s).abs() / want_s.clamp_min(1e-30)).max())
+            if codes > 1 or rel > 2.0**-22:
+                fail(f"disagg_matrix {cell}: {name} codes {codes} steps and scales {rel} "
+                     "(relative) off the quantized source")
+            worst = max(worst, codes, rel)
+    return worst
+
+
+def disagg_matrix_phase(torch, smi) -> dict:
+    """Phase 38 (see the module's docstring). Returns the launch counts of
+    the pulls and decodes."""
+    from dynamo_tpu_torch.disagg import DecodeHandler, KvTransferHandler, PrefillHandler, wire
+    from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
+    from dynamo_tpu_torch.llm.protocols.common import (
+        BackendOutput, PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+    from dynamo_tpu_torch.models.config import qwen2_500m_config
+    from dynamo_tpu_torch.runtime import fault_names, faults
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.runtime.network import msgpack_lite
+    from dynamo_tpu_torch.tokens.blocks import compute_block_hashes
+
+    t_phase = time.monotonic()
+    cfg = qwen2_500m_config()
+
+    def engine_args(kv):
+        return TorchEngineArgs(config=cfg, block_size=16, num_kv_blocks=1024, max_num_seqs=4,
+                               max_model_len=DISAGG_MAX_MODEL_LEN, prefill_chunk=512, seed=0,
+                               device=DEV, kv_cache_dtype=kv)
+
+    params = scaled_params(torch, cfg, engine_args(None), QWEN_EMBED_SCALE)
+    engines = {(role, kv): TorchEngine(engine_args(kv), params)
+               for role in ("prefill", "decode") for kv in (None, "int8")}
+    wids = {None: 1, "int8": 2}  # the prefill engines' instance ids
+    g = torch.Generator().manual_seed(38)
+    block_bytes = {tag: wire.wire_block_bytes(cfg.n_layers, 16, cfg.n_kv_heads, cfg.head_dim_,
+                                              tag) for tag in ("bfloat16", "int8")}
+
+    def req(prompt, n):
+        return PreprocessedRequest(token_ids=prompt, sampling=SamplingOptions(temperature=0.0),
+                                   stop=StopConditions(max_tokens=n, ignore_eos=True))
+
+    async def run():
+        rt = DistributedRuntime.detached()
+        ns = rt.namespace("disagg")
+        served = []
+        for kv, wid in wids.items():
+            e = engines["prefill", kv]
+            served.append(await ns.component("prefill").endpoint("generate").serve_endpoint(
+                PrefillHandler(e, wid).generate, instance_id=wid))
+            served.append(await ns.component("prefill").endpoint("kv").serve_endpoint(
+                KvTransferHandler(e).generate, instance_id=wid))
+        prefill = await ns.component("prefill").endpoint("generate").client()
+
+        async def kv_client():
+            return await ns.component("prefill").endpoint("kv").client()
+
+        handlers = {kv: DecodeHandler(engines["decode", kv], kv_client_factory=kv_client,
+                                      worker_id=10 + wids[kv]) for kv in (None, "int8")}
+        rows, counts = [], {}
+
+        async def idle(*es):
+            while any(e.stats()["active_seqs"] or e.stats()["inflight_bursts"] for e in es):
+                await asyncio.sleep(0.001)
+            torch.cuda.synchronize()
+
+        async def pull(cell, prompt, plan):
+            """The prompt's prefill on the cell's prefill engine and its
+            pull and decode on the decode engine: (tokens, decode stamps,
+            prefill start, prefill end, the fault plane)."""
+            skv, dkv = cell
+            first = [x if isinstance(x, BackendOutput) else BackendOutput.from_dict(x)
+                     async for x in prefill.direct(req(prompt, DISAGG_TOKENS).to_dict(),
+                                                   wids[skv], Context())]
+            t1 = time.monotonic()
+            if len(first) != 1 or first[0].error or first[0].disaggregated_params is None:
+                fail(f"disagg_matrix {_cell(cell)}: the prefill answered {first}")
+            token = first[0].token_ids[0]
+            dreq = req(prompt + [token], DISAGG_TOKENS - 1)
+            dreq.disaggregated_params = first[0].disaggregated_params
+            toks, stamps = [token], []
+            with faults.armed(plan) as plane:
+                async for out in handlers[dkv].generate(dreq, Context()):
+                    if out.error:
+                        fail(f"disagg_matrix {_cell(cell)}: {out.error}")
+                    toks += out.token_ids
+                    stamps.append(time.monotonic())
+            return toks, stamps, t1, plane
+
+        try:
+            # Warm-up, not measured or counted: a pull a cell (the kv
+            # client, the first pinned buffers, each engine's first prefill
+            # and decode).
+            for cell in DISAGG_CELLS:
+                prompt = torch.randint(10, cfg.vocab_size, (120,), generator=g).tolist()
+                await pull(cell, prompt, faults.FaultPlan())
+            for ci, cell in enumerate(DISAGG_CELLS):
+                skv, dkv = cell
+                src, dst, handler = engines["prefill", skv], engines["decode", dkv], handlers[dkv]
+                for n in DISAGG_PROMPTS:
+                    prompt = torch.randint(10, cfg.vocab_size, (n,), generator=g).tolist()
+                    hashes = compute_block_hashes(prompt, 16)
+                    fault = ci == 0 and n == max(DISAGG_PROMPTS)
+                    plan = faults.FaultPlan(rules=(faults.FaultRule(
+                        point=fault_names.DISAGG_KV_EXPORT, at=(DISAGG_FAULT_HIT,)),)) \
+                        if fault else faults.FaultPlan()
+                    await idle(src, dst)
+                    before = dict(vars(handler))
+                    d_prefill0 = dst.prefill_tokens
+                    reset_counts()
+                    t0 = time.monotonic()
+                    toks, stamps, t1, plane = await pull(cell, prompt, plan)
+                    for k, v in read_counts().items():
+                        counts[k] = counts.get(k, 0) + v
+                    delta = {k: getattr(handler, k) - before[k] for k in (
+                        "transfers", "transfer_failures", "pull_retries", "pull_fallbacks",
+                        "blocks_pulled", "bytes_pulled", "transfer_seconds")}
+                    want = dict(transfers=1, transfer_failures=int(fault), pull_retries=int(fault),
+                                pull_fallbacks=0, blocks_pulled=len(hashes))
+                    got = {k: delta[k] for k in want}
+                    if got != want or (fault and plane.injected != {
+                            fault_names.DISAGG_KV_EXPORT: 1}):
+                        fail(f"disagg_matrix {_cell(cell)} {n}-token pull counted {got} "
+                             f"(want {want}), injected {plane.injected}")
+                    tail = dst.prefill_tokens - d_prefill0
+                    if len(toks) != DISAGG_TOKENS or tail > DISAGG_TAIL_LIMIT:
+                        fail(f"disagg_matrix {_cell(cell)}: {len(toks)} tokens, the decode engine "
+                             f"prefilled {tail}")
+                    err = imported_blocks_err(torch, src, dst, hashes, _cell(cell))
+                    # the legs one at a time on the same blocks, each engine
+                    # idle: export (gather + readback), the wire's pack and
+                    # unpack through msgpack (what the TCP plane does), and the
+                    # import into the decode pools (their copies dropped first)
+                    await idle(src, dst)
+                    te = time.monotonic()
+                    found, w = await src.export_blocks_wire_async(hashes)
+                    tp = time.monotonic()
+                    raw = msgpack_lite.packb({"found": found, "kv": wire.pack_kv(w)})
+                    tu = time.monotonic()
+                    w2 = wire.unpack_kv(msgpack_lite.unpackb(raw)["kv"])
+                    dst.pool.clear()
+                    ti = time.monotonic()
+                    if await dst.import_blocks_wire_async(found, w2) != len(hashes):
+                        fail(f"disagg_matrix {_cell(cell)}: the timed import installed less")
+                    torch.cuda.synchronize()
+                    tz = time.monotonic()
+                    if skv == dkv:
+                        # the witness: the prefill engine serving prompt + first
+                        # token hits its own blocks and prefills the same tail
+                        witness = toks[:1]
+                        async for out in src.generate(req(prompt + toks[:1], DISAGG_TOKENS - 1),
+                                                      Context()):
+                            witness += out.token_ids
+                        if toks != witness:
+                            fail(f"disagg_matrix {_cell(cell)} {n}: the decode stream parts from "
+                                 f"its witness at token "
+                                 f"{next(i for i, (a, b) in enumerate(zip(toks, witness)) if a != b)}")
+                        gap = None
+                    else:
+                        ref = dense_reference_logits(
+                            torch, src if skv == "int8" else dst, prompt, toks)
+                        picked = torch.tensor(toks, device=DEV)
+                        gaps = ref.max(-1).values - ref[torch.arange(len(toks), device=DEV), picked]
+                        gap = float(gaps.max())
+                        del ref
+                        if gap > QWEN_GAP_LIMIT:
+                            fail(f"disagg_matrix {_cell(cell)} {n}: a token {gap} below the dense "
+                                 "reference's best")
+                    rows.append({
+                        "cell": _cell(cell), "prompt": n, "blocks": len(hashes),
+                        "wire_dtype": w.dtype, "wire_bytes": delta["bytes_pulled"],
+                        "wire_bytes_per_block": delta["bytes_pulled"] / len(hashes),
+                        "retries": delta["pull_retries"], "fault": fault,
+                        "prefill_ms": 1e3 * (t1 - t0),
+                        "pull_ms": 1e3 * delta["transfer_seconds"],
+                        "first_decoded_ms": 1e3 * (stamps[0] - t1),
+                        "export_ms": 1e3 * (tp - te), "pack_ms": 1e3 * (tu - tp),
+                        "unpack_ms": 1e3 * (ti - tu), "import_ms": 1e3 * (tz - ti),
+                        "decode_prefilled": tail, "max_block_err": err, "max_logit_gap": gap,
+                        "exact_vs_witness": skv == dkv})
+                    reckoned = wire.wire_block_bytes(cfg.n_layers, 16, cfg.n_kv_heads,
+                                                     cfg.head_dim_, w.dtype)
+                    if rows[-1]["wire_bytes_per_block"] != reckoned:
+                        fail(f"disagg_matrix: {rows[-1]}: wire bytes a block off the reckoning "
+                             f"{reckoned}")
+        finally:
+            await prefill.close()
+            for s in served:
+                await s.shutdown(grace_period=1)
+            for e in engines.values():
+                await e.stop()
+            await rt.shutdown(grace_period=1)
+        return rows, counts
+
+    rows, counts = asyncio.run(run())
+    for n in ("paged_attention_decode", "paged_attention_chunk",
+              "paged_attention_decode_int8", "paged_attention_chunk_int8"):
+        if counts.get(n, 0) <= 0:
+            fail(f"disagg_matrix: {n} never launched over the imported pages")
+    emit({"phase": "disagg_matrix", "model": cfg.name, "block_bytes": block_bytes,
+          "int8_to_bf16_bytes": block_bytes["int8"] / block_bytes["bfloat16"], "rows": rows,
+          "launches": counts, "seconds": time.monotonic() - t_phase, "card": smi})
+    return counts
+
+
+def disagg_worker_cmd(counts_file, *extra):
+    return [sys.executable, os.path.abspath(__file__), "--mains-worker", counts_file,
+            "--model", MAINS_MODEL, "--max-model-len", str(DISAGG_MAX_MODEL_LEN), *extra]
+
+
+def disagg_phase(smi) -> dict:
+    """Phase 39 (see the module's docstring). Returns the two workers'
+    launch counts, summed."""
+    import tempfile
+
+    t_phase = time.monotonic()
+    root = os.path.dirname(os.path.abspath(__file__))
+    procs, counts_files = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            procs["discd"] = ProcLines(subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch.discd", "--port", "0", "--xsub", "0",
+                 "--xpub", "0"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                cwd=root))
+            t0 = time.monotonic()
+            while not procs["discd"].find(r"discd ready"):
+                if procs["discd"].proc.poll() is not None or time.monotonic() - t0 > 60:
+                    fail(f"disagg: discd did not start: {procs['discd'].tail()}")
+                time.sleep(0.02)
+            m = procs["discd"].find(r"discd ready: discovery (\S+), events (\S+)")[1]
+            env = {**os.environ, "PYTHONUNBUFFERED": "1", "DYN_TPU_DISCOVERY": "discd",
+                   "DYN_TPU_DISCOVERY_ADDR": m.group(1), "DYN_TPU_EVENT_PLANE": "zmq",
+                   "DYN_TPU_EVENT_PLANE_ADDR": m.group(2), "DYN_TPU_REQUEST_PLANE": "tcp",
+                   "DYN_TPU_LOAD_REPORT_INTERVAL_S": str(MAINS_INTERVAL_S),
+                   "DYN_TPU_GRACE_PERIOD": str(MAINS_GRACE_S)}
+            for role, wid in DISAGG_WORKERS.items():
+                counts_files[role] = os.path.join(tmp, f"counts-{role}.json")
+                extra = ["--is-prefill-worker"] if role == "prefill" else ["--system-port", "0"]
+                procs[role] = ProcLines(subprocess.Popen(
+                    disagg_worker_cmd(counts_files[role], *extra), stdout=subprocess.PIPE,
+                    stderr=subprocess.STDOUT, text=True, cwd=root,
+                    env={**env, "DYN_TPU_WORKER_ID": str(wid)}))
+            procs["frontend"] = ProcLines(subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--host", "127.0.0.1",
+                 "--http-port", "0"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, cwd=root, env=env))
+            saved = {k: os.environ.get(k) for k in env if k.startswith("DYN_TPU_")}
+            os.environ.update({k: env[k] for k in saved})
+            try:
+                result = asyncio.run(disagg_client(procs, counts_files))
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+        finally:
+            for p in reversed(list(procs.values())):
+                if p.proc.poll() is None:
+                    p.proc.terminate()
+                    try:
+                        p.proc.wait(timeout=15)
+                    except subprocess.TimeoutExpired:
+                        p.proc.kill()
+                        p.proc.wait()
+        counts = {}
+        for role, path in counts_files.items():
+            with open(path) as f:
+                counts[role] = json.load(f)
+    emit({"phase": "disagg", "model": MAINS_MODEL, **result,
+          "launches": {role: {n: c[n] for n in ("paged_attention_decode",
+                                                "paged_attention_chunk")}
+                       for role, c in counts.items()},
+          "seconds": time.monotonic() - t_phase, "card": smi})
+    return {n: sum(c.get(n, 0) for c in counts.values()) for n in counts["decode"]}
+
+
+def _read_counts_file(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+async def disagg_client(procs, counts_files) -> dict:
+    """The client side of disagg_phase: the chats over HTTP to the frontend,
+    the workers' stats through their ``control`` endpoints, the decode
+    worker's system server, and SIGTERM to the prefill worker."""
+    import signal
+
+    import numpy as np
+
+    from dynamo_tpu_torch.llm import ModelDeploymentCard, OpenAIPreprocessor, tiny_tokenizer
+    from dynamo_tpu_torch.llm.entrypoint import resolve_chat_template
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+    from dynamo_tpu_torch.tools import sse_client
+
+    everyone = list(procs.items())
+    frontend, decode, prefill = procs["frontend"], procs["decode"], procs["prefill"]
+    port = int((await until("the frontend's listening line", lambda: frontend.find(
+        r"frontend listening on \S+:(\d+)"), procs=everyone))[1].group(1))
+    sys_port = int((await until("the decode worker's system server", lambda: decode.find(
+        r"system server on :(\d+)"), timeout=300, procs=everyone))[1].group(1))
+    for role, component in (("prefill", "prefill"), ("decode", "backend")):
+        wid = DISAGG_WORKERS[role]
+        await until(f"the {role} worker's serving line", lambda w=procs[role], c=component,
+                    i=wid: w.find(rf"worker serving {MAINS_MODEL} as dynamo/{c}/generate "
+                                  rf"instance {i:#x} incarnation 0x[0-9a-f]+"),
+                    timeout=300, procs=everyone)
+
+    async def get(p, path):
+        r = await sse_client.one(p, {"method": "GET", "path": path})
+        if r["status"] != 200:
+            fail(f"disagg: GET {path} answered {r['status']} {r['body'][:300]}")
+        return r["body"]
+
+    async def listed():
+        return [x["id"] for x in json.loads(await get(port, "/v1/models"))["data"]]
+
+    await until("the model on /v1/models", lambda: _is(listed(), [MAINS_MODEL]),
+                procs=everyone)
+    runtime = DistributedRuntime.from_settings()
+    ctl = {role: await runtime.namespace("dynamo").component(c).endpoint("control").client()
+           for role, c in (("prefill", "prefill"), ("decode", "backend"))}
+    pgen = await runtime.namespace("dynamo").component("prefill").endpoint("generate").client()
+    gen = await runtime.namespace("dynamo").component("backend").endpoint("generate").client()
+    try:
+        for role, c in ctl.items():
+            await until(f"the {role} worker's control endpoint",
+                        lambda c=c, role=role: c.instance_ids == [DISAGG_WORKERS[role]])
+        await until("the prefill worker's generate endpoint",
+                    lambda: pgen.instance_ids == [DISAGG_WORKERS["prefill"]])
+
+        async def stats(role):
+            items = [x async for x in ctl[role].direct({"op": "stats"}, DISAGG_WORKERS[role],
+                                                        Context())]
+            if len(items) != 1 or "error" in items[0]:
+                fail(f"disagg: stats of the {role} worker: {items}")
+            return items[0]
+
+        async def metrics():
+            text = await get(sys_port, "/metrics")
+
+            def one(name):
+                vals = [float(v) for v in re.findall(rf"^{name}(?:{{[^}}]*}})? (\S+)$", text,
+                                                     re.M)]
+                return sum(vals)
+            return {k: one(f"dynamo_tpu_disagg_{k}") for k in (
+                "transfers_total", "transfer_failures_total", "pull_retries_total",
+                "blocks_pulled_total", "bytes_pulled_total", "transfer_duration_seconds_sum")}
+
+        async def captures():
+            return json.loads(await get(sys_port, "/debug/compiles"))["totals"]["compiles"]
+
+        tok = tiny_tokenizer()
+        card = ModelDeploymentCard(name=MAINS_MODEL, context_length=DISAGG_MAX_MODEL_LEN,
+                                   kv_block_size=16)
+        pre = OpenAIPreprocessor(card, tok, resolve_chat_template(card))
+        rng = np.random.default_rng(39)
+
+        def chats():
+            return [{"model": MAINS_MODEL, "max_tokens": DISAGG_TOKENS, "temperature": 0.0,
+                     "stream": True, "stream_options": {"include_usage": True},
+                     "nvext": {"ignore_eos": True},
+                     "messages": [{"role": "user", "content": pipeline_text(tok, rng, n)}]}
+                    for n in DISAGG_CHAT_TOKENS]
+
+        measured, aggregated = chats(), chats()
+        lengths = [len(pre.preprocess(dict(b)).token_ids) for b in measured]
+        # Warm-up: the decode worker's decode graphs of every width bucket
+        # the measured set reaches, by requests of the decode side's exact
+        # shape (the prompt and the first token, 63 tokens) but other token
+        # ids, sent to its generate endpoint directly (no pull).
+        for n in lengths:
+            warm = PreprocessedRequest(
+                token_ids=rng.integers(10, 500, n + 1).tolist(),
+                sampling=SamplingOptions(temperature=0.0),
+                stop=StopConditions(max_tokens=DISAGG_TOKENS - 1, ignore_eos=True))
+            async for out in gen.direct(warm.to_dict(), DISAGG_WORKERS["decode"], Context()):
+                if (out.get("error") if isinstance(out, dict) else out.error):
+                    fail(f"disagg: a warm-up request failed: {out}")
+            # and the prefill worker's prefill at the measured lengths (its
+            # generate endpoint answers with the bootstrap alone: no pull)
+            warm.token_ids = warm.token_ids[:n]
+            async for out in pgen.direct(warm.to_dict(), DISAGG_WORKERS["prefill"], Context()):
+                if (out.get("error") if isinstance(out, dict) else out.error):
+                    fail(f"disagg: a warm-up prefill failed: {out}")
+        # the frontend's PrefillRouter makes its prefill client at its first
+        # request: a short chat, then the client has seen the prefill worker
+        r = await sse_client.one(port, {"path": "/v1/chat/completions", "body": {
+            "model": MAINS_MODEL, "max_tokens": 2, "messages": [
+                {"role": "user", "content": "hello"}]}})
+        if r["status"] != 200:
+            fail(f"disagg: the short chat answered {r['status']}")
+        await asyncio.sleep(1.0)
+        m0, c0 = await metrics(), await captures()
+        n0 = {role: _read_counts_file(counts_files[role]) for role in counts_files}
+
+        async def serve(bodies, disaggregated):
+            rows = []
+            for body in bodies:
+                n = len(pre.preprocess(dict(body)).token_ids)
+                s0 = {role: (await stats(role))["prefill_tokens"] for role in ctl
+                      if disaggregated or role == "decode"}
+                pulled0 = (await metrics())["transfer_duration_seconds_sum"]
+                rec = await sse_client.one(port, {"path": "/v1/chat/completions", "body": body})
+                pulled = (await metrics())["transfer_duration_seconds_sum"] - pulled0
+                chunks = whole_stream(rec, DISAGG_TOKENS, "disagg: a chat")
+                _, usage, _ = sse_chunks(rec)
+                s1 = {role: (await stats(role))["prefill_tokens"] for role in s0}
+                grew = {role: s1[role] - s0[role] for role in s0}
+                if usage["prompt_tokens"] != n:
+                    fail(f"disagg: a chat of {usage['prompt_tokens']} prompt tokens, "
+                         f"preprocessed here to {n}")
+                if disaggregated and not (grew["prefill"] >= n and
+                                          grew["decode"] <= DISAGG_TAIL_LIMIT):
+                    fail(f"disagg: a {n}-token chat prefilled {grew} tokens")
+                if not disaggregated and grew["decode"] < n:
+                    fail(f"disagg: with the prefill worker gone, a {n}-token chat prefilled "
+                         f"{grew} on the decode worker")
+                times = [t for t, _ in chunks]
+                rows.append({"prompt": n, "prefilled": grew, "pull_ms": 1e3 * pulled,
+                             "ttft_ms": 1e3 * (times[0] - rec["t0"]),
+                             "first_gap_ms": 1e3 * (times[1] - times[0]),
+                             # from the third token on: both sets' first decode
+                             # burst starts there (a burst's tokens arrive
+                             # together), so neither counts its wait
+                             "itl_ms": 1e3 * (times[-1] - times[2]) / (DISAGG_TOKENS - 3)})
+            return rows
+
+        def mean(rows, key):
+            return sum(r[key] for r in rows) / len(rows)
+
+        disagg_rows = await serve(measured, True)
+        await asyncio.sleep(0.6)  # the workers' counts files are written every 0.25 s
+        n1 = {role: _read_counts_file(counts_files[role]) for role in counts_files}
+        m1, c1 = await metrics(), await captures()
+        moved = {k: m1[k] - m0[k] for k in m1}
+        want_blocks = sum(n // 16 for n in lengths)
+        if moved["transfers_total"] != len(measured) or m1["transfers_total"] != len(measured) \
+                or m1["transfer_failures_total"] or moved["blocks_pulled_total"] != want_blocks:
+            fail(f"disagg: the decode worker's /metrics moved {moved} (now {m1}); "
+                 f"{len(measured)} transfers of {want_blocks} blocks expected, no failure")
+        flight = json.loads(await get(sys_port, "/debug/flight"))["events"]
+        done = [e for e in flight if e["kind"] == "pull_done"]
+        bad = [e for e in flight if e["kind"] in ("pull_error", "pull_rejected")]
+        if len(done) != len(measured) or bad or not all(e["ok"] for e in done):
+            fail(f"disagg: the disagg flight ring holds {len(done)} pulls, {bad}")
+        launched = {role: {k: n1[role][k] - n0[role][k] for k in (
+            "paged_attention_decode", "paged_attention_chunk")} for role in n1}
+        if min(launched["decode"].values()) <= 0 or launched["prefill"]["paged_attention_chunk"] <= 0:
+            fail(f"disagg: launches in the measured window {launched}")
+
+        # a traced chat: its stitched trajectory holds the pull
+        trace_id = DISAGG_TRACEPARENT.split("-")[1]
+        rec = await sse_client.one(port, {"path": "/v1/chat/completions", "headers": {
+            "traceparent": DISAGG_TRACEPARENT}, "body": dict(measured[3], messages=[
+                {"role": "user", "content": pipeline_text(tok, rng, 600)}])})
+        whole_stream(rec, DISAGG_TOKENS, "disagg: the traced chat")
+
+        async def stitched():
+            r = await sse_client.one(port, {"method": "GET",
+                                            "path": f"/debug/trajectory/{trace_id}"})
+            if r["status"] != 200:
+                return None
+            view = json.loads(r["body"])
+            return view if view["phases"].get("kv_transfer", 0) > 0 and \
+                "disagg.pull" in {s["name"] for s in view["spans"]} else None
+
+        view = await until("the traced chat's kv_transfer phase", stitched, procs=everyone)
+        # the rest of its spans (both workers' engine phases) as they arrive
+        t_view = time.monotonic()
+        while time.monotonic() - t_view < 10 and not (
+                {f"worker-{w:#x}" for w in DISAGG_WORKERS.values()} <= set(view["processes"])
+                and "engine.decode" in {sp["name"] for sp in view["spans"]}):
+            await asyncio.sleep(0.2)
+            view = await stitched() or view
+
+        # the prefill worker ends: the frontend serves aggregated
+        prefill.proc.send_signal(signal.SIGTERM)
+        try:
+            code = await asyncio.wait_for(asyncio.to_thread(prefill.proc.wait), 30)
+        except asyncio.TimeoutError:
+            fail(f"disagg: the prefill worker did not end on SIGTERM: {prefill.tail()}")
+        if code != 0:
+            fail(f"disagg: the prefill worker exited {code} on SIGTERM: {prefill.tail()}")
+        everyone = [(k, p) for k, p in everyone if k != "prefill"]
+        await until("the prefill worker's instance gone", lambda: not pgen.instance_ids,
+                    procs=everyone)
+        await asyncio.sleep(1.0)
+        m2 = await metrics()
+        agg_rows = await serve(aggregated, False)
+        m3 = await metrics()
+        if m3 != m2:
+            fail(f"disagg: with the prefill worker gone the pulls moved: {m2} -> {m3}")
+        return {"prompts": [r["prompt"] for r in disagg_rows],
+                "aggregated_prompts": [r["prompt"] for r in agg_rows], "blocks_pulled": want_blocks, "metrics": moved,
+                "captures_in_window": c1 - c0, "launches_in_window": launched,
+                "disaggregated": disagg_rows, "aggregated": agg_rows,
+                "mean_ms": {name: {k: mean(rows, k) for k in ("ttft_ms", "first_gap_ms", "itl_ms",
+                                                              "pull_ms")}
+                            for name, rows in (("disaggregated", disagg_rows),
+                                               ("aggregated", agg_rows),
+                                               ("disaggregated_after_first", disagg_rows[1:]),
+                                               ("aggregated_after_first", agg_rows[1:]))},
+                "trajectory": {"phases": view["phases"], "root_ms": view["root_ms"],
+                               "processes": view["processes"],
+                               "spans": sorted({sp["name"] for sp in view["spans"]})},
+                "prefill_sigterm_exit": code}
+    finally:
+        for c in (*ctl.values(), pgen, gen):
+            await c.close()
+        await runtime.shutdown(grace_period=1)
+        await runtime.event_plane.close()
+
+
 def fused_ledger_line(engine, smi) -> None:
     """The Llama-3-8B int8 engine's perf ledger (made anew before the
     engine): its decode rows must run the fused layer (path "fused"), each
@@ -5891,6 +6539,13 @@ def main() -> int:
     counts_perf = perf_phase(torch, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    # Disaggregated prefill and decode: the four pool cells in this process,
+    # then the deployment (discd, a prefill and a decode worker main, the
+    # frontend), which serves aggregated once the prefill worker ends.
+    counts_dm = disagg_matrix_phase(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_disagg = disagg_phase(smi)
     from dynamo_tpu_torch.runtime import perf_ledger
 
     perf_ledger._LEDGER = None  # the 8B int8 engine's ledger of its own
@@ -6073,13 +6728,15 @@ def main() -> int:
     # int8 KV, Gemma-3-1B int8 over bf16 pools, and the latter with the fused
     # layer off), the OpenAI pipeline, the HTTP frontend and the worker
     # process behind the runtime's planes, the two KV-routed worker
-    # processes and the two worker mains over Qwen2.5-0.5B and the three
+    # processes and the two worker mains over Qwen2.5-0.5B, the perf phase,
+    # the disaggregated cells and deployment over Qwen2.5-0.5B, and the three
     # profiling paths (prof_attn, prof_fused_ffn,
     # prof_8b's four modes); times of the D 64 (bf16 pools) and D 128 (int8
     # pools) cases, the D 256 and block-size-128 ones above, #5-#7 at their
     # main cases
     paths = (counts, counts8, counts8kv, counts_g, counts_3, counts_3bf, counts_3u, counts_pipe,
-             counts_http, counts_tcp, counts_kv, counts_mains, counts_perf, counts_attn,
+             counts_http, counts_tcp, counts_kv, counts_mains, counts_perf, counts_dm,
+             counts_disagg, counts_attn,
              counts_ffn, counts_8b)
     emit({"kernels": [
         {"name": n, "route": "cuda", "source": f"dynamo_tpu_torch/csrc/{sources[n]}",

@@ -201,6 +201,38 @@ OTLP_SERVICE = EnvVar(
     "service.name resource attribute on exported spans "
     "(dynamo_tpu/config.py:490)",
 )
+# -- disaggregated KV transfer (disagg/handlers.py) ------------------------------
+PULL_ATTEMPTS = EnvVar(
+    "DYN_TPU_PULL_ATTEMPTS", 3, int,
+    "Bounded retry: attempts per decode-side KV pull (1 = single-shot) "
+    "(dynamo_tpu/config.py:249)",
+)
+PULL_BACKOFF_S = EnvVar(
+    "DYN_TPU_PULL_BACKOFF_S", 0.05, float,
+    "Exponential backoff base between pull attempts (base x 2^(n-1), "
+    "capped) (dynamo_tpu/config.py:254)",
+)
+PULL_TIMEOUT_S = EnvVar(
+    "DYN_TPU_PULL_TIMEOUT_S", 30.0, float,
+    "Per-attempt pull timeout when the request carries no deadline; with "
+    "one, each attempt gets min(this, time remaining) (dynamo_tpu/config.py:260)",
+)
+BREAKER_OPEN_AFTER = EnvVar(
+    "DYN_TPU_BREAKER_OPEN_AFTER", 3, int,
+    "Consecutive pull failures from one prefill source before the "
+    "(src -> worker) circuit opens (dynamo_tpu/config.py:266)",
+)
+BREAKER_COOLDOWN_S = EnvVar(
+    "DYN_TPU_BREAKER_COOLDOWN_S", 30.0, float,
+    "Open-circuit cooldown before the next pull is admitted as the "
+    "half-open probe (dynamo_tpu/config.py:272)",
+)
+KV_CHUNK_BYTES = EnvVar(
+    "DYN_TPU_KV_CHUNK_BYTES", 8 << 20, int,
+    "KV transfer chunk size: one message blocks the event loop and "
+    "doubles peak host memory; ~8 MB chunks pipeline gather/wire/scatter "
+    "(dynamo_tpu/config.py:278)",
+)
 # -- overload armor (runtime/overload.py) --------------------------------------
 OVERLOAD_MAX_CONCURRENCY = EnvVar(
     "DYN_TPU_OVERLOAD_MAX_CONCURRENCY", 256, int,

@@ -10,8 +10,7 @@ human.
 configured WITHOUT local-prefill fallback (strict disagg: the decode
 worker cannot afford a full prefill). It subclasses ConnectionError so the
 frontend's Migration operator re-dispatches the stream to another worker.
-The port's workers do not pull KV yet (ROADMAP A6); Migration names the
-class to label its ``disagg`` reason.
+Migration names the class to label its ``disagg`` reason.
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """PrefillRouter: frontend-side disaggregation operator — the port's copy
-of dynamo_tpu/disagg/prefill_router.py. The port's workers refuse
-``--is-prefill-worker`` until KV transfer comes (ROADMAP A6), so with no
-prefill instance every request passes through to the decode path.
+of dynamo_tpu/disagg/prefill_router.py. Prefill workers are
+``python -m dynamo_tpu_torch.worker --is-prefill-worker`` processes
+(disagg/handlers.PrefillHandler); with no prefill instance every request
+passes through to the decode path.
 
 Reference parity: lib/llm/src/kv_router/prefill_router.rs:102 —
 activate (:182) watches discovery for prefill instances; execute_prefill

@@ -63,8 +63,20 @@ Not ported yet (ROADMAP): the abort's and the deadline shed's flight
 records and the dump (the engine has no flight ring, A9), the
 admission's containment of a request that fails its prefill
 deterministically, speculative decoding (and so logprobs under it),
-LoRA, MoE, the tick budget, sleep/wake, KV export/import/checkpoint,
-multimodal and prefill under CUDA graphs.
+LoRA, MoE, the tick budget, sleep/wake, the KV checkpoint, multimodal
+and prefill under CUDA graphs.
+
+KV block export and import, for disaggregation (engine.py:1885-2009):
+``export_blocks_wire_async`` pins the committed blocks of a hash chain up
+to its first miss, gathers them in the pool's own wire form on the device
+thread and reads them back on a transfer thread (engines/gpu/runner.py);
+``import_blocks_wire_async`` allocates a block for each hash the pool does
+not hold, scatters the wire blocks into the pools in place, then commits
+and releases them, so an imported block is cached and unreferenced and
+prefix-cached admission reuses it; a scatter that raises frees the
+allocation. The commits emit KV ``stored`` events. JAX's engine also
+records ``kv_export`` / ``kv_import`` flight events: the port's engine has
+no flight ring yet (A9).
 
 The step metrics and the perf ledger, stamped as JAX's engine stamps them
 (engine.py:455-479, 1490-1550, 1610-1655; admission.py:464-504):
@@ -319,6 +331,8 @@ class TorchEngine:
         self._failure: Optional[str] = None  # terminal engine failure
         self._consecutive_tick_failures = 0
         self._executor = ThreadPoolExecutor(1, thread_name_prefix="torch-engine")
+        # KV transfers' readbacks wait here, off the device thread.
+        self._transfer_executor = ThreadPoolExecutor(1, thread_name_prefix="torch-engine-xfer")
         self.steps = 0  # decode bursts
         self.prefill_tokens = 0
         self.generated_tokens = 0
@@ -391,6 +405,7 @@ class TorchEngine:
             await self._loop_task
             self._loop_task = None
         self._executor.shutdown(wait=True)
+        self._transfer_executor.shutdown(wait=True)
         # A clean shutdown persists the fingerprints this run earned; after
         # a terminal tick failure the windows describe a degraded engine,
         # and a degraded baseline is worse than none.
@@ -441,6 +456,90 @@ class TorchEngine:
         n = self.pool.cached_blocks
         self.pool.clear()
         return n
+
+    # -- KV block export/import (engine.py:1885-2009) ----------------------
+    #
+    # Every block-pool call runs on the event loop's thread; only the tensor
+    # work runs on the device thread (ordered with the decode bursts) and
+    # the readback's wait on the transfer thread.
+
+    async def export_blocks_wire_async(self, block_hashes: List[int]):
+        """Committed blocks of a hash chain in the pool's own wire form
+        (disagg/wire.KvWireBlocks): int8 pools ship codes and scales, dense
+        pools their storage dtype. Returns (found_hashes, wire), stopping at
+        the first miss (([], None) when the first block is missing). The
+        found blocks stay pinned across the gather so eviction cannot
+        recycle them."""
+        matched, pinned_ids = self.pool.pin_prefix(block_hashes)
+        try:
+            if not pinned_ids:
+                return [], None
+            handles = await self._device(self.runner.gather_blocks_wire_dispatch, pinned_ids)
+            wire = await asyncio.get_running_loop().run_in_executor(
+                self._transfer_executor, self.runner.gather_blocks_wire_readback, handles)
+            # (JAX's engine records a kv_export flight event here; no ring yet, A9)
+            return list(block_hashes[:matched]), wire
+        finally:
+            if pinned_ids:
+                self.pool.release(pinned_ids, block_hashes[: len(pinned_ids)])
+
+    async def export_blocks_async(self, block_hashes: List[int]):
+        """Dense export: (found_hashes, k, v) [n, L, BS, KH, D] host
+        tensors; an int8 pool's blocks dequantize on the host to the v1 wire
+        dtype (bfloat16)."""
+        found, wire = await self.export_blocks_wire_async(block_hashes)
+        if wire is None:
+            return found, None, None
+        k, v = wire.to_dense()
+        return found, k, v
+
+    async def import_blocks_wire_async(self, block_hashes: List[int], wire, *,
+                                       anchor_parent: Optional[int] = None) -> int:
+        """Install wire blocks (KvWireBlocks, one a hash) as cached content
+        and return how many were installed: hashes the pool holds are
+        skipped, and the install stops when the pool is dry. Every cell of
+        bf16/int8 exporter and importer lands here. ``anchor_parent`` is the
+        hash the first block chains from, when the caller knows it."""
+        ids: List[int] = []
+        sel: List[int] = []
+        parents: List[Optional[int]] = []
+        parent = anchor_parent
+        for i, h in enumerate(block_hashes):
+            if self.pool.contains(h):
+                parent = h
+                continue
+            b = self.pool.alloc()
+            if b is None:
+                break
+            # allocated, not committed: private, so nobody reads it unwritten
+            ids.append(b)
+            sel.append(i)
+            parents.append(parent)
+            parent = h
+        if not ids:
+            return 0
+        sub = wire.take(sel)
+        try:
+            await self._device(self.runner.scatter_blocks_wire, ids, sub)
+        except Exception:
+            for b in ids:
+                self.pool.release([b], [])  # the data never landed: just free
+            raise
+        for b, i, par in zip(ids, sel, parents):
+            h = block_hashes[i]
+            self.pool.commit(b, h, par)
+            self.pool.release([b], [h])  # imported blocks start cached
+        # (JAX's engine records a kv_import flight event here; no ring yet, A9)
+        return len(ids)
+
+    async def import_blocks_async(self, block_hashes: List[int], k_blocks, v_blocks, *,
+                                  anchor_parent: Optional[int] = None) -> int:
+        """Dense import (the v1 surface): the tensors as a dense wire
+        payload through import_blocks_wire_async."""
+        from dynamo_tpu_torch.disagg.wire import KvWireBlocks
+
+        return await self.import_blocks_wire_async(
+            block_hashes, KvWireBlocks.dense(k_blocks, v_blocks), anchor_parent=anchor_parent)
 
     def _pipeline_depth(self) -> int:
         return max(1, int(self.args.pipeline_depth))

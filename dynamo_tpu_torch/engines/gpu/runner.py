@@ -36,8 +36,26 @@ Each graph captured counts in the process's compile telemetry
 ``runner.decode_state``, with the capture's wall time; prefill is eager and
 counts nothing.
 
+KV block movement (runner.py:90-186, 1232-1359), for disaggregation: the
+gather of committed blocks out of the pools and the scatter of blocks into
+them, over bf16 and int8 pools alike, in the wire's layout (disagg/wire.py:
+[n, L, BS, KH, D], scales [n, L, KH, BS]). Int8 pools ship their codes and
+scales as they are; a dense payload into an int8 pool is requantized on the
+device (ops/kv_quant.quantize_kv_chunk), an int8 payload into a dense pool
+dequantized there (``dequantize_pages``). Readback is two-phase, as JAX's:
+``gather_blocks*_dispatch`` queues the gather and a non-blocking copy into
+pinned host memory on the engine's device thread and returns at once, and
+``gather_blocks*_readback`` waits for the copy's event on a transfer
+thread, so decode bursts keep flowing while a transfer drains. These are
+plain torch ops (indexed copies; JAX's are XLA, not Pallas), and on the CPU
+the same functions run.
+
 Divergences from the JAX runner: no demotion machinery (a capture or
-launch that fails raises, and the engine fails its streams).
+launch that fails raises, and the engine fails its streams); a scatter
+writes into the pools in place (``index_copy_``) where JAX rebinds the
+caches to a donated result, because the captured decode graphs hold the
+pools' addresses and a cache write needs each pool's sink block
+(ops/attention.sink_pool_tensor).
 
 Everything runs on the engine's single device thread.
 """
@@ -59,6 +77,7 @@ from dynamo_tpu_torch.models.quantize import init_quantized_params, quantize_par
 from dynamo_tpu_torch.ops import logits_process
 from dynamo_tpu_torch.ops.cuda.graphs import CapturedCall
 from dynamo_tpu_torch.ops.fused_layer import supports_reason
+from dynamo_tpu_torch.ops.kv_quant import dequantize_pages, is_quantized_pool, quantize_kv_chunk
 from dynamo_tpu_torch.ops.sampling import (
     fold_row_keys,
     log_softmax_f32,
@@ -78,6 +97,59 @@ GraphKey = Tuple[int, bool, bool]
 # The program a decode graph's capture counts under (compile telemetry):
 # the JAX runner's decode program's name.
 DECODE_PROGRAM = "runner.decode_state"
+
+
+# The dense wire dtype of an int8 pool's dense export (v1 importers; JAX's
+# KV_QUANT_WIRE_DTYPE). Dense pools ship their storage dtype.
+KV_QUANT_WIRE_DTYPE = torch.bfloat16
+
+
+def _gather_blocks(cache: List[Any], idx: torch.Tensor) -> torch.Tensor:
+    """[n, L, BS, KH, D] of blocks ``idx`` of per-layer pools; int8 pools
+    dequantized to KV_QUANT_WIRE_DTYPE (JAX's ``_gather_blocks``, which
+    returns [L, n, ...])."""
+    def one(c):
+        if is_quantized_pool(c):
+            return dequantize_pages(c["q8"].index_select(0, idx), c["s"].index_select(0, idx),
+                                    KV_QUANT_WIRE_DTYPE)
+        return c.index_select(0, idx)
+
+    return torch.stack([one(c) for c in cache], dim=1)
+
+
+def _gather_blocks_q8(cache: List[Any], idx: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pool-native gather of int8 pools: (codes [n, L, BS, KH, D] int8,
+    scales [n, L, KH, BS] float32) of blocks ``idx``, not dequantized."""
+    return (torch.stack([c["q8"].index_select(0, idx) for c in cache], dim=1),
+            torch.stack([c["s"].index_select(0, idx) for c in cache], dim=1))
+
+
+def _scatter_blocks(cache: List[Any], idx: torch.Tensor, blocks: torch.Tensor) -> None:
+    """Pools <- dense ``blocks`` [n, L, BS, KH, D] at ``idx``, in place: a
+    dense pool takes them in its dtype, an int8 pool their codes and
+    scales (ops/kv_quant.quantize_kv_chunk), so bf16 and int8 engines
+    interoperate."""
+    for layer, c in enumerate(cache):
+        blk = blocks[:, layer]
+        if is_quantized_pool(c):
+            q8, s = quantize_kv_chunk(blk)  # [n, BS, KH, D], [n, BS, KH]
+            c["q8"].index_copy_(0, idx, q8)
+            c["s"].index_copy_(0, idx, s.transpose(1, 2))
+        else:
+            c.index_copy_(0, idx, blk.to(c.dtype))
+
+
+def _scatter_blocks_q8(cache: List[Any], idx: torch.Tensor, q8: torch.Tensor,
+                       s: torch.Tensor) -> None:
+    """Pools <- int8 wire blocks (codes [n, L, BS, KH, D], scales
+    [n, L, KH, BS]) at ``idx``, in place: an int8 pool takes them verbatim
+    (an int8 -> int8 transfer is bit-exact), a dense pool dequantizes them."""
+    for layer, c in enumerate(cache):
+        if is_quantized_pool(c):
+            c["q8"].index_copy_(0, idx, q8[:, layer])
+            c["s"].index_copy_(0, idx, s[:, layer])
+        else:
+            c.index_copy_(0, idx, dequantize_pages(q8[:, layer], s[:, layer], c.dtype))
 
 
 class DeviceRunner:
@@ -411,6 +483,121 @@ class DeviceRunner:
         self._free_outputs.append(host)
         self.nonfinite_rows += int(np.count_nonzero(~finite & (handles.active > 0)))
         return DecodeResult(toks, finite, *logprobs)
+
+    # -- KV block movement (runner.py:1223-1359) ---------------------------
+
+    def pool_quantized(self) -> bool:
+        return is_quantized_pool(self.k_cache[0])
+
+    def kv_wire_dtype(self) -> str:
+        """Pool-native wire dtype tag (disagg/wire.py): "int8" for int8
+        pools, the storage dtype's name otherwise."""
+        from dynamo_tpu_torch.disagg.wire import dtype_tag
+
+        return "int8" if self.pool_quantized() else dtype_tag(self.config.dtype)
+
+    def _ids(self, ids: List[int]) -> torch.Tensor:
+        return self._to_state(np.asarray(ids, np.int64), torch.int64)
+
+    def _to_host(self, *tensors: torch.Tensor) -> Tuple[Tuple[torch.Tensor, ...], Any]:
+        """Start non-blocking copies of device tensors into pinned host
+        buffers; (the buffers, an event recorded after the copies). On the
+        CPU the tensors themselves and no event."""
+        if self.device.type != "cuda":
+            return tensors, None
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True) for t in tensors)
+        for h, t in zip(host, tensors):
+            h.copy_(t, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return host, event
+
+    def _from_host(self, t: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """A host tensor on the way into the pools: on the card through a
+        pinned copy and a non-blocking transfer, so the scatter queues
+        behind the bursts in flight instead of waiting for them."""
+        t = t.to(dtype) if dtype is not None else t
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t.to(self.device)
+
+    @torch.inference_mode()
+    def gather_blocks_dispatch(self, ids: List[int]):
+        """Queue the dense gather of blocks ``ids`` and the copy of the
+        result to the host, and return the handles without waiting. Runs on
+        the engine's device thread but pays only the launches; the wait is
+        ``gather_blocks_readback``'s, on a transfer thread. Stream order
+        keeps the gather ahead of any later burst's cache writes."""
+        idx = self._ids(ids)
+        return self._to_host(_gather_blocks(self.k_cache, idx), _gather_blocks(self.v_cache, idx))
+
+    @staticmethod
+    def gather_blocks_readback(handles) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The waiting half of gather_blocks_dispatch: ([n, L, BS, KH, D]
+        k, v) host tensors. Call from a transfer thread, never the device
+        thread."""
+        (k, v), event = handles
+        if event is not None:
+            event.synchronize()
+        return k, v
+
+    def gather_blocks(self, ids: List[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Synchronous form (tests)."""
+        return self.gather_blocks_readback(self.gather_blocks_dispatch(ids))
+
+    @torch.inference_mode()
+    def scatter_blocks(self, ids: List[int], k_blocks: torch.Tensor, v_blocks: torch.Tensor) -> None:
+        """Install dense [n, L, BS, KH, D] host blocks at ``ids``, in the
+        model dtype (requantized into int8 pools), in place."""
+        idx = self._ids(ids)
+        _scatter_blocks(self.k_cache, idx, self._from_host(k_blocks, self.config.dtype))
+        _scatter_blocks(self.v_cache, idx, self._from_host(v_blocks, self.config.dtype))
+
+    @torch.inference_mode()
+    def gather_blocks_wire_dispatch(self, ids: List[int]):
+        """Queue a pool-native gather (int8 pools: codes and scales, not
+        dequantized — half the readback and half the wire) and its copy to
+        the host; the two-phase contract of gather_blocks_dispatch."""
+        if not self.pool_quantized():
+            return ("dense", self.kv_wire_dtype(), self.gather_blocks_dispatch(ids))
+        idx = self._ids(ids)
+        kq, ks = _gather_blocks_q8(self.k_cache, idx)
+        vq, vs = _gather_blocks_q8(self.v_cache, idx)
+        return ("q8", "int8", self._to_host(kq, ks, vq, vs))
+
+    @staticmethod
+    def gather_blocks_wire_readback(handles):
+        """The waiting half of gather_blocks_wire_dispatch: the blocks as
+        disagg/wire.py KvWireBlocks. Call from a transfer thread."""
+        from dynamo_tpu_torch.disagg.wire import KvWireBlocks
+
+        form, dtype, (tensors, event) = handles
+        if event is not None:
+            event.synchronize()
+        if form == "dense":
+            k, v = tensors
+            return KvWireBlocks(dtype=dtype, k=k, v=v)
+        kq, ks, vq, vs = tensors
+        return KvWireBlocks(dtype=dtype, k=kq, v=vq, k_scale=ks, v_scale=vs)
+
+    def gather_blocks_wire(self, ids: List[int]):
+        """Synchronous form (tests)."""
+        return self.gather_blocks_wire_readback(self.gather_blocks_wire_dispatch(ids))
+
+    @torch.inference_mode()
+    def scatter_blocks_wire(self, ids: List[int], wire) -> None:
+        """Install KvWireBlocks at ``ids``, in place: dense payloads through
+        scatter_blocks (requantized into int8 pools on the device); int8
+        payloads cross as int8 and land verbatim in int8 pools or
+        dequantized on the device in dense pools."""
+        if not wire.quantized:
+            self.scatter_blocks(ids, wire.k, wire.v)
+            return
+        idx = self._ids(ids)
+        _scatter_blocks_q8(self.k_cache, idx, self._from_host(wire.k),
+                           self._from_host(wire.k_scale))
+        _scatter_blocks_q8(self.v_cache, idx, self._from_host(wire.v),
+                           self._from_host(wire.v_scale))
 
     def sync_all(self, tokens, start_pos, active, block_tables, temp, topk, topp, salts,
                  procs: Optional[Dict[str, np.ndarray]] = None) -> int:

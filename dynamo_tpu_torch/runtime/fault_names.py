@@ -25,6 +25,15 @@ HEALTH_CANARY = "health.canary"
 # crashed worker does.
 LIVENESS_REPORT = "liveness.report"
 
+# -- disaggregated KV transfer (disagg/handlers.py) ---------------------------
+# One pull-side hit per received chunk, BEFORE the chunk is imported: an
+# injection here models the wire dying mid-transfer with N chunks landed.
+DISAGG_PULL_CHUNK = "disagg.pull.chunk"
+# Export side: one hit per chunk gathered by the KvTransferHandler.
+DISAGG_KV_EXPORT = "disagg.kv.export"
+# Import side: one hit per chunk handed to the engine's scatter path.
+DISAGG_KV_IMPORT = "disagg.kv.import"
+
 # -- engine decode tick (engines/gpu/engine.py) -------------------------------
 # Dispatch: after the sync payloads are built, before the device call — the
 # adversarial spot, because the dirty-slot sets were already cleared and
@@ -72,6 +81,9 @@ ALL_FAULT_POINTS = (
     NET_TCP_RECV,
     NET_ZMQ_SEND,
     NET_ZMQ_RECV,
+    DISAGG_PULL_CHUNK,
+    DISAGG_KV_EXPORT,
+    DISAGG_KV_IMPORT,
     DISCOVERY_LEASE_RENEW,
     HEALTH_CANARY,
     LIVENESS_REPORT,

@@ -1,7 +1,7 @@
 """Canonical metric names — the port's copy of the entries of
 dynamo_tpu/runtime/metric_names.py that the port emits (the engine's stats
 gauges, the frontend's, the parser plane's, the crash plane's, the
-router's, the KV-reuse plane's, migration's, the overload plane's, the SLO
+router's, the KV-reuse plane's, the disagg transfer's, migration's, the overload plane's, the SLO
 plane's, the engine step loop's, the perf ledger's and the device plane's
 compile, HBM ledger, flight-ring and profiler families), letter
 for letter, so that dashboards and scrapers read the port as they read the
@@ -156,6 +156,32 @@ RUNTIME_PROFILER_CAPTURES_TOTAL = f"{RUNTIME_PREFIX}_profiler_captures_total"
 RUNTIME_FLIGHT_EVENTS_TOTAL = f"{RUNTIME_PREFIX}_flight_events_total"
 RUNTIME_FLIGHT_OVERWRITTEN_TOTAL = f"{RUNTIME_PREFIX}_flight_overwritten_total"
 
+# -- disagg (disagg/handlers.py DecodeHandler) -------------------------------
+DISAGG_PREFIX = "dynamo_tpu_disagg"
+DISAGG_TRANSFERS_TOTAL = f"{DISAGG_PREFIX}_transfers_total"
+# One failed pull ATTEMPT, labeled by classified error_kind (timeout vs
+# connection vs decode vs other). Attempts retry with anchor-resume; a
+# pull that exhausts retries is the 2x-cost path (second full prefill).
+DISAGG_TRANSFER_FAILURES_TOTAL = f"{DISAGG_PREFIX}_transfer_failures_total"
+# Retried pull attempts (attempt 2+). Anchor-resume means a retry only
+# moves the not-yet-imported tail, so retries are cheap but visible.
+DISAGG_PULL_RETRIES_TOTAL = f"{DISAGG_PREFIX}_pull_retries_total"
+# Per-src circuit breaker: state transitions {src, to in open|half_open|
+# closed} and a 0/1 open gauge per src. An open breaker is advertised in
+# load reports and prices the (src, this worker) pair out of disagg
+# placement (router/scheduler.py LinkCostModel.set_fault).
+DISAGG_BREAKER_TRANSITIONS_TOTAL = f"{DISAGG_PREFIX}_breaker_transitions_total"
+DISAGG_BREAKER_OPEN = f"{DISAGG_PREFIX}_breaker_open"
+DISAGG_BLOCKS_PULLED_TOTAL = f"{DISAGG_PREFIX}_blocks_pulled_total"
+DISAGG_BYTES_PULLED_TOTAL = f"{DISAGG_PREFIX}_bytes_pulled_total"
+# Serialized KV payload bytes by wire dtype (disagg/wire.py schema v2):
+# int8-on-the-wire vs densified is the transfer-bound disagg lever.
+DISAGG_KV_WIRE_BYTES_TOTAL = f"{DISAGG_PREFIX}_kv_wire_bytes_total"
+DISAGG_TRANSFER_DURATION = f"{DISAGG_PREFIX}_transfer_duration_seconds"
+# Observed per-(src, dst) transfer bandwidth EWMA, measured at the decode
+# worker's pull path and folded into the router via load reports.
+DISAGG_LINK_BANDWIDTH = f"{DISAGG_PREFIX}_link_bandwidth_bytes_per_s"
+
 # -- migration (llm/migration.py Migration) ----------------------------------
 MIGRATION_PREFIX = "dynamo_tpu_migration"
 # Re-dispatches of a live stream to another worker, by failure reason
@@ -245,3 +271,16 @@ SLO_BURN_RATE = f"{SLO_PREFIX}_burn_rate"
 # which phase (queue / prefill / kv_transfer / decode / handoff_stall /
 # overhead) dominates the tail, as a number a dashboard can rank.
 SLO_PHASE_P99_MS = f"{SLO_PREFIX}_phase_p99_contribution_ms"
+
+ALL_DISAGG = (
+    DISAGG_TRANSFERS_TOTAL,
+    DISAGG_TRANSFER_FAILURES_TOTAL,
+    DISAGG_PULL_RETRIES_TOTAL,
+    DISAGG_BREAKER_TRANSITIONS_TOTAL,
+    DISAGG_BREAKER_OPEN,
+    DISAGG_BLOCKS_PULLED_TOTAL,
+    DISAGG_BYTES_PULLED_TOTAL,
+    DISAGG_KV_WIRE_BYTES_TOTAL,
+    DISAGG_TRANSFER_DURATION,
+    DISAGG_LINK_BANDWIDTH,
+)

@@ -1,10 +1,26 @@
 """The engine worker process (python -m dynamo_tpu_torch.worker) — the
 port's counterpart of dynamo_tpu/worker/__main__.py: boot TorchEngine,
-publish its KV events and load, serve the ``generate`` and ``control``
-endpoints, register the model card, and run until SIGTERM or SIGINT.
+publish its KV events and load, serve the ``generate``, ``control`` and
+``kv`` endpoints, register the model card, and run until SIGTERM or SIGINT.
 
     python -m dynamo_tpu_torch.worker --model qwen2.5-0.5b
     python -m dynamo_tpu_torch.worker --model tiny --device cpu
+    python -m dynamo_tpu_torch.worker --model qwen2.5-0.5b --is-prefill-worker
+
+Disaggregated prefill and decode, as JAX's worker serves them
+(dynamo_tpu/worker/__main__.py:375-492): every worker serves ``kv`` with
+``disagg.KvTransferHandler`` (its committed KV blocks, streamed in chunks).
+A ``--is-prefill-worker`` registers under ``--prefill-component`` (default
+``prefill``), serves ``generate`` with ``disagg.PrefillHandler`` (the
+prompt's first token and the bootstrap: block hashes, incarnation, wire
+dtype and block bytes) and registers no model card: the frontend's
+``PrefillRouter`` finds it by its component. Any other worker serves
+``generate`` with ``disagg.DecodeHandler``: a request carrying
+``disaggregated_params`` first pulls the bootstrap's blocks from the prefill
+worker's ``kv`` endpoint into its pools, then generates; its load reports
+carry the pull bandwidth a source and the sources whose breaker is open,
+and with ``--system-port`` its system server renders the ``dynamo_tpu_disagg_*``
+families and the ``disagg`` flight ring.
 
 ``build_parser()`` has the JAX worker's whole argument surface with its
 defaults, plus ``--device`` (cuda by default, which raises without a card;
@@ -28,11 +44,8 @@ the port has no tick budget (A9), as JAX leaves it with the budgeter off.
 
 Divergences from the JAX worker, each with its ROADMAP item: SIGTERM ends
 the wait at once, where JAX's starts a DrainController live handoff (the
-drain plane needs KV export, A6); the ``generate`` handler serves
-``engine.generate`` and refuses a request that carries
-``disaggregated_params`` (JAX's DecodeHandler pulls its KV, A6); there is
-no ``kv`` or handoff endpoint (A6); the system server's ``/drain`` and
-``/v1/loras`` answer 501 (A11, A7).
+drain plane, A11); there is no handoff endpoint (A11); the system server's
+``/drain`` and ``/v1/loras`` answer 501 (A11, A7).
 """
 
 from __future__ import annotations
@@ -46,7 +59,6 @@ from dataclasses import dataclass
 from typing import Any, List, Optional
 
 from dynamo_tpu_torch import config
-from dynamo_tpu_torch.llm.protocols.common import BackendOutput, FinishReason
 from dynamo_tpu_torch.models import config as model_configs
 from dynamo_tpu_torch.utils.logging import configure_logging, get_logger
 
@@ -186,8 +198,6 @@ def build_parser() -> argparse.ArgumentParser:
 # (refused when, the flag, why and the ROADMAP item that brings it); checked
 # in this order.
 _UNPORTED: List[tuple] = [
-    (lambda a: a.is_prefill_worker, "--is-prefill-worker",
-     "disaggregated prefill needs the KV transfer (ROADMAP A6)"),
     (lambda a: a.kv_offload_blocks > 0 or a.kv_offload_dir or a.kv_remote
      or a.kv_host_arena_mb, "--kv-offload-blocks/--kv-offload-dir/--kv-remote/"
      "--kv-host-arena-mb", "the tiered KV manager is not ported (ROADMAP A10, KVBM)"),
@@ -199,7 +209,7 @@ _UNPORTED: List[tuple] = [
      or a.tick_budget_itl_slo_ms is not None, "--tick-budget*",
      "the tick budget is not ported (ROADMAP A9, the tick budget)"),
     (lambda a: a.kv_checkpoint_dir, "--kv-checkpoint-dir",
-     "the KV checkpoint needs KV export and import (ROADMAP A6)"),
+     "the KV checkpoint is not ported (ROADMAP A6-2)"),
     (lambda a: a.coordinator or a.num_processes is not None or a.process_id is not None
      or a.tensor_parallel_size > 1, "--coordinator/--num-processes/--process-id/--tp > 1",
      "parallelism is not ported (ROADMAP A9, parallelism: tensor parallel and "
@@ -240,6 +250,7 @@ class WorkerHandle:
     load_pub: Any
     served: Any  # the generate endpoint
     served_ctl: Any
+    served_kv: Any  # the kv endpoint (KvTransferHandler)
     trajectory_shipper: Any
     overload_task: Any  # the worker-side OverloadController's evaluate loop
     system_server: Any  # None without --system-port
@@ -258,6 +269,7 @@ class WorkerHandle:
         await self.kv_pub.close()
         await self.served.shutdown(grace_period=config.GRACE_PERIOD.get())
         await self.served_ctl.shutdown(grace_period=5)
+        await self.served_kv.shutdown(grace_period=5)
         await self.engine.stop()
 
 
@@ -267,11 +279,14 @@ async def serve_worker(args: argparse.Namespace, runtime: Any, *,
     (dynamo_tpu/worker/__main__.py:172-637, in its order): the KV-event
     publisher and TorchEngine(on_kv_event=), the snapshot source, the load
     publisher, the card, the system server (``args.system_port``; readiness
-    503 until the end of this call), engine.start(), the ``control`` and ``generate``
-    endpoints (under DYN_TPU_WORKER_ID or a random 63-bit id, the process
-    incarnation in the instance metadata), register_llm, the load reports.
+    503 until the end of this call), engine.start(), the ``kv``, ``control``
+    and ``generate`` endpoints (under DYN_TPU_WORKER_ID or a random 63-bit
+    id, the process incarnation in the instance metadata; ``generate`` by
+    PrefillHandler with ``args.is_prefill_worker``, else by DecodeHandler),
+    register_llm (not on a prefill worker), the load reports.
     ``params`` overrides the engine's random init (tests pass weights
     converted by models.weights.params_from_jax)."""
+    from dynamo_tpu_torch.disagg import DecodeHandler, KvTransferHandler, PrefillHandler
     from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
     from dynamo_tpu_torch.llm.discovery import register_llm
     from dynamo_tpu_torch.llm.model_card import ModelDeploymentCard, RuntimeConfig
@@ -285,6 +300,8 @@ async def serve_worker(args: argparse.Namespace, runtime: Any, *,
     )
     from dynamo_tpu_torch.utils.tracing import global_tracer, set_service
 
+    if args.is_prefill_worker and args.component == "backend":
+        args.component = args.prefill_component
     model_config = BUILTIN_CONFIGS[args.model]()
     engine_args = TorchEngineArgs(
         config=model_config,
@@ -363,6 +380,9 @@ async def serve_worker(args: argparse.Namespace, runtime: Any, *,
     await engine.start()
     ready_state["detail"] = "registering endpoints"
     incarnation = process_incarnation()
+    served_kv = await component.endpoint("kv").serve_endpoint(
+        KvTransferHandler(engine).generate, instance_id=instance_id
+    )
 
     async def control(request, context):
         """Admin ops (ref: clear_kv_blocks.rs; fanned out by the frontend)."""
@@ -378,25 +398,29 @@ async def serve_worker(args: argparse.Namespace, runtime: Any, *,
         control, instance_id=instance_id
     )
 
-    async def generate(request, context):
-        """engine.generate, refusing a disaggregated decode: JAX's
-        DecodeHandler would pull the prefill worker's KV first (ROADMAP A6)."""
-        dp = (request.get("disaggregated_params") if isinstance(request, dict)
-              else getattr(request, "disaggregated_params", None))
-        if dp:
-            yield BackendOutput(
-                error="disaggregated_params: this worker cannot pull a prefill "
-                "worker's KV (KV transfer is ROADMAP A6)",
-                finish_reason=FinishReason.ERROR,
+    if args.is_prefill_worker:
+        # Found through its component by the frontend's PrefillRouter, not
+        # through the model registry (ref: prefill_router.rs activate).
+        handler = PrefillHandler(engine, instance_id)
+        served = await endpoint.serve_endpoint(
+            handler.generate, instance_id=instance_id, metadata={"incarnation": incarnation},
+        )
+    else:
+        async def kv_client():
+            return await (
+                runtime.namespace(args.namespace).component(args.prefill_component)
+                .endpoint("kv").client()
             )
-            return
-        async for out in engine.generate(request, context):
-            yield out
 
-    served = await endpoint.serve_endpoint(
-        generate, instance_id=instance_id, metadata={"incarnation": incarnation},
-    )
-    await register_llm(runtime, card, endpoint, instance_id, incarnation=incarnation)
+        handler = DecodeHandler(engine, kv_client_factory=kv_client, worker_id=instance_id)
+        # Load reports carry the measured pull bandwidth of each prefill
+        # source and the sources whose pull breaker is open.
+        load_pub.link_bandwidth_fn = handler.link_bandwidth
+        load_pub.link_faults_fn = handler.open_breaker_srcs
+        served = await endpoint.serve_endpoint(
+            handler.generate, instance_id=instance_id, metadata={"incarnation": incarnation},
+        )
+        await register_llm(runtime, card, endpoint, instance_id, incarnation=incarnation)
     load_pub.start()
     trajectory_shipper.start()
     # Worker-side overload plane: KV-pool-occupancy-driven brownout that
@@ -419,10 +443,12 @@ async def serve_worker(args: argparse.Namespace, runtime: Any, *,
     )
     if system_server is not None:
         overload.register_metrics(system_server)
+        if isinstance(handler, DecodeHandler):
+            handler.register_metrics(system_server)  # the disagg transfer families
     ready_state.update(ready=True, detail=f"serving (incarnation {incarnation:#x})")
     return WorkerHandle(engine=engine, card=card, name=name, instance_id=instance_id,
                         incarnation=incarnation, kv_pub=kv_pub, load_pub=load_pub,
-                        served=served, served_ctl=served_ctl,
+                        served=served, served_ctl=served_ctl, served_kv=served_kv,
                         trajectory_shipper=trajectory_shipper, overload_task=overload_task,
                         system_server=system_server)
 

@@ -31,6 +31,10 @@ tools.cases.RAW_RTOL of (|x| @ |w|) (float32 sums in other orders), the
 epilogue form to qeinsum's rounding points on the kernel's own sums, bit
 for bit, and to one bf16 step of the product from the plain version's
 (tools.cases.epilogue_ok); both repeat bit for bit.
+
+KV blocks imported into a TorchEngine on the card (bf16 and int8 pools)
+are read by its already captured decode graph: the next request replays
+it, with no new capture, and gives the exporter's greedy stream.
 """
 
 import pytest
@@ -785,3 +789,57 @@ def test_fused_layer_replays_bit_equal(kernels):
     c, call = make_layer_case("llama3-8b B16", "cuda")
     _replays_match_eager(lambda: run_layer(kernel.fused_decoder_layer, c, call),
                          "fused_decoder_layer")
+
+
+@pytest.mark.parametrize("kv", [None, "int8"], ids=["bf16-pools", "int8-pools"])
+def test_a_replayed_decode_graph_reads_imported_blocks(kernels, kv):
+    """KV blocks imported into an engine whose decode graph of the width
+    bucket is already captured: the scatter writes into the pools the graph
+    holds, so the next request replays that graph (no new capture) over
+    the imported pages, prefills the tail alone and gives the exporter's
+    greedy stream."""
+    import asyncio
+
+    from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.models.config import tiny_config
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.tokens.blocks import compute_block_hashes
+
+    cfg = tiny_config(n_heads=2, n_kv_heads=2, dtype=torch.bfloat16)  # head_dim 64
+    args = dict(config=cfg, block_size=16, num_kv_blocks=64, max_num_seqs=4,
+                max_model_len=512, decode_steps=4, kv_cache_dtype=kv, seed=5)
+    prompt = [int(t) for t in torch.randint(3, 500, (100,), generator=torch.Generator()
+                                            .manual_seed(1))]
+
+    async def run():
+        src = TorchEngine(TorchEngineArgs(**args))
+        dst = TorchEngine(TorchEngineArgs(**args), params=src.runner.params)
+
+        async def stream(engine, p):
+            req = PreprocessedRequest(token_ids=p, sampling=SamplingOptions(temperature=0.0),
+                                      stop=StopConditions(max_tokens=16))
+            return [t async for o in engine.generate(req, Context()) for t in o.token_ids]
+
+        try:
+            want = await stream(src, prompt)
+            await stream(dst, [t + 1 for t in prompt])  # captures the bucket's graph
+            graphs = len(dst.runner.graphs)
+            replays = sum(g.replays for g in dst.runner.graphs.values())
+            found, wire = await src.export_blocks_wire_async(compute_block_hashes(prompt, 16))
+            assert len(found) == 6 and await dst.import_blocks_wire_async(found, wire) == 6
+            before = dst.prefill_tokens
+            got = await stream(dst, prompt)
+            assert got == want
+            assert dst.prefill_tokens - before == len(prompt) - 6 * 16
+            assert len(dst.runner.graphs) == graphs
+            assert sum(g.replays for g in dst.runner.graphs.values()) > replays
+        finally:
+            await src.stop()
+            await dst.stop()
+
+    asyncio.run(run())

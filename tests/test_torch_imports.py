@@ -1,12 +1,12 @@
 """Import hygiene of the port: dynamo_tpu_torch and chip_smoke.py import
 neither jax nor anything of dynamo_tpu, nor a package the card's machine
-lacks (tokenizers, regex, aiohttp, msgpack, zmq, prometheus_client; jinja2
-only inside a function); every module (the HTTP frontend, the parsers and
+lacks (tokenizers, regex, aiohttp, msgpack, zmq, prometheus_client,
+ml_dtypes; jinja2 only inside a function); every module (the HTTP frontend, the parsers and
 the runtime's planes with their msgpack and ZMTP wire modules, and the KV
 router with its pure-Python xxh3, discovery, migration, the worker and
 frontend mains, the overload and trajectory planes, the system server, the
 device plane, the engine's step metrics, the perf ledger and the roofline,
-among them) imports with all of those and xxhash blocked, and the text
+the KV wire and the disagg handlers, among them) imports with all of those and xxhash blocked, and the text
 path (tokenizer, default chat template) runs so; an entry point left on
 its default device (cuda) raises when there is no card instead of
 carrying on on the CPU."""
@@ -34,10 +34,12 @@ def _port_files():
 
 
 # Packages the card's machine does not have (or is not known to have:
-# prometheus_client). The port imports none of the first six; jinja2 only
+# prometheus_client). The port imports none of these (ml_dtypes: the KV
+# wire holds bfloat16 as torch tensors, disagg/wire.py); jinja2 only
 # inside a function (a custom chat template); xxhash nowhere (tokens/xxh3.py
 # computes the block hashes).
-ABSENT_ON_CARD = ("tokenizers", "regex", "aiohttp", "msgpack", "zmq", "prometheus_client")
+ABSENT_ON_CARD = ("tokenizers", "regex", "aiohttp", "msgpack", "zmq", "prometheus_client",
+                  "ml_dtypes")
 BLOCKED = ("jax", "jaxlib", "dynamo_tpu") + ABSENT_ON_CARD + ("jinja2", "xxhash")
 
 
@@ -130,7 +132,8 @@ wanted = set("dynamo_tpu_torch." + n for n in (
     "llm.migration", "llm.discovery", "disagg", "disagg.prefill_router", "worker",
     "worker.__main__", "frontend", "frontend.__main__", "runtime.overload",
     "runtime.trajectory", "runtime.system_server", "runtime.device_observe",
-    "engines.metrics", "runtime.perf_ledger", "runtime.roofline"))
+    "engines.metrics", "runtime.perf_ledger", "runtime.roofline", "disagg.wire",
+    "disagg.handlers"))
 assert wanted <= set(names), sorted(wanted - set(names))
 spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))

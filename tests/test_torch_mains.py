@@ -10,6 +10,11 @@ appears on ``/v1/models``; a stream completes; a stream whose worker is
 SIGKILLed after 100 tokens migrates to the other worker and ends equal to
 the same request run unbroken there; the frontend's ``/metrics`` counts
 the migration; SIGTERM ends the survivor and the frontend with exit 0.
+Then disaggregated serving on the CPU: discd, a ``--is-prefill-worker``,
+a decode worker and the frontend; a chat above the PrefillRouter's
+threshold is served disaggregated (the decode worker pulls the prompt's
+blocks and prefills less than the prompt), and with the prefill worker
+ended the same chat is served aggregated with the same text.
 Each process test keeps its own deadline, under 90 s."""
 
 import argparse
@@ -67,7 +72,6 @@ def test_frontend_parser_defaults_equal_jax(monkeypatch):
 
 
 REFUSED = [
-    (["--is-prefill-worker"], "ROADMAP A6"),
     (["--kv-offload-blocks", "64"], "ROADMAP A10, KVBM"),
     (["--kv-offload-dir", "/tmp/x"], "ROADMAP A10, KVBM"),
     (["--kv-remote", "a/b/c"], "ROADMAP A10, KVBM"),
@@ -77,7 +81,7 @@ REFUSED = [
     (["--tick-budget"], "ROADMAP A9, the tick budget"),
     (["--tick-budget-floor", "32"], "ROADMAP A9, the tick budget"),
     (["--tick-budget-policy", "0.0"], "ROADMAP A9, the tick budget"),
-    (["--kv-checkpoint-dir", "/tmp/x"], "ROADMAP A6"),
+    (["--kv-checkpoint-dir", "/tmp/x"], "ROADMAP A6-2"),
     (["--coordinator", "h:1"], "ROADMAP A9, parallelism"),
     (["--num-processes", "2"], "ROADMAP A9, parallelism"),
     (["--process-id", "0"], "ROADMAP A9, parallelism"),
@@ -291,6 +295,106 @@ def test_processes_serve_migrate_a_killed_workers_stream_and_end_on_sigterm():
         assert workers[0x202].proc.wait(timeout=10) == 0
         frontend.proc.send_signal(signal.SIGTERM)
         assert frontend.proc.wait(timeout=10) == 0
+        assert time.monotonic() < deadline
+    finally:
+        for p in reversed(procs):
+            p.end()
+
+
+def _get_json(port, path):
+    status, body = _get(port, path)
+    assert status == 200, (path, status, body[:300])
+    return json.loads(body)
+
+
+def _metric(text, name):
+    """The sum of a family's samples (0 without any)."""
+    return sum(float(v) for v in re.findall(rf"^{name}(?:{{[^}}]*}})? (\S+)$", text, re.M))
+
+
+def test_processes_serve_a_chat_disaggregated():
+    """A prefill worker main (``--is-prefill-worker``), a decode worker main
+    and the frontend main over discd, TCP and ZMQ, tiny preset on the CPU:
+    a chat of more than 32 prompt tokens goes to the prefill worker, whose
+    blocks the decode worker pulls (its ``/metrics`` counts one transfer of
+    the prompt's full blocks) and whose tail alone it prefills; with the
+    prefill worker ended by SIGTERM (exit 0), the same chat from an empty
+    cache is served aggregated and gives the same text."""
+    deadline = time.monotonic() + DEADLINE_S
+    env = {**os.environ, "PYTHONUNBUFFERED": "1", "DYN_TPU_LOAD_REPORT_INTERVAL_S": "0.2",
+           "DYN_TPU_GRACE_PERIOD": "5"}
+    procs = []
+    try:
+        discd = Proc(["dynamo_tpu_torch.discd", "--port", "0", "--xsub", "0", "--xpub", "0"],
+                     env)
+        procs.append(discd)
+        m = discd.wait_for(r"discd ready: discovery (\S+), events (\S+)", deadline)
+        env.update({"DYN_TPU_DISCOVERY": "discd", "DYN_TPU_DISCOVERY_ADDR": m.group(1),
+                    "DYN_TPU_EVENT_PLANE": "zmq", "DYN_TPU_EVENT_PLANE_ADDR": m.group(2),
+                    "DYN_TPU_REQUEST_PLANE": "tcp"})
+        common = ["--model", "tiny", "--device", "cpu", "--num-kv-blocks", "256",
+                  "--max-model-len", "512", "--system-port", "0"]
+        prefill = Proc(["dynamo_tpu_torch.worker", *common, "--is-prefill-worker"],
+                       {**env, "DYN_TPU_WORKER_ID": str(0x301)})
+        decode = Proc(["dynamo_tpu_torch.worker", *common], {**env, "DYN_TPU_WORKER_ID": str(0x302)})
+        procs += [prefill, decode]
+        frontend = Proc(["dynamo_tpu_torch.frontend", "--host", "127.0.0.1",
+                         "--http-port", "0"], env)
+        procs.append(frontend)
+        port = int(frontend.wait_for(r"frontend listening on \S+:(\d+)", deadline).group(1))
+        sys_ports = {}
+        for name, proc, component, wid in (("prefill", prefill, "prefill", 0x301),
+                                           ("decode", decode, "backend", 0x302)):
+            sys_ports[name] = int(proc.wait_for(r"system server on :(\d+)", deadline).group(1))
+            proc.wait_for(rf"worker serving tiny-llama as dynamo/{component}/generate instance "
+                          rf"{wid:#x} incarnation 0x[0-9a-f]+", deadline)
+        while [m["id"] for m in _get_json(port, "/v1/models")["data"]] != ["tiny-llama"]:
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        chat = {"model": "tiny-llama", "max_tokens": 24, "temperature": 0.0,
+                "messages": [{"role": "user", "content": " ".join(
+                    ["the quick brown fox jumps over the lazy dog"] * 6)}]}
+
+        def serve():
+            r = _post(port, "/v1/chat/completions", chat)
+            assert r.status == 200
+            doc = json.loads(r.read())
+            return doc["choices"][0]["message"]["content"], doc["usage"]
+
+        def stats(name):
+            return _get_json(sys_ports[name], "/engine/stats")
+
+        # The frontend's PrefillRouter makes its prefill client at its first
+        # request and learns the prefill instance from discd's watch a
+        # moment later (JAX's does the same): a short chat first.
+        r = _post(port, "/v1/chat/completions", dict(chat, max_tokens=2, messages=[
+            {"role": "user", "content": "hi"}]))
+        assert r.status == 200, r.read()
+        r.read()
+        time.sleep(1.0)
+        before = {name: stats(name)["prefill_tokens"] for name in sys_ports}
+        text, usage = serve()
+        prompt = usage["prompt_tokens"]
+        assert prompt > 32 and usage["completion_tokens"] == 24 and text
+        grew = {name: stats(name)["prefill_tokens"] - before[name] for name in sys_ports}
+        assert 0 < grew["decode"] <= 16 + 1 and grew["prefill"] == prompt
+        metrics = _get(sys_ports["decode"], "/metrics")[1].decode()
+        assert _metric(metrics, "dynamo_tpu_disagg_transfers_total") == 1
+        assert _metric(metrics, "dynamo_tpu_disagg_blocks_pulled_total") == prompt // 16
+        assert _metric(metrics, "dynamo_tpu_disagg_transfer_failures_total") == 0
+        # the prefill worker ends: the same chat, aggregated, from an empty cache
+        prefill.proc.send_signal(signal.SIGTERM)
+        assert prefill.proc.wait(timeout=15) == 0
+        r = _post(port, "/clear_kv_blocks", {})
+        assert r.status == 200, r.read()
+        before = stats("decode")["prefill_tokens"]
+        assert serve() == (text, usage)
+        assert stats("decode")["prefill_tokens"] - before == prompt
+        assert _metric(_get(sys_ports["decode"], "/metrics")[1].decode(),
+                       "dynamo_tpu_disagg_transfers_total") == 1
+        for p in (decode, frontend):
+            p.proc.send_signal(signal.SIGTERM)
+            assert p.proc.wait(timeout=15) == 0
         assert time.monotonic() < deadline
     finally:
         for p in reversed(procs):

@@ -530,7 +530,10 @@ def test_worker_main_serves_its_system_server_ready_once_serving(tmp_path):
         assert mem["devices"] == [{"id": 0, "platform": "cpu", "memory_stats": None}]
         assert "device_bytes_in_use" not in mem and mem["host_weight_cache"] is None
         status, rings = _get(port, "/debug/flight")
-        assert status == 200 and rings["rings"] == ["perf", "overload"]
+        # a decode worker's DecodeHandler adds the disagg ring (and its
+        # families), after the overload controller's, as JAX's worker does
+        assert status == 200 and rings["rings"] == ["perf", "overload", "disagg"]
+        assert "# TYPE dynamo_tpu_disagg_transfers_total counter" in metrics
         status, perf = _get(port, "/debug/perf")
         assert status == 200 and perf["identity"]["preset"] == "tiny-llama"
         assert perf["identity"]["backend"] == "cpu" and perf["decode"] == []
