@@ -438,10 +438,52 @@ Phases, each printing one JSON line; any failure exits non-zero:
    token on and the pull's seconds (the decode worker's histogram) of each
    chat in both sets and their means (also without each set's first), the graphs captured in the measured
    window (/debug/compiles), the launches.
+40. spec — speculative decoding (prompt-lookup proposals, the
+   rejection-sampling verify). First kernel #1 at the verify's shapes
+   (tools.cases.SPEC_VERIFY_CASES: C 5 a sequence, 16 sequences, contexts
+   100-1,300; Qwen2.5-0.5B's 35 rows a block at D 64, Llama-3-8B's 20 at D
+   128 over bf16 and int8 pools) against its plain version as phase 3 holds
+   it, and timed beside SDPA and its bound (a spec_cases line). Then two
+   Qwen2.5-0.5B engines on one set of weights (the preset's random init),
+   both with CUDA graphs: plain at depth 2, and spec (k SPEC_K, n
+   SPEC_NGRAM). Each serves SPEC_REQUESTS greedy requests of SPEC_TOKENS
+   tokens (ignore_eos, prompts of 100-1,200 tokens) once to capture every
+   graph, then, from an empty prefix cache, the measured run. Fails unless
+   every spec stream equals the plain one token for token (else it names
+   the position and the plain run's top-2 logit gap there), verifies ran,
+   the runner.spec_verify captures are within JAX's budget and none fell in
+   the measured window, and #1 launched at least once a layer a verify.
+   The same set is then served again with the embedding scaled by
+   QWEN_EMBED_SCALE (attention decides the stream): equal again, but for
+   a stream that parts once where both tokens lie within QWEN_GAP_LIMIT
+   of the dense reference's best (a near tie: the verify's 80-row
+   products and C 5 attention round other sums than a decode step's). The
+   measured run's last verify is replayed from its graph and run eagerly
+   from the same pools: emitted, counts and pools bit-equal. A
+   spec_breakeven line (``spec_breakeven``) times one verify over [16, 5]
+   and one decode step at the same 16 rows by CUDA events and prints
+   t_verify / t_decode - 1, the tokens a verify must accept to win; the
+   spec line: proposals, acceptance, verifies and tokens a verify, TTFT,
+   ITL and tok/s of both engines, captures, #1's launches.
+41. spec_main — discd, a `--speculative ngram --system-port 0` worker main
+   over Qwen2.5-0.5B and the frontend main: SPEC_MAIN_CHATS chats of about
+   SPEC_MAIN_PROMPT prompt tokens x SPEC_MAIN_TOKENS at once, twice: a
+   cold pass, then (its prefix cache cleared) the measured one. Fails
+   unless each stream is whole and its text is what an in-process plain
+   engine at the worker's defaults streams for the same token ids, the
+   worker's /engine/stats show proposals and verifies at depth 1 in the
+   measured pass, no graph was captured in it, and its /debug/compiles
+   lists runner.spec_verify. The line: TTFT and ITL of both passes.
+   After phase 8, a spec_breakeven line on the Llama-3-8B int8 runner: the
+   verify runs the unfused layers (its 80-row products take dequantise +
+   torch.matmul, timed beside the int8 kernel at 64 rows) while the decode
+   step runs the fused layer; the int8 head is held at the verify's 80
+   rows.
 
 (18-20 run right after the Llama-3-8B kernels of phases 3-4, 22 right after
-the fused layer's timing, 21 right after phase 11, 23 right after phase 6,
-24-28 after phase 17, 29-39 right after phase 23.)
+the fused layer's timing, 21 right after phase 11, 40-41 right after
+phase 6, 23 right after phase 41, 24-28 after phase 17, 29-39 right after
+phase 23.)
 Then one JSON line {"kernels": [...]} for all ten kernels, nvidia-smi's
 name and power limit, and last {"ok": true, "device": {...}}. Without a
 CUDA device it exits 2 and prints no result.
@@ -6306,6 +6348,557 @@ async def disagg_client(procs, counts_files) -> dict:
         await runtime.event_plane.close()
 
 
+# -- speculative decoding (phases 40-41) ---------------------------------------
+
+SPEC_K, SPEC_NGRAM = 4, 3  # the spec engines' spec_k and spec_ngram (the engine's defaults)
+SPEC_REQUESTS = 8  # the spec phase's greedy set: 8 requests of 128 tokens (ignore_eos),
+SPEC_TOKENS = 128
+SPEC_PROMPT_RANGE = (100, 1200)  # prompts of 100-1,200 random tokens
+# Then the same set at the embedding scaled by QWEN_EMBED_SCALE, where the
+# greedy stream is decided by attention and not by the input token: a run
+# of this many tokens a request, streams equal again.
+SPEC_SCALED_TOKENS = 64
+SPEC_BREAKEVEN_CTX = 700  # every row's context in the break-even timing
+SPEC_BREAKEVEN_ITERS = 10
+SPEC_MAIN_WORKER = 0x601  # the spec_main worker's DYN_TPU_WORKER_ID
+SPEC_MAIN_CHATS = 4  # chats of about SPEC_MAIN_PROMPT prompt tokens x SPEC_MAIN_TOKENS
+SPEC_MAIN_PROMPT = 300
+SPEC_MAIN_TOKENS = 64
+
+
+def spec_kernel_phase(torch) -> dict:
+    """Kernel #1 at the speculative verify's shapes
+    (tools.cases.SPEC_VERIFY_CASES: C 5 a sequence, 16 sequences, contexts
+    100-1,300; Qwen2.5-0.5B's 35 rows a block at D 64, Llama-3-8B's 20 at D
+    128 over bf16 and int8 pools) against paged_attention_ref (also at
+    forced splits, two runs bit-equal), then each timed beside its plain
+    version, SDPA over the gathered pages and its bound (a spec_cases
+    line). Returns the worst error of each kernel name."""
+    from dynamo_tpu_torch.ops import attention
+    from dynamo_tpu_torch.ops.cuda import paged_attention as kernels
+    from dynamo_tpu_torch.ops.kv_quant import pool_values
+    from dynamo_tpu_torch.tools.cases import SPEC_VERIFY_CASES, make_spec_verify_case
+
+    cases = []
+    for label in SPEC_VERIFY_CASES:
+        name, case = make_spec_verify_case(label, DEV)
+        cases.append((name, "decode", label, case, 0, 0.0))
+    worst = attention_parity(torch, cases)
+    reset_counts()  # parity launches do not count
+    rows = []
+    for name, _, label, case, _, _ in cases:
+        ms = time_ms(torch, lambda: run_kernel(kernels, "decode", case), 50)
+        plain_ms = time_ms(torch, lambda: run_plain(attention, case), 10)
+        library_ms = time_ms(torch, library_call(torch, case), 50)
+        bound_ms, bound_by = bound(case)
+        B, C, H, _ = case["q"].shape
+        rows.append(dict(kernel=name, case=label, shape=[B, C, H, case["q"].shape[3]],
+                         rows_a_block=C * (H // pool_values(case["k"]).shape[2]),
+                         splits=kernels.split_count(case["q"], case["k"]), ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, sdpa_ratio=ms / library_ms))
+    reset_counts()
+    emit({"phase": "spec_cases", "cases": rows, "max_abs_err": worst,
+          "library": "SDPA over the gathered pages", "card": smi_line()})
+    return worst
+
+
+def spec_requests(prompts, max_tokens):
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+
+    return [PreprocessedRequest(token_ids=list(p), sampling=SamplingOptions(temperature=0.0),
+                                stop=StopConditions(max_tokens=max_tokens, ignore_eos=True))
+            for p in prompts]
+
+
+def spec_streams_equal(torch, plain, prompts, want, got, what, gap_limit=None) -> list:
+    """Fails at the first request whose spec stream parts from the plain
+    one, naming the position and the plain run's top-2 logit gap there
+    (teacher-forced dense forward on the plain engine's weights). With
+    ``gap_limit``, as the engine phase holds a request's batched run
+    against its run alone: a stream may part once where both tokens lie
+    within ``gap_limit`` of the reference's best (it is compared up to
+    there). Returns the partings: (request, position, top-2 gap, the two
+    tokens' gap below the best)."""
+    parted = []
+    for i, (p, a, b) in enumerate(zip(prompts, want, got)):
+        if a == b:
+            continue
+        at = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
+        gap = below = None
+        if at < min(len(a), len(b)):
+            ref = dense_reference_logits(torch, plain, p, a[: at + 1])[-1]
+            top2 = ref.topk(2).values
+            gap = float(top2[0] - top2[1])
+            below = float(ref.max() - torch.minimum(ref[a[at]], ref[b[at]]))
+        if gap_limit is None or below is None or below > gap_limit:
+            fail(f"spec: {what}: request {i}'s spec stream ({len(b)} tokens) parts from the "
+                 f"plain engine's ({len(a)}) at token {at}; the plain run's top-2 logit gap "
+                 f"there: {gap} (both tokens within {below} of its best, limit {gap_limit})")
+        parted.append([i, at, gap, below])
+    return parted
+
+
+def stream_latency(runs) -> dict:
+    """TTFT and ITL means (ms) and tok/s of one serve_engine run."""
+    ttft = [r["stamps"][0][0] - r["t0"] for r in runs]
+    itl = [(r["stamps"][-1][0] - r["stamps"][0][0]) / max(len(r["ids"]) - 1, 1) for r in runs]
+    wall = max(r["stamps"][-1][0] for r in runs) - min(r["t0"] for r in runs)
+    return {"ttft_ms_mean": 1e3 * sum(ttft) / len(ttft), "ttft_ms_max": 1e3 * max(ttft),
+            "itl_ms_mean": 1e3 * sum(itl) / len(itl),
+            "output_tok_per_s": sum(len(r["ids"]) for r in runs) / wall}
+
+
+def spec_counts(stats, before=None) -> dict:
+    keys = ("spec_proposed", "spec_accepted", "spec_ticks", "spec_rows")
+    return {k: stats[k] - (before or {}).get(k, 0) for k in keys}
+
+
+def spec_summary(c) -> dict:
+    """Acceptance and tokens a verify from spec_counts."""
+    return {**c, "acceptance_rate": c["spec_accepted"] / max(c["spec_proposed"], 1),
+            "tokens_a_row_verify": (c["spec_accepted"] + c["spec_rows"]) / max(c["spec_rows"], 1),
+            "tokens_a_verify": (c["spec_accepted"] + c["spec_rows"]) / max(c["spec_ticks"], 1)}
+
+
+def spec_phase(torch, smi) -> dict:
+    """Phase 40 (see the module's docstring). Returns the spec engine's
+    launch counts over its measured run."""
+    from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
+    from dynamo_tpu_torch.engines.gpu.runner import SPEC_PROGRAM
+    from dynamo_tpu_torch.models.config import qwen2_500m_config
+    from dynamo_tpu_torch.runtime.device_observe import global_compile_watcher
+
+    t_phase = time.monotonic()
+    cfg = qwen2_500m_config()
+    base = dict(config=cfg, block_size=16, num_kv_blocks=2048, max_num_seqs=16,
+                max_model_len=2048, prefill_chunk=512, seed=0, device=DEV)
+    plain = TorchEngine(TorchEngineArgs(**base))
+    spec = TorchEngine(TorchEngineArgs(**base, spec_mode="ngram", spec_k=SPEC_K,
+                                       spec_ngram=SPEC_NGRAM), params=plain.runner.params)
+    g = torch.Generator().manual_seed(40)
+    lengths = torch.randint(SPEC_PROMPT_RANGE[0], SPEC_PROMPT_RANGE[1] + 1, (SPEC_REQUESTS,),
+                            generator=g).tolist()
+    prompts = [torch.randint(10, cfg.vocab_size, (n,), generator=g).tolist() for n in lengths]
+    # the measured run's last verify, for the replay check
+    last = {}
+    run_spec = spec._run_spec
+
+    def recorded(*a, **kw):
+        last.update(args=a, kw=kw)
+        return run_spec(*a, **kw)
+
+    spec._run_spec = recorded
+    watcher = global_compile_watcher()
+
+    def captures():
+        return dict(watcher.snapshot()["programs"].get(SPEC_PROGRAM) or {})
+
+    engines = (("plain", plain), ("spec", spec))
+
+    async def run():
+        try:
+            for _, e in engines:  # warm: every graph the set reaches, on both
+                await serve_engine(e, spec_requests(prompts, SPEC_TOKENS))
+                await idle_cleared(e)
+            c0 = captures()
+            out = {}
+            for name, e in engines:
+                st0 = e.stats()
+                reset_counts()
+                runs = await serve_engine(e, spec_requests(prompts, SPEC_TOKENS))
+                counts = read_counts()
+                await idle_cleared(e)
+                out[name] = dict(runs=runs, counts=counts, stats0=st0, stats=e.stats())
+            c1 = captures()
+            want = [r["ids"] for r in out["plain"]["runs"]]
+            got = [r["ids"] for r in out["spec"]["runs"]]
+            spec_streams_equal(torch, plain, prompts, want, got, "init-scale weights")
+            # the same set where attention decides the stream
+            with torch.no_grad():
+                plain.runner.params["embed"].mul_(QWEN_EMBED_SCALE)
+            scaled = {}
+            for name, e in engines:
+                st0 = e.stats()
+                runs = await serve_engine(e, spec_requests(prompts, SPEC_SCALED_TOKENS))
+                await idle_cleared(e)
+                scaled[name] = dict(ids=[r["ids"] for r in runs], stats0=st0, stats=e.stats())
+            scaled["parted"] = spec_streams_equal(
+                torch, plain, prompts, scaled["plain"]["ids"], scaled["spec"]["ids"],
+                f"embedding x {QWEN_EMBED_SCALE}", gap_limit=QWEN_GAP_LIMIT)
+            return out, c0, c1, scaled
+        finally:
+            for _, e in engines:
+                await e.stop()
+
+    out, c0, c1, scaled = asyncio.run(run())
+    spec._run_spec = run_spec
+    for name, o in out.items():
+        for r in o["runs"]:
+            if len(r["ids"]) != SPEC_TOKENS:
+                fail(f"spec: a {name} stream ended with {len(r['ids'])} tokens")
+    window = spec_counts(out["spec"]["stats"], out["spec"]["stats0"])
+    budget = spec.runner._decode_sig_budget
+    in_window = c1.get("compiles", 0) - c0.get("compiles", 0)
+    counts = out["spec"]["counts"]
+    n_layers = cfg.n_layers
+    if window["spec_ticks"] <= 0 or window["spec_proposed"] <= 0:
+        fail(f"spec: the spec engine ran no verify in the measured window: {window}")
+    if c1.get("signatures", 0) <= 0 or c1["signatures"] > budget or c1.get("storms", 0):
+        fail(f"spec: {SPEC_PROGRAM} captured {c1}, budget {budget}")
+    if in_window:
+        fail(f"spec: {in_window} verify graphs were captured in the measured window")
+    if counts["paged_attention_decode"] < n_layers * window["spec_ticks"]:
+        fail(f"spec: paged_attention_decode launched {counts['paged_attention_decode']} times, "
+             f"fewer than {n_layers} layers x {window['spec_ticks']} verifies")
+    others = {n: counts[n] for n in ("fused_decoder_layer", "lm_head_int8", "int8_matmul",
+                                     "paged_attention_decode_int8") if counts[n]}
+    if others:
+        fail(f"spec: kernels of other paths launched: {others}")
+    replay = verify_replay_check(torch, spec.runner, last)
+    breakeven = spec_breakeven(torch, spec.runner, smi, cfg.name)
+    emit({"phase": "spec", "model": cfg.name, "layers": n_layers, "requests": len(prompts),
+          "max_tokens": SPEC_TOKENS, "prompt_tokens": lengths, "spec_k": SPEC_K,
+          "spec_ngram": SPEC_NGRAM, "streams_equal": True, **spec_summary(window),
+          "plain": {**stream_latency(out["plain"]["runs"]),
+                    "pipeline_depth": out["plain"]["stats"]["pipeline_depth"],
+                    "decode_graphs": out["plain"]["stats"]["decode_graphs"],
+                    "launches": {k: v for k, v in out["plain"]["counts"].items() if v}},
+          "spec": {**stream_latency(out["spec"]["runs"]),
+                   "pipeline_depth": out["spec"]["stats"]["pipeline_depth"],
+                   "decode_graphs": out["spec"]["stats"]["decode_graphs"],
+                   "spec_graphs": out["spec"]["stats"]["spec_graphs"],
+                   "launches": {k: v for k, v in counts.items() if v}},
+          "spec_verify_captures": c1, "spec_verify_budget": budget,
+          "captures_in_window": in_window,
+          "paged_attention_decode_launches": counts["paged_attention_decode"],
+          "scaled": {"embed_scale": QWEN_EMBED_SCALE, "max_tokens": SPEC_SCALED_TOKENS,
+                     "parted_request_position_top2_gap_below_best": scaled["parted"],
+                     "gap_limit": QWEN_GAP_LIMIT,
+                     **spec_summary(spec_counts(scaled["spec"]["stats"],
+                                                scaled["spec"]["stats0"]))},
+          "replay": replay, "breakeven_t_verify_over_t_decode_minus_1":
+              breakeven["break_even_accepted_a_verify"],
+          "seconds": time.monotonic() - t_phase, "card": smi})
+    del plain, spec
+    return counts
+
+
+def _pool_tensors(runner):
+    return [t for p in runner.k_cache + runner.v_cache
+            for t in (p.values() if isinstance(p, dict) else (p,))]
+
+
+def verify_replay_check(torch, runner, call) -> dict:
+    """The measured run's last verify, from the same pools: replayed from
+    its graph, then run eagerly. ``emitted``, ``counts`` and every pool
+    byte must be bit-equal."""
+    import numpy as np
+
+    a, kw = call["args"], call["kw"]
+    key = ("spec", a[3].shape[1], a[0].shape[1])
+    graph = runner.spec_graphs.get(key) if runner.args.cuda_graphs else None
+    if runner.args.cuda_graphs and graph is None:
+        fail(f"spec: the last verify's graph {key} is not among {sorted(runner.spec_graphs)}")
+    pools = _pool_tensors(runner)
+    before = [t.clone() for t in pools]
+    replays0 = graph.replays if graph is not None else 0
+    outs = []
+    defaults = runner.args.cuda_graphs
+    for graphs in (defaults, False):
+        for t, b in zip(pools, before):
+            t.copy_(b)
+        runner.args.cuda_graphs = graphs
+        emitted, counts = runner.run_spec(*a, **kw)
+        if DEV == "cuda":
+            torch.cuda.synchronize()
+        outs.append((emitted, counts, [t.clone() for t in pools]))
+    runner.args.cuda_graphs = defaults
+    (e0, n0, p0), (e1, n1, p1) = outs
+    same = bool(np.array_equal(e0, e1) and np.array_equal(n0, n1)
+                and all(torch.equal(x, y) for x, y in zip(p0, p1)))
+    replayed = (graph.replays - replays0) if graph is not None else 0
+    del before, outs, p0, p1
+    if not same or (defaults and replayed != 1):
+        fail(f"spec: the verify replayed from its graph ({replayed} replays) and run eagerly "
+             f"differ (bit-equal: {same})")
+    return {"key": list(key), "replayed": replayed, "bit_equal": same,
+            "rows_verified": int((a[2] > 0).sum()), "tokens_emitted": int(n0.sum())}
+
+
+def spec_breakeven(torch, runner, smi, label) -> dict:
+    """The cost side of speculative decoding at ``runner``'s model, as
+    dynamo_tpu/bench/spec_breakeven.py prices it: every slot at
+    SPEC_BREAKEVEN_CTX tokens, the device ms of one verify over [S, k + 1]
+    (its graph's replay, CUDA events) and of one decode step at the same
+    S rows (a decode burst's replay over decode_steps), and spec's
+    break-even: a verify must accept t_verify / t_decode - 1 tokens a row
+    on average to win. Also the verify's host call (upload, replay,
+    readback), its device time by op (one eager verify under
+    torch.profiler), and, when the runner's weights are int8, the int8
+    head at the verify's S·C rows against its plain version and one
+    80-row product (dequantise + torch.matmul, past INT8_MATMUL_MAX_ROWS)
+    beside the int8 kernel at 64 rows."""
+    import numpy as np
+
+    from dynamo_tpu_torch.engines.gpu.engine import table_width_bucket
+
+    args = runner.args
+    S, C, K, BS = args.max_num_seqs, SPEC_K + 1, args.decode_steps, args.block_size
+    ctx, iters = SPEC_BREAKEVEN_CTX, SPEC_BREAKEVEN_ITERS
+    nb = table_width_bucket(-(-(ctx + C + K * (iters + 3)) // BS), args.max_blocks_per_seq)
+    if S * nb > args.num_kv_blocks:
+        fail(f"spec_breakeven: {S} x {nb} pages do not fit {args.num_kv_blocks} blocks")
+    tables = np.arange(S * nb, dtype=np.int32).reshape(S, nb)
+    pos = np.full(S, ctx, np.int32)
+    ones = np.ones(S, np.int32)
+    greedy = (np.zeros(S, np.float32), np.zeros(S, np.int32), np.ones(S, np.float32))
+    salts = np.arange(S, dtype=np.int64)
+
+    def sync():
+        runner.sync_all(np.ones(S, np.int64), pos, ones, tables, *greedy, salts)
+
+    sync()
+    runner.decode_read(runner.decode_dispatch(nb))  # the bucket's graph, if new
+    sync()
+    burst = runner.graphs.get((nb, False, False))
+    step = burst.replay if burst is not None else (lambda: runner.decode_dispatch(nb))
+    t_burst = event_ms(torch, step, iters=iters)
+    vtok = np.ones((S, C), np.int64)
+    lens = np.full(S, C, np.int32)
+    vargs = (vtok, pos, lens, tables) + greedy + (salts,)
+    runner.run_spec(*vargs)  # the verify's graph at this width, if new
+    host = []
+    for _ in range(5):
+        t0 = time.monotonic()
+        runner.run_spec(*vargs)
+        host.append(1e3 * (time.monotonic() - t0))
+    graph = runner.spec_graphs.get(("spec", nb, C))
+    t_verify = event_ms(torch, graph.replay if graph is not None
+                        else (lambda: runner.run_spec(*vargs)), iters=iters)
+    with torch.inference_mode():
+        by_name, n_ops, n_kernels, _ = device_times(lambda: runner._verify(runner._spec_io[C], nb))
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    t_decode = t_burst / K
+    row = {"phase": "spec_breakeven", "model": label, "rows": S, "C": C, "ctx": ctx,
+           "width_bucket": nb, "fused_decode": bool(runner.use_megakernel),
+           "t_verify_ms": t_verify, "t_decode_step_ms": t_decode, "t_burst_ms": t_burst,
+           "decode_steps": K, "break_even_accepted_a_verify": t_verify / t_decode - 1,
+           "break_even_acceptance_rate": (t_verify / t_decode - 1) / SPEC_K,
+           "verify_host_ms_median": sorted(host)[2],
+           "verify_eager_device_ms": busy, "verify_eager_ops": n_ops,
+           "verify_eager_kernels": n_kernels,
+           "verify_top_ops_ms": [[n[:80], ms, ms / busy if busy else 0.0] for n, ms in top]}
+    params = runner.params
+    if isinstance(params.get("lm_head"), dict) or isinstance(params["embed"], dict):
+        from dynamo_tpu_torch.ops.quant import INT8_MATMUL_MAX_ROWS, qeinsum
+
+        tied = runner.config.tie_word_embeddings
+        head = params["embed"] if tied else params["lm_head"]
+        d = runner.config.d_model
+        hg = torch.Generator(device=DEV).manual_seed(80)
+        x = torch.randn(S * C, d, generator=hg, device=DEV).to(torch.bfloat16)
+        row["head_rows"] = S * C
+        row["head_max_abs_err"] = head_parity(torch, f"{label} verify rows M {S * C}", x, head,
+                                              tied)
+        w = params["layers"][0]["w_gate"]
+        x3 = x[:, None, :]
+        row["w_gate_product_ms"] = {
+            f"M {S * C} (dequantise + torch.matmul)": time_ms(
+                torch, lambda: qeinsum("bcd,df->bcf", x3, w), 20),
+            f"M {INT8_MATMUL_MAX_ROWS} (int8_matmul)": time_ms(
+                torch, lambda: qeinsum("bcd,df->bcf", x3[:INT8_MATMUL_MAX_ROWS], w), 20)}
+        reset_counts()  # the head's parity launch and the products do not count
+    emit({**row, "card": smi})
+    return row
+
+
+def spec_main_phase(smi) -> dict:
+    """Phase 41 (see the module's docstring). Returns the worker's launch
+    counts."""
+    import tempfile
+
+    from dynamo_tpu_torch.worker import __main__ as tworker
+
+    t_phase = time.monotonic()
+    root = os.path.dirname(os.path.abspath(__file__))
+    refs, bodies = spec_main_references(tworker)
+    procs, counts_file = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            procs["discd"] = ProcLines(subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch.discd", "--port", "0", "--xsub", "0",
+                 "--xpub", "0"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                cwd=root))
+            t0 = time.monotonic()
+            while not procs["discd"].find(r"discd ready"):
+                if procs["discd"].proc.poll() is not None or time.monotonic() - t0 > 60:
+                    fail(f"spec_main: discd did not start: {procs['discd'].tail()}")
+                time.sleep(0.02)
+            m = procs["discd"].find(r"discd ready: discovery (\S+), events (\S+)")[1]
+            env = {**os.environ, "PYTHONUNBUFFERED": "1", "DYN_TPU_DISCOVERY": "discd",
+                   "DYN_TPU_DISCOVERY_ADDR": m.group(1), "DYN_TPU_EVENT_PLANE": "zmq",
+                   "DYN_TPU_EVENT_PLANE_ADDR": m.group(2), "DYN_TPU_REQUEST_PLANE": "tcp",
+                   "DYN_TPU_LOAD_REPORT_INTERVAL_S": str(MAINS_INTERVAL_S),
+                   "DYN_TPU_GRACE_PERIOD": str(MAINS_GRACE_S)}
+            counts_file = os.path.join(tmp, "counts-spec.json")
+            procs["worker"] = ProcLines(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mains-worker", counts_file,
+                 "--model", MAINS_MODEL, "--speculative", "ngram", "--system-port", "0"],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=root,
+                env={**env, "DYN_TPU_WORKER_ID": str(SPEC_MAIN_WORKER)}))
+            procs["frontend"] = ProcLines(subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--host", "127.0.0.1",
+                 "--http-port", "0"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, cwd=root, env=env))
+            result = asyncio.run(spec_main_client(procs, bodies, refs))
+        finally:
+            for p in reversed(list(procs.values())):
+                if p.proc.poll() is None:
+                    p.proc.terminate()
+                    try:
+                        p.proc.wait(timeout=15)
+                    except subprocess.TimeoutExpired:
+                        p.proc.kill()
+                        p.proc.wait()
+        counts = _read_counts_file(counts_file)
+    if counts.get("paged_attention_decode", 0) <= 0:
+        fail(f"spec_main: the worker never launched paged_attention_decode: {counts}")
+    emit({"phase": "spec_main", "model": MAINS_MODEL, **result,
+          "launches": {k: v for k, v in counts.items() if v},
+          "seconds": time.monotonic() - t_phase, "card": smi})
+    return counts
+
+
+def spec_main_references(tworker):
+    """The spec_main chats and the ids an in-process plain engine (the
+    worker main's weights: the preset's random init at seed 0, and its
+    defaults) streams for each chat's token ids."""
+    import numpy as np
+
+    from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
+    from dynamo_tpu_torch.llm import ModelDeploymentCard, OpenAIPreprocessor, tiny_tokenizer
+    from dynamo_tpu_torch.llm.entrypoint import resolve_chat_template
+
+    wargs = tworker.build_parser().parse_args(["--model", MAINS_MODEL])
+    engine = TorchEngine(TorchEngineArgs(
+        config=tworker.BUILTIN_CONFIGS[MAINS_MODEL](), block_size=wargs.block_size,
+        num_kv_blocks=wargs.num_kv_blocks, max_num_seqs=wargs.max_num_seqs,
+        max_model_len=wargs.max_model_len, prefill_chunk=wargs.prefill_chunk,
+        decode_steps=wargs.decode_steps, device=DEV))
+    tok = tiny_tokenizer()
+    card = ModelDeploymentCard(name=MAINS_MODEL, context_length=wargs.max_model_len,
+                               kv_block_size=wargs.block_size)
+    pre = OpenAIPreprocessor(card, tok, resolve_chat_template(card))
+    rng = np.random.default_rng(41)
+    bodies = [{"model": MAINS_MODEL, "max_tokens": SPEC_MAIN_TOKENS, "temperature": 0.0,
+               "stream": True, "stream_options": {"include_usage": True},
+               "nvext": {"ignore_eos": True},
+               "messages": [{"role": "user", "content": pipeline_text(tok, rng,
+                                                                      SPEC_MAIN_PROMPT)}]}
+              for _ in range(SPEC_MAIN_CHATS)]
+    ids = [pre.preprocess(dict(b)).token_ids for b in bodies]
+
+    async def run():
+        try:
+            return await serve_engine(engine, spec_requests(ids, SPEC_MAIN_TOKENS))
+        finally:
+            await engine.stop()
+
+    runs = asyncio.run(run())
+    del engine
+    gc.collect()
+    return [dict(prompt=len(i), ids=r["ids"], text=tok.decode(r["ids"])) for i, r in
+            zip(ids, runs)], bodies
+
+
+async def spec_main_client(procs, bodies, refs) -> dict:
+    """The client side of spec_main_phase: the chats over HTTP to the
+    frontend at once, then the worker's /engine/stats and /debug/compiles."""
+    from dynamo_tpu_torch.engines.gpu.runner import SPEC_PROGRAM
+    from dynamo_tpu_torch.tools import sse_client
+
+    everyone = list(procs.items())
+    frontend, worker = procs["frontend"], procs["worker"]
+    port = int((await until("the frontend's listening line", lambda: frontend.find(
+        r"frontend listening on \S+:(\d+)"), procs=everyone))[1].group(1))
+    sys_port = int((await until("the spec worker's system server", lambda: worker.find(
+        r"system server on :(\d+)"), timeout=300, procs=everyone))[1].group(1))
+    await until("the spec worker's serving line", lambda: worker.find(
+        rf"worker serving {MAINS_MODEL} as dynamo/backend/generate instance "
+        rf"{SPEC_MAIN_WORKER:#x}"), timeout=300, procs=everyone)
+
+    async def get(p, path):
+        r = await sse_client.one(p, {"method": "GET", "path": path})
+        if r["status"] != 200:
+            fail(f"spec_main: GET {path} answered {r['status']} {r['body'][:300]}")
+        return json.loads(r["body"])
+
+    async def listed():
+        return [x["id"] for x in (await get(port, "/v1/models"))["data"]]
+
+    await until("the model on /v1/models", lambda: _is(listed(), [MAINS_MODEL]),
+                procs=everyone)
+
+    async def serve(what):
+        """The chats at once: each whole and equal to its reference; a row
+        of TTFT and ITL (a token, from the first to the last) each."""
+        recs = await asyncio.gather(*(sse_client.one(port, {"path": "/v1/chat/completions",
+                                                            "body": b}) for b in bodies))
+        rows = []
+        for i, (rec, ref) in enumerate(zip(recs, refs)):
+            chunks = whole_stream(rec, SPEC_MAIN_TOKENS, f"spec_main: {what} chat {i}")
+            text = stream_text(chunks)
+            _, usage, _ = sse_chunks(rec)
+            if usage["prompt_tokens"] != ref["prompt"] or text != ref["text"]:
+                fail(f"spec_main: {what} chat {i} ({usage['prompt_tokens']} prompt tokens) "
+                     f"streamed {text[:80]!r}, the in-process plain engine {ref['text'][:80]!r} "
+                     f"on {ref['prompt']} prompt tokens")
+            times = [t for t, _ in chunks]
+            rows.append({"prompt": ref["prompt"], "ttft_ms": 1e3 * (times[0] - rec["t0"]),
+                         "itl_ms": 1e3 * (times[-1] - times[0]) / (SPEC_MAIN_TOKENS - 1),
+                         "frames": len(chunks)})
+        return rows
+
+    async def captures():
+        return (await get(sys_port, "/debug/compiles"))["totals"]["compiles"]
+
+    # a cold pass captures the graphs the set reaches (and pays the
+    # process's first launches); then, from an empty prefix cache, the
+    # measured pass
+    cold = await serve("cold")
+    r = await sse_client.one(sys_port, {"method": "POST", "path": "/engine/clear_kv_blocks",
+                                        "body": {}})
+    if r["status"] != 200:
+        fail(f"spec_main: /engine/clear_kv_blocks answered {r['status']}")
+    c0, st0 = await captures(), await get(sys_port, "/engine/stats")
+    rows = await serve("measured")
+    c1, st1 = await captures(), await get(sys_port, "/engine/stats")
+    if c1 != c0:
+        fail(f"spec_main: {c1 - c0} graphs were captured in the measured pass")
+    window = spec_counts(st1, st0)
+    if window["spec_proposed"] <= 0 or window["spec_ticks"] <= 0:
+        fail(f"spec_main: the worker's stats show no proposals: {window} ({st1})")
+    if st1.get("pipeline_depth") != 1:
+        fail(f"spec_main: the spec worker runs at depth {st1.get('pipeline_depth')}")
+    compiles = await get(sys_port, "/debug/compiles")
+    prog = compiles["programs"].get(SPEC_PROGRAM)
+    if not prog or prog.get("compiles", 0) <= 0:
+        fail(f"spec_main: /debug/compiles lists no {SPEC_PROGRAM}: {sorted(compiles['programs'])}")
+    return {"chats": rows, "cold_chats": cold, "captures_in_window": c1 - c0,
+            "ttft_ms_mean": sum(r["ttft_ms"] for r in rows) / len(rows),
+            "itl_ms_mean": sum(r["itl_ms"] for r in rows) / len(rows),
+            "streams_equal_in_process_plain": True, **spec_summary(window),
+            "worker_stats": {k: st1[k] for k in ("spec_graphs", "decode_graphs",
+                                                 "pipeline_depth", "generated_tokens")},
+            "compiles": {name: {k: p.get(k) for k in ("compiles", "signatures", "budget",
+                                                      "storms")}
+                         for name, p in compiles["programs"].items()}}
+
+
 def fused_ledger_line(engine, smi) -> None:
     """The Llama-3-8B int8 engine's perf ledger (made anew before the
     engine): its decode rows must run the fused layer (path "fused"), each
@@ -6502,6 +7095,18 @@ def main() -> int:
                                   ("paged_attention_decode", "paged_attention_chunk"),
                                   QWEN_GAP_LIMIT, "engine", embed_scale=QWEN_EMBED_SCALE)
     profile_phase(torch, engine.runner, smi)
+    # Speculative decoding: #1 at the verify's shapes, a plain and a spec
+    # engine on one set of Qwen weights (streams equal, the verify's graphs,
+    # replay against eager, the break-even), then a `--speculative ngram`
+    # worker main behind the frontend.
+    for k, v in spec_kernel_phase(torch).items():
+        worst[k] = max(worst.get(k, 0.0), v)
+    counts_spec = spec_phase(torch, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_spec_main = spec_main_phase(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     # The processors and logprobs on the same weights (the unfused burst).
     args, params = engine.args, engine.runner.params
     del engine
@@ -6561,6 +7166,9 @@ def main() -> int:
         fail("the fused layer's gate did not turn it on for Llama-3-8B int8")
     fused_ledger_line(engine, smi)
     profile_phase(torch, engine.runner, smi, "profile_int8")
+    # spec's break-even on the same runner: the verify unfused (and its
+    # 80-row products past the int8 kernel's 64), the decode step fused
+    spec_breakeven(torch, engine.runner, smi, "llama3-8b int8")
     del engine
     gc.collect()
     torch.cuda.empty_cache()
@@ -6723,7 +7331,8 @@ def main() -> int:
         "decode_bf16": "_prof_attn.py:312",
         "ffn_int8": "_prof_fused_ffn.py:116",
     }
-    # launches: the six engine paths (Qwen2.5-0.5B bf16, Llama-3-8B int8,
+    # launches: the spec engine's measured run and the spec worker main
+    # (Qwen2.5-0.5B), the six engine paths (Qwen2.5-0.5B bf16, Llama-3-8B int8,
     # Llama-3-8B int8 with int8 KV, Gemma-2-2B bf16, Gemma-3-1B int8 with
     # int8 KV, Gemma-3-1B int8 over bf16 pools, and the latter with the fused
     # layer off), the OpenAI pipeline, the HTTP frontend and the worker
@@ -6734,7 +7343,8 @@ def main() -> int:
     # prof_8b's four modes); times of the D 64 (bf16 pools) and D 128 (int8
     # pools) cases, the D 256 and block-size-128 ones above, #5-#7 at their
     # main cases
-    paths = (counts, counts8, counts8kv, counts_g, counts_3, counts_3bf, counts_3u, counts_pipe,
+    paths = (counts, counts_spec, counts_spec_main, counts8, counts8kv, counts_g, counts_3,
+             counts_3bf, counts_3u, counts_pipe,
              counts_http, counts_tcp, counts_kv, counts_mains, counts_perf, counts_dm,
              counts_disagg, counts_attn,
              counts_ffn, counts_8b)

@@ -59,12 +59,23 @@ A request that carries a ``traceparent`` gets the retrospective
 stream ends (engine.py:915-955), built from host monotonic stamps the
 serving path takes as it passes: no device sync, nothing inside a burst.
 
+Speculative decoding (``spec_mode="ngram"``, engine.py:107-113,
+571-579, 1030-1033, 1293-1305, 1409-1441): prompt-lookup proposals
+(engines/gpu/spec.py) verified in one [S, spec_k + 1] forward with
+rejection sampling (``DeviceRunner.run_spec``, a CUDA graph a width bucket
+on the card). A spec tick comes first in the loop and the fused decode
+tick runs when it declines (nothing proposes, or a row asks for logprobs
+or processors); spec caps the pipeline depth at 1 unless the brownout
+lever (``set_spec_suspended``) parks it. A verify's device time is not
+host gap, and, as JAX's, spec ticks feed neither the step metrics nor the
+perf ledger; a failing spec tick takes the decode tick's retry. JAX's
+``spec_tick`` / ``spec_suspend`` flight records have no ring here (A9).
+
 Not ported yet (ROADMAP): the abort's and the deadline shed's flight
 records and the dump (the engine has no flight ring, A9), the
 admission's containment of a request that fails its prefill
-deterministically, speculative decoding (and so logprobs under it),
-LoRA, MoE, the tick budget, sleep/wake, the KV checkpoint, multimodal
-and prefill under CUDA graphs.
+deterministically, LoRA, MoE, the tick budget, sleep/wake, the KV
+checkpoint, multimodal and prefill under CUDA graphs.
 
 KV block export and import, for disaggregation (engine.py:1885-2009):
 ``export_blocks_wire_async`` pins the committed blocks of a hash chain up
@@ -211,6 +222,13 @@ class TorchEngineArgs:
     # a logprobs burst computes this many a step, and each request gets the
     # first min(logprobs, cap).
     top_logprobs_cap: int = 20
+    # Speculative decoding (JaxEngineArgs.spec_*): "ngram" = prompt-lookup
+    # proposals verified in one [S, spec_k + 1]-token forward with rejection
+    # sampling; None = off. spec_ngram: the match length; spec_k: tokens
+    # proposed a verify.
+    spec_mode: Optional[str] = None
+    spec_ngram: int = 3
+    spec_k: int = 4
 
     @property
     def max_blocks_per_seq(self) -> int:
@@ -234,6 +252,10 @@ class _Sequence:
     t_prefill_start: float = 0.0
     t_first_out: float = 0.0
     kv_roi: Optional[Dict[str, Any]] = None  # KvReusePlane.note_request's
+    # Prompt-lookup n-gram -> the position after its latest occurrence,
+    # indexed up to ngram_upto (engines/gpu/spec.py).
+    ngram_index: Dict[tuple, int] = field(default_factory=dict)
+    ngram_upto: int = 0
 
 
 @dataclass
@@ -293,6 +315,8 @@ class TorchEngine:
         *,
         on_kv_event: Optional[Callable[[KvEvent], None]] = None,
     ) -> None:
+        if args.spec_mode not in (None, "ngram"):
+            raise ValueError(f"unsupported spec_mode {args.spec_mode!r} (None or 'ngram')")
         self.args = args
         self.config = args.config
         self.pool = BlockPool(args.num_kv_blocks, args.block_size, on_event=on_kv_event)
@@ -340,8 +364,14 @@ class TorchEngine:
         # Requests finished at dequeue because their deadline had expired
         # while they waited (typed timeout, no prefill spent).
         self.deadline_sheds = 0
-        # Brownout lever (runtime/overload.py): kept and honoured by the
-        # speculative decode, which the port does not have yet (A5).
+        # Speculative decoding's counts: tokens proposed and accepted, the
+        # verifies run (spec ticks) and the rows they emitted for.
+        self.spec_proposed = 0
+        self.spec_accepted = 0
+        self.spec_ticks = 0
+        self.spec_rows = 0
+        # Brownout lever (runtime/overload.py): under pressure the spec
+        # path parks and the engine decodes on the fused path.
         self._spec_suspended = False
         runner = self.runner
         # Step-loop metric families (registered on the system server by
@@ -439,6 +469,10 @@ class TorchEngine:
             "kv_high_watermark": ADMIT_KV_HIGH_WATERMARK,
             "draining": 0,
             "deadline_sheds": self.deadline_sheds,
+            **({"spec_proposed": self.spec_proposed, "spec_accepted": self.spec_accepted,
+                "spec_ticks": self.spec_ticks, "spec_rows": self.spec_rows,
+                "spec_graphs": len(self.runner.spec_graphs)}
+               if self.args.spec_mode else {}),
         }
 
     def kv_pool_bytes_breakdown(self) -> Dict[str, int]:
@@ -542,6 +576,12 @@ class TorchEngine:
             block_hashes, KvWireBlocks.dense(k_blocks, v_blocks), anchor_parent=anchor_parent)
 
     def _pipeline_depth(self) -> int:
+        # Speculative decoding caps the depth at 1 (engine.py:571-579): every
+        # spec tick proposes from reconciled host tokens, and a pipelined
+        # fallback would advance two bursts between proposal points. A
+        # brownout-suspended spec engine gets its pipelining back.
+        if self.args.spec_mode and not self._spec_suspended:
+            return 1
         return max(1, int(self.args.pipeline_depth))
 
     # -- request entry -----------------------------------------------------
@@ -632,9 +672,10 @@ class TorchEngine:
     def set_spec_suspended(self, suspended: bool) -> None:
         """Brownout lever (engine.py:1293-1305): park/restore speculative
         decode without touching the engine args (runtime/overload.py wires
-        this to the healthy↔brownout transitions). The port has no
-        speculative decode yet (A5), so, as JAX's engine with spec_mode
-        off, it keeps the flag and wakes the loop."""
+        this to the healthy↔brownout transitions). Takes effect at the next
+        tick: a suspended spec engine decodes on the fused path at its
+        pipeline depth. JAX's engine also records a ``spec_suspend`` flight
+        event; this engine has no flight ring yet (A9)."""
         suspended = bool(suspended)
         if suspended == self._spec_suspended:
             return
@@ -683,7 +724,11 @@ class TorchEngine:
                     # host-injected gap.
                     self._t_last_ready = None
                 if any(s is not None for s in self._slots) or self._inflight:
-                    await self._decode_tick()
+                    # A spec tick first; the fused decode tick serves what
+                    # it declines (engine.py:1030-1033).
+                    if not (self.args.spec_mode == "ngram" and not self._spec_suspended
+                            and await self._spec_tick()):
+                        await self._decode_tick()
                 elif not admitted:
                     # Idle: request inter-arrival time is not host gap.
                     self._t_last_ready = None
@@ -1022,6 +1067,34 @@ class TorchEngine:
                 seq.block_ids.append(b)
                 self._dirty_tables.add(slot)
         return [s for s in self._slots if s is not None]
+
+    # -- speculative decoding (engine.py:1409-1441) -------------------------
+    # The policy lives in engines/gpu/spec.py (NgramSpecDecoder); the engine
+    # keeps the device hook and a decoder made at first use.
+
+    @property
+    def _spec(self):
+        if self.__dict__.get("_spec_decoder") is None:
+            from dynamo_tpu_torch.engines.gpu.spec import NgramSpecDecoder
+
+            self.__dict__["_spec_decoder"] = NgramSpecDecoder(self)
+        return self.__dict__["_spec_decoder"]
+
+    def _run_spec(self, tokens, start_pos, chunk_lens, block_tables, temp=None, topk=None,
+                  topp=None, salts=None):
+        return self.runner.run_spec(tokens, start_pos, chunk_lens, block_tables, temp=temp,
+                                    topk=topk, topp=topp, salts=salts)
+
+    def _propose(self, seq: _Sequence) -> List[int]:
+        return self._spec.propose(seq)
+
+    def _spec_eligible(self, active: List[_Sequence]) -> bool:
+        return self._spec.eligible(active)
+
+    async def _spec_tick(self) -> bool:
+        """One verify tick; False when it declines. (JAX's engine records a
+        ``spec_tick`` flight event for a tick it ran: no ring here, A9.)"""
+        return await self._spec.tick()
 
     async def _decode_tick(self) -> None:
         """Top the in-flight window up to ``pipeline_depth`` bursts, then

@@ -36,6 +36,15 @@ Each graph captured counts in the process's compile telemetry
 ``runner.decode_state``, with the capture's wall time; prefill is eager and
 counts nothing.
 
+Speculative verify (runner.py:785-815, 1189-1218): ``run_spec`` runs one
+[S, C] forward with every position's logits and the rejection-sampling
+verify (ops/sampling.spec_verify_sample) over static input buffers written
+from the host before each call. On the card each (width bucket, C) is one
+CUDA graph (``spec_graphs``, keyed apart from the decode graphs), in the
+decode graphs' pool and on their capture stream, and each capture counts
+as a compile of JAX's ``runner.spec_verify`` under the decode programs'
+budget. Its noise is keyed by token index, never by a dispatch counter.
+
 KV block movement (runner.py:90-186, 1232-1359), for disaggregation: the
 gather of committed blocks out of the pools and the scatter of blocks into
 them, over bf16 and int8 pools alike, in the wire's layout (disagg/wire.py:
@@ -83,6 +92,7 @@ from dynamo_tpu_torch.ops.sampling import (
     log_softmax_f32,
     pick_logprobs,
     sample_tokens,
+    spec_verify_sample,
     top_of,
 )
 from dynamo_tpu_torch.runtime.device_observe import (
@@ -94,9 +104,14 @@ from dynamo_tpu_torch.runtime.device_observe import (
 # A decode graph's key: (width bucket, want_logprobs, use_procs), as the
 # JAX runner keys its programs (runner.py:1008).
 GraphKey = Tuple[int, bool, bool]
-# The program a decode graph's capture counts under (compile telemetry):
-# the JAX runner's decode program's name.
+# A verify graph's key: ("spec", width bucket, rows a sequence). Its own
+# first field keeps it apart from every GraphKey; verify graphs live in
+# their own dictionary besides.
+SpecKey = Tuple[str, int, int]
+# The programs a graph's capture counts under (compile telemetry): the JAX
+# runner's decode and speculative-verify programs' names.
 DECODE_PROGRAM = "runner.decode_state"
+SPEC_PROGRAM = "runner.spec_verify"
 
 
 # The dense wire dtype of an int8 pool's dense export (v1 importers; JAX's
@@ -230,6 +245,16 @@ class DeviceRunner:
         self._decode_sig_budget = 2 * width_buckets + 4
         global_compile_watcher().set_budget(DECODE_PROGRAM, self._decode_sig_budget)
         self._captures: Dict[Tuple[bool, bool], WatchedCapture] = {}
+        # Speculative verify (run_spec): one graph a (width bucket, rows a
+        # sequence), in the decode graphs' pool and on their capture
+        # stream, reading static input buffers written before each replay;
+        # captures count under JAX's verify program with its budget.
+        self.spec_graphs: Dict[SpecKey, CapturedCall] = {}
+        self._spec_io: Dict[int, Dict[str, torch.Tensor]] = {}  # rows a sequence -> buffers
+        self._spec_capture: Optional[WatchedCapture] = None
+        self.spec_eager = 0  # verifies run eagerly (captures' first runs included)
+        if getattr(args, "spec_mode", None):
+            global_compile_watcher().set_budget(SPEC_PROGRAM, self._decode_sig_budget)
         # Host-to-device traffic of the decode path, as the JAX runner's
         # transfer_log: ("slot_sync" | "table_sync", rows) and ("decode", nb).
         self.transfer_log: Deque[Tuple[str, int]] = collections.deque(maxlen=4096)
@@ -407,21 +432,28 @@ class DeviceRunner:
         if graph is not None:
             graph.replay()
             return
+        self.graphs[key] = self._run_and_capture(lambda: self._burst(key),
+                                                 self._capture_watch(key), key)
+        self.eager_bursts += 1
+
+    def _run_and_capture(self, fn, watch: WatchedCapture, key: Any) -> CapturedCall:
+        """Run ``fn`` eagerly on the capture stream (the call's real run, and
+        the warm-up), then capture it into the graphs' shared pool; the
+        capture counts under ``watch`` with its wall time."""
         if self._capture_stream is None:
             self._capture_stream = torch.cuda.Stream(self.device)
             self._graph_pool = torch.cuda.graph_pool_handle()
         stream = self._capture_stream
         stream.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(stream):
-            self._burst(key)
-        self.eager_bursts += 1
+            fn()
         t0 = time.monotonic()
-        self.graphs[key] = CapturedCall(lambda: self._burst(key), pool=self._graph_pool,
-                                        stream=stream)
+        graph = CapturedCall(fn, pool=self._graph_pool, stream=stream)
         seconds = time.monotonic() - t0
         self.capture_ms += 1e3 * seconds
-        self._capture_watch(key).captured(key, seconds)
+        watch.captured(key, seconds)
         torch.cuda.current_stream(self.device).wait_stream(stream)
+        return graph
 
     def _capture_watch(self, key: GraphKey) -> WatchedCapture:
         """The capturing object of ``key``'s burst variant (compile
@@ -483,6 +515,101 @@ class DeviceRunner:
         self._free_outputs.append(host)
         self.nonfinite_rows += int(np.count_nonzero(~finite & (handles.active > 0)))
         return DecodeResult(toks, finite, *logprobs)
+
+    # -- speculative verify (runner.py:785-815, 1189-1218) -----------------
+
+    def _spec_buffers(self, C: int) -> Dict[str, torch.Tensor]:
+        """The verify's static inputs and outputs at C rows a sequence,
+        made at its first use; a replay reads and writes these."""
+        io = self._spec_io.get(C)
+        if io is None:
+            S, P, dev = self.args.max_num_seqs, self.args.max_blocks_per_seq, self.device
+            shapes = {"tokens": ((S, C), torch.int64), "start": ((S,), torch.int32),
+                      "lens": ((S,), torch.int32), "tables": ((S, P), torch.int32),
+                      "temp": ((S,), torch.float32), "topk": ((S,), torch.int32),
+                      "topp": ((S,), torch.float32), "salts": ((S,), torch.int64),
+                      "emitted": ((S, C), torch.int64), "counts": ((S,), torch.int64)}
+            io = self._spec_io[C] = {name: torch.zeros(shape, dtype=dtype, device=dev)
+                                     for name, (shape, dtype) in shapes.items()}
+        return io
+
+    def _verify(self, io: Dict[str, torch.Tensor], nb: int) -> None:
+        """The verify body (JAX's ``_build_spec_fn`` step): one forward over
+        the [S, C] tokens at the first ``nb`` table pages with every
+        position's logits (the fused layer's gate is C = 1, so the layers
+        run unfused), its K/V written into the pools, then
+        spec_verify_sample with position i's noise keyed (seed, salt, start
+        + i + 1), the index of the token it decides. Reads and writes only
+        the buffers of ``io`` and the pools, so it runs eagerly and under
+        capture alike."""
+        tokens, start = io["tokens"], io["start"]
+        C = tokens.shape[1]
+        logits, _, _ = llama.forward_paged(
+            self.params, self.config, tokens, start, io["lens"],
+            io["tables"][:, :nb].contiguous(), self.k_cache, self.v_cache, all_logits=True,
+        )
+        index = start.to(torch.int64)[:, None] + 1 + torch.arange(C, device=tokens.device)[None, :]
+        keys = fold_row_keys(self.seed, io["salts"][:, None], index)
+        emitted, counts = spec_verify_sample(
+            logits, tokens[:, 1:], torch.clamp(io["lens"] - 1, min=0), io["temp"], io["topk"],
+            io["topp"], row_keys=keys,
+        )
+        io["emitted"].copy_(emitted)
+        io["counts"].copy_(counts)
+
+    def _spec_watch(self) -> WatchedCapture:
+        if self._spec_capture is None:
+            self._spec_capture = watched_capture(SPEC_PROGRAM, budget=self._decode_sig_budget)
+        return self._spec_capture
+
+    @torch.inference_mode()
+    def run_spec(self, tokens, start_pos, chunk_lens, block_tables, temp=None, topk=None,
+                 topp=None, salts=None) -> Tuple[np.ndarray, np.ndarray]:
+        """Speculative verify with rejection sampling over every slot: tokens
+        [S, C] (each row's next token, then its proposals), start [S], lens
+        [S] (1 + the row's proposals; 0 for a row that verifies nothing),
+        the tables' first ``nb`` pages [S, nb], and each row's sampling
+        parameters and salt (greedy by default). On the card with
+        ``cuda_graphs`` each (nb, C) is one captured graph, run eagerly at
+        its first use; else eagerly. Returns (emitted [S, C], counts [S])
+        as numpy: row i's first counts[i] entries are its accepted
+        proposals and the corrected or bonus token."""
+        S, C = tokens.shape
+        nb = int(block_tables.shape[1])
+        if S != self.args.max_num_seqs or C < 1:
+            raise ValueError(f"verify tokens {tuple(tokens.shape)}: want [{self.args.max_num_seqs}, C]")
+        if not 1 <= nb <= self.args.max_blocks_per_seq:
+            raise ValueError(f"table width {nb} outside 1..{self.args.max_blocks_per_seq}")
+        io = self._spec_buffers(C)
+        rows = {"tokens": tokens, "start": start_pos, "lens": chunk_lens,
+                "temp": np.zeros(S, np.float32) if temp is None else temp,
+                "topk": np.zeros(S, np.int32) if topk is None else topk,
+                "topp": np.ones(S, np.float32) if topp is None else topp,
+                "salts": np.zeros(S, np.int64) if salts is None else salts}
+        for name, a in rows.items():
+            io[name].copy_(self._to_state(a, io[name].dtype))
+        io["tables"][:, :nb].copy_(self._to_state(block_tables, torch.int32))
+        if self.args.cuda_graphs:
+            self._replay_or_capture_spec(("spec", nb, C), io)
+        else:
+            self._verify(io, nb)
+            self.spec_eager += 1
+        self.transfer_log.append(("spec", nb))
+        return io["emitted"].cpu().numpy(), io["counts"].cpu().numpy()
+
+    def _replay_or_capture_spec(self, key: SpecKey, io: Dict[str, torch.Tensor]) -> None:
+        """The verify of ``key`` by its graph; at the key's first use it runs
+        eagerly on the capture stream and is captured right after."""
+        if self.device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, got {self.device}")
+        graph = self.spec_graphs.get(key)
+        if graph is not None:
+            graph.replay()
+            return
+        nb = key[1]
+        self.spec_graphs[key] = self._run_and_capture(lambda: self._verify(io, nb),
+                                                      self._spec_watch(), key)
+        self.spec_eager += 1
 
     # -- KV block movement (runner.py:1223-1359) ---------------------------
 

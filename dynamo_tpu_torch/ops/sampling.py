@@ -12,6 +12,11 @@ batch and dispatch order, and lets preemption-by-recompute redraw the same
 noise. The bits come from a counter-based integer hash, not JAX's threefry,
 so sampled (temperature > 0) streams differ from the JAX package's; greedy
 streams are the same.
+
+``spec_verify_sample`` is the speculative verify (sampling.py:130-233):
+greedy rows accept the proposals that match the argmax, sampled rows run
+rejection sampling with the same filtering; its noise is keyed the same
+way, by the token index each position decides.
 """
 
 from __future__ import annotations
@@ -85,6 +90,107 @@ def sample_tokens(
     # Greedy: the FIRST maximal logit, as lax.top_k's stable order picks.
     greedy = torch.argmax(logits, dim=-1)
     return torch.where(temperature <= 0.0, greedy, sampled)
+
+
+# Tags folded into a verify position's key so its acceptance uniform and its
+# Gumbel noise are independent draws (spec_verify_sample).
+SPEC_UNIFORM_TAG = 0x2545F491
+SPEC_GUMBEL_TAG = 0x9E3779B9
+
+
+def row_uniform(row_keys: torch.Tensor) -> torch.Tensor:
+    """One float32 uniform in (0, 1) a key, any shape."""
+    h = _mix32(row_keys)
+    return ((h >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+
+
+def spec_verify_sample(
+    logits: torch.Tensor,  # [B, C, V]: position i decides token i + 1
+    proposals: torch.Tensor,  # [B, C - 1] draft tokens (a one-hot draft)
+    prop_len: torch.Tensor,  # [B] valid proposals a row
+    temperature: torch.Tensor,  # [B]; <= 0 greedy
+    top_k: torch.Tensor,  # [B]
+    top_p: torch.Tensor,  # [B]
+    *,
+    row_keys: torch.Tensor,  # [B, C] (fold_row_keys of each position's token index)
+):
+    """Speculative verify with rejection sampling (Leviathan/Chen), the
+    counterpart of JAX's ``spec_verify_sample`` (sampling.py:130-233).
+
+    Greedy rows (temperature <= 0) accept the run of proposals equal to the
+    argmax, and the first mismatch (or the bonus position) emits the
+    argmax. Sampled rows filter as ``sample_tokens`` does (temperature,
+    top-k, top-p inside the top SAMPLE_WIDTH) and accept proposal x where
+    u < p(x); a rejection resamples from p with x zeroed (max(p - q, 0) of
+    the one-hot draft, renormalised), a full accept takes a bonus sample.
+
+    Noise: position i's uniform and Gumbel draws come from ``row_keys[:,
+    i]`` with SPEC_UNIFORM_TAG and SPEC_GUMBEL_TAG folded in, keyed by the
+    token index the position decides, never by a dispatch counter (JAX
+    folds a host step counter into its key, runner.py:1206-1208): the
+    verify is a captured CUDA graph, and a counter baked into it would
+    replay the same noise. Greedy rows equal JAX's exactly; sampled rows
+    draw from the same target distribution with other bits.
+
+    Returns (emitted [B, C] int64, counts [B] int64): a row's first
+    counts[b] entries are the accepted proposals and the corrected (or
+    bonus) token, the rest 0."""
+    B, C, V = logits.shape
+    W = min(SAMPLE_WIDTH, V)
+    N = B * C
+    dev = logits.device
+    flat = logits.reshape(N, V)
+    raw_top, top_idx = torch.topk(flat, W, dim=-1)  # [N, W] descending
+
+    def rep(a):  # [B] -> [N]
+        return a.repeat_interleave(C, dim=0)
+
+    temp = rep(temperature.to(torch.float32))
+    top_logits = raw_top.to(torch.float32) / torch.clamp(temp, min=1e-6)[:, None]
+    ranks = torch.arange(W, device=dev)[None, :]
+    tk = rep(top_k)
+    k = torch.where(tk > 0, torch.clamp(tk, max=W), torch.full_like(tk, W))
+    keep = ranks < k[:, None]
+    probs = torch.softmax(top_logits, dim=-1)
+    cum = torch.cumsum(probs, dim=-1)
+    keep = keep & ((cum - probs) < torch.clamp(rep(top_p).to(torch.float32), 0.0, 1.0)[:, None])
+    masked = torch.where(keep, top_logits, torch.full_like(top_logits, NEG_INF))
+
+    # each position's draft: proposals shifted onto the logit positions
+    # (the last position has none; past prop_len they are masked below)
+    props = torch.cat([proposals.to(torch.int64),
+                       torch.zeros((B, 1), dtype=torch.int64, device=dev)], dim=1)  # [B, C]
+    prop_pos = props.reshape(N)
+    match = top_idx == prop_pos[:, None]  # [N, W]
+    pr = torch.softmax(masked, dim=-1)  # the filtered target, renormalised
+    p_prop = torch.where(match & keep, pr, torch.zeros_like(pr)).sum(dim=-1)  # [N]
+
+    keys = row_keys.reshape(N).to(torch.int64)
+    u = row_uniform(keys ^ SPEC_UNIFORM_TAG)
+    gumbel = row_gumbel(_mix32(keys ^ SPEC_GUMBEL_TAG), W)
+
+    greedy = temp <= 0.0
+    argmax_tok = torch.argmax(flat, dim=-1)  # the first maximal logit
+    accept = torch.where(greedy, prop_pos == argmax_tok, u < p_prop)
+    choice = torch.argmax(masked + gumbel, dim=-1)
+    sample = torch.gather(top_idx, 1, choice[:, None])[:, 0]
+    masked_excl = torch.where(match, torch.full_like(masked, NEG_INF), masked)
+    choice_r = torch.argmax(masked_excl + gumbel, dim=-1)
+    resample = torch.gather(top_idx, 1, choice_r[:, None])[:, 0]
+    sample = torch.where(greedy, argmax_tok, sample).reshape(B, C)
+    resample = torch.where(greedy, argmax_tok, resample).reshape(B, C)
+    accept = accept.reshape(B, C)
+
+    pl = torch.clamp(prop_len.to(torch.int64), min=0)[:, None]  # [B, 1]
+    pos = torch.arange(C, device=dev)[None, :]
+    run = torch.cumprod((accept & (pos < pl)).to(torch.int64), dim=1)
+    n_acc = run.sum(dim=1)  # [B] accepted proposals
+    at = n_acc[:, None]
+    final = torch.where(n_acc < pl[:, 0], torch.gather(resample, 1, at)[:, 0],
+                        torch.gather(sample, 1, at)[:, 0])
+    emitted = torch.where(pos < at, props,
+                          torch.where(pos == at, final[:, None], torch.zeros_like(props)))
+    return emitted, n_acc + 1
 
 
 def log_softmax_f32(logits: torch.Tensor) -> torch.Tensor:

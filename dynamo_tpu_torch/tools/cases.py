@@ -326,6 +326,30 @@ def make_bs128_attention_case(label: str, device: Any, int8: bool):
     return name + ("_int8" if int8 else ""), kind, case, window, cap
 
 
+# The speculative verify's rows a sequence: spec_k + 1 at the engine's
+# default spec_k of 4.
+SPEC_VERIFY_C = 5
+# label: (B, heads, contexts (lo, hi), int8 pools, seed) — decode attention
+# (kernel #1) at the speculative verify's shape: SPEC_VERIFY_C query rows a
+# sequence, every row valid, block size 16, one row a slot of the engines'
+# 16. Qwen2.5-0.5B: C·G = 35 rows, the decode kernel's 64-row layout at D
+# 64; Llama-3-8B: C·G = 20 at D 128, over bf16 and over int8 pools.
+SPEC_VERIFY_CASES: Dict[str, Tuple] = {
+    "spec verify qwen2.5-0.5b B16 C5 D64": (16, QWEN_HEADS, (100, 1300), False, 111),
+    "spec verify llama3-8b B16 C5 D128": (16, LLAMA_HEADS, (100, 1300), False, 112),
+    "spec verify llama3-8b int8 B16 C5 D128": (16, LLAMA_HEADS, (100, 1300), True, 113),
+}
+
+
+def make_spec_verify_case(label: str, device: Any):
+    """(kernel name, case) of SPEC_VERIFY_CASES[label]."""
+    B, heads, (lo, hi), int8, seed = SPEC_VERIFY_CASES[label]
+    C = SPEC_VERIFY_C
+    case = attention_case(B, C, ragged(B, hi, seed, lo=lo), [C] * B, seed, device=device,
+                          int8=int8, **heads)
+    return ("paged_attention_decode_int8" if int8 else "paged_attention_decode"), case
+
+
 # label: (B, heads, block size, starts (a list, or ("ragged", lo, hi)),
 # window, softcap, seed) — decode attention with bf16 probabilities
 # (decode_packed and decode_bf16, one query token a sequence over bf16

@@ -22,6 +22,11 @@ carry the pull bandwidth a source and the sources whose breaker is open,
 and with ``--system-port`` its system server renders the ``dynamo_tpu_disagg_*``
 families and the ``disagg`` flight ring.
 
+``--speculative ngram`` (with ``--spec-k`` and ``--spec-ngram``) serves with
+prompt-lookup speculative decoding (engines/gpu/spec.py):
+
+    python -m dynamo_tpu_torch.worker --model qwen2.5-0.5b --speculative ngram
+
 ``build_parser()`` has the JAX worker's whole argument surface with its
 defaults, plus ``--device`` (cuda by default, which raises without a card;
 ``cpu`` runs the plain versions, without CUDA graphs). A flag whose
@@ -202,8 +207,6 @@ _UNPORTED: List[tuple] = [
      or a.kv_host_arena_mb, "--kv-offload-blocks/--kv-offload-dir/--kv-remote/"
      "--kv-host-arena-mb", "the tiered KV manager is not ported (ROADMAP A10, KVBM)"),
     (lambda a: a.lora_dir, "--lora-dir", "LoRA is not ported (ROADMAP A7)"),
-    (lambda a: a.speculative, "--speculative",
-     "speculative decoding is not ported (ROADMAP A5)"),
     (lambda a: a.tick_budget or a.tick_budget_floor is not None
      or a.tick_budget_ceiling is not None or a.tick_budget_policy != 0.5
      or a.tick_budget_itl_slo_ms is not None, "--tick-budget*",
@@ -314,6 +317,9 @@ async def serve_worker(args: argparse.Namespace, runtime: Any, *,
         pipeline_depth=args.pipeline_depth,
         quantization=args.quantization,
         kv_cache_dtype=args.kv_cache_dtype,
+        spec_mode=args.speculative,
+        spec_k=args.spec_k,
+        spec_ngram=args.spec_ngram,
         device=args.device,
         # a decode burst as a CUDA graph needs the card
         cuda_graphs=args.device != "cpu",

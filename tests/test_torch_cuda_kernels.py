@@ -32,6 +32,9 @@ epilogue form to qeinsum's rounding points on the kernel's own sums, bit
 for bit, and to one bf16 step of the product from the plain version's
 (tools.cases.epilogue_ok); both repeat bit for bit.
 
+Kernel #1 at the speculative verify's shapes (tools.cases.SPEC_VERIFY_CASES:
+C 5 a sequence) is held to the same limit.
+
 KV blocks imported into a TorchEngine on the card (bf16 and int8 pools)
 are read by its already captured decode graph: the next request replays
 it, with no new capture, and gives the exporter's greedy stream.
@@ -53,6 +56,7 @@ from dynamo_tpu_torch.tools.cases import (
     MODEL_PAST_ONE_SHARE,
     MODEL_STEP_LIMIT,
     PROTO_ATTENTION_CASES,
+    SPEC_VERIFY_CASES,
     bf16_steps,
     epilogue_ok,
     ffn_case,
@@ -63,6 +67,7 @@ from dynamo_tpu_torch.tools.cases import (
     make_int8_attention_case,
     make_layer_case,
     make_proto_attention_case,
+    make_spec_verify_case,
     matmul_case,
     q8_weight,
     quantize_pool,
@@ -127,6 +132,29 @@ def test_decode_kernel_matches_plain(kernels, B, C, H, KH, D, BS, starts, lens, 
     ref = paged_attention_ref(c["q"], c["k"], c["v"], c["tables"], c["start"], c["lens"],
                               window=window, logit_cap=cap)
     _check(out, ref, lens)
+
+
+@pytest.mark.parametrize("label", list(SPEC_VERIFY_CASES))
+def test_decode_kernel_at_the_spec_verify_shapes(kernels, label):
+    """#1 at the speculative verify's rows (C 5 a sequence, 16 sequences,
+    contexts 100-1,300): Qwen2.5-0.5B's 35 rows a block at D 64 (the
+    64-row layout), Llama-3-8B's 20 at D 128 over bf16 and int8 pools; at
+    the wrapper's split count and at forced splits 1, 2 and 16, and two
+    runs bit for bit equal, one launch a call under the pool's name."""
+    from dynamo_tpu_torch.ops.attention import paged_attention_ref
+
+    name, c = make_spec_verify_case(label, "cuda")
+    args = (c["q"], c["k"], c["v"], c["tables"], c["start"])
+    ref = paged_attention_ref(*args, c["clens"])
+    lens = c["clens"].tolist()
+    kernels.reset_launch_counts()
+    out = kernels.paged_attention_decode(*args)
+    _check(out, ref, lens)
+    counts = {**kernels.launch_counts, **kernels.int8_launch_counts}
+    assert counts[name] == 1 and sum(counts.values()) == 1
+    assert torch.equal(out, kernels.paged_attention_decode(*args))
+    for splits in (1, 2, 16):
+        _check(kernels.paged_attention_decode(*args, splits=splits), ref, lens)
 
 
 CHUNK_CASES = [

@@ -133,7 +133,7 @@ wanted = set("dynamo_tpu_torch." + n for n in (
     "worker.__main__", "frontend", "frontend.__main__", "runtime.overload",
     "runtime.trajectory", "runtime.system_server", "runtime.device_observe",
     "engines.metrics", "runtime.perf_ledger", "runtime.roofline", "disagg.wire",
-    "disagg.handlers"))
+    "disagg.handlers", "engines.gpu.spec"))
 assert wanted <= set(names), sorted(wanted - set(names))
 spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -77,7 +77,6 @@ REFUSED = [
     (["--kv-remote", "a/b/c"], "ROADMAP A10, KVBM"),
     (["--kv-host-arena-mb", "8"], "ROADMAP A10, KVBM"),
     (["--lora-dir", "/tmp/x"], "ROADMAP A7"),
-    (["--speculative", "ngram"], "ROADMAP A5"),
     (["--tick-budget"], "ROADMAP A9, the tick budget"),
     (["--tick-budget-floor", "32"], "ROADMAP A9, the tick budget"),
     (["--tick-budget-policy", "0.0"], "ROADMAP A9, the tick budget"),
@@ -111,6 +110,41 @@ def test_worker_serves_the_port_presets_and_accepts_their_flags():
              "--decode-steps", "4", "--pipeline-depth", "1", "--device", "cpu",
              "--system-port", "0"]))
     assert set(tworker.BUILTIN_CONFIGS) | set(tworker.MOE_PRESETS) == set(jworker.BUILTIN_CONFIGS)
+
+
+async def test_worker_passes_the_speculative_flags_to_the_engine(monkeypatch):
+    """``--speculative ngram --spec-k 3 --spec-ngram 2`` is accepted and
+    reaches the engine a worker main serves (in process, on the CPU): its
+    args carry them, and a looping greedy request runs verify ticks."""
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.discovery import MemoryDiscovery
+    from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+
+    monkeypatch.setenv("DYN_TPU_WORKER_ID", "261")
+    parser = tworker.build_parser()
+    args = parser.parse_args([
+        "--model", "tiny", "--device", "cpu", "--num-kv-blocks", "64", "--max-num-seqs", "2",
+        "--max-model-len", "128", "--prefill-chunk", "32", "--decode-steps", "4",
+        "--speculative", "ngram", "--spec-k", "3", "--spec-ngram", "2"])
+    tworker.refuse_unported(parser, args)  # no longer refused
+    rt = DistributedRuntime(discovery=MemoryDiscovery(), bus="mains-spec-flags")
+    worker = await tworker.serve_worker(args, rt)
+    engine = worker.engine
+    try:
+        a = engine.args
+        assert (a.spec_mode, a.spec_k, a.spec_ngram) == ("ngram", 3, 2)
+        req = PreprocessedRequest(token_ids=[9] * 16, sampling=SamplingOptions(temperature=0.0),
+                                  stop=StopConditions(max_tokens=24))
+        toks = [t async for out in engine.generate(req, Context()) for t in out.token_ids]
+        stats = engine.stats()
+        assert len(toks) == 24 and stats["spec_ticks"] > 0 and stats["spec_proposed"] > 0
+        assert stats["pipeline_depth"] == 1
+    finally:
+        await worker.close()
+        await rt.shutdown(grace_period=1)
 
 
 def _run(args, env=None, timeout=60):
