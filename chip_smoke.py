@@ -361,8 +361,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the worker's cached blocks and a `cleared` KV event from it reaches the
    event plane the frontend's router reads; a traced chat through the
    frontend shows on /debug/traces, /debug/requests[/{id}],
-   /debug/trajectory[/{id}] and /debug/kvcache; /drain and /v1/loras
-   answer 501 naming their ROADMAP items; `python -m dynamo_tpu_torch.cli
+   /debug/trajectory[/{id}] and /debug/kvcache; /drain answers 501
+   naming its ROADMAP item, and /v1/loras JAX's answers (no adapter
+   listed, 404 for an unload); `python -m dynamo_tpu_torch.cli
    observe kvcache|perf --port P` and `observe --port P` (the device
    plane) exit 0; the /debug/perf a scraper read while the ITL
    comparison's streams ran holds decode rows with samples, each roofline
@@ -480,9 +481,56 @@ Phases, each printing one JSON line; any failure exits non-zero:
    step runs the fused layer; the int8 head is held at the verify's 80
    rows.
 
+42. lora — multi-LoRA in this process: Qwen2.5-0.5B at full width
+   (embedding x QWEN_EMBED_SCALE), three engines on one set of weights at
+   depth 2 under CUDA graphs: no LoRA, ``lora_dir`` with a16 (rank 16,
+   alpha 32, all seven targets) and b8 (rank 8, alpha 16, q and v), and
+   the same with spec. The adapters (LORA_ADAPTERS) are written from a
+   seed with models/safetensors_lite.save_file under scratch_chip/.
+   ops/lora.apply_lora on the card is held against the same function on
+   the CPU in float32 (LORA_DELTA_TOL) at the decode shape (16 rows, ids
+   0/1/2) and a prefill chunk's (4 x 512). LORA_REQUESTS streams of
+   LORA_TOKENS, warmed, then measured: no LoRA, the LoRA engine with every
+   row at id 0, every row on a16, and a16/b8/base interleaved. Fails
+   unless: no graph is captured in the measured window; the id-0 streams
+   equal the no-LoRA engine's token for token; at least
+   LORA_CHANGED_SHARE of each adapter's streams leave the base stream
+   within LORA_CHANGE_WITHIN tokens; a16 and b8
+   streams lie within QWEN_GAP_LIMIT of a teacher-forced dense reference
+   on merged weights (W + A·B·s); each request of the mixed batch equals
+   its run alone (or parts once at such a near tie); a prompt of
+   LORA_LONG_PROMPT tokens (two prefill chunks) served base, a16, a16
+   prefills all of it, all of it, then its tail only; spec under
+   a16 equals the plain LoRA engine's streams (near-tie rule) with
+   verifies run; the HBM ledger's lora entry reads LORA_BYTES_START, then
+   LORA_BYTES_X32 after x32 (rank 32) is loaded, which drops the graphs
+   and recaptures each bucket once (then none on repeat); b8's unload
+   keeps the shape, captures nothing and leaves a16's streams as they
+   were, and a request naming b8 gets JAX's unknown-adapter error; #1
+   and #2 launched over the phase's runs. The
+   line: ITL and TTFT of the four sets, the delta's device time and extra
+   device ops a decode step (a profile burst replayed on a runner with
+   the stack against the no-LoRA runner, CUDA events; eager under
+   torch.profiler), the ledger, captures and launches.
+43. lora_main — discd, a ``--lora-dir --system-port 0`` worker main over
+   Qwen2.5-0.5B (the preset's random init; a16 and b8) and the frontend
+   main: chats under base, a16 and b8, cold and then measured; POST
+   /v1/loras of c16 (201, then 409), chats under base, a16, b8 and c16,
+   twice;
+   DELETE /v1/loras/c16 (200, then 404), chats again, and a chat naming
+   c16. Fails unless each stream is whole and its text is what an
+   in-process engine at the worker's defaults with the same adapters
+   streams, /v1/loras lists a16 and b8, /debug/memory's lora entry reads
+   LORA_BYTES_START, then LORA_BYTES_C16 after the POST and after the
+   DELETE (the slot stays), /debug/compiles counts no capture in a warm
+   pass, some after the POST (a fourth slot changes the stack's shape) and
+   none on repeat or after the DELETE, and the chat naming c16 ends in the
+   unknown-adapter error, and the worker launched #1 and #2 (a16's chat
+   of about 700 prompt tokens spans two prefill chunks).
+
 (18-20 run right after the Llama-3-8B kernels of phases 3-4, 22 right after
-the fused layer's timing, 21 right after phase 11, 40-41 right after
-phase 6, 23 right after phase 41, 24-28 after phase 17, 29-39 right after
+the fused layer's timing, 21 right after phase 11, 40-43 right after
+phase 6, 23 right after phase 43, 24-28 after phase 17, 29-39 right after
 phase 23.)
 Then one JSON line {"kernels": [...]} for all ten kernels, nvidia-smi's
 name and power limit, and last {"ok": true, "device": {...}}. Without a
@@ -1820,19 +1868,21 @@ def engine_phase(torch, smi, cfg, expect, gap_limit, phase, *, slots=16, n_short
     return counts, engine, decode_steps
 
 
-def dense_reference_logits(torch, engine, prompt, tokens):
+def dense_reference_logits(torch, engine, prompt, tokens, params=None):
     """Teacher-forced dense check's reference: the logits [len(tokens), V]
-    (float32) of a dense forward of the engine's model over prompt +
-    emitted tokens, each row predicting the token at its place (no paged
-    attention and no fused layer on that path; over int8 KV pools K and V
-    pass through the int8 round trip)."""
+    (float32) of a dense forward of the engine's model (or of ``params``,
+    a merged-weights copy) over prompt + emitted tokens, each row
+    predicting the token at its place (no paged attention and no fused
+    layer on that path; over int8 KV pools K and V pass through the int8
+    round trip)."""
     from dynamo_tpu_torch.models import llama
 
     cfg, seq = engine.config, prompt + tokens
     with torch.inference_mode(), int8_round_trip(llama, engine.args.kv_cache_dtype == "int8"):
         kc, vc = llama.init_kv_cache(cfg, (len(seq) + 15) // 16, 16, DEV)
         logits, _, _ = llama.forward_paged(
-            engine.runner.params, cfg, torch.tensor([seq], device=DEV),
+            engine.runner.params if params is None else params, cfg,
+            torch.tensor([seq], device=DEV),
             torch.zeros(1, dtype=torch.int32, device=DEV),
             torch.tensor([len(seq)], dtype=torch.int32, device=DEV),
             torch.arange(len(kc[0]), dtype=torch.int32, device=DEV)[None],
@@ -4825,7 +4875,8 @@ async def system_client(m, port, startup) -> dict:
     /metrics, /debug/memory against the CUDA allocator (read in the worker
     through its counts file), a /debug/profile capture while the frontend
     streams, /engine/clear_kv_blocks and its KV event, the debug routes for
-    a traced request, the 501 refusals, ``cli observe kvcache``, and what
+    a traced request, the /drain refusal and /v1/loras, ``cli observe
+    kvcache``, and what
     a scrape costs. Returns the system line's figures."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.config import qwen2_500m_config
@@ -5079,13 +5130,19 @@ async def system_client(m, port, startup) -> dict:
     out["debug"] = {"spans": sorted({s["name"] for s in spans}), "request": mine[0],
                     "trajectory_phases": json.loads(view["body"])["phases"]}
 
-    # -- the refusals -------------------------------------------------------
+    # -- the refusals, and /v1/loras on a worker without --lora-dir ----------
     refusals = {}
-    for method, path, item in (("GET", "/drain", "A11"), ("POST", "/drain", "A11"),
-                               ("GET", "/v1/loras", "A7"), ("DELETE", "/v1/loras/x", "A7")):
+    for method, path, item in (("GET", "/drain", "A11"), ("POST", "/drain", "A11")):
         r = await sse_client.one(port, {"method": method, "path": path,
                                         **({"body": {}} if method == "POST" else {})})
         if r["status"] != 501 or f"(ROADMAP {item})" not in json.loads(r["body"])["error"]:
+            fail(f"system: {method} {path} answered {r['status']} {r.get('body')}")
+        refusals[f"{method} {path}"] = r["status"]
+    # JAX's answers: no adapter listed, none to unload
+    for method, path, status in (("GET", "/v1/loras", 200), ("DELETE", "/v1/loras/x", 404)):
+        r = await sse_client.one(port, {"method": method, "path": path})
+        body = json.loads(r["body"])
+        if r["status"] != status or (status == 200 and body != {"loras": []}):
             fail(f"system: {method} {path} answered {r['status']} {r.get('body')}")
         refusals[f"{method} {path}"] = r["status"]
     out["refusals"] = refusals
@@ -6413,7 +6470,8 @@ def spec_requests(prompts, max_tokens):
             for p in prompts]
 
 
-def spec_streams_equal(torch, plain, prompts, want, got, what, gap_limit=None) -> list:
+def spec_streams_equal(torch, plain, prompts, want, got, what, gap_limit=None, params=None,
+                       phase="spec") -> list:
     """Fails at the first request whose spec stream parts from the plain
     one, naming the position and the plain run's top-2 logit gap there
     (teacher-forced dense forward on the plain engine's weights). With
@@ -6421,7 +6479,9 @@ def spec_streams_equal(torch, plain, prompts, want, got, what, gap_limit=None) -
     against its run alone: a stream may part once where both tokens lie
     within ``gap_limit`` of the reference's best (it is compared up to
     there). Returns the partings: (request, position, top-2 gap, the two
-    tokens' gap below the best)."""
+    tokens' gap below the best). ``params``: each request's reference
+    weights (a merged-weights copy), the plain engine's when None;
+    ``phase`` names the failing phase."""
     parted = []
     for i, (p, a, b) in enumerate(zip(prompts, want, got)):
         if a == b:
@@ -6429,13 +6489,14 @@ def spec_streams_equal(torch, plain, prompts, want, got, what, gap_limit=None) -
         at = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), min(len(a), len(b)))
         gap = below = None
         if at < min(len(a), len(b)):
-            ref = dense_reference_logits(torch, plain, p, a[: at + 1])[-1]
+            ref = dense_reference_logits(torch, plain, p, a[: at + 1],
+                                         params=None if params is None else params[i])[-1]
             top2 = ref.topk(2).values
             gap = float(top2[0] - top2[1])
             below = float(ref.max() - torch.minimum(ref[a[at]], ref[b[at]]))
         if gap_limit is None or below is None or below > gap_limit:
-            fail(f"spec: {what}: request {i}'s spec stream ({len(b)} tokens) parts from the "
-                 f"plain engine's ({len(a)}) at token {at}; the plain run's top-2 logit gap "
+            fail(f"{phase}: {what}: request {i}'s stream ({len(b)} tokens) parts from the "
+                 f"reference run's ({len(a)}) at token {at}; the reference's top-2 logit gap "
                  f"there: {gap} (both tokens within {below} of its best, limit {gap_limit})")
         parted.append([i, at, gap, below])
     return parted
@@ -6898,6 +6959,630 @@ async def spec_main_client(procs, bodies, refs) -> dict:
                                                       "storms")}
                          for name, p in compiles["programs"].items()}}
 
+# -- multi-LoRA (ROADMAP A7) --------------------------------------------------
+
+# The phases' PEFT adapters, written from a seed with
+# models/safetensors_lite.save_file under the git-ignored scratch_chip/:
+# name -> (rank, alpha, targets, seed, B scale). A ~ N(0, 1 / d_in), so x·A
+# has unit entries; B's scale sets the delta's size (about B scale × 2 ×
+# sqrt(rank) an entry, against base projections of about 1): large enough
+# that every adapter changes a greedy stream within LORA_CHANGE_WITHIN
+# tokens at QWEN_EMBED_SCALE.
+LORA_ALL = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj", "down_proj")
+LORA_ADAPTERS = {
+    "a16": (16, 32.0, LORA_ALL, 161, 0.04),
+    "b8": (8, 16.0, ("q_proj", "v_proj"), 82, 0.08),
+    "x32": (32, 64.0, LORA_ALL, 323, 0.03),  # loaded at run time: a higher rank
+    "c16": (16, 32.0, LORA_ALL, 164, 0.04),  # the deployment's POST: a fourth slot
+}
+LORA_SERVED = ("a16", "b8")  # the --lora-dir adapters
+LORA_CHANGE_WITHIN = 32
+LORA_CHANGED_SHARE = 0.75  # of an adapter's streams, at least
+LORA_REQUESTS = 16  # the ITL set: 16 streams of LORA_TOKENS, prompts 100-300 tokens
+LORA_TOKENS = 64
+# The delta on the card against the same function on the CPU in float32:
+# bf16 products accumulate in float32, x·A and the output are rounded to
+# bf16 (2^-9 relative each), so within 2^-6 of the output's largest entry.
+LORA_DELTA_TOL = 2.0 ** -6
+# The HBM ledger's lora bytes, reckoned: at Qwen2.5-0.5B a slot at rank r
+# over the seven targets holds 22,912 x r x 24 bf16 elements (22,912 =
+# sum of d_in + d_out of q, k, v, o, gate, up, down).
+LORA_BYTES_START = 3 * 22_912 * 16 * 24 * 2  # base, a16, b8: 52,789,248
+LORA_BYTES_X32 = 4 * 22_912 * 32 * 24 * 2  # and x32: 140,771,328
+LORA_BYTES_C16 = 4 * 22_912 * 16 * 24 * 2  # base, a16, b8, c16: 70,385,664
+LORA_MAIN_WORKER = 0x801
+LORA_MAIN_TOKENS = 48
+LORA_MAIN_NAMES = (None, "a16", "b8", "c16")  # a chat each (None: the base model)
+# each chat's prompt tokens, about: a16's spans two prefill chunks of 512
+# (the second runs kernel #2)
+LORA_MAIN_PROMPTS = {None: 300, "a16": 700, "b8": 300, "c16": 300}
+LORA_LONG_PROMPT = 700  # the lora phase's salted prompt: two prefill chunks
+
+
+def write_lora_adapters(torch, cfg, names, root) -> str:
+    """PEFT adapter directories (adapter_config.json, adapter_model.
+    safetensors with lora_A [r, d_in] and lora_B [d_out, r] a layer and
+    target) of LORA_ADAPTERS ``names`` under ``root``, made anew; returns
+    root."""
+    import shutil
+
+    from dynamo_tpu_torch.lora.loader import _TARGET_MAP, _module_dims
+    from dynamo_tpu_torch.models.safetensors_lite import save_file
+
+    shutil.rmtree(root, ignore_errors=True)  # only these adapters under it
+    for name in names:
+        rank, alpha, targets, seed, b_scale = LORA_ADAPTERS[name]
+        d = os.path.join(root, name)
+        os.makedirs(d, exist_ok=True)
+        g = torch.Generator().manual_seed(seed)
+        tensors = {}
+        for layer in range(cfg.n_layers):
+            for t in targets:
+                d_in, d_out = _module_dims(cfg, _TARGET_MAP[t])
+                block = "mlp" if t in ("gate_proj", "up_proj", "down_proj") else "self_attn"
+                prefix = f"base_model.model.model.layers.{layer}.{block}.{t}"
+                tensors[f"{prefix}.lora_A.weight"] = torch.randn(rank, d_in, generator=g) \
+                    * d_in ** -0.5
+                tensors[f"{prefix}.lora_B.weight"] = torch.randn(d_out, rank, generator=g) \
+                    * b_scale
+        save_file(tensors, os.path.join(d, "adapter_model.safetensors"))
+        with open(os.path.join(d, "adapter_config.json"), "w") as f:
+            json.dump({"r": rank, "lora_alpha": alpha, "target_modules": list(targets)}, f)
+    return root
+
+
+def lora_dirs():
+    """(served, extra): the --lora-dir directory and the run-time ones."""
+    base = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scratch_chip", "lora")
+    return os.path.join(base, "served"), os.path.join(base, "extra")
+
+
+def merged_params(torch, params, runner, name):
+    """The runner's weights with adapter ``name`` merged in, W + A·B·s a
+    layer and target (float32 sums, rounded to the model dtype): the
+    dense reference of that adapter's streams."""
+    adapter = runner._adapter_list[runner.lora_index[name] - 1]
+    layers = [dict(lp) for lp in params["layers"]]
+    with torch.no_grad():
+        for t, (A, B) in adapter.weights.items():
+            for l, lp in enumerate(layers):
+                delta = (A[l].to(DEV) @ B[l].to(DEV)) * adapter.scaling
+                lp[t] = (lp[t].float() + delta).to(lp[t].dtype)
+    return {**params, "layers": layers}
+
+
+def lora_requests(prompts, loras, max_tokens):
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest, SamplingOptions, StopConditions,
+    )
+
+    return [PreprocessedRequest(token_ids=list(p), lora_name=lora,
+                                sampling=SamplingOptions(temperature=0.0),
+                                stop=StopConditions(max_tokens=max_tokens, ignore_eos=True))
+            for p, lora in zip(prompts, loras)]
+
+
+def lora_gap_check(torch, engine, params, prompt, tokens, what) -> dict:
+    """The engine phase's dense check against ``params`` (a merged-weights
+    reference): each token's gap below the teacher-forced reference's best
+    within QWEN_GAP_LIMIT."""
+    ref = dense_reference_logits(torch, engine, prompt, tokens, params=params)
+    idx = torch.arange(len(tokens), device=DEV)
+    picked = ref[idx, torch.tensor(tokens, device=DEV)]
+    gap = ref.max(dim=-1).values - picked
+    rank = (ref > picked[:, None]).sum(-1)
+    if float(gap.max()) > QWEN_GAP_LIMIT:
+        fail(f"lora: {what}: a token lies {float(gap.max())} below the merged-weights "
+             f"reference's best (limit {QWEN_GAP_LIMIT})")
+    return {"max_gap": float(gap.max()), "exact_argmax": int((gap == 0).sum()),
+            "median_rank": int(rank.median()), "tokens": len(tokens)}
+
+
+def lora_kernel_check(torch, runner) -> dict:
+    """ops/lora.apply_lora on the card (the engine's stack, bf16) against
+    the same function on the CPU in float32, at the decode shape (16 rows,
+    ids 0/1/2 mixed) over wq and at a prefill chunk's (4 x 512 rows) over
+    w_down, the widest d_in; each within LORA_DELTA_TOL of the output's
+    largest entry. Timed by CUDA events."""
+    from dynamo_tpu_torch.ops.lora import apply_lora
+
+    g = torch.Generator(device=DEV).manual_seed(25)
+    rows = {}
+    for target, B, C in (("wq", 16, 1), ("w_down", 4, 512)):
+        A_, B_ = (t[0] for t in runner.lora[target])  # layer 0: [N+1, d_in, r], [N+1, r, d_out]
+        x = torch.randn(B, C, A_.shape[1], generator=g, device=DEV).to(A_.dtype)
+        ids = (torch.arange(B, device=DEV) % A_.shape[0]).to(torch.int32)
+        got = apply_lora(x, (A_, B_), ids)
+        ref = apply_lora(x.float().cpu(), (A_.float().cpu(), B_.float().cpu()), ids.cpu())
+        err = float((got.float().cpu() - ref).abs().max())
+        scale = float(ref.abs().max())
+        if not err <= LORA_DELTA_TOL * scale:
+            fail(f"lora: apply_lora on the card at {target} [{B}, {C}] is {err} from the "
+                 f"float32 CPU version (limit {LORA_DELTA_TOL} x {scale})")
+        ms = event_ms(torch, lambda: apply_lora(x, (A_, B_), ids), iters=50)
+        rows[f"{target} [{B}, {C}]"] = {"max_abs_err": err, "ref_max": scale, "ms": ms,
+                                       "ids": ids.tolist()}
+    return rows
+
+
+def lora_step_costs(torch, plain_runner, args, params, smi) -> dict:
+    """The delta's cost a decode step: one profile burst (16 slots,
+    contexts 100-1,300, 8 steps) on the plain engine's runner and on a
+    runner with the a16/b8 stack (all rows at id 0, then all on a16), each
+    as a CUDA graph replay timed by CUDA events, and eagerly under
+    torch.profiler (device ops and busy time a step)."""
+    import dataclasses
+
+    import numpy as np
+
+    from dynamo_tpu_torch.engines.gpu.runner import DeviceRunner
+
+    lora_runner = DeviceRunner(dataclasses.replace(args, lora_dir=lora_dirs()[0]), params)
+    S, K, BS = args.max_num_seqs, args.decode_steps, args.block_size
+    pos = np.array([100 + 80 * i for i in range(S)], np.int32)
+    width = int(pos.max() + 2 * K) // BS + 1
+    burst = (np.ones(S, np.int32), pos, np.ones(S, np.int32),
+             np.arange(S * width, dtype=np.int32).reshape(S, width),
+             np.zeros(S, np.float32), np.zeros(S, np.int32), np.ones(S, np.float32),
+             np.arange(S, dtype=np.int32))
+    a16 = lora_runner.lora_index["a16"]
+    out = {}
+    for label, runner, ids in (("plain", plain_runner, None),
+                               ("lora_id0", lora_runner, np.zeros(S, np.int32)),
+                               ("lora_a16", lora_runner, np.full(S, a16, np.int32))):
+        defaults = runner.args.cuda_graphs
+        runner.args.cuda_graphs = True
+        nb = runner.sync_all(*burst, adapter_ids=ids)
+        runner.decode_read(runner.decode_dispatch(nb))  # captures this key, if new
+        graph = runner.graphs[(nb, False, False) + runner.lora_key()]
+        replay_ms = event_ms(torch, graph.graph.replay, iters=10)
+        runner.args.cuda_graphs = False
+        runner.sync_all(*burst, adapter_ids=ids)
+        by_name, n_ops, n_kernels, _ = device_times(
+            lambda: runner.decode_read(runner.decode_dispatch(nb)))
+        runner.args.cuda_graphs = defaults
+        torch.cuda.synchronize()
+        out[label] = {"replay_ms_per_step": replay_ms / K,
+                      "eager_busy_ms_per_step": sum(by_name.values()) / K,
+                      "device_ops_per_step": n_ops / K, "kernels_per_step": n_kernels / K,
+                      "graph_launches": graph.launches}
+    plain = out["plain"]
+    for label in ("lora_id0", "lora_a16"):
+        row = out[label]
+        row["delta_ms_per_step"] = row["replay_ms_per_step"] - plain["replay_ms_per_step"]
+        row["extra_device_ops_per_step"] = row["device_ops_per_step"] - \
+            plain["device_ops_per_step"]
+    del lora_runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def lora_phase(torch, smi) -> dict:
+    """Phase 42 (see the module's docstring). Returns the launch counts of
+    its measured runs."""
+    import numpy as np
+
+    from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
+    from dynamo_tpu_torch.engines.gpu.runner import DECODE_PROGRAM
+    from dynamo_tpu_torch.models.config import qwen2_500m_config
+    from dynamo_tpu_torch.runtime.context import Context
+    from dynamo_tpu_torch.runtime.device_observe import global_compile_watcher
+
+    t_phase = time.monotonic()
+    cfg = qwen2_500m_config()
+    served, extra = lora_dirs()
+    write_lora_adapters(torch, cfg, LORA_SERVED, served)
+    write_lora_adapters(torch, cfg, ("x32",), extra)
+    base = dict(config=cfg, block_size=16, num_kv_blocks=2048, max_num_seqs=16,
+                max_model_len=2048, prefill_chunk=512, seed=0, device=DEV)
+    args = TorchEngineArgs(**base)
+    plain = TorchEngine(args, scaled_params(torch, cfg, args, QWEN_EMBED_SCALE))
+    params = plain.runner.params
+    t0 = time.monotonic()
+    lora = TorchEngine(TorchEngineArgs(**base, lora_dir=served), params=params)
+    torch.cuda.synchronize()
+    load_s = time.monotonic() - t0
+    spec = TorchEngine(TorchEngineArgs(**base, lora_dir=served, spec_mode="ngram",
+                                       spec_k=SPEC_K, spec_ngram=SPEC_NGRAM), params=params)
+    if lora.runner.lora_index != {"a16": 1, "b8": 2}:
+        fail(f"lora: the stack's slots {lora.runner.lora_index}")
+    ledger0 = lora.hbm.snapshot()["lora"]
+    if ledger0 != LORA_BYTES_START or plain.hbm.snapshot()["lora"] != 0:
+        fail(f"lora: the HBM ledger's lora entry reads {ledger0}, reckoned {LORA_BYTES_START}")
+    kernel = lora_kernel_check(torch, lora.runner)
+    merged = {name: merged_params(torch, params, lora.runner, name) for name in LORA_SERVED}
+    g = torch.Generator().manual_seed(42)
+    lengths = torch.randint(100, 301, (LORA_REQUESTS,), generator=g).tolist()
+    prompts = [torch.randint(10, cfg.vocab_size, (n,), generator=g).tolist() for n in lengths]
+    mix = [(None, "a16", "b8")[i % 3] for i in range(LORA_REQUESTS)]
+    # two prefill chunks (the second through kernel #2), for the salted check
+    long_prompt = torch.randint(10, cfg.vocab_size, (LORA_LONG_PROMPT,), generator=g).tolist()
+    # prompt lookup proposes from a prompt that repeats itself
+    unit = [torch.randint(10, cfg.vocab_size, (20,), generator=g).tolist() for _ in range(4)]
+    looping = [u * 8 for u in unit]
+    watcher = global_compile_watcher()
+
+    def captures():
+        return (watcher.snapshot()["programs"].get(DECODE_PROGRAM) or {}).get("compiles", 0)
+
+    async def serve(engine, loras, max_tokens=LORA_TOKENS, which=prompts):
+        runs = await serve_engine(engine, lora_requests(which, loras, max_tokens))
+        await idle_cleared(engine)
+        return runs
+
+    async def error_of(engine, name):
+        async for out in engine.generate(lora_requests([prompts[0]], [name], 4)[0], Context()):
+            if out.error:
+                return out.error
+        return None
+
+    async def run():
+        try:
+            sets = (("plain", plain, [None] * LORA_REQUESTS),
+                    ("lora_base", lora, [None] * LORA_REQUESTS),
+                    ("lora_a16", lora, ["a16"] * LORA_REQUESTS), ("mixed", lora, mix))
+            for _, e, loras in sets:  # warm: every graph the sets reach
+                await serve(e, loras)
+            c0 = captures()
+            reset_counts()  # read after the last run of the phase
+            out = {name: await serve(e, loras) for name, e, loras in sets}
+            c1 = captures()
+            solo = [(await serve(lora, [m], which=[p]))[0] for p, m in zip(prompts, mix)]
+            # the prefix cache: base, then a16 (nothing reused), then a16 again
+            salted = []
+            for name in (None, "a16", "a16"):
+                p0 = lora.prefill_tokens
+                await serve_engine(lora, lora_requests([long_prompt], [name], 8))
+                salted.append(lora.prefill_tokens - p0)
+            await idle_cleared(lora)
+            # speculative decoding under a16 against the plain LoRA engine
+            spec_st0 = spec.stats()
+            spec_runs = await serve(spec, ["a16"] * len(looping), which=looping)
+            spec_stats = spec.stats()
+            spec_plain = await serve(lora, ["a16"] * len(looping), which=looping)
+            # run-time load (a higher rank: the stack's shape changes) and unload
+            c2 = captures()
+            await lora._device(lora.load_lora, "x32", os.path.join(extra, "x32"))
+            dropped = not lora.runner.graphs
+            ledger_x32 = lora.hbm.snapshot()["lora"]
+            after_load = await serve(lora, ["a16"] * LORA_REQUESTS)
+            c3 = captures()
+            await serve(lora, ["a16"] * LORA_REQUESTS)
+            c4 = captures()
+            await lora.unload_lora_async("b8")
+            after_unload = await serve(lora, ["a16"] * LORA_REQUESTS)
+            c5 = captures()
+            ledger_unload = lora.hbm.snapshot()["lora"]
+            unknown = await error_of(lora, "b8")
+            return dict(out=out, counts=read_counts(), window=c1 - c0, solo=solo, salted=salted,
+                        spec_runs=spec_runs, spec_window=spec_counts(spec_stats, spec_st0),
+                        spec_plain=spec_plain, dropped=dropped, ledger_x32=ledger_x32,
+                        load_captures=c3 - c2, repeat_captures=c4 - c3,
+                        unload_captures=c5 - c4, ledger_unload=ledger_unload,
+                        unknown=unknown, after_load=after_load, after_unload=after_unload,
+                        restacks=dict(lora.runner.lora_restacks))
+        finally:
+            for e in (plain, lora, spec):
+                await e.stop()
+
+    r = asyncio.run(run())
+    ids = {name: [x["ids"] for x in runs] for name, runs in r["out"].items()}
+    for name, streams in ids.items():
+        if any(len(s) != LORA_TOKENS for s in streams):
+            fail(f"lora: a {name} stream ended short")
+    if r["window"]:
+        fail(f"lora: {r['window']} graphs were captured in the measured window")
+    # the base is untouched: id 0 adds exact zeros
+    if ids["lora_base"] != ids["plain"]:
+        i = next(i for i, (a, b) in enumerate(zip(ids["plain"], ids["lora_base"])) if a != b)
+        fail(f"lora: request {i} at adapter 0 parts from the no-LoRA engine's stream")
+    # each adapter changes at least LORA_CHANGED_SHARE of its streams
+    # within LORA_CHANGE_WITHIN tokens
+    a16_ids = ids["lora_a16"]
+    own = {"a16": list(zip(ids["plain"], a16_ids)),
+           "b8": [(ids["plain"][i], ids["mixed"][i]) for i, m in enumerate(mix) if m == "b8"]}
+    changed = {name: sum(a[:LORA_CHANGE_WITHIN] != b[:LORA_CHANGE_WITHIN] for a, b in pairs)
+               for name, pairs in own.items()}
+    for name, pairs in own.items():
+        if changed[name] < LORA_CHANGED_SHARE * len(pairs):
+            fail(f"lora: {name} changed {changed[name]} of its {len(pairs)} streams within "
+                 f"{LORA_CHANGE_WITHIN} tokens")
+    # each adapter held against its merged weights (teacher-forced)
+    gaps = {"a16": [lora_gap_check(torch, lora, merged["a16"], prompts[i], a16_ids[i],
+                                   f"a16 request {i}") for i in range(4)],
+            "b8": [lora_gap_check(torch, lora, merged["b8"], prompts[i], ids["mixed"][i],
+                                  f"b8 request {i}") for i in (2, 5)]}
+    # the mixed batch against each request alone: exact, or one parting at a near tie
+    refs = [params if m is None else merged[m] for m in mix]
+    parted = spec_streams_equal(torch, lora, prompts, [s["ids"] for s in r["solo"]],
+                                ids["mixed"], "mixed batch against solo", QWEN_GAP_LIMIT,
+                                params=refs, phase="lora")
+    n = len(long_prompt)
+    want_salted = [n, n, n - min(n // 16 * 16, n - 1)]
+    if r["salted"] != want_salted:
+        fail(f"lora: prefill tokens base, a16, a16 again: {r['salted']}, expected {want_salted}")
+    spec_parted = spec_streams_equal(
+        torch, lora, looping, [x["ids"] for x in r["spec_plain"]],
+        [x["ids"] for x in r["spec_runs"]], "spec under a16", QWEN_GAP_LIMIT,
+        params=[merged["a16"]] * len(looping), phase="lora")
+    if r["spec_window"]["spec_ticks"] <= 0 or r["spec_window"]["spec_proposed"] <= 0:
+        fail(f"lora: the spec engine ran no verify under a16: {r['spec_window']}")
+    if not r["dropped"] or r["ledger_x32"] != LORA_BYTES_X32:
+        fail(f"lora: x32's load kept the graphs ({not r['dropped']}) or the ledger reads "
+             f"{r['ledger_x32']}, reckoned {LORA_BYTES_X32}")
+    if r["load_captures"] <= 0 or r["repeat_captures"] or r["unload_captures"]:
+        fail(f"lora: captures after x32's load {r['load_captures']}, on repeat "
+             f"{r['repeat_captures']}, after b8's unload {r['unload_captures']}")
+    if r["ledger_unload"] != LORA_BYTES_X32:
+        fail(f"lora: after b8's unload the ledger reads {r['ledger_unload']}")
+    want_err = "unknown LoRA adapter 'b8' (loaded: ['a16', 'x32'])"
+    if r["unknown"] != want_err:
+        fail(f"lora: a request naming the unloaded b8 got {r['unknown']!r}")
+    after_ids = [x["ids"] for x in r["after_unload"]]
+    if after_ids != [x["ids"] for x in r["after_load"]]:
+        fail("lora: a16's streams changed across b8's in-place unload")
+    counts = r["counts"]
+    for name in ("paged_attention_decode", "paged_attention_chunk"):
+        if counts[name] <= 0:
+            fail(f"lora: {name} never launched in the phase's runs")
+    costs = lora_step_costs(torch, plain.runner, args, params, smi)
+    latency = {name: stream_latency(runs) for name, runs in r["out"].items()}
+    emit({"phase": "lora", "model": cfg.name, "layers": cfg.n_layers, "requests": LORA_REQUESTS,
+          "max_tokens": LORA_TOKENS, "prompt_tokens": lengths, "embed_scale": QWEN_EMBED_SCALE,
+          "adapters": {n: LORA_ADAPTERS[n][:3] for n in ("a16", "b8", "x32")},
+          "stack_load_s": load_s, "delta_check": kernel,
+          "ledger_lora_bytes": {"start": ledger0, "reckoned": LORA_BYTES_START,
+                                "after_x32": r["ledger_x32"], "reckoned_x32": LORA_BYTES_X32,
+                                "after_b8_unload": r["ledger_unload"]},
+          "itl_ms_16_streams": {k: v["itl_ms_mean"] for k, v in latency.items()},
+          "latency": latency, "captures_in_window": r["window"],
+          "base_streams_bit_equal": True, "merged_weights": gaps,
+          "streams_changed_within": {"tokens": LORA_CHANGE_WITHIN,
+                                     **{n: [changed[n], len(own[n])] for n in own}},
+          "mixed_parted_request_position_top2_gap_below_best": parted,
+          "prefill_tokens_base_a16_a16": r["salted"],
+          "spec": {**spec_summary(r["spec_window"]),
+                   "parted_request_position_top2_gap_below_best": spec_parted},
+          "captures_after_x32_load": r["load_captures"],
+          "captures_on_repeat": r["repeat_captures"],
+          "captures_after_b8_unload": r["unload_captures"], "restacks": r["restacks"],
+          "unknown_error": r["unknown"], "step_costs": costs,
+          "launches": {k: v for k, v in counts.items() if v},
+          "seconds": time.monotonic() - t_phase, "card": smi})
+    del plain, lora, spec, merged, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def lora_main_phase(smi) -> dict:
+    """Phase 43 (see the module's docstring). Returns the worker's launch
+    counts."""
+    import tempfile
+
+    import torch
+
+    from dynamo_tpu_torch.models.config import qwen2_500m_config
+    from dynamo_tpu_torch.worker import __main__ as tworker
+
+    t_phase = time.monotonic()
+    root = os.path.dirname(os.path.abspath(__file__))
+    served, extra = lora_dirs()
+    write_lora_adapters(torch, qwen2_500m_config(), LORA_SERVED, served)
+    write_lora_adapters(torch, qwen2_500m_config(), ("c16",), extra)
+    refs, bodies = lora_main_references(tworker, served, extra)
+    procs, counts_file = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            procs["discd"] = ProcLines(subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch.discd", "--port", "0", "--xsub", "0",
+                 "--xpub", "0"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                cwd=root))
+            t0 = time.monotonic()
+            while not procs["discd"].find(r"discd ready"):
+                if procs["discd"].proc.poll() is not None or time.monotonic() - t0 > 60:
+                    fail(f"lora_main: discd did not start: {procs['discd'].tail()}")
+                time.sleep(0.02)
+            m = procs["discd"].find(r"discd ready: discovery (\S+), events (\S+)")[1]
+            env = {**os.environ, "PYTHONUNBUFFERED": "1", "DYN_TPU_DISCOVERY": "discd",
+                   "DYN_TPU_DISCOVERY_ADDR": m.group(1), "DYN_TPU_EVENT_PLANE": "zmq",
+                   "DYN_TPU_EVENT_PLANE_ADDR": m.group(2), "DYN_TPU_REQUEST_PLANE": "tcp",
+                   "DYN_TPU_LOAD_REPORT_INTERVAL_S": str(MAINS_INTERVAL_S),
+                   "DYN_TPU_GRACE_PERIOD": str(MAINS_GRACE_S)}
+            counts_file = os.path.join(tmp, "counts-lora.json")
+            procs["worker"] = ProcLines(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mains-worker", counts_file,
+                 "--model", MAINS_MODEL, "--lora-dir", served, "--system-port", "0"],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, cwd=root,
+                env={**env, "DYN_TPU_WORKER_ID": str(LORA_MAIN_WORKER)}))
+            procs["frontend"] = ProcLines(subprocess.Popen(
+                [sys.executable, "-m", "dynamo_tpu_torch.frontend", "--host", "127.0.0.1",
+                 "--http-port", "0"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True, cwd=root, env=env))
+            result = asyncio.run(lora_main_client(procs, bodies, refs, extra))
+        finally:
+            for p in reversed(list(procs.values())):
+                if p.proc.poll() is None:
+                    p.proc.terminate()
+                    try:
+                        p.proc.wait(timeout=15)
+                    except subprocess.TimeoutExpired:
+                        p.proc.kill()
+                        p.proc.wait()
+        counts = _read_counts_file(counts_file)
+    for name in ("paged_attention_decode", "paged_attention_chunk"):
+        if counts.get(name, 0) <= 0:
+            fail(f"lora_main: the worker never launched {name}: {counts}")
+    emit({"phase": "lora_main", "model": MAINS_MODEL, **result,
+          "launches": {k: v for k, v in counts.items() if v},
+          "seconds": time.monotonic() - t_phase, "card": smi})
+    return counts
+
+
+def lora_main_references(tworker, served, extra):
+    """The lora_main chats (one a name of LORA_MAIN_NAMES) and the text
+    an in-process engine at the worker main's defaults (its random init at
+    seed 0, ``--lora-dir`` the same adapters; c16 loaded as the deployment
+    loads it) streams for each chat's token ids."""
+    import numpy as np
+
+    from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
+    from dynamo_tpu_torch.llm import ModelDeploymentCard, OpenAIPreprocessor, tiny_tokenizer
+    from dynamo_tpu_torch.llm.entrypoint import resolve_chat_template
+
+    wargs = tworker.build_parser().parse_args(["--model", MAINS_MODEL])
+    engine = TorchEngine(TorchEngineArgs(
+        config=tworker.BUILTIN_CONFIGS[MAINS_MODEL](), block_size=wargs.block_size,
+        num_kv_blocks=wargs.num_kv_blocks, max_num_seqs=wargs.max_num_seqs,
+        max_model_len=wargs.max_model_len, prefill_chunk=wargs.prefill_chunk,
+        decode_steps=wargs.decode_steps, lora_dir=served, device=DEV))
+    tok = tiny_tokenizer()
+    card = ModelDeploymentCard(name=MAINS_MODEL, context_length=wargs.max_model_len,
+                               kv_block_size=wargs.block_size)
+    pre = OpenAIPreprocessor(card, tok, resolve_chat_template(card))
+    rng = np.random.default_rng(43)
+    bodies = {}
+    for name in LORA_MAIN_NAMES:
+        nvext = {"ignore_eos": True, **({"lora_name": name} if name else {})}
+        bodies[name] = {"model": MAINS_MODEL, "max_tokens": LORA_MAIN_TOKENS,
+                        "temperature": 0.0, "stream": True,
+                        "stream_options": {"include_usage": True}, "nvext": nvext,
+                        "messages": [{"role": "user", "content": pipeline_text(
+                            tok, rng, LORA_MAIN_PROMPTS[name])}]}
+    ids = {name: pre.preprocess(dict(b)).token_ids for name, b in bodies.items()}
+
+    async def run():
+        try:
+            out = {}
+            for name in LORA_MAIN_NAMES:
+                if name == "c16":
+                    await engine._device(engine.load_lora, "c16", os.path.join(extra, "c16"))
+                runs = await serve_engine(engine, lora_requests([ids[name]], [name],
+                                                                LORA_MAIN_TOKENS))
+                out[name] = runs[0]["ids"]
+            base = (await serve_engine(engine, lora_requests([ids["a16"]], [None],
+                                                             LORA_MAIN_TOKENS)))[0]["ids"]
+            return out, base
+        finally:
+            await engine.stop()
+
+    out, base = asyncio.run(run())
+    del engine
+    gc.collect()
+    refs = {name: dict(prompt=len(ids[name]), ids=out[name], text=tok.decode(out[name]))
+            for name in LORA_MAIN_NAMES}
+    refs["a16"]["changes_base"] = out["a16"] != base
+    return refs, bodies
+
+
+
+async def lora_main_client(procs, bodies, refs, extra) -> dict:
+    """The client side of lora_main_phase: chats over HTTP to the frontend,
+    the worker's /v1/loras, /debug/memory and /debug/compiles."""
+    from dynamo_tpu_torch.tools import sse_client
+
+    everyone = list(procs.items())
+    frontend, worker = procs["frontend"], procs["worker"]
+    port = int((await until("the frontend's listening line", lambda: frontend.find(
+        r"frontend listening on \S+:(\d+)"), procs=everyone))[1].group(1))
+    sys_port = int((await until("the lora worker's system server", lambda: worker.find(
+        r"system server on :(\d+)"), timeout=300, procs=everyone))[1].group(1))
+    await until("the lora worker's serving line", lambda: worker.find(
+        rf"worker serving {MAINS_MODEL} as dynamo/backend/generate instance "
+        rf"{LORA_MAIN_WORKER:#x}"), timeout=300, procs=everyone)
+
+    async def call(method, path, body=None):
+        r = await sse_client.one(sys_port, {"method": method, "path": path,
+                                            **({"body": body} if body is not None else {})})
+        return r["status"], json.loads(r["body"])
+
+    async def listed():
+        r = await sse_client.one(port, {"method": "GET", "path": "/v1/models"})
+        return r["status"] == 200 and [x["id"] for x in json.loads(r["body"])["data"]]
+
+    await until("the model on /v1/models", lambda: _is(listed(), [MAINS_MODEL]),
+                procs=everyone)
+
+    async def chat(name, what):
+        rec = await sse_client.one(port, {"path": "/v1/chat/completions", "body": bodies[name]})
+        ref = refs[name]
+        chunks = whole_stream(rec, LORA_MAIN_TOKENS, f"lora_main: {what}")
+        text = stream_text(chunks)
+        _, usage, _ = sse_chunks(rec)
+        if usage["prompt_tokens"] != ref["prompt"] or text != ref["text"]:
+            fail(f"lora_main: {what} ({usage['prompt_tokens']} prompt tokens) streamed "
+                 f"{text[:80]!r}, the in-process engine {ref['text'][:80]!r}")
+        times = [t for t, _ in chunks]
+        return {"lora": name, "ttft_ms": 1e3 * (times[0] - rec["t0"]),
+                "itl_ms": 1e3 * (times[-1] - times[0]) / (LORA_MAIN_TOKENS - 1)}
+
+    async def captures():
+        return (await call("GET", "/debug/compiles"))[1]["totals"]["compiles"]
+
+    async def lora_bytes():
+        return (await call("GET", "/debug/memory"))[1]["sources"]["engine"]["lora"]
+
+    async def clear():
+        status, _ = await call("POST", "/engine/clear_kv_blocks", {})
+        if status != 200:
+            fail(f"lora_main: /engine/clear_kv_blocks answered {status}")
+
+    served = [None, "a16", "b8"]
+    listing = await call("GET", "/v1/loras")
+    if listing != (200, {"loras": ["a16", "b8"]}):
+        fail(f"lora_main: GET /v1/loras answered {listing}")
+    bytes_start = await lora_bytes()
+    for name in served:  # cold: captures the buckets the chats reach
+        await chat(name, f"cold chat {name}")
+    await clear()
+    c0 = await captures()
+    rows = [await chat(name, f"chat {name}") for name in served]
+    c1 = await captures()
+    load = {"name": "c16", "path": os.path.join(extra, "c16")}
+    posted = await call("POST", "/v1/loras", load)
+    bytes_post = await lora_bytes()
+    await clear()
+    rows_post = [await chat(name, f"chat {name} after c16's load") for name in LORA_MAIN_NAMES]
+    c2 = await captures()
+    await clear()
+    for name in LORA_MAIN_NAMES:
+        await chat(name, f"repeated chat {name} after c16's load")
+    c3 = await captures()
+    again = await call("POST", "/v1/loras", load)
+    deleted = await call("DELETE", "/v1/loras/c16")
+    bytes_delete = await lora_bytes()
+    await clear()
+    rows_delete = [await chat(name, f"chat {name} after c16's unload") for name in served]
+    c4 = await captures()
+    rec = await sse_client.one(port, {"path": "/v1/chat/completions", "body": bodies["c16"]})
+    said = (rec["body"] or "") + "".join(f for _, f in rec["frames"])
+    data = [json.loads(f[6:]) for _, f in rec["frames"] if f.startswith("data: {")]
+    content = "".join(c["choices"][0].get("delta", {}).get("content") or ""
+                      for c in data if c.get("choices"))
+    gone_error = "unknown LoRA adapter 'c16'" in said and not content
+    deleted_again = await call("DELETE", "/v1/loras/c16")
+    checks = {
+        "posted": posted == (201, {"loaded": "c16"}), "posted_again": again[0] == 409,
+        "deleted": deleted == (200, {"unloaded": "c16"}), "deleted_again": deleted_again[0] == 404,
+        "bytes_start": bytes_start == LORA_BYTES_START, "bytes_post": bytes_post == LORA_BYTES_C16,
+        "bytes_delete": bytes_delete == LORA_BYTES_C16, "no_capture_warm": c1 == c0,
+        "recaptured_after_post": c2 > c1, "no_capture_repeat": c3 == c2,
+        "no_capture_after_delete": c4 == c3, "unloaded_refused": gone_error,
+    }
+    if not all(checks.values()):
+        fail(f"lora_main: failed checks {[k for k, v in checks.items() if not v]}: posted "
+             f"{posted}, again {again}, deleted {deleted}, again {deleted_again}, lora bytes "
+             f"{bytes_start}/{bytes_post}/{bytes_delete}, captures {[c0, c1, c2, c3, c4]}, "
+             f"the unloaded adapter's chat {str(rec)[:300]}")
+    return {"chats": rows, "chats_after_post": rows_post, "chats_after_delete": rows_delete,
+            "streams_equal_in_process": True, "a16_changes_base_stream":
+                refs["a16"]["changes_base"],
+            "lora_bytes": {"start": bytes_start, "after_post": bytes_post,
+                           "after_delete": bytes_delete},
+            "captures": {"warm_window": c1 - c0, "after_post": c2 - c1, "repeat": c3 - c2,
+                         "after_delete": c4 - c3}, "checks": checks}
+
 
 def fused_ledger_line(engine, smi) -> None:
     """The Llama-3-8B int8 engine's perf ledger (made anew before the
@@ -7105,6 +7790,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     counts_spec_main = spec_main_phase(smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # Multi-LoRA: PEFT adapters stacked on the card, in process (streams,
+    # the prefix cache's salt, spec, run-time load and unload, the delta's
+    # cost), then a `--lora-dir` worker main behind the frontend.
+    counts_lora = lora_phase(torch, smi)
+    counts_lora_main = lora_main_phase(smi)
     gc.collect()
     torch.cuda.empty_cache()
     # The processors and logprobs on the same weights (the unfused burst).
@@ -7332,7 +8024,8 @@ def main() -> int:
         "ffn_int8": "_prof_fused_ffn.py:116",
     }
     # launches: the spec engine's measured run and the spec worker main
-    # (Qwen2.5-0.5B), the six engine paths (Qwen2.5-0.5B bf16, Llama-3-8B int8,
+    # (Qwen2.5-0.5B), the lora phase's measured runs and the lora worker
+    # main (Qwen2.5-0.5B), the six engine paths (Qwen2.5-0.5B bf16, Llama-3-8B int8,
     # Llama-3-8B int8 with int8 KV, Gemma-2-2B bf16, Gemma-3-1B int8 with
     # int8 KV, Gemma-3-1B int8 over bf16 pools, and the latter with the fused
     # layer off), the OpenAI pipeline, the HTTP frontend and the worker
@@ -7343,7 +8036,8 @@ def main() -> int:
     # prof_8b's four modes); times of the D 64 (bf16 pools) and D 128 (int8
     # pools) cases, the D 256 and block-size-128 ones above, #5-#7 at their
     # main cases
-    paths = (counts, counts_spec, counts_spec_main, counts8, counts8kv, counts_g, counts_3,
+    paths = (counts, counts_spec, counts_spec_main, counts_lora, counts_lora_main, counts8,
+             counts8kv, counts_g, counts_3,
              counts_3bf, counts_3u, counts_pipe,
              counts_http, counts_tcp, counts_kv, counts_mains, counts_perf, counts_dm,
              counts_disagg, counts_attn,

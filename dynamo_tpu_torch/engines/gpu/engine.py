@@ -71,10 +71,24 @@ host gap, and, as JAX's, spec ticks feed neither the step metrics nor the
 perf ledger; a failing spec tick takes the decode tick's retry. JAX's
 ``spec_tick`` / ``spec_suspend`` flight records have no ring here (A9).
 
+Multi-LoRA (engine.py:539-568, 844-848, 898-900, 1574, 2290, 2328): with
+``lora_dir`` every adapter under it is stacked on the card at start
+(engines/gpu/runner.py), and ``load_lora`` / ``unload_lora`` change the
+stack at run time (the system server restacks on the device thread). A
+request names its adapter by ``lora_name``; admission refuses an unknown
+one with JAX's error, and each slot's stack index (``_adapter_ids``) is
+synced with its other rows, so one captured burst serves any mix. A
+sequence's prefix-cache hashes are salted by its adapter
+(``tokens/blocks.adapter_salt``, as the router salts them), so no request
+reuses blocks computed under another adapter or the base model. A
+sequence whose adapter is unloaded while it runs decodes on the base
+model from then on and shares no more blocks, even when the next load
+fills the freed slot (JAX's keeps the slot's index: the next adapter's).
+
 Not ported yet (ROADMAP): the abort's and the deadline shed's flight
 records and the dump (the engine has no flight ring, A9), the
 admission's containment of a request that fails its prefill
-deterministically, LoRA, MoE, the tick budget, sleep/wake, the KV
+deterministically, MoE, the tick budget, sleep/wake, the KV
 checkpoint, multimodal and prefill under CUDA graphs.
 
 KV block export and import, for disaggregation (engine.py:1885-2009):
@@ -108,9 +122,9 @@ the device or touches a graph.
 The HBM ledger (``hbm``, JAX's categories, engine.py:494-509) samples the
 runner's live tensors when the system server scrapes it: ``kv_cache`` counts
 each pool's whole allocation, its sink block included (one block a pool
-more than JAX's), ``lora`` is 0 (no LoRA, A7), and ``slot_state`` holds the
-port's own fields and widths (int64 tokens, salts and bias ids, no adapter
-ids), JAX's ``slot_tables`` being the port's ``slot_state["tables"]``.
+more than JAX's), ``lora`` the LoRA stack's bytes, and ``slot_state`` holds
+the port's own fields and widths (int64 tokens, salts and bias ids), JAX's
+``slot_tables`` being the port's ``slot_state["tables"]``.
 
 All device work runs on one executor thread so the asyncio loop never
 blocks on the card. Every block-pool call runs on the loop's thread, so the
@@ -123,6 +137,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import contextlib
+import itertools
 import logging
 import math
 import socket
@@ -154,7 +169,7 @@ from dynamo_tpu_torch.runtime import lifecycle
 from dynamo_tpu_torch.runtime.lifecycle import trace_id_of
 from dynamo_tpu_torch.runtime.perf_ledger import global_perf_ledger
 from dynamo_tpu_torch.runtime.roofline import make_roofline_fn
-from dynamo_tpu_torch.tokens.blocks import compute_block_hashes
+from dynamo_tpu_torch.tokens.blocks import adapter_salt, compute_block_hashes
 
 logger = logging.getLogger(__name__)
 
@@ -229,6 +244,10 @@ class TorchEngineArgs:
     spec_mode: Optional[str] = None
     spec_ngram: int = 3
     spec_k: int = 4
+    # Multi-LoRA: a directory of PEFT adapters (lora/source.py layout), all
+    # stacked on the card and served by the same graphs; requests select
+    # theirs by PreprocessedRequest.lora_name.
+    lora_dir: Optional[str] = None
 
     @property
     def max_blocks_per_seq(self) -> int:
@@ -247,6 +266,14 @@ class _Sequence:
     block_hashes: List[int] = field(default_factory=list)  # committed prefix
     slot: int = -1
     salt: int = 0  # sampling salt (arrival order)
+    hash_salt: int = 0  # the adapter's prefix-cache salt (tokens/blocks.adapter_salt)
+    # Its LoRA adapter (None once unloaded under it: the base model from
+    # then on), the adapter's stack index while admitted, and whether its
+    # complete blocks join the prefix cache (not once its K/V mix the
+    # adapter's and the base model's).
+    lora_name: Optional[str] = None
+    adapter_id: int = 0
+    shares_blocks: bool = True
     # Host monotonic stamps for the phase spans (0.0 = not yet).
     t_enqueue: float = 0.0
     t_prefill_start: float = 0.0
@@ -330,6 +357,7 @@ class TorchEngine:
         self._topp = np.ones(S, dtype=np.float32)
         self._tok_mirror = np.zeros(S, dtype=np.int32)  # decode input token
         self._salts = np.zeros(S, dtype=np.int32)
+        self._adapter_ids = np.zeros(S, dtype=np.int32)  # LoRA stack index a slot
         # Logits-processor mirrors of each slot (neutral when unused).
         self._uses_procs = np.zeros(S, dtype=bool)
         self._minp = np.zeros(S, dtype=np.float32)
@@ -342,6 +370,9 @@ class TorchEngine:
         # thread before the next dispatch: (slot, prompt, generated, first);
         # first is None for an abort's rebuild, whose generated holds it.
         self._proc_resets: List[Tuple[int, List[int], List[int], Optional[int]]] = []
+        # Slots whose adapter was unloaded under them: stack index 0 in
+        # their device rows before the next dispatch (_detach_adapter).
+        self._detached_rows: List[int] = []
         self._next_salt = 0
         # Slots whose device state or table row differs from these mirrors,
         # synced at the next dispatch (engine.py:404-410).
@@ -349,6 +380,7 @@ class TorchEngine:
         self._dirty_tables: set = set(range(S))
         self._inflight: "collections.deque[_InflightBurst]" = collections.deque()
         self._waiting: "collections.deque[_Sequence]" = collections.deque()
+        self._prefilling: List[_Sequence] = []  # the batch _admit_batch prefills
         self._loop_task: Optional[asyncio.Task] = None
         self._stopped = asyncio.Event()
         self._wake = asyncio.Event()
@@ -394,7 +426,7 @@ class TorchEngine:
         self.hbm.register("slot_state", lambda: tree_device_bytes(
             [t for name, t in runner.slot_state.items() if name != "tables"]))
         self.hbm.register("slot_tables", lambda: tree_device_bytes(runner.slot_state["tables"]))
-        self.hbm.register("lora", lambda: 0)
+        self.hbm.register("lora", lambda: tree_device_bytes(runner.lora))
         self.hbm.register("proc_state", lambda: tree_device_bytes(runner.proc_state))
 
     # -- lifecycle ---------------------------------------------------------
@@ -575,6 +607,69 @@ class TorchEngine:
         return await self.import_blocks_wire_async(
             block_hashes, KvWireBlocks.dense(k_blocks, v_blocks), anchor_parent=anchor_parent)
 
+    # -- LoRA (engine.py:539-568) -----------------------------------------
+
+    @property
+    def _lora_index(self) -> Dict[str, int]:
+        return self.runner.lora_index
+
+    def load_lora(self, name: str, adapter_dir: str) -> None:
+        """Load one adapter at run time (ref: vllm handlers.py LoRA load).
+        Call it on the device thread (``_device``). A change of the stack's
+        shape recaptures each decode graph at its next use."""
+        if name in self.runner.lora_index:
+            raise ValueError(f"LoRA adapter {name!r} already loaded")
+        from dynamo_tpu_torch.engines.gpu.runner import _adapter_to_host
+        from dynamo_tpu_torch.lora import load_lora_adapter
+
+        adapter = _adapter_to_host(load_lora_adapter(adapter_dir, self.config, name=name))
+        adapter.name = name
+        self.runner.install_adapter(adapter)
+
+    def unload_lora(self, name: str) -> None:
+        """Unload by name. Sequences on the adapter degrade to base-model
+        output rather than fail (``_detach_adapter``); new requests naming
+        it are refused at admission. Its slot stays, a rank-1 zero
+        placeholder, so later ids stay stable. Call it on the event loop's
+        thread with no burst in flight, or ``unload_lora_async`` while
+        requests run."""
+        self._check_loaded(name)
+        self._detach_adapter(name)
+        self.runner.remove_adapter(name)
+
+    async def unload_lora_async(self, name: str) -> None:
+        """``unload_lora`` while requests run: the sequences detached here,
+        on the event loop's thread between the scheduler's steps, then the
+        stack restacked on the device thread after the bursts in flight."""
+        self._check_loaded(name)
+        self._detach_adapter(name)
+        await self._device(self.runner.remove_adapter, name)
+
+    def _check_loaded(self, name: str) -> None:
+        if name not in self.runner.lora_index:
+            # KeyError (not ValueError): the admin surface maps it to 404
+            # while ValueError means conflict (409) on the load side.
+            raise KeyError(f"LoRA adapter {name!r} is not loaded")
+
+    def _detach_adapter(self, name: str) -> None:
+        """Every sequence on adapter ``name`` runs as the base model from its
+        next step: stack index 0 in its slot row, and no more of its blocks
+        in the prefix cache, whose salt would claim the adapter's K/V for
+        them. Run before the stack changes, so that no row refers to the
+        freed slot when the next load fills it. A sequence recomputed after
+        a preemption is the base model's whole, and shares its blocks
+        again. JAX's engine leaves such rows on the slot (engine.py:557)."""
+        for seq in itertools.chain(self._slots, self._waiting, self._prefilling):
+            if seq is None or seq.lora_name != name:
+                continue
+            seq.lora_name, seq.adapter_id, seq.shares_blocks = None, 0, False
+            if seq.slot >= 0:  # its id alone: a full row sync would reset its carry
+                self._adapter_ids[seq.slot] = 0
+                self._detached_rows.append(seq.slot)
+
+    def lora_names(self) -> List[str]:
+        return sorted(self.runner.lora_index)
+
     def _pipeline_depth(self) -> int:
         # Speculative decoding caps the depth at 1 (engine.py:571-579): every
         # spec tick proposes from reconciled host tokens, and a pipelined
@@ -606,14 +701,16 @@ class TorchEngine:
             )
         elif self._failure is not None:
             error = f"engine failed: {self._failure}"
-        elif request.lora_name:
-            error = f"unknown LoRA adapter {request.lora_name!r} (LoRA is not ported yet)"
+        elif request.lora_name and request.lora_name not in self._lora_index:
+            error = (f"unknown LoRA adapter {request.lora_name!r} "
+                     f"(loaded: {self.lora_names()})")
         if error is not None:
             yield BackendOutput(error=error, finish_reason=FinishReason.ERROR)
             return
         seq = _Sequence(
             request=request, context=context, queue=asyncio.Queue(),
             prompt=prompt, all_tokens=list(prompt), salt=self._next_salt,
+            lora_name=request.lora_name,
         )
         self._next_salt = (self._next_salt + 1) & 0x7FFFFFFF
         seq.t_enqueue = time.monotonic()
@@ -807,6 +904,7 @@ class TorchEngine:
             batch.append((seq, prep))
         if not batch:
             return 0
+        self._prefilling = [seq for seq, _ in batch]
         try:
             firsts = await self._prefill(batch)
         except BaseException:  # back to the queue, whose streams shutdown ends
@@ -814,6 +912,8 @@ class TorchEngine:
                 self.pool.release(prep.ids, prep.hashes[: prep.matched])
                 self._requeue(seq)
             raise
+        finally:
+            self._prefilling = []
         free_iter = (i for i, s in enumerate(self._slots) if s is None)
         for (seq, prep), first in zip(batch, firsts):
             self._install(seq, prep, next(free_iter), *first)
@@ -842,7 +942,10 @@ class TorchEngine:
         args = self.args
         prompt = seq.all_tokens  # includes regenerated tokens after preemption
         n_blocks = math.ceil(len(prompt) / args.block_size)
-        hashes = compute_block_hashes(prompt, args.block_size)
+        # K/V computed under an adapter differ from the base model's: its
+        # own hash space (admission.py:249)
+        seq.hash_salt = adapter_salt(seq.lora_name)
+        hashes = compute_block_hashes(prompt, args.block_size, salt=seq.hash_salt)
         matched, ids = self.pool.pin_prefix(hashes)
         matched_tokens = min(matched * args.block_size, len(prompt) - 1)
         # Watermark headroom so running decodes can still grow.
@@ -869,6 +972,10 @@ class TorchEngine:
             int(s.top_k if s.top_k is not None and s.top_k > 0 else 0),
             float(s.top_p if s.top_p is not None else 1.0),
         )
+        # (re)computed whole under its adapter, or the base model's once
+        # that was unloaded under it
+        seq.adapter_id = self._lora_index.get(seq.lora_name or "", 0)
+        seq.shares_blocks = True
         return _Prep(ids=ids, hashes=hashes, matched=matched,
                      matched_tokens=matched_tokens, sp=sp, procs=self._procs_of(seq.request))
 
@@ -936,11 +1043,13 @@ class TorchEngine:
             # Fresh prefills (first round, no prefix hit) attend densely
             # over the chunk itself: no paged reads.
             first_chunk = bool(np.all(start == 0))
+            # read a round at a time: an unload between rounds zeroes them
+            adapter = np.asarray([seq.adapter_id for seq, _ in batch], np.int32)
             t0 = time.monotonic()
             out = await self._device(
                 self.runner.run_step, tok, start, lens, tables, temp, topk, topp, salts,
                 first_chunk=first_chunk, procs=procs, want_logprobs=want_logprobs,
-                want_top=want_top,
+                want_top=want_top, adapter_ids=adapter,
             )
             dt = time.monotonic() - t0  # run_step read its tokens back
             # Occupancy counts rows still prefilling this round: short
@@ -995,7 +1104,7 @@ class TorchEngine:
         """Commit fresh prompt blocks and join the decode batch."""
         args = self.args
         prompt = seq.all_tokens
-        for i in range(prep.matched, len(prompt) // args.block_size):
+        for i in range(prep.matched, len(prompt) // args.block_size if seq.shares_blocks else 0):
             parent = prep.hashes[i - 1] if i else None
             self.pool.commit(prep.ids[i], prep.hashes[i], parent)
             seq.block_hashes.append(prep.hashes[i])
@@ -1006,6 +1115,7 @@ class TorchEngine:
         self._block_tables[slot, : len(prep.ids)] = prep.ids
         self._temp[slot], self._topk[slot], self._topp[slot] = prep.sp
         self._salts[slot] = seq.salt
+        self._adapter_ids[slot] = seq.adapter_id
         self._tok_mirror[slot] = first_token
         self._dirty_state.add(slot)
         self._dirty_tables.add(slot)
@@ -1081,9 +1191,9 @@ class TorchEngine:
         return self.__dict__["_spec_decoder"]
 
     def _run_spec(self, tokens, start_pos, chunk_lens, block_tables, temp=None, topk=None,
-                  topp=None, salts=None):
+                  topp=None, salts=None, adapter_ids=None):
         return self.runner.run_spec(tokens, start_pos, chunk_lens, block_tables, temp=temp,
-                                    topk=topk, topp=topp, salts=salts)
+                                    topk=topk, topp=topp, salts=salts, adapter_ids=adapter_ids)
 
     def _propose(self, seq: _Sequence) -> List[int]:
         return self._spec.propose(seq)
@@ -1136,6 +1246,7 @@ class TorchEngine:
         state_sync = self._build_state_sync()
         table_sync = self._build_table_sync()
         resets, self._proc_resets = self._proc_resets, []
+        detached, self._detached_rows = self._detached_rows, []
         # Host pos lags the device carry by K a burst in flight, so this
         # burst spans up to pos + (inflight + 1)·K: the bucket a depth-1
         # engine takes for the same burst.
@@ -1154,7 +1265,7 @@ class TorchEngine:
         # must regenerate identical tokens on the retried burst.
         fault_point(fault_names.ENGINE_TICK_DISPATCH)
         handles = await self._device(self._dispatch_on_device, nb, state_sync, table_sync,
-                                     want_logprobs, use_procs, resets)
+                                     want_logprobs, use_procs, resets, detached)
         t_dispatched = time.monotonic()
         # Host gap: how long the card sat idle on host work between the
         # previous burst's readback and this dispatch; 0 when another burst
@@ -1173,9 +1284,12 @@ class TorchEngine:
         return True
 
     def _dispatch_on_device(self, nb, state_sync, table_sync, want_logprobs=False,
-                            use_procs=False, resets=()) -> _DecodeHandles:
+                            use_procs=False, resets=(), detached=()) -> _DecodeHandles:
         """Device-thread half of a dispatch: reset the penalty bookkeeping of
-        newly installed slots, sync the dirty rows, enqueue."""
+        newly installed slots, zero the adapter ids of detached rows, sync
+        the dirty rows, enqueue."""
+        if detached:
+            self.runner.zero_adapter_ids(detached)
         for slot, prompt, generated, first in resets:
             self.runner.proc_reset_slot(slot, prompt, generated)
             if first is not None:
@@ -1198,7 +1312,8 @@ class TorchEngine:
             "tokens": self._tok_mirror[sl], "pos": self._pos[sl],
             "active": np.asarray([int(self._slots[s] is not None) for s in slots], np.int32),
             "temp": self._temp[sl], "topk": self._topk[sl], "topp": self._topp[sl],
-            "salts": self._salts[sl], "minp": self._minp[sl], "rep": self._rep[sl],
+            "salts": self._salts[sl], "adapter_ids": self._adapter_ids[sl],
+            "minp": self._minp[sl], "rep": self._rep[sl],
             "pres": self._pres[sl], "freq": self._freq[sl], "bias_ids": self._bias_ids[sl],
             "bias_vals": self._bias_vals[sl],
         }
@@ -1368,6 +1483,8 @@ class TorchEngine:
             self._finish(seq, reason, emit=False)
 
     def _commit_complete_blocks(self, seq: _Sequence, slot: int) -> None:
+        if not seq.shares_blocks:
+            return
         args = self.args
         pos = int(self._pos[slot])
         while True:
@@ -1377,7 +1494,7 @@ class TorchEngine:
             parent = seq.block_hashes[-1] if seq.block_hashes else None
             h = compute_block_hashes(
                 seq.all_tokens[bi * args.block_size : (bi + 1) * args.block_size],
-                args.block_size, parent_hash=parent,
+                args.block_size, parent_hash=parent, salt=seq.hash_salt,
             )[0]
             self.pool.commit(seq.block_ids[bi], h, parent)
             seq.block_hashes.append(h)

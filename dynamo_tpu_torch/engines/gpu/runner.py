@@ -59,6 +59,24 @@ thread, so decode bursts keep flowing while a transfer drains. These are
 plain torch ops (indexed copies; JAX's are XLA, not Pallas), and on the CPU
 the same functions run.
 
+Multi-LoRA (runner.py:226-233, 568-645): adapters stay on the host as
+float32 tensors (lora/loader.py); only their stack lives on the card
+(``lora``: target -> layer-major (A [L, N+1, d_in, r_max], B [L, N+1,
+r_max, d_out]) in the model dtype), slot 0 the zero "no adapter" one, and
+``lora_index`` maps a name to its stable slot. ``install_adapter`` takes the
+first free slot (else a new one), ``remove_adapter`` leaves a zero
+placeholder at rank 1 in its slot, so ids that rows hold stay valid. The
+prefill, every decode burst and the verify read the stack and each row's
+id (``slot_state["adapter_ids"]``, the verify's static ``adapter_ids``). A
+captured graph holds the stack's addresses, so a restack that keeps the
+stack's shape (slots, r_max, targets) copies into the same tensors on the
+engine's stream, behind the bursts in flight, and every graph stays valid;
+one that changes it waits for the stream, drops every decode and verify
+graph and allocates anew. Graph keys carry the stack's shape (``lora_key``;
+none without a stack, so an engine without adapters keeps its keys and
+launches nothing extra), and each recapture counts as a new signature of
+its program under JAX's budget, which allows for restacks.
+
 Divergences from the JAX runner: no demotion machinery (a capture or
 launch that fails raises, and the engine fails its streams); a scatter
 writes into the pools in place (``index_copy_``) where JAX rebinds the
@@ -72,6 +90,7 @@ Everything runs on the engine's single device thread.
 from __future__ import annotations
 
 import collections
+import logging
 import time
 from dataclasses import dataclass
 from typing import Any, Deque, Dict, List, NamedTuple, Optional, Tuple
@@ -101,13 +120,16 @@ from dynamo_tpu_torch.runtime.device_observe import (
     watched_capture,
 )
 
+logger = logging.getLogger(__name__)
+
 # A decode graph's key: (width bucket, want_logprobs, use_procs), as the
-# JAX runner keys its programs (runner.py:1008).
-GraphKey = Tuple[int, bool, bool]
-# A verify graph's key: ("spec", width bucket, rows a sequence). Its own
-# first field keeps it apart from every GraphKey; verify graphs live in
-# their own dictionary besides.
-SpecKey = Tuple[str, int, int]
+# JAX runner keys its programs (runner.py:1008), followed by the LoRA
+# stack's shape when a stack is loaded (DeviceRunner.lora_key).
+GraphKey = Tuple[Any, ...]
+# A verify graph's key: ("spec", width bucket, rows a sequence), and the
+# stack's shape likewise. Its own first field keeps it apart from every
+# GraphKey; verify graphs live in their own dictionary besides.
+SpecKey = Tuple[Any, ...]
 # The programs a graph's capture counts under (compile telemetry): the JAX
 # runner's decode and speculative-verify programs' names.
 DECODE_PROGRAM = "runner.decode_state"
@@ -188,7 +210,13 @@ class DeviceRunner:
         if args.quantization:  # idempotent for int8 trees
             params = quantize_params(params)
         self.params = params
-        self.use_megakernel = self._megakernel_gate()
+        # Multi-LoRA: the stack on the card, name -> slot index (index 0 is
+        # the zero "no adapter" slot), and the host adapters by slot - 1
+        # (None: a freed slot).
+        self.lora: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
+        self.lora_index: Dict[str, int] = {}
+        self._adapter_list: List[Optional[Any]] = []
+        self.use_megakernel = self._megakernel_gate(lora=bool(args.lora_dir))
         self.mk_fused_bursts = 0  # decode bursts run through the fused layer
         self.k_cache, self.v_cache = llama.init_kv_cache(
             self.config, args.num_kv_blocks, args.block_size, self.device,
@@ -258,6 +286,10 @@ class DeviceRunner:
         # Host-to-device traffic of the decode path, as the JAX runner's
         # transfer_log: ("slot_sync" | "table_sync", rows) and ("decode", nb).
         self.transfer_log: Deque[Tuple[str, int]] = collections.deque(maxlen=4096)
+        # restacks that kept the stack's shape (in place) and that changed it
+        self.lora_restacks = {"in_place": 0, "reshaped": 0}
+        if args.lora_dir:
+            self._load_loras(args.lora_dir)
 
     @staticmethod
     def _resolve_auto_kv_dtype(args: Any) -> Optional[str]:
@@ -271,13 +303,15 @@ class DeviceRunner:
         long_ctx = args.max_model_len >= knobs.KV_QUANT_AUTO_CTX.get()
         return "int8" if long_ctx or pressure else None
 
-    def _megakernel_gate(self) -> bool:
+    def _megakernel_gate(self, lora: bool) -> bool:
         """The JAX runner's gate (runner.py:284-306): int8 weights, bf16
-        layered pools, no LoRA, and an architecture the fused layer takes.
-        The mesh condition has no counterpart here, and ``max_num_seqs % 4``
-        is dropped: the CUDA kernel takes any batch. ``None`` turns it on
-        when eligible and on the card; ``True`` on an ineligible config
-        raises instead of running another path."""
+        layered pools, no LoRA stack (``lora``: a ``lora_dir`` at start, an
+        adapter's first load later), and an architecture the fused layer
+        takes. The mesh condition has no counterpart here, and
+        ``max_num_seqs % 4`` is dropped: the CUDA kernel takes any batch.
+        ``None`` turns it on when eligible and on the card; ``True`` on an
+        ineligible config raises instead of running another path (under
+        ``lora_dir`` JAX warns and runs XLA)."""
         c, want = self.config, self.args.use_megakernel
         if self.args.quantization != "int8":
             reason = "weights not int8-quantized (quantization is not 'int8')"
@@ -286,7 +320,7 @@ class DeviceRunner:
         elif c.dtype != torch.bfloat16:
             reason = f"KV pools are {c.dtype}, the fused layer reads bf16 pools"
         else:
-            reason = supports_reason(c, lora=False, quantized_weights=True)
+            reason = supports_reason(c, lora=lora, quantized_weights=True)
         if want is None:
             return reason is None and self.device.type == "cuda"
         if want and reason is not None:
@@ -296,11 +330,120 @@ class DeviceRunner:
     def _dev(self, a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, dtype)
 
+    # -- LoRA (runner.py:226-233, 568-645) ---------------------------------
+
+    def lora_key(self) -> Tuple[Any, ...]:
+        """The stack's shape as a graph key's tail: (slots, r_max, targets),
+        or nothing without a stack."""
+        if self.lora is None:
+            return ()
+        A = next(iter(self.lora.values()))[0]  # [L, N+1, d_in, r_max]
+        return ((A.shape[1], A.shape[3], tuple(sorted(self.lora))),)
+
+    def _load_loras(self, lora_dir: str) -> None:
+        """Load every adapter under ``lora_dir`` and stack them layer-major
+        for the layer loop (lora/loader.py)."""
+        from dynamo_tpu_torch.lora import LocalLoRASource, load_lora_adapter
+
+        source = LocalLoRASource(lora_dir)
+        names = source.list_adapters()
+        if not names:
+            logger.warning("lora_dir %s contains no adapters", lora_dir)
+            return
+        self._adapter_list = [
+            _adapter_to_host(load_lora_adapter(source.fetch(n, lora_dir), self.config, name=n))
+            for n in names
+        ]
+        self._restack_loras()
+
+    @torch.inference_mode()
+    def _restack_loras(self) -> None:
+        """Rebuild the stack from ``_adapter_list`` (None entries are freed
+        slots that keep later indices stable: rows hold adapter ids by
+        position). The same shape: copied into the stack in place, on the
+        current stream after the bursts in flight. Another shape: the
+        stream is waited for, every decode and verify graph dropped, and
+        the stack made anew."""
+        from dynamo_tpu_torch.lora.loader import LoRAAdapter, stack_adapters
+
+        real = [a for a in self._adapter_list if a is not None]
+        if not real:
+            if self.lora is not None:
+                self._drop_graphs()  # the graphs' keys end with the stack's shape
+            self.lora = None
+            self.lora_index = {}
+            return
+        padded = [
+            a if a is not None else LoRAAdapter(name=f"__free_{i}", rank=1, scaling=0.0)
+            for i, a in enumerate(self._adapter_list)
+        ]
+        targets = sorted({t for a in real for t in a.targets})
+        # [N+1, L, ...] -> layer-major [L, N+1, ...] for the layer loop
+        stacked = {t: (A.transpose(0, 1).contiguous(), B.transpose(0, 1).contiguous())
+                   for t, (A, B) in stack_adapters(padded, self.config, targets).items()}
+        shape = lambda st: {t: (A.shape, B.shape) for t, (A, B) in st.items()}  # noqa: E731
+        if self.lora is not None and shape(self.lora) == shape(stacked):
+            cuda = self.device.type == "cuda"
+            for t, pair in stacked.items():
+                for dst, src in zip(self.lora[t], pair):
+                    dst.copy_(src.pin_memory() if cuda else src, non_blocking=cuda)
+            self.lora_restacks["in_place"] += 1
+        else:
+            self._drop_graphs()
+            self.lora = {t: (A.to(self.device), B.to(self.device)) for t, (A, B) in stacked.items()}
+            self.lora_restacks["reshaped"] += 1
+        self.lora_index = {
+            a.name: i for i, a in enumerate(self._adapter_list, start=1) if a is not None
+        }
+        logger.info("LoRA stack: %d slot(s), adapters %s (targets: %s)",
+                    len(self._adapter_list), sorted(self.lora_index), targets)
+
+    def _drop_graphs(self) -> None:
+        """Every captured decode and verify graph, dropped once the bursts
+        in flight that replay them have run (the stack's shape changes, the
+        first stack's included: no key replays them after it)."""
+        if not (self.graphs or self.spec_graphs):
+            return
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        self.graphs.clear()
+        self.spec_graphs.clear()
+
+    def install_adapter(self, adapter: Any) -> None:
+        """Add one host adapter into the first free slot and restack. The
+        first stack on a runner whose fused layer is on asks its gate again,
+        as ``lora_dir`` would have at start: ``use_megakernel=True`` raises
+        (the route answers 409) and ``None`` turns the fused layer off."""
+        if self.use_megakernel and self.lora is None:
+            self.use_megakernel = self._megakernel_gate(lora=True)
+            logger.warning("the fused decoder layer is off from here on: it takes no LoRA stack")
+        for i, slot in enumerate(self._adapter_list):
+            if slot is None:
+                self._adapter_list[i] = adapter
+                break
+        else:
+            self._adapter_list.append(adapter)
+        self._restack_loras()
+
+    def remove_adapter(self, name: str) -> int:
+        """Free an adapter slot by name; returns its (stable) index."""
+        idx = self.lora_index[name]
+        self._adapter_list[idx - 1] = None
+        self._restack_loras()
+        return idx
+
+    def _row_ids(self, adapter_ids) -> Optional[torch.Tensor]:
+        """A prefill's rows' adapter ids on the device, or None without a
+        stack (nothing extra is launched)."""
+        if self.lora is None or adapter_ids is None:
+            return None
+        return self._dev(adapter_ids, torch.int32)
+
     @torch.inference_mode()
     def run_step(
         self, tokens, start_pos, chunk_lens, block_tables, temp, topk, topp, salts,
         *, first_chunk: bool = False, procs: Optional[Dict[str, np.ndarray]] = None,
-        want_logprobs: bool = False, want_top: bool = False,
+        want_logprobs: bool = False, want_top: bool = False, adapter_ids=None,
     ) -> "StepResult":
         """One prefill chunk round over [B, C] rows + the sample of each
         row's next token, keyed at index start + len. With ``procs``
@@ -309,6 +452,7 @@ class DeviceRunner:
         first, and min_p in the sample (JAX runner.py:650-698); then the
         chosen tokens' logprobs (``want_logprobs``) and the top
         ``top_logprobs_cap`` (``want_top``) from the processed logits.
+        ``adapter_ids`` [B] select each row's adapter of the stack.
         Returns the [B] ids and those, as numpy."""
         d = self._dev
         start = d(start_pos, torch.int32)
@@ -316,7 +460,7 @@ class DeviceRunner:
         logits, self.k_cache, self.v_cache = llama.forward_paged(
             self.params, self.config, d(tokens, torch.int64), start, lens,
             d(block_tables, torch.int32), self.k_cache, self.v_cache,
-            first_chunk=first_chunk,
+            first_chunk=first_chunk, lora=self.lora, adapter_ids=self._row_ids(adapter_ids),
         )
         keys = fold_row_keys(self.seed, d(salts, torch.int64), start + lens)
         min_p = None
@@ -393,6 +537,14 @@ class DeviceRunner:
         self.transfer_log.append(("slot_sync", len(slots)))
 
     @torch.inference_mode()
+    def zero_adapter_ids(self, slots: List[int]) -> None:
+        """Stack index 0 in the device rows of ``slots``, whose adapter was
+        unloaded while they run; the rest of each row, its carry among it,
+        stays."""
+        idx = self._to_state(np.asarray(slots, np.int64), torch.int64)
+        self.slot_state["adapter_ids"].index_fill_(0, idx, 0)
+
+    @torch.inference_mode()
     def sync_tables(self, slots: List[int], rows: np.ndarray) -> None:
         """Write dirty block-table rows (the full table width) into the
         device state; called only when a slot's table changed."""
@@ -412,20 +564,21 @@ class DeviceRunner:
         return self._out_logprobs
 
     def _burst(self, key: GraphKey) -> None:
-        nb, want_logprobs, use_procs = key
+        nb, want_logprobs, use_procs = key[:3]
         llama.decode_burst(
             self.params, self.config, self.slot_state, self.k_cache, self.v_cache, self.seed,
             self._out_tokens, self._out_finite, num_steps=self.args.decode_steps, width=nb,
             use_megakernel=self.use_megakernel,
             proc_state=self.ensure_proc_state() if use_procs else None,
             logprob_outputs=self._logprob_buffers() if want_logprobs else None,
+            lora=self.lora,
         )
 
     def _replay_or_capture(self, key: GraphKey) -> None:
-        """The burst of ``key`` (width bucket, want_logprobs, use_procs) by
-        its graph; at the key's first use it runs eagerly on the capture
-        stream (this burst's real run, and the warm-up) and is captured
-        right after."""
+        """The burst of ``key`` (width bucket, want_logprobs, use_procs[,
+        the stack's shape]) by its graph; at the key's first use it runs
+        eagerly on the capture stream (this burst's real run, and the
+        warm-up) and is captured right after."""
         if self.device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, got {self.device}")
         graph = self.graphs.get(key)
@@ -457,8 +610,9 @@ class DeviceRunner:
 
     def _capture_watch(self, key: GraphKey) -> WatchedCapture:
         """The capturing object of ``key``'s burst variant (compile
-        telemetry), made at the variant's first capture."""
-        variant = key[1:]
+        telemetry), made at the variant's first capture; a key with another
+        stack shape is another signature of the same variant."""
+        variant = key[1:3]
         watch = self._captures.get(variant)
         if watch is None:
             watch = self._captures[variant] = watched_capture(
@@ -478,7 +632,7 @@ class DeviceRunner:
         nb = int(nb)
         if not 1 <= nb <= self.args.max_blocks_per_seq:
             raise ValueError(f"table width {nb} outside 1..{self.args.max_blocks_per_seq}")
-        key = (nb, bool(want_logprobs), bool(use_procs))
+        key = (nb, bool(want_logprobs), bool(use_procs)) + self.lora_key()
         if self.args.cuda_graphs:
             self._replay_or_capture(key)
         else:
@@ -528,6 +682,7 @@ class DeviceRunner:
                       "lens": ((S,), torch.int32), "tables": ((S, P), torch.int32),
                       "temp": ((S,), torch.float32), "topk": ((S,), torch.int32),
                       "topp": ((S,), torch.float32), "salts": ((S,), torch.int64),
+                      "adapter_ids": ((S,), torch.int32),
                       "emitted": ((S, C), torch.int64), "counts": ((S,), torch.int64)}
             io = self._spec_io[C] = {name: torch.zeros(shape, dtype=dtype, device=dev)
                                      for name, (shape, dtype) in shapes.items()}
@@ -547,6 +702,7 @@ class DeviceRunner:
         logits, _, _ = llama.forward_paged(
             self.params, self.config, tokens, start, io["lens"],
             io["tables"][:, :nb].contiguous(), self.k_cache, self.v_cache, all_logits=True,
+            lora=self.lora, adapter_ids=io["adapter_ids"] if self.lora else None,
         )
         index = start.to(torch.int64)[:, None] + 1 + torch.arange(C, device=tokens.device)[None, :]
         keys = fold_row_keys(self.seed, io["salts"][:, None], index)
@@ -564,12 +720,12 @@ class DeviceRunner:
 
     @torch.inference_mode()
     def run_spec(self, tokens, start_pos, chunk_lens, block_tables, temp=None, topk=None,
-                 topp=None, salts=None) -> Tuple[np.ndarray, np.ndarray]:
+                 topp=None, salts=None, adapter_ids=None) -> Tuple[np.ndarray, np.ndarray]:
         """Speculative verify with rejection sampling over every slot: tokens
         [S, C] (each row's next token, then its proposals), start [S], lens
         [S] (1 + the row's proposals; 0 for a row that verifies nothing),
         the tables' first ``nb`` pages [S, nb], and each row's sampling
-        parameters and salt (greedy by default). On the card with
+        parameters, salt and adapter id (greedy, base). On the card with
         ``cuda_graphs`` each (nb, C) is one captured graph, run eagerly at
         its first use; else eagerly. Returns (emitted [S, C], counts [S])
         as numpy: row i's first counts[i] entries are its accepted
@@ -585,12 +741,13 @@ class DeviceRunner:
                 "temp": np.zeros(S, np.float32) if temp is None else temp,
                 "topk": np.zeros(S, np.int32) if topk is None else topk,
                 "topp": np.ones(S, np.float32) if topp is None else topp,
-                "salts": np.zeros(S, np.int64) if salts is None else salts}
+                "salts": np.zeros(S, np.int64) if salts is None else salts,
+                "adapter_ids": np.zeros(S, np.int32) if adapter_ids is None else adapter_ids}
         for name, a in rows.items():
             io[name].copy_(self._to_state(a, io[name].dtype))
         io["tables"][:, :nb].copy_(self._to_state(block_tables, torch.int32))
         if self.args.cuda_graphs:
-            self._replay_or_capture_spec(("spec", nb, C), io)
+            self._replay_or_capture_spec(("spec", nb, C) + self.lora_key(), io)
         else:
             self._verify(io, nb)
             self.spec_eager += 1
@@ -727,10 +884,11 @@ class DeviceRunner:
                            self._from_host(wire.v_scale))
 
     def sync_all(self, tokens, start_pos, active, block_tables, temp, topk, topp, salts,
-                 procs: Optional[Dict[str, np.ndarray]] = None) -> int:
+                 procs: Optional[Dict[str, np.ndarray]] = None, adapter_ids=None) -> int:
         """Write every slot's row of the decode state from host arrays
         (tables zero-padded to the full width; with ``procs``, the
-        PROC_SLOT_STATE rows too); returns the tables' width."""
+        PROC_SLOT_STATE rows too; adapter ids 0 unless given); returns the
+        tables' width."""
         S, P = self.args.max_num_seqs, self.args.max_blocks_per_seq
         tables = np.asarray(block_tables, np.int32)
         if len(tokens) != S or tables.shape[0] != S or tables.shape[1] > P:
@@ -739,7 +897,9 @@ class DeviceRunner:
         self.sync_slots(list(range(S)), {
             "tokens": np.asarray(tokens), "pos": np.asarray(start_pos),
             "active": np.asarray(active), "temp": np.asarray(temp), "topk": np.asarray(topk),
-            "topp": np.asarray(topp), "salts": np.asarray(salts), **(procs or {}),
+            "topp": np.asarray(topp), "salts": np.asarray(salts),
+            "adapter_ids": np.zeros(S, np.int32) if adapter_ids is None else np.asarray(adapter_ids),
+            **(procs or {}),
         })
         full = np.zeros((S, P), np.int32)
         full[:, : tables.shape[1]] = tables
@@ -754,6 +914,15 @@ class DeviceRunner:
         [S, K] sampled ids."""
         nb = self.sync_all(tokens, start_pos, active, block_tables, temp, topk, topp, salts)
         return self.decode_read(self.decode_dispatch(nb)).tokens
+
+
+def _adapter_to_host(adapter: Any) -> Any:
+    """Keep retained adapters as float32 host tensors (runner.py:226-233):
+    only the stack belongs on the card; a device copy of each adapter kept
+    for restacking would double the LoRA memory."""
+    adapter.weights = {t: (A.detach().to("cpu", torch.float32), B.detach().to("cpu", torch.float32))
+                       for t, (A, B) in adapter.weights.items()}
+    return adapter
 
 
 class StepResult(NamedTuple):

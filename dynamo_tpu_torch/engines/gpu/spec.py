@@ -107,6 +107,7 @@ class NgramSpecDecoder:
         emitted_all, counts = await e._device(
             e._run_spec, tokens, e._pos.copy(), lens, e._block_tables[:, :nb].copy(),
             e._temp.copy(), e._topk.copy(), e._topp.copy(), e._salts.copy(),
+            adapter_ids=e._adapter_ids.copy(),
         )
         e.steps += 1
         e.spec_ticks += 1

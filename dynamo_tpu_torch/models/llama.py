@@ -9,7 +9,7 @@ the same arrays. KV pools are per-layer (the JAX "layered" cache), each a
 [NB, BS, KH, D] tensor in the model dtype or an int8 pool ``{"q8", "s"}``
 (ops/kv_quant.py), and are updated in place.
 
-Covered: the dense (non-MoE, non-LoRA) decoder with the family knobs of
+Covered: the dense (non-MoE) decoder with the family knobs of
 ``decoder_layer`` (qkv-bias, qk-norm, post-norms, unit-offset norms, GeGLU,
 softcaps, sliding windows, Gemma-3 dual rope), ``forward_paged`` on the
 layered cache with ``first_chunk``, and ``decode_multi`` with per-sequence
@@ -20,7 +20,11 @@ ops/fused_layer call a layer for C = 1), and ``decode_burst``: a burst of
 ``decode_multi`` over the engine's device-resident slot state, the body
 the runner captures as a CUDA graph, with the logits processors
 (ops/logits_process.py), min_p, logprobs and top-N inside it when a burst
-asks for them. Not yet: MoE, LoRA, multimodal splices.
+asks for them. Multi-LoRA (ops/lora.py): ``lora`` maps each target to the
+layer-major stack (A [L, N+1, d_in, r], B [L, N+1, r, d_out]) and each row's
+``adapter_ids`` entry picks its adapter; the delta is added to each of the
+seven projections where JAX adds it (before the qkv bias), and the fused
+layer stays closed under it. Not yet: MoE, multimodal splices.
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ from dynamo_tpu_torch.ops.attention import (
 )
 from dynamo_tpu_torch.ops.fused_layer import fused_decoder_layer, history_pcounts
 from dynamo_tpu_torch.ops.kv_quant import KVPool, is_quantized_pool, pool_values
+from dynamo_tpu_torch.ops.lora import LoraLayer, lora_delta
 from dynamo_tpu_torch.ops.quant import embed_lookup, lm_head as q_lm_head, qeinsum
 from dynamo_tpu_torch.ops.rope import apply_rope, rope_table
 from dynamo_tpu_torch.ops.sampling import (
@@ -160,6 +165,14 @@ def _act(x: torch.Tensor, act_fn: str) -> torch.Tensor:
     return F.silu(x)
 
 
+def _plus_delta(y: torch.Tensor, ll: Optional[LoraLayer], target: str, x: torch.Tensor,
+                adapter_ids: Optional[torch.Tensor]) -> torch.Tensor:
+    """``y + lora_delta(...)`` as JAX adds it; nothing is launched when the
+    stack does not touch ``target``."""
+    d = lora_delta(ll, target, x, adapter_ids)
+    return y if d is None else y + d
+
+
 def decoder_layer(
     c: ModelConfig,
     lp: Params,
@@ -177,10 +190,13 @@ def decoder_layer(
     cos_loc: Optional[torch.Tensor] = None,
     sin_loc: Optional[torch.Tensor] = None,
     write_index: Optional[torch.Tensor] = None,
+    ll: Optional[LoraLayer] = None,  # this layer's stacked LoRA slices
+    adapter_ids: Optional[torch.Tensor] = None,  # [B] int32, 0 = no adapter
 ) -> torch.Tensor:
     """One decoder layer (attention + FFN). Writes the chunk's K/V into the
     pools, then attends: densely over the chunk itself when
-    ``first_chunk`` (fresh prefill), else through ``paged_attention``."""
+    ``first_chunk`` (fresh prefill), else through ``paged_attention``.
+    With ``ll`` each projection gets its rows' low-rank deltas."""
     B, C = x.shape[:2]
     hd = c.head_dim_
     uo = c.rmsnorm_unit_offset
@@ -188,9 +204,9 @@ def decoder_layer(
     cap = float(c.attn_logit_softcap or 0.0)
 
     h = _rms_norm(x, lp["attn_norm"], c.rms_norm_eps, uo)
-    q = qeinsum("bcd,dh->bch", h, lp["wq"])
-    k = qeinsum("bcd,dh->bch", h, lp["wk"])
-    v = qeinsum("bcd,dh->bch", h, lp["wv"])
+    q = _plus_delta(qeinsum("bcd,dh->bch", h, lp["wq"]), ll, "wq", h, adapter_ids)
+    k = _plus_delta(qeinsum("bcd,dh->bch", h, lp["wk"]), ll, "wk", h, adapter_ids)
+    v = _plus_delta(qeinsum("bcd,dh->bch", h, lp["wv"]), ll, "wv", h, adapter_ids)
     if c.qkv_bias:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -218,15 +234,19 @@ def decoder_layer(
             q, k_c, v_c, block_tables, start_pos, chunk_lens,
             sm_scale=sm_scale, window=win, logit_cap=cap,
         )
-    attn_out = qeinsum("bch,hd->bcd", attn.reshape(B, C, -1), lp["wo"])
+    attn = attn.reshape(B, C, -1)
+    attn_out = _plus_delta(qeinsum("bch,hd->bcd", attn, lp["wo"]), ll, "wo", attn, adapter_ids)
     if c.post_norms:
         attn_out = _rms_norm(attn_out, lp["attn_post_norm"], c.rms_norm_eps, uo)
     x = x + attn_out
 
     h = _rms_norm(x, lp["mlp_norm"], c.rms_norm_eps, uo)
-    gate = _act(qeinsum("bcd,df->bcf", h, lp["w_gate"]), c.act_fn)
-    up = qeinsum("bcd,df->bcf", h, lp["w_up"])
-    mlp_out = qeinsum("bcf,fd->bcd", gate * up, lp["w_down"])
+    gate = _act(_plus_delta(qeinsum("bcd,df->bcf", h, lp["w_gate"]), ll, "w_gate", h,
+                            adapter_ids), c.act_fn)
+    up = _plus_delta(qeinsum("bcd,df->bcf", h, lp["w_up"]), ll, "w_up", h, adapter_ids)
+    gu = gate * up
+    mlp_out = _plus_delta(qeinsum("bcf,fd->bcd", gu, lp["w_down"]), ll, "w_down", gu,
+                          adapter_ids)
     if c.post_norms:
         mlp_out = _rms_norm(mlp_out, lp["mlp_post_norm"], c.rms_norm_eps, uo)
     return x + mlp_out
@@ -307,6 +327,8 @@ def forward_paged(
     all_logits: bool = False,
     first_chunk: bool = False,
     use_megakernel: bool = False,
+    lora: Optional[LoraLayer] = None,  # target -> (A [L, N+1, d, r], B [L, N+1, r, h])
+    adapter_ids: Optional[torch.Tensor] = None,  # [B] int32, 0 = no adapter
 ) -> Tuple[torch.Tensor, List[KVPool], List[KVPool]]:
     """One forward step over a chunk: returns (logits [B, V] of each row's
     last valid position — or [B, C, V] with ``all_logits`` — k_cache,
@@ -314,7 +336,10 @@ def forward_paged(
     so one function serves prefill (large C), chunked prefill
     (start_pos > 0) and decode (C = 1). ``use_megakernel`` with C = 1 runs
     each layer as one fused_decoder_layer call (int8 weights), and scatters
-    the token's K/V into the pools after each layer."""
+    the token's K/V into the pools after each layer; with ``lora`` it
+    raises.
+    Under ``lora`` layer l reads the views ``A[l]`` and ``B[l]`` of each
+    target, which a captured graph holds by address."""
     c = config
     _check_supported(c)
     B, C = tokens.shape
@@ -327,6 +352,9 @@ def forward_paged(
         cos_loc, sin_loc = rope_table(pos, hd, c.rope_local_theta)
     NB, BS = pool_values(k_cache[0]).shape[:2]
     write_index = cache_write_index(block_tables, start_pos, chunk_lens, C, BS, NB)
+    if use_megakernel and lora:
+        # the runner's gate turns the fused layer off before a stack exists
+        raise ValueError("the fused layer takes no LoRA stack")
     if use_megakernel and C == 1:
         x = _fused_layers(
             params, c, x[:, 0], cos[:, 0], sin[:, 0],
@@ -336,10 +364,12 @@ def forward_paged(
         )[:, None]
     else:
         for l, win in enumerate(c.layer_windows()):
+            ll = {t: (A[l], B[l]) for t, (A, B) in lora.items()} if lora else None
             x = decoder_layer(
                 c, params["layers"][l], int(win), x, cos, sin, k_cache[l], v_cache[l],
                 block_tables, start_pos, chunk_lens, first_chunk=first_chunk,
                 cos_loc=cos_loc, sin_loc=sin_loc, write_index=write_index,
+                ll=ll, adapter_ids=adapter_ids,
             )
     if all_logits:
         return lm_head_logits(params, c, x), k_cache, v_cache
@@ -380,6 +410,8 @@ def decode_multi(
     min_p: Optional[torch.Tensor] = None,  # [B]
     proc_params: Optional[logits_process.ProcParams] = None,
     proc_state: Optional[logits_process.ProcState] = None,  # updated IN PLACE
+    lora: Optional[LoraLayer] = None,
+    adapter_ids: Optional[torch.Tensor] = None,  # [B] int32
 ) -> DecodeOut:
     """``num_steps`` single-token forward + sample steps (the JAX
     ``lax.scan`` as a Python loop). Inactive rows keep their token and
@@ -395,7 +427,8 @@ def decode_multi(
     sample (with ``min_p``); inactive rows held at their token; the
     chosen token's log-probability from the processed, unscaled logits
     (``want_logprobs``) and the ``num_top_logprobs`` best (no [B, V] pass
-    when neither is asked for); the token counted into ``proc_state``."""
+    when neither is asked for); the token counted into ``proc_state``.
+    ``lora`` and ``adapter_ids`` pass to every step's forward."""
     toks = tokens.long()
     pos = start_pos.to(torch.int32)
     act = active.to(torch.int32)
@@ -404,7 +437,7 @@ def decode_multi(
     for _ in range(num_steps):
         logits, k_cache, v_cache = forward_paged(
             params, config, toks[:, None], pos, act, block_tables, k_cache, v_cache,
-            use_megakernel=use_megakernel,
+            use_megakernel=use_megakernel, lora=lora, adapter_ids=adapter_ids,
         )
         finite &= torch.isfinite(logits).all(dim=-1)
         if want_logits:
@@ -439,10 +472,12 @@ def decode_multi(
 # The device-resident decode slot state ``decode_burst`` reads, one row a
 # slot (counterpart of the JAX runner's ``slot_state`` / ``slot_tables``,
 # runner.py:392-438): name -> dtype; "tables" is [S, max_blocks_per_seq].
+# "adapter_ids" (each slot's LoRA stack index, 0 = none) is read only by a
+# burst with a stack.
 SLOT_STATE = {
     "tokens": torch.int64, "pos": torch.int32, "active": torch.int32,
     "temp": torch.float32, "topk": torch.int32, "topp": torch.float32,
-    "salts": torch.int64, "tables": torch.int32,
+    "salts": torch.int64, "tables": torch.int32, "adapter_ids": torch.int32,
 }
 # The processor parameters of each slot (the JAX runner's slot_state minp,
 # rep, pres, freq, bias_ids, bias_vals): name -> dtype; the bias fields are
@@ -468,6 +503,7 @@ def decode_burst(
     use_megakernel: bool = False,
     proc_state: Optional[logits_process.ProcState] = None,  # with PROC_SLOT_STATE in state
     logprob_outputs: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    lora: Optional[LoraLayer] = None,
 ) -> None:
     """One decode burst over the slot state (the body of the JAX runner's
     ``_build_decode_fn``, runner.py:700-780): ``decode_multi`` over every
@@ -479,7 +515,9 @@ def decode_burst(
     the processors and min_p of the state's PROC_SLOT_STATE rows apply and
     the counts advance in place; with ``logprob_outputs`` (logprobs [S, K],
     top values and ids [S, K, N]) the chosen tokens' logprobs and the top N
-    are written there. It reads nothing back to the host and every tensor
+    are written there; with ``lora`` (the runner's layer-major stack) each
+    row's delta is selected by ``state["adapter_ids"]``. It reads nothing
+    back to the host and every tensor
     it keeps has a fixed address, so the same function runs eagerly and
     under CUDA graph capture (engines/gpu/runner.py)."""
     tables = state["tables"][:, :width].contiguous()
@@ -493,6 +531,7 @@ def decode_burst(
         params, config, state["tokens"], state["pos"], state["active"], tables,
         k_cache, v_cache, seed, state["temp"], state["topk"], state["topp"],
         num_steps=num_steps, salts=state["salts"], use_megakernel=use_megakernel,
+        lora=lora, adapter_ids=state["adapter_ids"] if lora else None,
         want_logprobs=logprob_outputs is not None,
         num_top_logprobs=logprob_outputs[1].shape[-1] if logprob_outputs is not None else 0,
         **procs,

@@ -19,11 +19,15 @@ orchestration and debugging:
   GET  /debug/flight         merged flight-recorder rings
   POST /debug/profile        {"action": "start"|"stop"|"status", "dir"?,
                              "seconds"?} — a torch.profiler capture
+  GET  /v1/loras             {"loras": [...]}: the loaded LoRA adapters
+  POST /v1/loras             {"name", "path"}: load one (201; 400 on a bad
+                             body, 409 when loaded, 500 on a failure)
+  DELETE /v1/loras/{name}    unload one (404 when it is not loaded)
 
-Routes whose planes the port has not yet answer 501 with a JSON ``error``
-naming the ROADMAP item that brings them: ``/drain`` (the drain plane,
-A11) and ``/v1/loras`` (LoRA, A7). So the registration API has no
-``register_drain`` or ``register_loras`` yet.
+The LoRA routes answer 404 "LoRA not enabled" until ``register_loras``.
+A route whose plane the port has not yet answers 501 with a JSON
+``error`` naming the ROADMAP item that brings it: ``/drain`` (the drain
+plane, A11). So the registration API has no ``register_drain`` yet.
 
 Divergences from JAX's server: a profiler capture that fails to start or
 stop answers 500 (JAX's answers 200 with ``degraded: true``, a no-op that
@@ -55,8 +59,6 @@ ENGINE_METHODS = ("GET", "HEAD", "POST", "PUT", "PATCH", "DELETE", "OPTIONS")
 # (route, methods, what is not ported, the ROADMAP item that brings it)
 UNPORTED_ROUTES = (
     ("/drain", ("GET", "POST"), "the drain plane", "A11"),
-    ("/v1/loras", ("GET", "POST"), "LoRA", "A7"),
-    ("/v1/loras/{name}", ("DELETE",), "LoRA", "A7"),
 )
 
 
@@ -152,6 +154,10 @@ class SystemStatusServer:
         # device_held, which a profile's stop runs inside.
         self.device: Any = None
         self.device_hold: Optional[Callable[[], Any]] = None
+        # the LoRA admin callbacks (register_loras); None: not enabled
+        self._lora_list: Optional[Callable[[], List[str]]] = None
+        self._lora_load: Optional[Callable[[str, str], Awaitable[None]]] = None
+        self._lora_unload: Optional[Callable[[str], Awaitable[None]]] = None
         self._runtime_metrics_registered = False
         self._server: Optional[web.Server] = None
 
@@ -171,6 +177,13 @@ class SystemStatusServer:
     def register_metrics(self, fn: Callable[[], str]) -> None:
         """fn returns Prometheus exposition-format text."""
         self._metrics_sources.append((fn, _takes_openmetrics(fn)))
+
+    def register_loras(self, list_fn, load_fn, unload_fn) -> None:
+        """``list_fn() -> [name, ...]``, ``await load_fn(name, path)`` and
+        ``await unload_fn(name)`` behind /v1/loras."""
+        self._lora_list = list_fn
+        self._lora_load = load_fn
+        self._lora_unload = unload_fn
 
     def register_flight(self, name: str, fn: Callable[[], List[Any]]) -> None:
         """fn returns a FlightRecorder snapshot (list of event dicts);
@@ -227,6 +240,9 @@ class SystemStatusServer:
         router.add_get("/debug/compiles", self._debug_compiles)
         router.add_get("/debug/flight", self._debug_flight)
         router.add_post("/debug/profile", self._debug_profile)
+        router.add_get("/v1/loras", self._loras_list)
+        router.add_post("/v1/loras", self._loras_load)
+        router.add_delete("/v1/loras/{name}", self._loras_unload)
         for method in ENGINE_METHODS:
             router.add_route(method, "/engine/{path:.*}", self._engine)
         for path, methods, what, item in UNPORTED_ROUTES:
@@ -510,6 +526,41 @@ class SystemStatusServer:
         return web.json_response(payload, status=status)
 
 
+    async def _loras_list(self, request: web.Request) -> web.Response:
+        if self._lora_list is None:
+            return web.json_response({"error": "LoRA not enabled"}, status=404)
+        return web.json_response({"loras": self._lora_list()})
+
+    async def _loras_load(self, request: web.Request) -> web.Response:
+        if self._lora_load is None:
+            return web.json_response({"error": "LoRA not enabled"}, status=404)
+        try:
+            body = await request.json()
+            name, path = body["name"], body["path"]
+        except Exception:
+            return web.json_response(
+                {"error": "body must be {'name': ..., 'path': ...}"}, status=400
+            )
+        try:
+            await self._lora_load(name, path)
+        except ValueError as exc:
+            return web.json_response({"error": str(exc)}, status=409)
+        except Exception as exc:
+            logger.exception("LoRA load failed")
+            return web.json_response({"error": str(exc)}, status=500)
+        return web.json_response({"loaded": name}, status=201)
+
+    async def _loras_unload(self, request: web.Request) -> web.Response:
+        if self._lora_unload is None:
+            return web.json_response({"error": "LoRA not enabled"}, status=404)
+        name = request.match_info["name"]
+        try:
+            await self._lora_unload(name)
+        except KeyError as exc:
+            return web.json_response({"error": str(exc)}, status=404)
+        return web.json_response({"unloaded": name})
+
+
 def _unported(what: str, item: str) -> web.Handler:
     async def refuse(request: web.Request) -> web.Response:
         return web.json_response(
@@ -549,9 +600,12 @@ def attach_engine(server: SystemStatusServer, engine: Any) -> None:
     """Register a TorchEngine's admin surface on the system server: the
     ``stats`` and ``clear_kv_blocks`` routes, its health, its stats gauges,
     its step metrics, its HBM ledger (``/debug/memory`` and its gauges) and
-    the KV pool's byte split (``kv_pool_detail``). JAX's also registers
-    sleep/wake, the KV checkpoint, LoRA and the engine's flight rings, which
-    the port's engine does not have yet."""
+    the KV pool's byte split (``kv_pool_detail``), and /v1/loras when the
+    engine has ``lora_names``, ``load_lora`` and ``unload_lora_async`` (so a
+    worker without ``--lora-dir`` can load an adapter at run time), each
+    load and unload on the engine's device thread. JAX's also registers
+    sleep/wake, the KV checkpoint and the engine's flight rings, which the
+    port's engine does not have yet."""
 
     async def _stats(body: Dict[str, Any]):
         return 200, engine.stats()
@@ -578,3 +632,15 @@ def attach_engine(server: SystemStatusServer, engine: Any) -> None:
     # Informational split of the ledger's kv_cache bytes (active vs
     # reusable-cached vs free vs sink) — "_detail" keeps it out of the total.
     server.register_memory("kv_pool_detail", engine.kv_pool_bytes_breakdown)
+
+    # Disk reads, stacking and the copy to the card run on the engine's
+    # device thread, ordered with its bursts, never on the event loop; an
+    # unload first detaches its sequences on the loop (unload_lora_async).
+    async def _load(name: str, path: str) -> None:
+        await engine._device(engine.load_lora, name, path)
+
+    async def _unload(name: str) -> None:
+        await engine.unload_lora_async(name)
+
+    if all(hasattr(engine, a) for a in ("lora_names", "load_lora", "unload_lora_async")):
+        server.register_loras(engine.lora_names, _load, _unload)

@@ -50,7 +50,9 @@ the port has no tick budget (A9), as JAX leaves it with the budgeter off.
 Divergences from the JAX worker, each with its ROADMAP item: SIGTERM ends
 the wait at once, where JAX's starts a DrainController live handoff (the
 drain plane, A11); there is no handoff endpoint (A11); the system server's
-``/drain`` and ``/v1/loras`` answer 501 (A11, A7).
+``/drain`` answers 501 (A11). ``--lora-dir`` stacks its adapters on the
+card, and ``/v1/loras`` on ``--system-port`` loads and unloads them at run
+time.
 """
 
 from __future__ import annotations
@@ -206,7 +208,6 @@ _UNPORTED: List[tuple] = [
     (lambda a: a.kv_offload_blocks > 0 or a.kv_offload_dir or a.kv_remote
      or a.kv_host_arena_mb, "--kv-offload-blocks/--kv-offload-dir/--kv-remote/"
      "--kv-host-arena-mb", "the tiered KV manager is not ported (ROADMAP A10, KVBM)"),
-    (lambda a: a.lora_dir, "--lora-dir", "LoRA is not ported (ROADMAP A7)"),
     (lambda a: a.tick_budget or a.tick_budget_floor is not None
      or a.tick_budget_ceiling is not None or a.tick_budget_policy != 0.5
      or a.tick_budget_itl_slo_ms is not None, "--tick-budget*",
@@ -320,6 +321,7 @@ async def serve_worker(args: argparse.Namespace, runtime: Any, *,
         spec_mode=args.speculative,
         spec_k=args.spec_k,
         spec_ngram=args.spec_ngram,
+        lora_dir=args.lora_dir,
         device=args.device,
         # a decode burst as a CUDA graph needs the card
         cuda_graphs=args.device != "cpu",

@@ -38,6 +38,10 @@ C 5 a sequence) is held to the same limit.
 KV blocks imported into a TorchEngine on the card (bf16 and int8 pools)
 are read by its already captured decode graph: the next request replays
 it, with no new capture, and gives the exporter's greedy stream.
+
+A LoRA engine's captured graphs replay a stack restacked in place (an
+unload, then a load of the same shape into the freed slot): the adapter's
+stream equals an eager engine's (``-k lora``).
 """
 
 import pytest
@@ -869,5 +873,82 @@ def test_a_replayed_decode_graph_reads_imported_blocks(kernels, kv):
         finally:
             await src.stop()
             await dst.stop()
+
+    asyncio.run(run())
+
+
+def test_a_lora_engines_graphs_replay_an_in_place_restack(kernels, tmp_path):
+    """A TorchEngine with a LoRA stack on the card: an adapter's greedy
+    stream equals an eager engine's on the same weights; after an unload
+    and a load of another adapter of the same shape into the freed slot
+    (an in-place restack), the same graphs replay (no new capture) and the
+    new adapter's stream equals the eager engine's with it loaded."""
+    import asyncio
+    import json
+    import os
+
+    from dynamo_tpu_torch.engines.gpu.engine import TorchEngine, TorchEngineArgs
+    from dynamo_tpu_torch.llm.protocols.common import (
+        PreprocessedRequest,
+        SamplingOptions,
+        StopConditions,
+    )
+    from dynamo_tpu_torch.lora.loader import _TARGET_MAP, _module_dims
+    from dynamo_tpu_torch.models.config import tiny_config
+    from dynamo_tpu_torch.models.safetensors_lite import save_file
+    from dynamo_tpu_torch.runtime.context import Context
+
+    cfg = tiny_config(n_heads=2, n_kv_heads=2, dtype=torch.bfloat16)  # head_dim 64
+
+    def adapter(root, name, seed):
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        g = torch.Generator().manual_seed(seed)
+        tensors = {}
+        for layer in range(cfg.n_layers):
+            for t in _TARGET_MAP:
+                d_in, d_out = _module_dims(cfg, _TARGET_MAP[t])
+                p = f"base_model.model.model.layers.{layer}.x.{t}"
+                tensors[p + ".lora_A.weight"] = torch.randn(4, d_in, generator=g) * d_in ** -0.5
+                tensors[p + ".lora_B.weight"] = torch.randn(d_out, 4, generator=g) * 0.2
+        save_file(tensors, os.path.join(d, "adapter_model.safetensors"))
+        with open(os.path.join(d, "adapter_config.json"), "w") as f:
+            json.dump({"r": 4, "lora_alpha": 8}, f)
+        return d
+
+    served, extra = str(tmp_path / "served"), str(tmp_path / "extra")
+    adapter(served, "a", 1)
+    adapter(served, "b", 2)
+    c = adapter(extra, "c", 3)
+    args = dict(config=cfg, block_size=16, num_kv_blocks=64, max_num_seqs=4,
+                max_model_len=512, decode_steps=4, seed=5, lora_dir=served)
+    prompt = [int(t) for t in torch.randint(3, 500, (40,), generator=torch.Generator()
+                                            .manual_seed(1))]
+
+    async def stream(engine, lora):
+        req = PreprocessedRequest(token_ids=prompt, lora_name=lora,
+                                  sampling=SamplingOptions(temperature=0.0),
+                                  stop=StopConditions(max_tokens=24, ignore_eos=True))
+        return [t async for o in engine.generate(req, Context()) for t in o.token_ids]
+
+    async def run():
+        graphs = TorchEngine(TorchEngineArgs(**args))
+        eager = TorchEngine(TorchEngineArgs(**args, cuda_graphs=False),
+                            params=graphs.runner.params)
+        try:
+            for e in (graphs, eager):
+                e.unload_lora("b")
+            assert await stream(graphs, "a") == await stream(eager, "a")
+            keys, stack = set(graphs.runner.graphs), graphs.runner.lora_key()
+            for e in (graphs, eager):
+                await e._device(e.load_lora, "c", c)
+            assert graphs.runner.lora_key() == stack and graphs.runner.lora_index["c"] == 2
+            got = await stream(graphs, "c")
+            assert got == await stream(eager, "c") and got != await stream(eager, None)
+            assert set(graphs.runner.graphs) == keys
+            assert graphs.runner.lora_restacks["in_place"] == 2
+        finally:
+            await graphs.stop()
+            await eager.stop()
 
     asyncio.run(run())

@@ -357,6 +357,7 @@ def test_decode_burst_is_decode_multi_plus_the_carry(bf16_weights):
         "active": torch.from_numpy(active), "temp": torch.tensor([0.0, 1.0, 0.7]),
         "topk": torch.tensor([0, 0, 20], dtype=torch.int32), "topp": torch.tensor([1.0, 1.0, 0.9]),
         "salts": torch.tensor([3, 4, 5]), "tables": torch.from_numpy(tables),
+        "adapter_ids": torch.zeros(3),  # read only under a LoRA stack
     }
     for name, dtype in tllama.SLOT_STATE.items():
         state[name] = state[name].to(dtype)

@@ -1,12 +1,12 @@
 """Import hygiene of the port: dynamo_tpu_torch and chip_smoke.py import
 neither jax nor anything of dynamo_tpu, nor a package the card's machine
 lacks (tokenizers, regex, aiohttp, msgpack, zmq, prometheus_client,
-ml_dtypes; jinja2 only inside a function); every module (the HTTP frontend, the parsers and
+ml_dtypes, safetensors; jinja2 only inside a function); every module (the HTTP frontend, the parsers and
 the runtime's planes with their msgpack and ZMTP wire modules, and the KV
 router with its pure-Python xxh3, discovery, migration, the worker and
 frontend mains, the overload and trajectory planes, the system server, the
 device plane, the engine's step metrics, the perf ledger and the roofline,
-the KV wire and the disagg handlers, among them) imports with all of those and xxhash blocked, and the text
+the KV wire and the disagg handlers, the LoRA modules and safetensors_lite, among them) imports with all of those and xxhash blocked, and the text
 path (tokenizer, default chat template) runs so; an entry point left on
 its default device (cuda) raises when there is no card instead of
 carrying on on the CPU."""
@@ -35,11 +35,12 @@ def _port_files():
 
 # Packages the card's machine does not have (or is not known to have:
 # prometheus_client). The port imports none of these (ml_dtypes: the KV
-# wire holds bfloat16 as torch tensors, disagg/wire.py); jinja2 only
+# wire holds bfloat16 as torch tensors, disagg/wire.py; safetensors:
+# models/safetensors_lite.py reads and writes the format); jinja2 only
 # inside a function (a custom chat template); xxhash nowhere (tokens/xxh3.py
 # computes the block hashes).
 ABSENT_ON_CARD = ("tokenizers", "regex", "aiohttp", "msgpack", "zmq", "prometheus_client",
-                  "ml_dtypes")
+                  "ml_dtypes", "safetensors")
 BLOCKED = ("jax", "jaxlib", "dynamo_tpu") + ABSENT_ON_CARD + ("jinja2", "xxhash")
 
 
@@ -133,7 +134,8 @@ wanted = set("dynamo_tpu_torch." + n for n in (
     "worker.__main__", "frontend", "frontend.__main__", "runtime.overload",
     "runtime.trajectory", "runtime.system_server", "runtime.device_observe",
     "engines.metrics", "runtime.perf_ledger", "runtime.roofline", "disagg.wire",
-    "disagg.handlers", "engines.gpu.spec"))
+    "disagg.handlers", "engines.gpu.spec", "models.safetensors_lite", "ops.lora", "lora",
+    "lora.source", "lora.cache", "lora.routing", "lora.load_estimator", "lora.loader"))
 assert wanted <= set(names), sorted(wanted - set(names))
 spec = importlib.util.spec_from_file_location("chip_smoke", {smoke!r})
 spec.loader.exec_module(importlib.util.module_from_spec(spec))

@@ -14,7 +14,10 @@ Then disaggregated serving on the CPU: discd, a ``--is-prefill-worker``,
 a decode worker and the frontend; a chat above the PrefillRouter's
 threshold is served disaggregated (the decode worker pulls the prompt's
 blocks and prefills less than the prompt), and with the prefill worker
-ended the same chat is served aggregated with the same text.
+ended the same chat is served aggregated with the same text. Then a
+``--lora-dir`` worker main behind the frontend: a chat naming an adapter
+streams and differs from the base model's, its system server lists,
+loads and unloads adapters, and a chat naming an unloaded one is refused.
 Each process test keeps its own deadline, under 90 s."""
 
 import argparse
@@ -76,7 +79,6 @@ REFUSED = [
     (["--kv-offload-dir", "/tmp/x"], "ROADMAP A10, KVBM"),
     (["--kv-remote", "a/b/c"], "ROADMAP A10, KVBM"),
     (["--kv-host-arena-mb", "8"], "ROADMAP A10, KVBM"),
-    (["--lora-dir", "/tmp/x"], "ROADMAP A7"),
     (["--tick-budget"], "ROADMAP A9, the tick budget"),
     (["--tick-budget-floor", "32"], "ROADMAP A9, the tick budget"),
     (["--tick-budget-policy", "0.0"], "ROADMAP A9, the tick budget"),
@@ -427,6 +429,86 @@ def test_processes_serve_a_chat_disaggregated():
         assert _metric(_get(sys_ports["decode"], "/metrics")[1].decode(),
                        "dynamo_tpu_disagg_transfers_total") == 1
         for p in (decode, frontend):
+            p.proc.send_signal(signal.SIGTERM)
+            assert p.proc.wait(timeout=15) == 0
+        assert time.monotonic() < deadline
+    finally:
+        for p in reversed(procs):
+            p.end()
+
+
+def test_a_lora_dir_worker_serves_adapter_requests(tmp_path):
+    """discd, ``python -m dynamo_tpu_torch.worker --model tiny --device cpu
+    --lora-dir DIR --system-port 0`` and the frontend: a streamed chat with
+    ``nvext.lora_name`` completes and differs from the base model's on the
+    same prompt; /v1/loras lists the served adapter, loads a second (201,
+    then 409), whose chat streams; after its DELETE (then 404) a chat
+    naming it ends in the unknown-adapter error."""
+    from dynamo_tpu_torch.models.config import tiny_config
+    from tests.test_torch_lora import TARGETS, write_adapter
+
+    root, extra = tmp_path / "served", tmp_path / "extra"
+    write_adapter(str(root), "a16", tiny_config(), rank=4, targets=TARGETS, seed=1)
+    write_adapter(str(extra), "c16", tiny_config(), rank=4, targets=TARGETS, seed=2)
+    deadline = time.monotonic() + DEADLINE_S
+    env = {**os.environ, "PYTHONUNBUFFERED": "1", "DYN_TPU_LOAD_REPORT_INTERVAL_S": "0.2",
+           "DYN_TPU_GRACE_PERIOD": "5"}
+    procs = []
+    try:
+        discd = Proc(["dynamo_tpu_torch.discd", "--port", "0", "--xsub", "0", "--xpub", "0"],
+                     env)
+        procs.append(discd)
+        m = discd.wait_for(r"discd ready: discovery (\S+), events (\S+)", deadline)
+        env.update({"DYN_TPU_DISCOVERY": "discd", "DYN_TPU_DISCOVERY_ADDR": m.group(1),
+                    "DYN_TPU_EVENT_PLANE": "zmq", "DYN_TPU_EVENT_PLANE_ADDR": m.group(2),
+                    "DYN_TPU_REQUEST_PLANE": "tcp"})
+        worker = Proc(["dynamo_tpu_torch.worker", "--model", "tiny", "--device", "cpu",
+                       "--num-kv-blocks", "256", "--max-model-len", "512", "--lora-dir",
+                       str(root), "--system-port", "0"],
+                      {**env, "DYN_TPU_WORKER_ID": str(0x701)})
+        frontend = Proc(["dynamo_tpu_torch.frontend", "--host", "127.0.0.1",
+                         "--http-port", "0"], env)
+        procs += [worker, frontend]
+        port = int(frontend.wait_for(r"frontend listening on \S+:(\d+)", deadline).group(1))
+        sys_port = int(worker.wait_for(r"system server on :(\d+)", deadline).group(1))
+        worker.wait_for(r"worker serving tiny-llama", deadline)
+        while [m["id"] for m in _get_json(port, "/v1/models")["data"]] != ["tiny-llama"]:
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        body = {"model": "tiny-llama", "prompt": "the quick brown fox jumps over the lazy dog",
+                "max_tokens": 16, "temperature": 0.0, "nvext": {"ignore_eos": True}}
+
+        def chat(lora):
+            nvext = dict(body["nvext"], **({"lora_name": lora} if lora else {}))
+            return _stream(port, dict(body, nvext=nvext))
+
+        base = chat(None)
+        tuned = chat("a16")
+        assert tuned[1:] == base[1:] == ("length", 16, [])
+        assert tuned[0] != base[0]
+        assert chat("a16") == tuned  # the adapter's own prefix hits give its stream
+
+        def loras(method, path, payload=None):
+            conn = http.client.HTTPConnection("127.0.0.1", sys_port, timeout=30)
+            conn.request(method, path, None if payload is None else json.dumps(payload),
+                         {"Content-Type": "application/json"})
+            r = conn.getresponse()
+            return r.status, json.loads(r.read())
+
+        assert loras("GET", "/v1/loras") == (200, {"loras": ["a16"]})
+        load = {"name": "c16", "path": str(extra / "c16")}
+        assert loras("POST", "/v1/loras", load) == (201, {"loaded": "c16"})
+        assert loras("POST", "/v1/loras", load)[0] == 409
+        other = chat("c16")
+        assert other[1:] == ("length", 16, []) and other[0] not in (base[0], tuned[0])
+        assert loras("DELETE", "/v1/loras/c16") == (200, {"unloaded": "c16"})
+        assert loras("DELETE", "/v1/loras/c16")[0] == 404
+        assert loras("GET", "/v1/loras") == (200, {"loras": ["a16"]})
+        _, _, n, errors = chat("c16")
+        assert n == 0 and errors
+        assert "unknown LoRA adapter 'c16'" in json.dumps(errors)
+        assert chat("a16") == tuned
+        for p in (worker, frontend):
             p.proc.send_signal(signal.SIGTERM)
             assert p.proc.wait(timeout=15) == 0
         assert time.monotonic() < deadline

@@ -14,8 +14,11 @@ against the JAX package's (on aiohttp), over sockets:
     capture) and /engine/{path};
   - on a host with two cards, /debug/memory reads the attached engine's
     card alone, with its unaccounted bytes;
-  - the routes of unported planes (drain, LoRA) answer 501 naming their
-    ROADMAP items;
+  - the route of the unported drain plane answers 501 naming its ROADMAP
+    item; the LoRA routes answer JAX's 404 with nothing registered, and
+    over a TorchEngine and a JaxEngine with the same adapters the same
+    statuses and bodies as JAX's (list, load 201, a second load 409, a bad
+    body 400, a missing directory 500, unload, a second unload 404);
   - ``engine_stats_prometheus`` gives JAX's text for the same dict;
   - ``attach_engine`` over a TorchEngine and a JaxEngine on the same tiny
     weights and requests: the same health, clear and ledger categories, the
@@ -291,22 +294,80 @@ async def test_memory_view_reads_the_attached_engines_card_alone(two_cards):  # 
 
 
 async def test_unported_routes_answer_501_naming_their_item():
-    """/drain and /v1/loras; /debug/perf and /debug/compiles are served."""
+    """/drain; /debug/perf and /debug/compiles are served, and /v1/loras
+    with nothing registered answers JAX's 404 "LoRA not enabled"."""
     server = tss.SystemStatusServer(host="127.0.0.1", port=0)
+    jserver = jss.SystemStatusServer(host="127.0.0.1", port=0)
     await server.start()
+    await jserver.start()
     try:
         for path, methods, what, item in tss.UNPORTED_ROUTES:
             for method in methods:
-                url = path.replace("{name}", "adapter")
                 status, headers, body = await asyncio.to_thread(
-                    call, server.port, method, url, {} if method == "POST" else None)
-                assert status == 501, (method, url)
+                    call, server.port, method, path, {} if method == "POST" else None)
+                assert status == 501, (method, path)
                 assert json.loads(body) == {"error": f"{what} is not ported (ROADMAP {item})"}
-        assert {p for p, *_ in tss.UNPORTED_ROUTES} == {"/drain", "/v1/loras", "/v1/loras/{name}"}
+        assert {p for p, *_ in tss.UNPORTED_ROUTES} == {"/drain"}
         for path in ("/debug/perf", "/debug/compiles"):
             assert (await asyncio.to_thread(call, server.port, "GET", path))[0] == 200
+        for method, path, body in (("GET", "/v1/loras", None),
+                                   ("POST", "/v1/loras", {"name": "a", "path": "/nowhere"}),
+                                   ("DELETE", "/v1/loras/a", None)):
+            got = [await asyncio.to_thread(call, s.port, method, path, body)
+                   for s in (jserver, server)]
+            assert _view(got[1]) == _view(got[0]) and got[1][0] == 404, (method, path)
+            assert json.loads(got[1][2]) == {"error": "LoRA not enabled"}
     finally:
         await server.stop()
+        await jserver.stop()
+
+
+async def test_lora_routes_answer_jaxs_statuses_over_both_engines(weights, tmp_path):  # noqa: F811
+    """attach_engine over a JaxEngine and a TorchEngine serving the same
+    adapter directory: every /v1/loras request gives the same status and
+    body on both servers, and the engines change alike."""
+    from tests.test_torch_lora import write_adapter
+
+    jc, tc = weights[0], weights[1]
+    root, extra = tmp_path / "served", tmp_path / "extra"
+    write_adapter(str(root), "a16", tc, rank=4, targets=("q_proj", "v_proj", "down_proj"))
+    write_adapter(str(extra), "c16", tc, rank=4, seed=3)
+    jeng = _jax_engine(weights, lora_dir=str(root))
+    teng = _torch_engine(weights, lora_dir=str(root))
+    servers = [jss.SystemStatusServer(host="127.0.0.1", port=0),
+               tss.SystemStatusServer(host="127.0.0.1", port=0)]
+    requests = [
+        ("GET", "/v1/loras", None),
+        ("POST", "/v1/loras", {"name": "c16", "path": str(extra / "c16")}),
+        ("POST", "/v1/loras", {"name": "c16", "path": str(extra / "c16")}),
+        ("POST", "/v1/loras", {"name": "c16"}),
+        ("POST", "/v1/loras", b"not json"),
+        ("POST", "/v1/loras", {"name": "d", "path": str(extra / "missing")}),
+        ("GET", "/v1/loras", None),
+        ("DELETE", "/v1/loras/c16", None),
+        ("DELETE", "/v1/loras/c16", None),
+        ("GET", "/v1/loras", None),
+    ]
+    try:
+        async with asyncio.timeout(DEADLINE_S):
+            for ss, server, engine in zip((jss, tss), servers, (jeng, teng)):
+                ss.attach_engine(server, engine)
+                await server.start()
+            codes = []
+            for method, path, body in requests:
+                got = [await asyncio.to_thread(call, s.port, method, path, body) for s in servers]
+                assert _view(got[1]) == _view(got[0]), (method, path, body)
+                codes.append(got[1][0])
+            assert codes == [200, 201, 409, 400, 400, 500, 200, 200, 404, 200]
+            assert json.loads(got[1][2]) == {"loras": ["a16"]}
+            # c16's slot stays, a zero placeholder: the stack keeps its shape
+            assert teng.runner.lora_index == jeng.runner.lora_index == {"a16": 1}
+            assert teng.runner.lora["wq"][0].shape[1] == 3
+    finally:
+        for server in servers:
+            await server.stop()
+        for engine in (jeng, teng):
+            await engine.stop()
 
 
 async def _profile_script(port, tmp):
@@ -417,11 +478,11 @@ async def test_attach_engine_over_both_engines_on_the_same_weights(weights):  # 
             nb = jeng.args.num_kv_blocks
             # the sink rule: each pool holds NB + 1 blocks where JAX's hold NB
             assert t["kv_cache"] * nb == j["kv_cache"] * (nb + 1)
-            # the port's slot state: no adapter ids; tokens, salts and bias
-            # ids in int64 where JAX's are int32
+            # the port's slot state: tokens, salts and bias ids in int64
+            # where JAX's are int32 (adapter ids int32 in both)
             jst = jeng.runner.slot_state
             widened = sum(jst[k].nbytes for k in ("tokens", "salts", "bias_ids"))
-            assert t["slot_state"] == j["slot_state"] - jst["adapter_ids"].nbytes + widened
+            assert t["slot_state"] == j["slot_state"] + widened
             for k in ("params", "slot_tables", "lora", "proc_state"):
                 assert t[k] == j[k], k
             jd, td = mem[0]["sources"]["kv_pool_detail"], mem[1]["sources"]["kv_pool_detail"]
